@@ -1,0 +1,116 @@
+"""flax variables → the port's ``state_dict``, and back.
+
+The port's modules carry the flax tree's names, so a flax leaf
+``params/SetAbstraction_0/PointMLP_0/Dense_0/kernel`` is the tensor
+``SetAbstraction_0.PointMLP_0.Dense_0.weight``. Per leaf:
+
+- Dense ``kernel [in, out]`` → Linear ``weight [out, in]``; ``bias`` → ``bias``;
+- BatchNorm ``scale`` / ``bias`` → ``weight`` / ``bias``;
+- ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` / ``running_var``.
+
+A source is either the nested variables dict (``{"params": ..., "batch_stats":
+...}``, leaves as numpy or jax arrays) or a flat ``.npz`` whose keys are
+the ``/``-joined paths. The conversion fails on any key it cannot place,
+any tensor it does not fill, and any shape that does not match.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch import nn
+
+_PARAM_LEAVES = {"bias": "bias", "scale": "weight"}
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def flatten(variables: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested flax variables → ``{"params/A/B/kernel": array, ...}``."""
+    flat = {}
+    for name, value in variables.items():
+        key = f"{prefix}/{name}" if prefix else str(name)
+        if isinstance(value, Mapping):
+            flat.update(flatten(value, key))
+        else:
+            flat[key] = np.asarray(value)
+    return flat
+
+
+def _torch_key(flax_key: str, value: np.ndarray) -> tuple[str, np.ndarray]:
+    collection, *path, leaf = flax_key.split("/")
+    if collection == "params" and leaf == "kernel":
+        if value.ndim != 2:
+            raise KeyError(f"{flax_key}: only Dense kernels are ported so far")
+        name, value = "weight", value.T
+    elif collection == "params" and leaf in _PARAM_LEAVES:
+        name = _PARAM_LEAVES[leaf]
+    elif collection == "batch_stats" and leaf in _STAT_LEAVES:
+        name = _STAT_LEAVES[leaf]
+    else:
+        raise KeyError(f"{flax_key}: no counterpart in the port")
+    return ".".join([*path, name]), value
+
+
+def flax_to_state_dict(source, model: nn.Module) -> dict[str, torch.Tensor]:
+    """Map flax variables (nested dict, flat dict or ``.npz`` path) onto
+    ``model``'s ``state_dict`` keys, checking coverage and shapes."""
+    if isinstance(source, (str, Path)):
+        with np.load(source) as npz:
+            flat = {k: npz[k] for k in npz.files}
+    elif any(isinstance(v, Mapping) for v in source.values()):
+        flat = flatten(source)
+    else:
+        flat = dict(source)
+    want = model.state_dict()
+    out, unused = {}, []
+    for flax_key, value in flat.items():
+        try:
+            key, value = _torch_key(flax_key, np.asarray(value))
+        except KeyError:
+            unused.append(flax_key)
+            continue
+        if key not in want:
+            unused.append(flax_key)
+            continue
+        if tuple(value.shape) != tuple(want[key].shape):
+            raise ValueError(
+                f"{flax_key}: shape {value.shape} does not fit {key} "
+                f"{tuple(want[key].shape)}"
+            )
+        out[key] = torch.from_numpy(np.array(value, dtype=np.float32))
+    missing = sorted(set(want) - set(out))
+    if unused or missing:
+        raise KeyError(
+            f"flax → torch: unused flax keys {sorted(unused)}, "
+            f"tensors left unfilled {missing}"
+        )
+    return out
+
+
+def load_flax_weights(model: nn.Module, source) -> nn.Module:
+    """Fill ``model`` in place from flax variables; returns the model."""
+    model.load_state_dict(flax_to_state_dict(source, model), strict=True)
+    return model
+
+
+def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The inverse mapping: ``state_dict`` → flat flax keys, ready for
+    ``np.savez``. Linear weights are the ``Dense_*`` modules' tensors."""
+    flat = {}
+    for key, t in state_dict.items():
+        *path, name = key.split(".")
+        arr = t.detach().cpu().numpy()
+        if name in ("running_mean", "running_var"):
+            leaf = "mean" if name == "running_mean" else "var"
+            flat["/".join(["batch_stats", *path, leaf])] = arr
+        elif path[-1].startswith("Dense"):
+            leaf = "kernel" if name == "weight" else name
+            flat["/".join(["params", *path, leaf])] = (
+                arr.T if name == "weight" else arr)
+        else:
+            leaf = "scale" if name == "weight" else name
+            flat["/".join(["params", *path, leaf])] = arr
+    return flat

@@ -27,3 +27,11 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.RandomState(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skipped "
+        "without one",
+    )
