@@ -5,8 +5,9 @@ module paths and names (``ops``, ``nn``, ``models``, ``data``, ``train``)
 so each counterpart is easy to find. It imports ``torch`` and numpy and
 never ``jax``, ``flax`` or ``papc_tpu``.
 
-Ported so far: eval-mode inference of ``pointnet2_ssg`` classification.
-Every TPU kernel on that path is a hand-written CUDA kernel under
+Ported so far: ``pointnet2_ssg`` classification, its training step
+(``train.train``) and its eval-mode inference (``train.evaluate``).
+Every TPU kernel on those paths is a hand-written CUDA kernel under
 ``csrc/``, compiled by ``nvcc`` for ``sm_90a`` at first use
 (:mod:`papc_tpu_torch._build`). Each kernel's wrapper in
 ``ops/kernels/`` holds the plain PyTorch version of the same function:

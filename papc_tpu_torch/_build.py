@@ -3,10 +3,12 @@
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` into ONE shared library
 with a plain C interface, loaded with :mod:`ctypes` (no PyTorch headers:
 a file that includes ``torch/extension.h`` takes minutes to compile, a
-plain C one seconds)::
+plain C one seconds). One ``nvcc`` per source, all started together,
+then one link::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/papc_tpu_torch/<hash>/libpapc_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <hash>/obj/<name>.o csrc/<name>.cu   (each)
+    nvcc -shared -o build/papc_tpu_torch/<hash>/libpapc_kernels.so <hash>/obj/*.o
 
 The library lands under ``build/`` at the repository root, keyed by a
 hash of the sources and flags, and is built at first use, never at
@@ -34,7 +36,7 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "papc_tpu_torch"
 LIB_NAME = "libpapc_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -77,20 +79,38 @@ def build() -> tuple[Path, float]:
     lib = library_path()
     if lib.exists():
         return lib, 0.0
-    lib.parent.mkdir(parents=True, exist_ok=True)
+    objdir = lib.parent / f"obj.{os.getpid()}"
+    objdir.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), *cu]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in (s for s in sources() if s.suffix == ".cu"):
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+               str(objdir / f"{src.stem}.o"), str(src)]
+        jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                           stderr=subprocess.PIPE, text=True)))
+    log_text, failed = [], []
+    for cmd, proc in jobs:
+        out, err = proc.communicate()
+        log_text.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (exit {proc.returncode}):\n{err[-4000:]}")
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", str(tmp),
+               *(str(objdir / f"{src.stem}.o") for src in sources()
+                 if src.suffix == ".cu")]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log_text.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (exit {proc.returncode}):\n"
+                          + proc.stderr[-4000:])
     seconds = time.perf_counter() - t0
     log = lib.with_name("nvcc.log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}), log in {log}:\n"
-            + proc.stderr[-4000:]
-        )
+    log.write_text("\n".join(log_text))
+    shutil.rmtree(objdir, ignore_errors=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed, log in {log}:\n" + "\n".join(failed))
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
     return lib, seconds
 

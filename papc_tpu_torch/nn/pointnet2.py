@@ -12,7 +12,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from papc_tpu_torch.nn.layers import PointMLP, _eval_only
+from papc_tpu_torch.nn.layers import PointMLP
 from papc_tpu_torch.ops.grouping import sample_and_group, sample_and_group_all
 
 
@@ -21,7 +21,11 @@ class SetAbstraction(nn.Module):
 
     ``forward(xyz [B, N, 3], points [B, N, in_features] | None)`` →
     ``(new_xyz [B, S, 3], new_points [B, S, mlp[-1]])``; ``group_all``
-    makes one group of every point (S = 1).
+    makes one group of every point (S = 1). The same code serves both
+    modes: the grouping is differentiable in ``points`` (the gather's
+    backward is the scatter-add kernel) and ``PointMLP`` follows
+    ``train()`` / ``eval()``. FPS starts at point 0, as JAX's does with
+    ``key=None``.
     """
 
     def __init__(self, npoint: int | None, radius: float | None,
@@ -36,7 +40,6 @@ class SetAbstraction(nn.Module):
 
     def forward(self, xyz: torch.Tensor, points: torch.Tensor | None,
                 impl: str | None = None):
-        _eval_only(self)
         if self.group_all:
             new_xyz, grouped = sample_and_group_all(xyz, points)
         else:

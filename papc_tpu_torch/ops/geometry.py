@@ -2,7 +2,9 @@
 
 Counterpart of ``papc_tpu/ops/geometry.py``. Neither needs a kernel: on
 the TPU ``index_points``' forward is a plain flat row gather too
-(``_flat_gather``); only its backward has one, which training will port.
+(``_flat_gather``); only its backward has one (``scatter_rows_add_pallas``),
+which first carries a gradient in MSG training (``ROADMAP.md``): the SSG
+path gathers only positions, which get none.
 """
 
 from __future__ import annotations

@@ -33,7 +33,8 @@ def sample_and_group(npoint: int, radius: float, nsample: int,
 
     ``xyz [B, N, 3]``, ``points [B, N, D]`` or None →
     ``(new_xyz [B, npoint, 3], new_points [B, npoint, nsample, 3 + D])``,
-    relative xyz first, then the features.
+    relative xyz first, then the features. Differentiable in ``points``
+    (and ``xyz``): the gather's backward is the scatter-add kernel.
     """
     fps_idx = farthest_point_sample(xyz, npoint, generator=generator,
                                     impl=impl)
@@ -45,7 +46,8 @@ def sample_and_group(npoint: int, radius: float, nsample: int,
 
 def sample_and_group_all(xyz: torch.Tensor, points: torch.Tensor | None):
     """One group holding every point: ``new_xyz`` is the origin and the
-    grouped xyz is not centred (reference semantics)."""
+    grouped xyz is not centred (reference semantics). Differentiable in
+    ``points`` (a concatenation)."""
     B, N, C = xyz.shape
     new_xyz = torch.zeros((B, 1, C), dtype=xyz.dtype, device=xyz.device)
     grouped = xyz[:, None, :, :]

@@ -21,20 +21,24 @@ from papc_tpu_torch.models import init_model
 from papc_tpu_torch.train import metrics as M
 
 
-def _batch_dict(raw) -> dict:
+def batch_dict(raw) -> dict:
     """A loader ``Batch`` namedtuple or dict → dict without ``None``s."""
     if isinstance(raw, Mapping):
         return dict(raw)
     return {k: v for k, v in raw._asdict().items() if v is not None}
 
 
+def batch_tensors(batch: dict, device: torch.device):
+    """``(points, label, mask)`` of a batch dict as tensors on ``device``."""
+    return tuple(torch.as_tensor(np.asarray(batch[k]), device=device)
+                 for k in ("points", "label", "mask"))
+
+
 def eval_step(model: torch.nn.Module, batch: dict, device: torch.device,
               impl: str | None = None):
     """One batch: ``(logits [B, classes], loss, accuracy)`` on ``device``,
     loss and accuracy over the rows ``batch["mask"]`` marks valid."""
-    points = torch.as_tensor(np.asarray(batch["points"]), device=device)
-    labels = torch.as_tensor(np.asarray(batch["label"]), device=device)
-    mask = torch.as_tensor(np.asarray(batch["mask"]), device=device)
+    points, labels, mask = batch_tensors(batch, device)
     with torch.inference_mode():
         logits = model(points, impl=impl)
         loss = M.softmax_cross_entropy(logits, labels, mask)
@@ -87,7 +91,7 @@ def evaluate(
     model = load_flax_weights(spec.model, weights).to(device)
     losses, accs, counts, kept = [], [], [], []
     for raw in make_loader(split)():
-        batch = _batch_dict(raw)
+        batch = batch_dict(raw)
         logits, loss, acc = eval_step(model, batch, device, impl)
         valid = torch.as_tensor(np.asarray(batch["mask"]), device=device)
         w = float(valid.sum())

@@ -11,6 +11,17 @@ FPS, ball query and the gather must equal their plain versions exactly;
 the eval MLP+max within 1e-2 (abs and rel), because both round every
 activation to bf16 and sum the exact f32 products in another order, so a
 sum next to a bf16 rounding boundary can round the other way.
+
+The training kernels on identical inputs: ``finalize_max`` (max and
+argmax) and ``bwd_seed``'s ``dy`` exactly; stored bf16 activations
+(``linear_stats``' a, ``bwd_layer``'s dy') within one bf16 ulp plus 1e-4
+of the largest (a product summed in another order moves a value that
+cancels to near 0 by many of its own ulps), 1e-3 for dy', whose ``da``
+may round to the other bf16 neighbour; f32 sums, dW, db and dg within
+1e-3 of the largest magnitude (sums over up to 524288 rows in another
+order); the scatter-add within 1e-5 (f32 atomics in run-dependent
+order). A reduced training step's loss within 5e-3 of the plain step's
+(bf16 rounding flips between the two carry through three SA stages).
 """
 
 import numpy as np
@@ -20,7 +31,7 @@ import torch
 from papc_tpu_torch.models.classify import PointNet2SSGClas
 from papc_tpu_torch.nn.layers import init_params
 from papc_tpu_torch.ops import fused_mlp, sampling
-from papc_tpu_torch.ops.kernels import ball_query, fps, gather, samlp
+from papc_tpu_torch.ops.kernels import ball_query, fps, gather, samlp, samlp_train
 
 pytestmark = pytest.mark.cuda
 KERNEL_MODULES = (fps, ball_query, gather, samlp)
@@ -165,3 +176,153 @@ def test_reduced_model_runs_all_four_kernels(device):
         want = model(points, impl="plain")
     assert got.shape == (8, 16) and bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+
+
+# ------------------------------------------------------------- training
+
+def _bf16_ulp(t):
+    t = t.float().abs()
+    return torch.where(t == 0, torch.zeros_like(t),
+                       torch.exp2(torch.floor(torch.log2(t)) - 7))
+
+
+def _near(got, want, rel, ulp=False):
+    got, want = got.float(), want.float()
+    bound = rel * float(want.abs().max().clamp_min(1e-30))
+    if ulp:
+        bound = bound + _bf16_ulp(want)
+    err = (got - want).abs()
+    assert bool((err <= bound).all()), float(err.max())
+
+
+def _bf16(shape, seed, device, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return (scale * torch.randn(*shape, generator=g)).to(device, torch.bfloat16)
+
+
+def _vec4(c, seed, device):
+    g = torch.Generator().manual_seed(seed)
+    return torch.stack([1 + 0.3 * torch.randn(c, generator=g),
+                        0.2 * torch.randn(c, generator=g),
+                        0.1 * torch.randn(c, generator=g),
+                        0.5 + torch.rand(c, generator=g) * 1.5]).to(device)
+
+
+TRAIN_LAYERS = [  # (M, Cin, Cout, k): small, then every SSG layer at B=32
+    (256, 7, 24, 8), (1024, 16, 40, 8),
+    (524288, 3, 64, 32), (524288, 64, 64, 32), (524288, 64, 128, 32),
+    (262144, 131, 128, 64), (262144, 128, 128, 64), (262144, 128, 256, 64),
+    (4096, 259, 256, 128), (4096, 256, 512, 128), (4096, 512, 1024, 128),
+]
+
+
+@pytest.mark.parametrize("m,cin,cout,k", TRAIN_LAYERS)
+def test_linear_stats_kernel_matches_plain(device, m, cin, cout, k):
+    x = _bf16((m, cin), m + cin, device)
+    g = torch.Generator().manual_seed(cout)
+    w = (torch.randn(cin, cout, generator=g) / cin ** 0.5).to(device)
+    b = (0.1 * torch.randn(cout, generator=g)).to(device)
+    for vec in (None, _vec4(cin, cin, device)):
+        before = samlp_train.LINEAR_STATS.launches
+        a, sums = samlp_train.linear_stats(x, vec, w, b)
+        assert samlp_train.LINEAR_STATS.launches == before + 1
+        want_a, want_sums = samlp_train.linear_stats(x, vec, w, b,
+                                                     impl="plain")
+        assert a.dtype == torch.bfloat16 and a.shape == (m, cout)
+        _near(a, want_a, 1e-4, ulp=True)
+        _near(sums, want_sums, 1e-3)
+        again = samlp_train.linear_stats(x, vec, w, b)[1]
+        torch.testing.assert_close(again, sums, rtol=0, atol=0)  # fixed order
+
+
+@pytest.mark.parametrize("m,cin,cout,k", TRAIN_LAYERS)
+def test_finalize_and_seed_kernels_equal_plain(device, m, cin, cout, k):
+    if m % k:
+        m = m // k * k
+    a = _bf16((m, cout), m, device)
+    a[1::k] = a[0::k]  # exact ties inside each group
+    vec = _vec4(cout, cout, device)
+    out, amax = samlp_train.finalize_max(a, vec, k=k)
+    want, want_amax = samlp_train.finalize_max(a, vec, k=k, impl="plain")
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
+    torch.testing.assert_close(amax, want_amax, rtol=0, atol=0)
+    dout = torch.randn(m // k, cout, generator=torch.Generator().manual_seed(k)
+                       ).to(device)
+    dy, s = samlp_train.bwd_seed(a, vec, dout, amax, k=k)
+    want_dy, want_s = samlp_train.bwd_seed(a, vec, dout, amax, k=k,
+                                           impl="plain")
+    torch.testing.assert_close(dy, want_dy, rtol=0, atol=0)
+    _near(s, want_s, 1e-3)
+    again = samlp_train.bwd_seed(a, vec, dout, amax, k=k)[1]
+    torch.testing.assert_close(again, s, rtol=0, atol=0)  # fixed order
+
+
+@pytest.mark.parametrize("m,cin,cout,k", TRAIN_LAYERS)
+def test_bwd_layer_kernel_matches_plain(device, m, cin, cout, k):
+    dy = _bf16((m, cout), 1, device, 0.01)
+    a = _bf16((m, cout), 2, device)
+    a_prev = _bf16((m, cin), 3, device)
+    g = torch.Generator().manual_seed(cin)
+    w = (torch.randn(cin, cout, generator=g) / cin ** 0.5).to(device)
+    vec, vec_prev = _vec4(cout, 4, device), _vec4(cin, 5, device)
+    s_in = torch.randn(2, cout, generator=g).to(device) * m ** 0.5 * 0.01
+    for prev in (vec_prev, None):
+        got = samlp_train.bwd_layer(dy, a, a_prev, w, vec, s_in, prev)
+        want = samlp_train.bwd_layer(dy, a, a_prev, w, vec, s_in, prev,
+                                     impl="plain")
+        if prev is None:
+            _near(got[0], want[0], 1e-3)  # dg, f32
+            assert got[3] is None
+        else:
+            assert got[0].dtype == torch.bfloat16
+            _near(got[0], want[0], 1e-3, ulp=True)
+            _near(got[3], want[3], 1e-3)
+        _near(got[1], want[1], 1e-3)
+        _near(got[2], want[2], 1e-3)
+    skip = samlp_train.bwd_layer(dy, a, a_prev, w, vec, s_in, None,
+                                 need_dprev=False)
+    assert skip[0] is None
+    torch.testing.assert_close(skip[1], got[1], rtol=0, atol=0)  # fixed order
+    torch.testing.assert_close(skip[2], got[2], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B,N,S,K,C", [(2, 50, 7, 8, 5), (32, 1024, 512, 32, 3),
+                                       (32, 512, 128, 64, 131)])
+def test_scatter_add_kernel_matches_plain(device, B, N, S, K, C):
+    gen = torch.Generator().manual_seed(B * N)
+    g = torch.randn(B, S, K, C, generator=gen).to(device)
+    idx = torch.randint(-1, N + 1, (B, S, K), generator=gen,
+                        dtype=torch.int32).to(device)
+    before = gather.SCATTER_KERNEL.launches
+    got = gather.scatter_add(g, idx, N)
+    assert gather.SCATTER_KERNEL.launches == before + 1
+    _near(got, gather.scatter_add(g, idx, N, impl="plain"), 1e-5)
+
+
+def test_training_step_on_the_card_runs_every_kernel(device):
+    """A reduced SSG train step: every training kernel launched, the
+    loss within 5e-3 of the plain step's, every gradient finite."""
+    from papc_tpu_torch.train import make_optimizer, train_step
+
+    def step(impl):
+        model = PointNet2SSGClas(num_classes=16, npoints=(128, 32),
+                                 nsamples=(32, 64))
+        init_params(model, torch.Generator().manual_seed(0))
+        model = model.to(device)
+        opt = make_optimizer(model.parameters(), 1e-3, 1e-3)
+        batch = {"points": _cloud(9, 8, 512).numpy(),
+                 "label": np.arange(8) % 16, "mask": np.ones(8, bool)}
+        masks = [torch.rand(8, 512, generator=torch.Generator().manual_seed(1))
+                 < 0.6, torch.rand(8, 256, generator=torch.Generator()
+                                   .manual_seed(2)) < 0.6]
+        loss, _ = train_step(model, opt, batch, device, impl=impl,
+                             dropout_masks=masks)
+        return float(loss), model
+
+    kernels = [gather.SCATTER_KERNEL, *samlp_train.KERNELS]
+    before = [k.launches for k in kernels]
+    loss, model = step(None)
+    assert all(k.launches > b for k, b in zip(kernels, before))
+    plain_loss, _ = step("plain")
+    assert loss == pytest.approx(plain_loss, rel=5e-3)
+    assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())

@@ -12,12 +12,13 @@ from pathlib import Path
 import pytest
 
 from papc_tpu_torch import _build
-from papc_tpu_torch.ops.kernels import ball_query, fps, gather, samlp
+from papc_tpu_torch.ops.kernels import ball_query, fps, gather, samlp, samlp_train
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "papc_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "papc_tpu"}
 KERNEL_MODULES = (fps, ball_query, gather, samlp)
+TRAINING_KERNELS = (gather.SCATTER_KERNEL, *samlp_train.KERNELS)
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -44,7 +45,8 @@ def test_port_never_imports_jax_flax_or_the_jax_package(path):
 
 def test_package_import_loads_no_jax_and_builds_nothing():
     code = ("import sys, papc_tpu_torch, papc_tpu_torch.train, "
-            "papc_tpu_torch.__main__, papc_tpu_torch.ops.fused_mlp; "
+            "papc_tpu_torch.train.trainer, papc_tpu_torch.__main__, "
+            "papc_tpu_torch.ops.fused_mlp; "
             "from papc_tpu_torch import _build; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'papc_tpu', 'h5py', 'triton')); "
@@ -83,6 +85,21 @@ def test_ctypes_argtypes_match_the_c_entry_points(mod):
     assert mod.KERNEL.argtypes[-1] is ctypes.c_void_p  # the stream
 
 
+@pytest.mark.parametrize("kernel", TRAINING_KERNELS, ids=lambda k: k.symbol)
+def test_ctypes_argtypes_of_the_training_kernels(kernel):
+    """The same check for the training path's entry points (the scatter-add
+    and the four stream passes)."""
+    sigs = _exported_signatures()
+    assert kernel.argtypes == sigs[kernel.symbol]
+    assert kernel.argtypes[-1] is ctypes.c_void_p
+
+
+def test_every_c_entry_point_has_a_wrapper():
+    wrapped = {m.KERNEL.symbol for m in KERNEL_MODULES}
+    wrapped |= {k.symbol for k in TRAINING_KERNELS}
+    assert set(_exported_signatures()) == wrapped
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -98,8 +115,10 @@ def test_library_path_is_keyed_by_sources_and_flags(monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-G"])
     assert _build.library_path() != a
-    assert {"fps.cu", "ball_query.cu", "group_gather.cu",
-            "samlp_eval.cu"} <= {p.name for p in _build.sources()}
+    assert {"fps.cu", "ball_query.cu", "group_gather.cu", "samlp_eval.cu",
+            "group_scatter_add.cu", "samlp_linear_stats.cu",
+            "samlp_finalize_seed.cu", "samlp_bwd_layer.cu",
+            "samlp_train.cuh"} <= {p.name for p in _build.sources()}
 
 
 def test_kernel_error_raises_and_is_not_counted(monkeypatch):

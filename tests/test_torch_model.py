@@ -176,9 +176,16 @@ def test_point_mlp_without_pool_matches_flax(rng):
 
 
 def test_training_mode_and_other_models_raise():
+    """Training mode runs (an nn.Module starts in it) and gives every
+    parameter a gradient; the models not ported yet still raise."""
     model = PointNet2SSGClas(npoints=(8, 4), nsamples=(4, 4))
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 16, 3))  # nn.Module starts in train mode
+    points = torch.from_numpy(_clouds(2, 16))
+    logits = model(points, generator=torch.Generator().manual_seed(0))
+    assert logits.shape == (2, 16) and bool(torch.isfinite(logits).all())
+    logits.square().sum().backward()
+    assert all(p.grad is not None for p in model.parameters())
+    assert float(model.SetAbstraction_0.PointMLP_0.BatchNorm_0
+                 .running_var.sub(1).abs().max()) > 0
     assert registry_combos() == (("pointnet2_ssg", "clas"),)
     for name, mode in [("pointnet2_msg", "clas"), ("pointnet2_ssg", "seg"),
                        ("pointnet", "clas")]:

@@ -23,7 +23,8 @@ from papc_tpu.ops.pallas.gather_t import gather_cols_pallas
 from papc_tpu.ops.pallas.samlp import eval_mlp_max as jeval_mlp_max
 
 from papc_tpu_torch.ops import fused_mlp, geometry, grouping, sampling
-from papc_tpu_torch.ops.kernels import ball_query, fps, gather, samlp, use_kernel
+from papc_tpu_torch.ops.kernels import (ball_query, fps, gather, samlp,
+                                        samlp_train, use_kernel)
 
 T = torch.from_numpy
 
@@ -288,7 +289,7 @@ def test_eval_mlp_override_and_kernel_guard(rng):
         got = _port(x, layers, 8, None)
     np.testing.assert_array_equal(got, want)
     assert fused_mlp._OVERRIDE["operand_dtype"] == torch.bfloat16
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="at least one layer"):
         fused_mlp.fused_mlp_max(T(x).reshape(1, 4, 8, 6), [], [], train=True)
 
 
@@ -318,3 +319,41 @@ def test_cpu_tensors_take_the_plain_version(rng):
         use_kernel(xyz.to("meta"), None)  # neither CPU nor CUDA
     assert [m.KERNEL.launches
             for m in (fps, ball_query, gather, samlp)] == before
+
+
+def test_training_kernel_plans_at_the_ssg_shapes():
+    """The training kernels' plans at every SSG layer (B=32): shared
+    memory within the 227 KB a block may opt into, tiles of whole 64-row
+    units, and row splits of the dW product that cover every row."""
+    layers = [(524288, 3, 64), (524288, 64, 64), (524288, 64, 128),
+              (262144, 131, 128), (262144, 128, 128), (262144, 128, 256),
+              (4096, 259, 256), (4096, 256, 512), (4096, 512, 1024)]
+    for m, cin, cout in layers:
+        plan = samlp_train.linear_stats_plan(m, cin, cout)
+        assert plan["smem"] <= 232448 and plan["tm"] % 64 == 0
+        assert plan["cin_p"] % 16 == 0 and plan["ld_x"] % 8 == 0
+        bw = samlp_train.bwd_layer_plan(m, cin, cout)
+        assert bw["splits"] * bw["rows_per_split"] >= m
+        assert (bw["splits"] - 1) * bw["rows_per_split"] < m
+        assert bw["rows_per_split"] % 32 == 0 and bw["m_pad"] % bw["tm"] == 0
+        assert bw["m_pad"] >= m and bw["blocks"] <= 1024
+    assert samlp_train.slices(16384, 128) * 128 <= 131072
+
+
+def test_cpu_training_launches_no_kernel(rng):
+    """A training forward and backward on CPU tensors takes the plain
+    versions and leaves every launch count where it was."""
+    kernels = [gather.SCATTER_KERNEL, *samlp_train.KERNELS]
+    before = [k.launches for k in kernels]
+    x, layers = _mlp_case(rng, 8, 8, 6, (16, 8))
+    params = [tuple(T(p).requires_grad_() for p in l[:4]) for l in layers]
+    running = [(T(l[4]), T(l[5])) for l in layers]
+    out, _ = fused_mlp.fused_mlp_max(T(x).reshape(1, 8, 8, 6), params,
+                                     running, train=True)
+    out.sum().backward()
+    feats = T(rng.randn(1, 10, 2).astype(np.float32)).requires_grad_()
+    idx = T(rng.randint(0, 10, (1, 3, 4)).astype(np.int32))
+    gather.group_gather(T(_cloud(rng, 1, 10)), feats, idx,
+                        T(_cloud(rng, 1, 3))).sum().backward()
+    assert feats.grad is not None
+    assert [k.launches for k in kernels] == before
