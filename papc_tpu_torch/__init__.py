@@ -6,7 +6,9 @@ so each counterpart is easy to find. It imports ``torch`` and numpy and
 never ``jax``, ``flax`` or ``papc_tpu``.
 
 Ported so far: ``pointnet2_ssg`` classification, its training step
-(``train.train``) and its eval-mode inference (``train.evaluate``).
+(``train.train``) and its eval-mode inference (``train.evaluate``), and
+PointPillars detection serving from raw lidar frames
+(``detect.train.make_predict_step``, ``detect.train.evaluate``).
 Every TPU kernel on those paths is a hand-written CUDA kernel under
 ``csrc/``, compiled by ``nvcc`` for ``sm_90a`` at first use
 (:mod:`papc_tpu_torch._build`). Each kernel's wrapper in

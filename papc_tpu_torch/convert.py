@@ -5,6 +5,12 @@ The port's modules carry the flax tree's names, so a flax leaf
 ``SetAbstraction_0.PointMLP_0.Dense_0.weight``. Per leaf:
 
 - Dense ``kernel [in, out]`` → Linear ``weight [out, in]``; ``bias`` → ``bias``;
+- Conv ``kernel [kh, kw, in, out]`` (HWIO) → Conv2d ``weight [out, in, kh,
+  kw]`` (OIHW);
+- ConvTranspose ``kernel [s, s, in, out]`` → ConvTranspose2d ``weight [in,
+  out, s, s]``, mirrored: ``weight[c, o, p, q] = kernel[s-1-p, s-1-q, c, o]``,
+  because ``lax.conv_transpose`` applies the kernel mirrored where
+  ``conv_transpose2d`` does not;
 - BatchNorm ``scale`` / ``bias`` → ``weight`` / ``bias``;
 - ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` / ``running_var``.
 
@@ -42,9 +48,16 @@ def flatten(variables: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
 def _torch_key(flax_key: str, value: np.ndarray) -> tuple[str, np.ndarray]:
     collection, *path, leaf = flax_key.split("/")
     if collection == "params" and leaf == "kernel":
-        if value.ndim != 2:
-            raise KeyError(f"{flax_key}: only Dense kernels are ported so far")
-        name, value = "weight", value.T
+        name = "weight"
+        if value.ndim == 2:
+            value = value.T
+        elif value.ndim == 4 and path and path[-1].startswith("ConvTranspose"):
+            value = value[::-1, ::-1].transpose(2, 3, 0, 1)
+        elif value.ndim == 4:
+            value = value.transpose(3, 2, 0, 1)
+        else:
+            raise KeyError(f"{flax_key}: a {value.ndim}-D kernel has no "
+                           "counterpart in the port")
     elif collection == "params" and leaf in _PARAM_LEAVES:
         name = _PARAM_LEAVES[leaf]
     elif collection == "batch_stats" and leaf in _STAT_LEAVES:
@@ -96,9 +109,18 @@ def load_flax_weights(model: nn.Module, source) -> nn.Module:
     return model
 
 
+def _flax_kernel(module: str, weight: np.ndarray) -> np.ndarray:
+    if weight.ndim == 2:  # Dense
+        return weight.T
+    if module.startswith("ConvTranspose"):
+        return np.ascontiguousarray(weight.transpose(2, 3, 0, 1)[::-1, ::-1])
+    return weight.transpose(2, 3, 1, 0)  # Conv: OIHW → HWIO
+
+
 def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
     """The inverse mapping: ``state_dict`` → flat flax keys, ready for
-    ``np.savez``. Linear weights are the ``Dense_*`` modules' tensors."""
+    ``np.savez``. The weights of ``Dense_*``, ``Conv_*`` and
+    ``ConvTranspose_*`` modules are kernels."""
     flat = {}
     for key, t in state_dict.items():
         *path, name = key.split(".")
@@ -106,10 +128,10 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.n
         if name in ("running_mean", "running_var"):
             leaf = "mean" if name == "running_mean" else "var"
             flat["/".join(["batch_stats", *path, leaf])] = arr
-        elif path[-1].startswith("Dense"):
+        elif path[-1].startswith(("Dense", "Conv")):
             leaf = "kernel" if name == "weight" else name
             flat["/".join(["params", *path, leaf])] = (
-                arr.T if name == "weight" else arr)
+                _flax_kernel(path[-1], arr) if name == "weight" else arr)
         else:
             leaf = "scale" if name == "weight" else name
             flat["/".join(["params", *path, leaf])] = arr

@@ -1,0 +1,265 @@
+"""PointPillars network, eval mode (counterpart of
+``papc_tpu/detect/model.py``).
+
+The port runs the reference form of the network: the classic
+``PillarFeatureNet`` over the padded pillar grid, the flat-row BEV
+scatter, and the ``RPN``'s classic branch (stride-2 and SAME 3×3 convs,
+then per stage a ConvTranspose, BatchNorm and ReLU, the concat, and one
+1×1 head). The JAX package's TPU rewrites (``scatter_s2d``,
+``pfn_flat``, ``rpn_deferred_upsample``, ``rpn_batch_fold``) are exact
+and keep the same parameter tree, so the same weights serve both.
+
+Module names follow the flax tree (``pfn.PFNLayer_0.Dense_0``,
+``rpn._ConvBlock_0.Conv_0``, ``rpn.ConvTranspose_0``, ``rpn.BatchNorm_0``,
+``rpn.Conv_0`` ...), so :mod:`papc_tpu_torch.convert` maps each flax leaf
+onto one tensor. The public layout is channel-last, as in JAX; the
+convolutions run in PyTorch's NCHW. Every BatchNorm uses its running
+statistics with the detector's epsilon 1e-3; the network has no training
+mode yet; ``nn.layers.init_params`` gives it seeded weights.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from papc_tpu_torch.nn.layers import BatchNorm
+from papc_tpu_torch.ops.voxelize import scatter_to_bev_batched
+
+PFN_BN_EPS = 1e-3  # model.py PFN_BN: every BatchNorm of the detector
+_TRAIN_TODO = ("detection training is not ported yet (ROADMAP.md, Queue 1 "
+               "item 6: losses, target assignment, PFN/RPN backward)")
+
+
+def _bn(bn: BatchNorm, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Eval BatchNorm over axis ``dim`` with flax's arithmetic
+    ``(x - mean) · (rsqrt(var + eps) · scale) + bias``."""
+    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    return ((x - bn.running_mean.view(shape)) * mul.view(shape)
+            + bn.bias.view(shape))
+
+
+class PFNLayer(nn.Module):
+    """Linear (no bias with a norm) → BN → ReLU → max over the points;
+    a non-final layer concatenates the max back to every point."""
+
+    def __init__(self, in_features: int, units: int, last_layer: bool = False,
+                 use_norm: bool = True):
+        super().__init__()
+        self.last_layer = last_layer
+        self.use_norm = use_norm
+        units = units if last_layer else units // 2
+        self.Dense_0 = nn.Linear(in_features, units, bias=not use_norm)
+        if use_norm:
+            self.BatchNorm_0 = BatchNorm(units, eps=PFN_BN_EPS)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.Dense_0(x)  # [B, V, P, units]
+        if self.use_norm:
+            x = _bn(self.BatchNorm_0, x)
+        x = torch.relu(x)
+        # padded slots hold relu(beta - mean·scale/sigma) and stay in the max
+        x_max = torch.amax(x, dim=2, keepdim=True)
+        if self.last_layer:
+            return x_max
+        return torch.cat([x, x_max.expand_as(x)], dim=-1)
+
+
+class PillarFeatureNet(nn.Module):
+    """Decorate each point (offset from its pillar's mean and from the
+    pillar centre), zero the padded slots, run the PFN stack → per-pillar
+    features ``[B, V, C]``."""
+
+    def __init__(self, num_input_features: int = 4,
+                 num_filters: Sequence[int] = (64,),
+                 voxel_size: Sequence[float] = (0.2, 0.2, 4.0),
+                 pc_range: Sequence[float] = (0.0, -40.0, -3.0, 70.4, 40.0,
+                                              1.0),
+                 with_distance: bool = False, use_norm: bool = True):
+        super().__init__()
+        self.voxel_size = tuple(float(v) for v in voxel_size)
+        self.pc_range = tuple(float(v) for v in pc_range)
+        self.with_distance = with_distance
+        cin = num_input_features + 5 + (1 if with_distance else 0)
+        n = len(num_filters)
+        for i, f in enumerate(num_filters):
+            layer = PFNLayer(cin, f, last_layer=(i == n - 1),
+                             use_norm=use_norm)
+            self.add_module(f"PFNLayer_{i}", layer)
+            cin = f
+        self.n_layers = n
+
+    def forward(self, voxels: torch.Tensor, num_points: torch.Tensor,
+                coords: torch.Tensor) -> torch.Tensor:
+        B, V, P, D = voxels.shape
+        denom = torch.clamp_min(num_points, 1).to(voxels.dtype)
+        # the sum runs over all P slots: padded slots are zero
+        points_mean = (voxels[..., :3].sum(dim=2, keepdim=True)
+                       / denom[..., None, None])
+        f_cluster = voxels[..., :3] - points_mean
+        vx, vy = self.voxel_size[0], self.voxel_size[1]
+        x_offset = vx / 2 + self.pc_range[0]
+        y_offset = vy / 2 + self.pc_range[1]
+        px = coords[..., 2].to(voxels.dtype) * vx + x_offset
+        py = coords[..., 1].to(voxels.dtype) * vy + y_offset
+        f_center = torch.stack([voxels[..., 0] - px[..., None],
+                                voxels[..., 1] - py[..., None]], dim=-1)
+        feats = [voxels, f_cluster, f_center]
+        if self.with_distance:
+            feats.append(torch.linalg.vector_norm(voxels[..., :3], dim=-1,
+                                                  keepdim=True))
+        features = torch.cat(feats, dim=-1)
+        slot = torch.arange(P, device=voxels.device)[None, None, :]
+        mask = (slot < num_points[..., None]).to(features.dtype)
+        features = features * mask[..., None]
+        for i in range(self.n_layers):
+            features = getattr(self, f"PFNLayer_{i}")(features)
+        return features[:, :, 0, :]
+
+
+class PointPillarsScatter(nn.Module):
+    """Pillar features onto the dense BEV canvas → ``[B, ny, nx, C]``."""
+
+    def __init__(self, ny: int, nx: int):
+        super().__init__()
+        self.ny, self.nx = ny, nx
+
+    def forward(self, voxel_features: torch.Tensor,
+                coords: torch.Tensor) -> torch.Tensor:
+        return scatter_to_bev_batched(voxel_features, coords, self.ny,
+                                      self.nx)
+
+
+class _ConvBlock(nn.Module):
+    """A stride-s 3×3 conv and ``n_layers`` SAME 3×3 convs, each
+    Conv (no bias with a norm) → BN → ReLU, on NCHW maps."""
+
+    def __init__(self, in_channels: int, filters: int, n_layers: int,
+                 stride: int, use_norm: bool = True):
+        super().__init__()
+        self.n_layers = n_layers
+        self.use_norm = use_norm
+        for i in range(n_layers + 1):
+            cin = in_channels if i == 0 else filters
+            self.add_module(f"Conv_{i}", nn.Conv2d(
+                cin, filters, 3, stride=stride if i == 0 else 1, padding=1,
+                bias=not use_norm))
+            if use_norm:
+                self.add_module(f"BatchNorm_{i}",
+                                BatchNorm(filters, eps=PFN_BN_EPS))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_layers + 1):
+            x = getattr(self, f"Conv_{i}")(x)
+            if self.use_norm:
+                x = _bn(getattr(self, f"BatchNorm_{i}"), x, dim=1)
+            x = torch.relu(x)
+        return x
+
+
+class RPN(nn.Module):
+    """SECOND-style three-block backbone, per-stage ConvTranspose → BN →
+    ReLU, the concat, and the three 1×1 heads as one product. Input and
+    outputs channel-last: ``x [B, H, W, C]`` → ``{"box_preds",
+    "cls_preds", "dir_cls_preds"}``, each ``[B, H/2, W/2, ·]``."""
+
+    def __init__(self, in_channels: int = 64, num_class: int = 1,
+                 layer_nums: Sequence[int] = (3, 5, 5),
+                 layer_strides: Sequence[int] = (2, 2, 2),
+                 num_filters: Sequence[int] = (64, 128, 256),
+                 upsample_strides: Sequence[int] = (1, 2, 4),
+                 num_upsample_filters: Sequence[int] = (128, 128, 128),
+                 num_anchor_per_loc: int = 2,
+                 encode_background_as_zeros: bool = True,
+                 use_direction_classifier: bool = True,
+                 use_norm: bool = True, box_code_size: int = 7):
+        super().__init__()
+        self.use_norm = use_norm
+        self.use_direction_classifier = use_direction_classifier
+        cin = in_channels
+        for i in range(3):
+            self.add_module(f"_ConvBlock_{i}", _ConvBlock(
+                cin, num_filters[i], layer_nums[i], layer_strides[i],
+                use_norm))
+            s, f_up = upsample_strides[i], num_upsample_filters[i]
+            self.add_module(f"ConvTranspose_{i}", nn.ConvTranspose2d(
+                num_filters[i], f_up, s, stride=s, bias=not use_norm))
+            if use_norm:
+                self.add_module(f"BatchNorm_{i}",
+                                BatchNorm(f_up, eps=PFN_BN_EPS))
+            cin = num_filters[i]
+        num_cls = num_anchor_per_loc * (
+            num_class if encode_background_as_zeros else num_class + 1)
+        self.n_box = num_anchor_per_loc * box_code_size
+        self.n_cls = num_cls
+        c_cat = sum(num_upsample_filters)
+        self.Conv_0 = nn.Conv2d(c_cat, self.n_box, 1)
+        self.Conv_1 = nn.Conv2d(c_cat, num_cls, 1)
+        if use_direction_classifier:
+            self.Conv_2 = nn.Conv2d(c_cat, num_anchor_per_loc * 2, 1)
+
+    def forward(self, x: torch.Tensor) -> dict:
+        x = x.permute(0, 3, 1, 2)  # NHWC → NCHW view
+        ups = []
+        for i in range(3):
+            x = getattr(self, f"_ConvBlock_{i}")(x)
+            up = getattr(self, f"ConvTranspose_{i}")(x)
+            if self.use_norm:
+                up = _bn(getattr(self, f"BatchNorm_{i}"), up, dim=1)
+            ups.append(torch.relu(up))
+        x = torch.cat(ups, dim=1).permute(0, 2, 3, 1)  # [B, H, W, 384]
+        heads = [self.Conv_0, self.Conv_1]
+        if self.use_direction_classifier:
+            heads.append(self.Conv_2)
+        w = torch.cat([h.weight[:, :, 0, 0] for h in heads], dim=0)
+        b = torch.cat([h.bias for h in heads])
+        h = torch.matmul(x, w.t()) + b
+        out = {"box_preds": h[..., :self.n_box],
+               "cls_preds": h[..., self.n_box:self.n_box + self.n_cls]}
+        if self.use_direction_classifier:
+            out["dir_cls_preds"] = h[..., self.n_box + self.n_cls:]
+        return out
+
+
+class PointPillars(nn.Module):
+    """PFN → scatter → RPN. ``forward`` returns the raw head maps; the
+    post-processing is :func:`papc_tpu_torch.detect.detector.predict`."""
+
+    def __init__(self, ny: int, nx: int, num_class: int = 1,
+                 num_input_features: int = 4,
+                 pfn_num_filters: Sequence[int] = (64,),
+                 voxel_size: Sequence[float] = (0.16, 0.16, 4.0),
+                 pc_range: Sequence[float] = (0.0, -39.68, -3.0, 69.12,
+                                              39.68, 1.0),
+                 with_distance: bool = False,
+                 rpn_layer_nums: Sequence[int] = (3, 5, 5),
+                 rpn_layer_strides: Sequence[int] = (2, 2, 2),
+                 rpn_num_filters: Sequence[int] = (64, 128, 256),
+                 rpn_upsample_strides: Sequence[int] = (1, 2, 4),
+                 rpn_num_upsample_filters: Sequence[int] = (128, 128, 128),
+                 num_anchor_per_loc: int = 2,
+                 encode_background_as_zeros: bool = True,
+                 use_direction_classifier: bool = True,
+                 use_norm: bool = True, box_code_size: int = 7):
+        super().__init__()
+        self.pfn = PillarFeatureNet(num_input_features, pfn_num_filters,
+                                    voxel_size, pc_range, with_distance,
+                                    use_norm)
+        self.scatter = PointPillarsScatter(ny, nx)
+        self.rpn = RPN(pfn_num_filters[-1], num_class, rpn_layer_nums,
+                       rpn_layer_strides, rpn_num_filters,
+                       rpn_upsample_strides, rpn_num_upsample_filters,
+                       num_anchor_per_loc, encode_background_as_zeros,
+                       use_direction_classifier, use_norm, box_code_size)
+
+    def forward(self, voxels: torch.Tensor, num_points: torch.Tensor,
+                coords: torch.Tensor, train: bool = False) -> dict:
+        if train:
+            raise NotImplementedError(_TRAIN_TODO)
+        features = self.pfn(voxels, num_points, coords)
+        return self.rpn(self.scatter(features, coords))
+

@@ -82,15 +82,21 @@ def dropout(x: torch.Tensor, rate: float, mask: torch.Tensor | None,
 
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """flax's initial values from a seeded generator: lecun-normal
-    kernels, zero biases, BatchNorm scale 1 / bias 0, running mean 0 and
-    variance 1."""
+    kernels (fan-in: input features, or input channels × kernel area),
+    zero biases, BatchNorm scale 1 / bias 0, running mean 0 and variance
+    1."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, nn.Linear):
-                std = math.sqrt(1.0 / m.in_features) / _TRUNC_STD
-                nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+            if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+                w = m.weight
+                fan_in = (w.shape[0] * w[0, 0].numel()
+                          if isinstance(m, nn.ConvTranspose2d)
+                          else w[0].numel())
+                std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
-                nn.init.zeros_(m.bias)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
             elif isinstance(m, BatchNorm):
                 nn.init.ones_(m.weight)
                 nn.init.zeros_(m.bias)

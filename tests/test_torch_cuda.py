@@ -22,16 +22,26 @@ may round to the other bf16 neighbour; f32 sums, dW, db and dg within
 order); the scatter-add within 1e-5 (f32 atomics in run-dependent
 order). A reduced training step's loss within 5e-3 of the plain step's
 (bf16 rounding flips between the two carry through three SA stages).
+
+The NMS sweeps must equal their plain versions exactly (keep masks), and
+a reduced detection slice's detections with the kernels must equal the
+plain run's.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from papc_tpu_torch.data.synthetic_kitti import SyntheticFrames, collate_batch
+from papc_tpu_torch.detect import builders
+from papc_tpu_torch.detect.config import car_config, cfg_from_list
+from papc_tpu_torch.detect.train import make_pillarizer, make_predict_step
 from papc_tpu_torch.models.classify import PointNet2SSGClas
 from papc_tpu_torch.nn.layers import init_params
 from papc_tpu_torch.ops import fused_mlp, sampling
-from papc_tpu_torch.ops.kernels import ball_query, fps, gather, samlp, samlp_train
+from papc_tpu_torch.ops.iou import box5_to_corners, iou_2d
+from papc_tpu_torch.ops.kernels import (ball_query, fps, gather, nms, samlp,
+                                        samlp_train)
 
 pytestmark = pytest.mark.cuda
 KERNEL_MODULES = (fps, ball_query, gather, samlp)
@@ -326,3 +336,110 @@ def test_training_step_on_the_card_runs_every_kernel(device):
     plain_loss, _ = step("plain")
     assert loss == pytest.approx(plain_loss, rel=5e-3)
     assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+
+
+# ------------------------------------------------------------ detection
+
+def _rboxes(seed, B, K):
+    """Clustered rotated boxes [B, K, 5], so that suppression happens."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(B):
+        centers = rs.uniform(0, 40, size=(max(K // 4, 1), 2))
+        pick = centers[rs.randint(0, len(centers), K)]
+        out.append(np.stack([pick[:, 0] + rs.randn(K) * 0.8,
+                             pick[:, 1] + rs.randn(K) * 0.8,
+                             rs.uniform(1.5, 2.0, K), rs.uniform(3.5, 4.5, K),
+                             rs.uniform(-np.pi, np.pi, K)], axis=1))
+    return torch.from_numpy(np.stack(out).astype(np.float32))
+
+
+def _standup_iou(boxes):
+    c = box5_to_corners(boxes)
+    s = torch.cat([c.amin(-2), c.amax(-2)], dim=-1)
+    return iou_2d(s, s).contiguous()
+
+
+NMS_SHAPES = [(2, 1000), (1, 1), (3, 31), (1, 1025), (3, 1000)]
+
+
+@pytest.mark.parametrize("B,K", NMS_SHAPES)
+def test_rotate_nms_kernel_equals_plain(device, B, K):
+    boxes = _rboxes(K + B, B, K).to(device)
+    valid = torch.rand(B, K, generator=torch.Generator().manual_seed(K)) > 0.1
+    valid = valid.to(device)
+    for thr in (0.1, 0.5):
+        before = nms.ROTATE.launches
+        got = nms.rotate_nms(boxes, valid, thr)
+        assert nms.ROTATE.launches == before + 1
+        want = nms.rotate_nms(boxes, valid, thr, impl="plain")
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(nms.rotate_nms(boxes, valid, thr), got,
+                                   rtol=0, atol=0)
+        if K >= 1000:
+            assert 0 < int(got.sum()) < int(valid.sum())
+    none = torch.zeros_like(valid)
+    assert not bool(nms.rotate_nms(boxes, none, 0.5).any())
+
+
+@pytest.mark.parametrize("B,K", NMS_SHAPES)
+def test_greedy_nms_kernel_equals_plain(device, B, K):
+    iou = _standup_iou(_rboxes(K * B, B, K).to(device))
+    valid = torch.rand(B, K, generator=torch.Generator().manual_seed(B)) > 0.1
+    valid = valid.to(device)
+    for thr in (0.1, 0.5):
+        before = nms.GREEDY.launches
+        got = nms.greedy_suppress(iou, valid, thr)
+        assert nms.GREEDY.launches == before + 1
+        want = nms.greedy_suppress(iou, valid, thr, impl="plain")
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        torch.testing.assert_close(nms.greedy_suppress(iou, valid, thr), got,
+                                   rtol=0, atol=0)
+    none = torch.zeros_like(valid)
+    assert not bool(nms.greedy_suppress(iou, none, 0.5).any())
+
+
+def test_nms_kernels_raise_above_their_limits(device):
+    k = nms.ROTATE_MAX_K + 1
+    with pytest.raises(ValueError, match=f"limit of {nms.ROTATE_MAX_K}"):
+        nms.rotate_nms(torch.zeros(1, k, 5, device=device),
+                       torch.ones(1, k, dtype=torch.bool, device=device), 0.5)
+    k = nms.GREEDY_MAX_K + 1  # a K x K matrix that is never materialised
+    with pytest.raises(ValueError, match=f"limit of {nms.GREEDY_MAX_K}"):
+        nms.greedy_suppress_cuda(
+            torch.zeros(1, 1, 1, device=device).expand(1, k, k),
+            torch.ones(1, k, dtype=torch.bool, device=device), 0.5)
+
+
+def test_reduced_detection_slice_on_the_card(device):
+    """Raw points → detections on a reduced car config (64 × 64 grid):
+    both NMS kernels launched, detections equal to the plain run."""
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = car_config()
+    cfg_from_list(cfg, ["VOXEL_GENERATOR.VOXEL_SIZE", "[1.08, 1.24, 4]",
+                        "VOXEL_GENERATOR.MAX_NUMBER_OF_POINTS_PER_VOXEL", "32",
+                        "MODEL.POST_PROCESSING.nms_pre_max_size", "512"])
+    gen = cfg.TARGET_ASSIGNER.ANCHOR_GENERATORS[0].anchor_generator_stride
+    gen.strides, gen.offsets = [2.16, 2.48, 0.0], [1.08, -38.44, -1.78]
+    vg = builders.build_voxel_generator(cfg.VOXEL_GENERATOR)
+    coder = builders.build_box_coder(cfg.BOX_CODER)
+    model = builders.build_network(cfg, vg, builders.build_anchor_generator(
+        cfg.TARGET_ASSIGNER.ANCHOR_GENERATORS[0]), coder)
+    init_params(model, torch.Generator().manual_seed(0))
+    anchors = builders.build_anchors(cfg, vg)
+    frames = SyntheticFrames(2, anchors, max_points=8000, seed=1,
+                             n_background=6000)
+    batch = collate_batch([frames[0], frames[1]])
+    pillarize = make_pillarizer(vg, 2000)
+    for rotate, kernel in [(True, nms.ROTATE), (False, nms.GREEDY)]:
+        cfg_from_list(cfg, ["MODEL.POST_PROCESSING.use_rotate_nms",
+                            str(rotate)])
+        pcfg = builders.build_predict_config(cfg, coder)
+        before = kernel.launches
+        got = make_predict_step(model, pcfg, coder, pillarize, device)(batch)
+        assert kernel.launches == before + 1
+        want = make_predict_step(model, pcfg, coder, pillarize, device,
+                                 impl="plain")(batch)
+        for k in got:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+        assert bool(got["valid"].any())

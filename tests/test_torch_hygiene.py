@@ -12,13 +12,15 @@ from pathlib import Path
 import pytest
 
 from papc_tpu_torch import _build
-from papc_tpu_torch.ops.kernels import ball_query, fps, gather, samlp, samlp_train
+from papc_tpu_torch.ops.kernels import (ball_query, fps, gather, nms, samlp,
+                                        samlp_train)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "papc_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "papc_tpu"}
 KERNEL_MODULES = (fps, ball_query, gather, samlp)
 TRAINING_KERNELS = (gather.SCATTER_KERNEL, *samlp_train.KERNELS)
+NMS_KERNELS = nms.KERNELS
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -46,7 +48,9 @@ def test_port_never_imports_jax_flax_or_the_jax_package(path):
 def test_package_import_loads_no_jax_and_builds_nothing():
     code = ("import sys, papc_tpu_torch, papc_tpu_torch.train, "
             "papc_tpu_torch.train.trainer, papc_tpu_torch.__main__, "
-            "papc_tpu_torch.ops.fused_mlp; "
+            "papc_tpu_torch.ops.fused_mlp, papc_tpu_torch.detect.train, "
+            "papc_tpu_torch.detect.builders, papc_tpu_torch.ops.nms, "
+            "papc_tpu_torch.data.synthetic_kitti; "
             "from papc_tpu_torch import _build; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'papc_tpu', 'h5py', 'triton')); "
@@ -94,9 +98,19 @@ def test_ctypes_argtypes_of_the_training_kernels(kernel):
     assert kernel.argtypes[-1] is ctypes.c_void_p
 
 
+@pytest.mark.parametrize("kernel", NMS_KERNELS, ids=lambda k: k.symbol)
+def test_ctypes_argtypes_of_the_nms_kernels(kernel):
+    """The same check for the detection path's two NMS sweeps (a bool
+    array is a pointer, the threshold a C float)."""
+    sigs = _exported_signatures()
+    assert kernel.argtypes == sigs[kernel.symbol]
+    assert kernel.argtypes[-1] is ctypes.c_void_p
+    assert ctypes.c_float in kernel.argtypes
+
+
 def test_every_c_entry_point_has_a_wrapper():
     wrapped = {m.KERNEL.symbol for m in KERNEL_MODULES}
-    wrapped |= {k.symbol for k in TRAINING_KERNELS}
+    wrapped |= {k.symbol for k in TRAINING_KERNELS + NMS_KERNELS}
     assert set(_exported_signatures()) == wrapped
 
 
@@ -118,7 +132,8 @@ def test_library_path_is_keyed_by_sources_and_flags(monkeypatch):
     assert {"fps.cu", "ball_query.cu", "group_gather.cu", "samlp_eval.cu",
             "group_scatter_add.cu", "samlp_linear_stats.cu",
             "samlp_finalize_seed.cu", "samlp_bwd_layer.cu",
-            "samlp_train.cuh"} <= {p.name for p in _build.sources()}
+            "samlp_train.cuh", "nms_greedy.cu", "nms_rotate.cu"} <= {
+                p.name for p in _build.sources()}
 
 
 def test_kernel_error_raises_and_is_not_counted(monkeypatch):
