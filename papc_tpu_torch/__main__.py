@@ -1,7 +1,9 @@
 """Command line of the port: ``python -m papc_tpu_torch ...``.
 
 Mirrors the JAX package's ``train.py``: it trains unless ``--evaluate``
-is given, with the same flags, plus an explicit ``--device``. Training
+is given, with the same flags, plus an explicit ``--device``. It serves
+and trains ``pointnet2_ssg`` and ``pointnet2_msg`` in ``--mode clas``
+(accuracy) and ``--mode seg`` (part segmentation, mean IoU). Training
 writes flax variables as flat ``.npz`` files
 (``{model_dir}/{name}_{epoch}.npz``, see :mod:`papc_tpu_torch.convert`);
 ``--evaluate --weights`` serves such a file in place of ``--checkpoint``.
@@ -18,7 +20,7 @@ def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description="papc_tpu_torch")
     parser.add_argument("--model_name", type=str, default="pointnet2_ssg")
     parser.add_argument("--mode", type=str, default="clas",
-                        help='"clas" (the port serves classification)')
+                        help='"clas" or "seg" (part segmentation)')
     parser.add_argument("--max_point", type=int, default=1024)
     parser.add_argument("--num_classes", type=int, default=16)
     parser.add_argument("--num_parts", type=int, default=50)

@@ -24,9 +24,13 @@
 // the bias, applies the affine and ReLU and either stores bf16 for the
 // next layer or, for the last layer, folds the value into the group max
 // with a shared-memory atomicMax on its bit pattern (ReLU output is >= +0,
-// and non-negative floats order like their bits). Widest case, SSG SA3 at
-// k = 128: buffers of 128 x 520 and 128 x 264 bf16 plus 12 KB, 213 KB of
-// the 227 KB a block may opt into.
+// and non-negative floats order like their bits). SSG SA3 at k = 128:
+// buffers of 128 x 520 and 128 x 264 bf16 plus 12 KB, 213 KB of the 227 KB
+// a block may opt into. Where a 128-row tile does not fit (MSG
+// classification's SA3, c0 = 643 at k = 128: 250 KB), the tile is 64 rows
+// and a group spans k / 64 blocks: each block pools its rows in shared
+// memory as before, then merges into the zero-filled output with a global
+// atomicMax on the same bits, which gives the same result in any order.
 #include <cuda_bf16.h>
 #include <mma.h>
 
@@ -65,7 +69,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int warp = tid >> 5;
   const int lane = tid & 31;
   const int row0 = blockIdx.x * tm;
-  const int groups = tm / k;
+  const bool split = tm < k;  // k % tm == 0: a group spans k / tm blocks
+  const int groups = split ? 1 : tm / k;
+  const int g0 = row0 / k;
   const int c_last_pad = prm.cout[prm.n_layers - 1];
 
   // input tile -> bf16, zero in the channel padding and past the last row
@@ -131,7 +137,7 @@ __global__ void __launch_bounds__(kWarps * 32)
           if (!last) {
             dst[rl * ld_dst + col] = __float2bfloat16_rn(h);
           } else if (row0 + rl < m) {
-            atomicMax(&pooled[(rl / k) * c_last_pad + col],
+            atomicMax(&pooled[((row0 + rl) / k - g0) * c_last_pad + col],
                       __float_as_uint(h));
           }
         }
@@ -141,13 +147,16 @@ __global__ void __launch_bounds__(kWarps * 32)
     __syncthreads();
   }
 
-  const int g0 = row0 / k;
   const int n_groups = m / k;
   for (int e = tid; e < groups * c_last; e += blockDim.x) {
     const int g = e / c_last, c = e - g * c_last;
-    if (g0 + g < n_groups)
-      out[static_cast<size_t>(g0 + g) * c_last + c] =
-          __uint_as_float(pooled[g * c_last_pad + c]);
+    if (g0 + g >= n_groups) continue;
+    const size_t o = static_cast<size_t>(g0 + g) * c_last + c;
+    const unsigned v = pooled[g * c_last_pad + c];
+    if (split)
+      atomicMax(reinterpret_cast<unsigned*>(out) + o, v);
+    else
+      out[o] = __uint_as_float(v);
   }
 }
 
@@ -156,8 +165,9 @@ __global__ void __launch_bounds__(kWarps * 32)
 // x [M, C0] f32 row-major; per layer l < n_layers: w[l] bf16 [cin[l], cout[l]]
 // (both padded to multiples of 16, zero-filled), bias/scale/shift f32
 // [cout[l]] (zero in the padding). tm: rows per block, a multiple of 64
-// and of k; ld_x / ld_y: shared-memory row strides in bf16 elements.
-// -> out [M / k, c_last] f32.
+// and either a multiple of k or a divisor of k (then out must be
+// zero-filled: the blocks of a group merge into it); ld_x / ld_y:
+// shared-memory row strides in bf16 elements. -> out [M / k, c_last] f32.
 PAPC_EXPORT int papc_samlp_eval(const float* x, int m, int c0, int k,
                                 int n_layers, const int* cin,
                                 const int* cout, const void* const* w,
@@ -167,7 +177,7 @@ PAPC_EXPORT int papc_samlp_eval(const float* x, int m, int c0, int k,
                                 int tm, int ld_x, int ld_y, float* out,
                                 void* stream) {
   if (n_layers < 1 || n_layers > kMaxLayers || m <= 0 || k <= 0 ||
-      m % k != 0 || tm <= 0 || tm % 64 != 0 || tm % k != 0)
+      m % k != 0 || tm <= 0 || tm % 64 != 0 || (tm % k != 0 && k % tm != 0))
     return cudaErrorInvalidValue;
   MlpParams prm{};
   prm.n_layers = n_layers;
@@ -182,8 +192,8 @@ PAPC_EXPORT int papc_samlp_eval(const float* x, int m, int c0, int k,
   }
   const size_t smem = static_cast<size_t>(tm) * (ld_x + ld_y) * 2 +
                       kWarps * 256 * sizeof(float) +
-                      static_cast<size_t>(tm / k) * cout[n_layers - 1] *
-                          sizeof(unsigned);
+                      static_cast<size_t>(tm < k ? 1 : tm / k) *
+                          cout[n_layers - 1] * sizeof(unsigned);
   const int blocks = (m + tm - 1) / tm;
   return papc_launch(samlp_eval_kernel, dim3(blocks), dim3(kWarps * 32), smem,
                      static_cast<cudaStream_t>(stream), x, m, c0, k, tm, ld_x,

@@ -36,17 +36,25 @@ def make_cloud(rng: np.random.RandomState, label: int, n_points: int,
 
 class SyntheticLoader:
     """``n_samples`` seeded clouds in fixed-shape batches of ``batchsize``
-    (the last one padded, with its mask), in a fixed order."""
+    (the last one padded, with its mask), in a fixed order. With
+    ``with_pid`` each batch carries the per-point part labels (the
+    octants, as the JAX package's synthetic shards hold them), for part
+    segmentation."""
 
     def __init__(self, n_samples: int, n_points: int = 1024,
-                 num_classes: int = 16, batchsize: int = 32, seed: int = 0):
+                 num_classes: int = 16, batchsize: int = 32, seed: int = 0,
+                 with_pid: bool = False):
         rng = np.random.RandomState(seed)
         self.batchsize = batchsize
         self.label = rng.randint(num_classes, size=n_samples).astype(np.int32)
-        self.data = np.stack([
-            make_cloud(rng, int(y), n_points, num_classes)[0]
-            for y in self.label
-        ]) if n_samples else np.zeros((0, n_points, 3), np.float32)
+        clouds = [make_cloud(rng, int(y), n_points, num_classes)
+                  for y in self.label]
+        self.data = (np.stack([c[0] for c in clouds]) if n_samples
+                     else np.zeros((0, n_points, 3), np.float32))
+        self.pid = None
+        if with_pid:
+            self.pid = (np.stack([c[1] for c in clouds]) if n_samples
+                        else np.zeros((0, n_points), np.int32))
 
     def __len__(self) -> int:
         return -(-len(self.data) // self.batchsize)
@@ -63,4 +71,5 @@ class SyntheticLoader:
             mask[:len(idx)] = True
             idx = np.resize(idx, bs)
             yield Batch(points=self.data[idx], label=self.label[idx],
-                        pid=None, mask=mask)
+                        pid=None if self.pid is None else self.pid[idx],
+                        mask=mask)

@@ -1,16 +1,18 @@
-"""Neighbourhood grouping: ball query and sample-and-group.
+"""Neighbourhood grouping: ball query, k nearest neighbours and
+sample-and-group.
 
 Counterpart of ``papc_tpu/ops/grouping.py`` (``query_ball_point``,
-``sample_and_group``, ``sample_and_group_all``). The port groups in row
-layout ``[B, S, K, C]``; the TPU's channel-major ``sample_and_group_t``
-exists to dodge lane padding and is not carried over.
+``knn``, ``sample_and_group``, ``sample_and_group_all``). The port groups
+in row layout ``[B, S, K, C]``; the TPU's channel-major
+``sample_and_group_t`` exists to dodge lane padding and is not carried
+over.
 """
 
 from __future__ import annotations
 
 import torch
 
-from papc_tpu_torch.ops.geometry import index_points
+from papc_tpu_torch.ops.geometry import index_points, square_distance
 from papc_tpu_torch.ops.kernels import ball_query, gather
 from papc_tpu_torch.ops.sampling import farthest_point_sample
 
@@ -23,6 +25,18 @@ def query_ball_point(radius: float, nsample: int, xyz: torch.Tensor,
     slots repeat the first hit → int32 ``[B, S, nsample]``."""
     return ball_query.query_ball_point(radius, nsample, xyz, new_xyz,
                                        impl=impl)
+
+
+def knn(k: int, xyz: torch.Tensor, new_xyz: torch.Tensor):
+    """The ``k`` nearest points of ``xyz [B, N, 3]`` to each query of
+    ``new_xyz [B, S, 3]``: ``(dists [B, S, k] ascending squared distances,
+    idx [B, S, k] int32)``. Distances in full f32 (``square_distance``);
+    ties go to the lower index, as ``lax.top_k`` breaks them, so the
+    order comes from a stable sort (``torch.topk`` has no tie order on
+    the card)."""
+    d = square_distance(new_xyz, xyz)
+    dists, idx = torch.sort(d, dim=-1, stable=True)
+    return dists[..., :k], idx[..., :k].int()
 
 
 def sample_and_group(npoint: int, radius: float, nsample: int,

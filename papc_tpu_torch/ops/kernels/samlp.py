@@ -70,8 +70,26 @@ def smem_layout(c0: int, widths, k: int, tm: int) -> tuple[int, int, int]:
     ld_x = max(held_x) + _SKEW
     ld_y = max(held_y) + _SKEW if held_y else 0
     nbytes = (tm * (ld_x + ld_y) * 2 + _WARPS * 256 * 4
-              + (tm // k) * _pad16(widths[-1]) * 4)
+              + max(tm // k, 1) * _pad16(widths[-1]) * 4)
     return ld_x, ld_y, nbytes
+
+
+def plan(c0: int, widths, k: int, limit: int) -> tuple[int, int, int, int]:
+    """``(tm, ld_x, ld_y, bytes)`` of a launch: ``tile_rows(k)`` rows a
+    block, or 64 where that tile's buffers exceed ``limit`` bytes of
+    shared memory and ``k`` is a multiple of 64 (a group then spans
+    ``k / 64`` blocks, merged by the kernel). MSG classification's SA3
+    (c0 = 643, k = 128) needs 249 856 B at 128 rows, 131 072 B at 64."""
+    tm = tile_rows(k)
+    layout = smem_layout(c0, widths, k, tm)
+    if layout[2] > limit and k % 64 == 0:
+        tm = 64
+        layout = smem_layout(c0, widths, k, tm)
+    if layout[2] > limit:
+        raise ValueError(
+            f"samlp_eval needs {layout[2]} B of shared memory a block for "
+            f"c0={c0} widths={list(widths)} k={k}; the card allows {limit}")
+    return (tm, *layout)
 
 
 def eval_mlp_max_cuda(x, ws, bs, scales, shifts, *, k: int) -> torch.Tensor:
@@ -93,17 +111,12 @@ def eval_mlp_max_cuda(x, ws, bs, scales, shifts, *, k: int) -> torch.Tensor:
         w_p.append(_padded(w, (cin_p[i], cout_p[i]), torch.bfloat16))
         vecs.append([_padded(v.float(), (cout_p[i],), torch.float32)
                      for v in (b, scale, shift)])
-    tm = tile_rows(k)
-    ld_x, ld_y, smem = smem_layout(c0, widths, k, tm)
     limit = torch.cuda.get_device_properties(
         x.device).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(
-            f"samlp_eval needs {smem} B of shared memory a block for "
-            f"c0={c0} widths={widths} k={k}; the card allows {limit}"
-        )
-    out = torch.empty((m // k, widths[-1]), dtype=torch.float32,
-                      device=x.device)
+    tm, ld_x, ld_y, _ = plan(c0, widths, k, limit)
+    # a group split over blocks is merged by atomicMax into +0.0 bits
+    out = (torch.zeros if tm < k else torch.empty)(
+        (m // k, widths[-1]), dtype=torch.float32, device=x.device)
 
     def ints(vals):
         return (ctypes.c_int * n)(*vals)

@@ -6,6 +6,10 @@ explicit device: running BatchNorm statistics, no dropout, so the logits
 are a deterministic function of the weights and the input. Weights come
 from flax variables (a nested dict or a flat ``.npz``, see
 :mod:`papc_tpu_torch.convert`) in place of an Orbax checkpoint.
+
+Classification takes ``points`` and scores ``label`` by accuracy; part
+segmentation takes ``(points, label)`` and scores the per-point ``pid``
+by mean IoU (``model_inputs`` / ``targets_of`` in the JAX trainer).
 """
 
 from __future__ import annotations
@@ -28,22 +32,50 @@ def batch_dict(raw) -> dict:
     return {k: v for k, v in raw._asdict().items() if v is not None}
 
 
-def batch_tensors(batch: dict, device: torch.device):
-    """``(points, label, mask)`` of a batch dict as tensors on ``device``."""
-    return tuple(torch.as_tensor(np.asarray(batch[k]), device=device)
-                 for k in ("points", "label", "mask"))
+def batch_tensor(batch: dict, key: str,
+                 device: torch.device) -> torch.Tensor:
+    """``batch[key]`` as a tensor on ``device``."""
+    return torch.as_tensor(np.asarray(batch[key]), device=device)
+
+
+def model_inputs(mode: str, batch: dict, device: torch.device) -> tuple:
+    """The model's positional inputs: ``(points,)``, or ``(points,
+    label)`` for segmentation."""
+    if mode == "seg":
+        return (batch_tensor(batch, "points", device),
+                batch_tensor(batch, "label", device))
+    return (batch_tensor(batch, "points", device),)
+
+
+def targets_of(mode: str, batch: dict, device: torch.device) -> torch.Tensor:
+    """``pid [B, N]`` for segmentation, else ``label [B]``."""
+    return batch_tensor(batch, "pid" if mode == "seg" else "label", device)
+
+
+def metric_of(model: torch.nn.Module, logits: torch.Tensor,
+              targets: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean IoU over the model's parts for segmentation, else accuracy."""
+    if model.mode == "seg":
+        return M.mean_iou(logits, targets, model.num_parts, mask)
+    return M.accuracy(logits, targets, mask)
+
+
+def metric_name(mode: str) -> str:
+    return "miou" if mode == "seg" else "accuracy"
 
 
 def eval_step(model: torch.nn.Module, batch: dict, device: torch.device,
               impl: str | None = None):
-    """One batch: ``(logits [B, classes], loss, accuracy)`` on ``device``,
-    loss and accuracy over the rows ``batch["mask"]`` marks valid."""
-    points, labels, mask = batch_tensors(batch, device)
+    """One batch: ``(logits, loss, metric)`` on ``device``, loss and
+    metric over the rows ``batch["mask"]`` marks valid."""
+    inputs = model_inputs(model.mode, batch, device)
+    targets = targets_of(model.mode, batch, device)
+    mask = batch_tensor(batch, "mask", device)
     with torch.inference_mode():
-        logits = model(points, impl=impl)
-        loss = M.softmax_cross_entropy(logits, labels, mask)
-        acc = M.accuracy(logits, labels, mask)
-    return logits, loss, acc
+        logits = model(*inputs, impl=impl)
+        loss = M.softmax_cross_entropy(logits, targets, mask)
+        metric = metric_of(model, logits, targets, mask)
+    return logits, loss, metric
 
 
 def evaluate(
@@ -65,44 +97,45 @@ def evaluate(
     """Evaluate flax ``weights`` on a ShapeNet split.
 
     ``make_loader(split)`` returns an epoch callable yielding batches
-    (default: :class:`~papc_tpu_torch.data.ShapeNetLoader` over ``path``).
-    ``impl`` is passed to every op of the forward: ``None`` runs the CUDA
-    kernels on a CUDA device and the plain versions on the CPU.
+    (default: :class:`~papc_tpu_torch.data.ShapeNetLoader` over ``path``,
+    with the part labels in ``seg`` mode). ``impl`` is passed to every op
+    of the forward: ``None`` runs the CUDA kernels on a CUDA device and
+    the plain versions on the CPU.
 
-    Returns ``{"loss", "accuracy", "num_samples", "logits"}``; ``logits``
-    holds the valid rows of every batch in loader order, on the CPU.
+    Returns ``{"loss", "accuracy" | "miou", "num_samples", "logits"}``;
+    ``logits`` holds the valid rows of every batch in loader order, on
+    the CPU (``[n, classes]``, or ``[n, N, parts]`` for segmentation).
     """
     if weights is None:
         raise ValueError(
             "evaluate needs weights: flax variables as a nested dict or a "
             "flat .npz (papc_tpu_torch.convert)"
         )
-    if mode != "clas":
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported yet (ROADMAP.md, Queue 1)")
     device = torch.device(device)
     if make_loader is None:
         from papc_tpu_torch.data import ShapeNetLoader
 
         def make_loader(split_):
-            return ShapeNetLoader(path, split_, max_point, batchsize)
+            return ShapeNetLoader(path, split_, max_point, batchsize,
+                                  with_pid=mode == "seg")
 
-    spec = init_model(model_name, mode, num_classes, num_parts, max_point)
+    spec = init_model(model_name, mode, num_classes, num_parts, max_point,
+                      device=device)
     model = load_flax_weights(spec.model, weights).to(device)
-    losses, accs, counts, kept = [], [], [], []
+    losses, metrics, counts, kept = [], [], [], []
     for raw in make_loader(split)():
         batch = batch_dict(raw)
-        logits, loss, acc = eval_step(model, batch, device, impl)
-        valid = torch.as_tensor(np.asarray(batch["mask"]), device=device)
+        logits, loss, metric = eval_step(model, batch, device, impl)
+        valid = batch_tensor(batch, "mask", device)
         w = float(valid.sum())
         losses.append(float(loss) * w)
-        accs.append(float(acc) * w)
+        metrics.append(float(metric) * w)
         counts.append(w)
         kept.append(logits[valid].cpu())
     total = max(sum(counts), 1.0)
     result = {
         "loss": sum(losses) / total,
-        "accuracy": sum(accs) / total,
+        metric_name(mode): sum(metrics) / total,
         "num_samples": int(sum(counts)),
     }
     log(f"eval[{split}]: " + ", ".join(

@@ -28,8 +28,9 @@ import torch
 from papc_tpu_torch.convert import state_dict_to_flax
 from papc_tpu_torch.models import init_model
 from papc_tpu_torch.train import metrics as M
-from papc_tpu_torch.train.evaluate import (batch_dict, batch_tensors,
-                                           eval_step)
+from papc_tpu_torch.train.evaluate import (batch_dict, batch_tensor,
+                                           eval_step, metric_name, metric_of,
+                                           model_inputs, targets_of)
 
 
 def make_optimizer(params, learning_rate: float,
@@ -47,23 +48,27 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
                generator: torch.Generator | None = None,
                impl: str | None = None,
                dropout_masks: Sequence[torch.Tensor] | None = None):
-    """One step on ``batch``: ``(loss, accuracy)`` as 0-d tensors on
-    ``device``, the loss over the rows ``batch["mask"]`` marks valid.
+    """One step on ``batch``: ``(loss, metric)`` as 0-d tensors on
+    ``device``, the loss over the rows ``batch["mask"]`` marks valid; the
+    metric is the accuracy, or the mean IoU over the parts for a
+    segmentation model (``model.mode``).
 
     The gradients stay in the parameters' ``.grad`` after the step.
     Dropout masks come from ``generator``, or from ``dropout_masks``.
     """
-    points, labels, mask = batch_tensors(batch, device)
+    inputs = model_inputs(model.mode, batch, device)
+    targets = targets_of(model.mode, batch, device)
+    mask = batch_tensor(batch, "mask", device)
     model.train()
-    logits = model(points, impl=impl, generator=generator,
+    logits = model(*inputs, impl=impl, generator=generator,
                    dropout_masks=dropout_masks)
-    loss = M.softmax_cross_entropy(logits, labels, mask)
+    loss = M.softmax_cross_entropy(logits, targets, mask)
     opt.zero_grad(set_to_none=True)
     loss.backward()
     opt.step()
     with torch.no_grad():
-        acc = M.accuracy(logits, labels, mask)
-    return loss.detach(), acc
+        metric = metric_of(model, logits, targets, mask)
+    return loss.detach(), metric
 
 
 def _save(model: torch.nn.Module, model_dir: str, name: str,
@@ -98,22 +103,20 @@ def train(
 
     ``make_loader(split)`` returns an epoch callable yielding batches
     (default: :class:`~papc_tpu_torch.data.ShapeNetLoader` over ``path``,
-    the train split shuffled with ``seed``). Weights start from
-    ``seed``; dropout draws from a CPU ``torch.Generator`` seeded with
-    ``seed``. ``history`` holds one dict per epoch: ``epoch``,
-    ``epoch_time`` (s, host clock, synchronized), ``train_loss`` (every
-    step's loss), ``val_loss`` and ``val_metric`` (the accuracy).
+    the train split shuffled with ``seed``, with the part labels in
+    ``seg`` mode). Weights start from ``seed``; dropout draws from a CPU
+    ``torch.Generator`` seeded with ``seed``. ``history`` holds one dict
+    per epoch: ``epoch``, ``epoch_time`` (s, host clock, synchronized),
+    ``train_loss`` (every step's loss), ``val_loss`` and ``val_metric``
+    (the accuracy, or the mean IoU in ``seg`` mode).
     """
-    if mode != "clas":
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported yet (ROADMAP.md, Queue 1)")
     device = torch.device(device)
     if make_loader is None:
         from papc_tpu_torch.data import ShapeNetLoader
 
         def make_loader(split):
             return ShapeNetLoader(path, split, max_point, batchsize,
-                                  seed=seed)
+                                  with_pid=mode == "seg", seed=seed)
 
     train_loader, val_loader = make_loader("train"), make_loader("val")
     model = init_model(model_name, mode, num_classes, num_parts, max_point,
@@ -121,6 +124,7 @@ def train(
     opt = make_optimizer(model.parameters(), learning_rate, weight_decay)
     generator = torch.Generator().manual_seed(seed)
     history = []
+    name = metric_name(mode)
     for epoch in range(epoch_num):
         log("=" * 35 + "train" + "=" * 43)
         t0 = time.time()
@@ -132,7 +136,7 @@ def train(
             if batch_id % info_iter == 0:
                 log(f"epoch: {epoch}, batch_id: {batch_id}, "
                     f"loss is: [{float(loss):.6f}], "
-                    f"accuracy is: [{float(metric):.6f}]")
+                    f"{name} is: [{float(metric):.6f}]")
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         epoch_time = time.time() - t0
@@ -150,7 +154,7 @@ def train(
             if batch_id % info_iter == 0:
                 log(f"epoch: {epoch}, batch_id: {batch_id}, "
                     f"loss is: [{float(loss):.6f}], "
-                    f"accuracy is: [{float(metric):.6f}]")
+                    f"{name} is: [{float(metric):.6f}]")
         model.train()
         history.append({
             "epoch": epoch,

@@ -84,7 +84,7 @@ def test_metrics_match_jax(rng):
 
 
 def _seeded_weights(tmp_path):
-    spec = init_model(seed=0)
+    spec = init_model(seed=0, device="cpu")
     path = tmp_path / "ssg_seed0.npz"
     np.savez(path, **state_dict_to_flax(spec.model.state_dict()))
     return spec.model, path

@@ -13,13 +13,14 @@ import pytest
 
 from papc_tpu_torch import _build
 from papc_tpu_torch.ops.kernels import (ball_query, fps, gather, nms, samlp,
-                                        samlp_train)
+                                        samlp_train, scatter_rows)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "papc_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "papc_tpu"}
 KERNEL_MODULES = (fps, ball_query, gather, samlp)
-TRAINING_KERNELS = (gather.SCATTER_KERNEL, *samlp_train.KERNELS)
+TRAINING_KERNELS = (gather.SCATTER_KERNEL, *samlp_train.KERNELS,
+                    scatter_rows.KERNEL)
 NMS_KERNELS = nms.KERNELS
 
 
@@ -50,7 +51,8 @@ def test_package_import_loads_no_jax_and_builds_nothing():
             "papc_tpu_torch.train.trainer, papc_tpu_torch.__main__, "
             "papc_tpu_torch.ops.fused_mlp, papc_tpu_torch.detect.train, "
             "papc_tpu_torch.detect.builders, papc_tpu_torch.ops.nms, "
-            "papc_tpu_torch.data.synthetic_kitti; "
+            "papc_tpu_torch.data.synthetic_kitti, "
+            "papc_tpu_torch.models.segment, papc_tpu_torch.ops.interpolate; "
             "from papc_tpu_torch import _build; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'papc_tpu', 'h5py', 'triton')); "
@@ -91,8 +93,8 @@ def test_ctypes_argtypes_match_the_c_entry_points(mod):
 
 @pytest.mark.parametrize("kernel", TRAINING_KERNELS, ids=lambda k: k.symbol)
 def test_ctypes_argtypes_of_the_training_kernels(kernel):
-    """The same check for the training path's entry points (the scatter-add
-    and the four stream passes)."""
+    """The same check for the training path's entry points (the two
+    scatter-adds and the four stream passes)."""
     sigs = _exported_signatures()
     assert kernel.argtypes == sigs[kernel.symbol]
     assert kernel.argtypes[-1] is ctypes.c_void_p
@@ -132,7 +134,8 @@ def test_library_path_is_keyed_by_sources_and_flags(monkeypatch):
     assert {"fps.cu", "ball_query.cu", "group_gather.cu", "samlp_eval.cu",
             "group_scatter_add.cu", "samlp_linear_stats.cu",
             "samlp_finalize_seed.cu", "samlp_bwd_layer.cu",
-            "samlp_train.cuh", "nms_greedy.cu", "nms_rotate.cu"} <= {
+            "samlp_train.cuh", "nms_greedy.cu", "nms_rotate.cu",
+            "scatter_rows_add.cu"} <= {
                 p.name for p in _build.sources()}
 
 

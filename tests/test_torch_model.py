@@ -106,7 +106,8 @@ def test_slice_bf16_matches_jax_fused_jnp():
 
 def test_full_width_forward_shape_and_params():
     """The served width: 1.47 M parameters, [B, 16] logits (CPU, B=1)."""
-    spec = init_model("pointnet2_ssg", "clas", num_classes=16, seed=0)
+    spec = init_model("pointnet2_ssg", "clas", num_classes=16, seed=0,
+                      device="cpu")
     n_params = sum(p.numel() for p in spec.model.parameters())
     jmodel = JaxSSG(num_classes=16)
     clouds = _clouds(1, 1024)
@@ -122,9 +123,9 @@ def test_full_width_forward_shape_and_params():
 
 
 def test_seeded_init_follows_flax_families():
-    a = init_model(seed=3).model.state_dict()
-    b = init_model(seed=3).model.state_dict()
-    c = init_model(seed=4).model.state_dict()
+    a = init_model(seed=3, device="cpu").model.state_dict()
+    b = init_model(seed=3, device="cpu").model.state_dict()
+    c = init_model(seed=4, device="cpu").model.state_dict()
     for k in a:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
     w = a["SetAbstraction_1.PointMLP_0.Dense_0.weight"]  # fan_in 131
@@ -177,7 +178,9 @@ def test_point_mlp_without_pool_matches_flax(rng):
 
 def test_training_mode_and_other_models_raise():
     """Training mode runs (an nn.Module starts in it) and gives every
-    parameter a gradient; the models not ported yet still raise."""
+    parameter a gradient; the four ported combos construct (on the CPU
+    when asked; the card is the default), and the models not ported yet
+    still raise."""
     model = PointNet2SSGClas(npoints=(8, 4), nsamples=(4, 4))
     points = torch.from_numpy(_clouds(2, 16))
     logits = model(points, generator=torch.Generator().manual_seed(0))
@@ -186,10 +189,20 @@ def test_training_mode_and_other_models_raise():
     assert all(p.grad is not None for p in model.parameters())
     assert float(model.SetAbstraction_0.PointMLP_0.BatchNorm_0
                  .running_var.sub(1).abs().max()) > 0
-    assert registry_combos() == (("pointnet2_ssg", "clas"),)
-    for name, mode in [("pointnet2_msg", "clas"), ("pointnet2_ssg", "seg"),
-                       ("pointnet", "clas")]:
+    assert registry_combos() == (("pointnet2_ssg", "clas"),
+                                 ("pointnet2_msg", "clas"),
+                                 ("pointnet2_ssg", "seg"),
+                                 ("pointnet2_msg", "seg"))
+    for name, mode in registry_combos():
+        spec = init_model(name, mode, device="cpu")
+        assert spec.mode == spec.model.mode == mode
+        assert not spec.model.training
+        assert next(spec.model.parameters()).device.type == "cpu"
+    for name, mode in [("pointnet", "clas"), ("pointnet", "seg"),
+                       ("pointnet_basic", "clas"), ("pointnet_conv2d", "clas"),
+                       ("vfe", "seg"), ("voxnet", "clas"), ("kdnet", "clas"),
+                       ("kdunet", "seg")]:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_model(name, mode)
+            init_model(name, mode, device="cpu")
     with pytest.raises(SystemExit):
-        init_model("pointnet2_ssg", "detect")
+        init_model("pointnet2_ssg", "detect", device="cpu")

@@ -27,7 +27,6 @@ import torch
 import flax.linen as fnn
 
 from papc_tpu.models.classify import PointNet2SSGClas as JaxSSG
-from papc_tpu.models.registry import ModelSpec
 from papc_tpu.ops import fused_mlp as jfused
 from papc_tpu.ops import geometry as jgeom
 from papc_tpu.ops.pallas import samlp as jsamlp
@@ -36,12 +35,14 @@ from papc_tpu.train import trainer as jtrainer
 
 from papc_tpu_torch import __main__ as cli
 from papc_tpu_torch.convert import load_flax_weights, state_dict_to_flax
-from papc_tpu_torch.data import SyntheticLoader, make_cloud
+from papc_tpu_torch.data import SyntheticLoader
 from papc_tpu_torch.models.classify import PointNet2SSGClas
 from papc_tpu_torch.nn import BN_EPS, BN_MOMENTUM, BatchNorm, MLPHead
 from papc_tpu_torch.ops import fused_mlp
 from papc_tpu_torch.ops.kernels import gather, samlp_train
-from papc_tpu_torch.train import evaluate, make_optimizer, train, train_step
+from papc_tpu_torch.train import evaluate, make_optimizer, train
+
+from tests import torch_parity as P
 
 T = torch.from_numpy
 F32, BF16 = torch.float32, torch.bfloat16
@@ -490,144 +491,21 @@ def test_head_dropout_masks_and_generator(rng):
 
 # ----------------------------------------------- one whole train step
 
-def _clouds(B, N, num_classes=16, seed=0):
-    rs = np.random.RandomState(seed)
-    labels = rs.randint(num_classes, size=B).astype(np.int32)
-    pts = np.stack([make_cloud(rs, int(y), N, num_classes)[0] for y in labels])
-    return pts, labels
-
-
-def _perturbed_variables(jmodel, clouds, seed):
-    variables = jax.jit(lambda x: jmodel.init(jax.random.PRNGKey(seed), x,
-                                              train=False))(jnp.asarray(clouds))
-    rs = np.random.RandomState(seed + 1)
-
-    def walk(tree):
-        return {k: walk(v) if isinstance(v, dict) else (
-            jnp.asarray(0.1 * rs.randn(*v.shape), jnp.float32) if k == "mean"
-            else jnp.asarray(rs.uniform(0.5, 2.0, v.shape), jnp.float32))
-            for k, v in tree.items()}
-
-    return {"params": variables["params"],
-            "batch_stats": walk(variables["batch_stats"])}
-
-
-def _capture_grads():
-    """An optax transform that keeps the incoming gradients in its state
-    and passes them on unchanged."""
-    return optax.GradientTransformation(
-        lambda params: jax.tree_util.tree_map(jnp.zeros_like, params),
-        lambda updates, state, params=None: (updates, updates))
-
-
-def _jax_step(jmodel, variables, clouds, labels, masks, lr, wd, fused):
-    """One ``make_train_step`` step with the given dropout keep-masks:
-    (loss, grads, new params, new batch_stats), flax-keyed numpy."""
-    spec = ModelSpec(model=jmodel, input_kind="points", mode="clas")
-    batch = {"points": jnp.asarray(clouds), "label": jnp.asarray(labels),
-             "mask": jnp.ones(len(labels), bool)}
-    fresh = jax.tree_util.tree_map(jnp.array, variables)  # step donates
-    state = jtrainer.TrainState.create(
-        apply_fn=jmodel.apply, params=fresh["params"],
-        batch_stats=fresh["batch_stats"],
-        tx=optax.chain(_capture_grads(), jtrainer.make_optimizer(lr, wd)))
-
-    def intercept(next_fun, args, kwargs, context):
-        if isinstance(context.module, fnn.Dropout) and \
-                context.method_name == "__call__":
-            site = int(context.module.name.split("_")[-1])
-            keep = 1.0 - context.module.rate
-            return jnp.where(jnp.asarray(masks[site]), args[0] / keep, 0.0)
-        return next_fun(*args, **kwargs)
-
-    step, _ = jtrainer.make_train_step(spec)
-    with fnn.intercept_methods(intercept):
-        if fused:
-            with jfused.override(enable=True, impl="jnp"):
-                state, loss, _ = step(state, batch, jax.random.PRNGKey(1))
-        else:
-            state, loss, _ = step(state, batch, jax.random.PRNGKey(1))
-    grads = jax.tree_util.tree_map(np.asarray, state.opt_state[0])
-    return (float(loss), grads,
-            jax.tree_util.tree_map(np.asarray, state.params),
-            jax.tree_util.tree_map(np.asarray, state.batch_stats))
-
-
-def _port_step(variables, clouds, labels, masks, lr, wd, dtype, npoints,
-               nsamples):
-    """One port step from the same weights; ``dtype`` float64 runs the
-    whole model and the plain passes in float64 (the exact reference)."""
-    model = PointNet2SSGClas(num_classes=16, npoints=npoints,
-                             nsamples=nsamples)
-    load_flax_weights(model, jax.tree_util.tree_map(np.asarray, variables))
-    if dtype == torch.float64:
-        model, clouds = model.double(), clouds.astype(np.float64)
-    opt = make_optimizer(model.parameters(), lr, wd)
-    batch = {"points": clouds, "label": labels,
-             "mask": np.ones(len(labels), bool)}
-    with fused_mlp.override(impl="plain", operand_dtype=dtype):
-        loss, _ = train_step(model, opt, batch, torch.device("cpu"),
-                             dropout_masks=[T(m) for m in masks])
-    grads = state_dict_to_flax({n: p.grad for n, p in
-                                model.named_parameters()})
-    return float(loss), grads, state_dict_to_flax(model.state_dict())
-
-
-def _flat(tree, prefix):
-    from papc_tpu_torch.convert import flatten
-
-    return flatten({prefix: tree})
-
-
-def _noise(key):
-    """A Dense bias that feeds a BatchNorm: its true gradient is 0, so
-    both sides hold rounding noise."""
-    return key.endswith("/bias") and "/Dense_" in key and not (
-        key.startswith("params/MLPHead_0/Dense_2"))
-
-
-def _module_scale(grads, key):
-    group = key.rsplit("/", 2)[0]
-    return max(float(np.abs(v).max()) for k, v in grads.items()
-               if k.startswith(group + "/"))
-
-
-def _compare_step(port, want, variables, lr, wd, rel_loss, rel_stats):
-    """Loss, every updated parameter and BN statistic (the gradients are
-    the callers'). Adam's first step is ``lr·g'/(|g'| + 1e-8)`` with
-    ``g' = g + wd·p``, about ``lr·sign(g')``: where both sides' ``g'``
-    have one sign and are above 1e-5 the updated parameters agree within
-    2e-6; elsewhere (noise-level gradients) within ``2·lr``."""
-    loss, grads, state = port
-    w_loss, w_grads, w_params, w_stats = want
-    assert loss == pytest.approx(w_loss, rel=rel_loss)
-    w_grads = _flat(w_grads, "params")
-    old = _flat(jax.tree_util.tree_map(np.asarray, variables["params"]),
-                "params")
-    assert set(grads) == set(w_grads)
-    for key, want_p in _flat(w_params, "params").items():
-        gp, gj = grads[key] + wd * old[key], w_grads[key] + wd * old[key]
-        agree = (np.sign(gp) == np.sign(gj)) & (
-            np.minimum(np.abs(gp), np.abs(gj)) > 1e-5)
-        got = state[key]
-        np.testing.assert_allclose(got[agree], want_p[agree], rtol=0,
-                                   atol=2e-6)
-        np.testing.assert_allclose(got, want_p, rtol=0, atol=2 * lr + 1e-6)
-    for key, want_s in _flat(w_stats, "batch_stats").items():
-        _close_to_max(state[key], want_s, rel_stats)
-    return grads, w_grads
-
-
 def _masks(B, seed):
     rs = np.random.RandomState(seed)
     return [rs.uniform(size=(B, 512)) < 0.6, rs.uniform(size=(B, 256)) < 0.6]
 
 
 def _step_case(B, N, npoints, nsamples, seed):
-    clouds, labels = _clouds(B, N, seed=seed)
+    b = P.batch(B, N, seed=seed)
     jmodel = JaxSSG(num_classes=16, npoints=npoints, nsamples=nsamples)
-    variables = _perturbed_variables(jmodel, clouds, seed)
-    return clouds, labels, jmodel, variables, _masks(B, seed + 1)
+    variables = P.perturbed_variables(jmodel, "clas", b, seed)
+
+    def make():
+        return PointNet2SSGClas(num_classes=16, npoints=npoints,
+                                nsamples=nsamples)
+
+    return b, jmodel, variables, _masks(B, seed + 1), make
 
 
 def test_train_step_f32_matches_jax_classic_step():
@@ -641,16 +519,16 @@ def test_train_step_f32_matches_jax_classic_step():
     gradients and within 4.6e-4 of JAX's (relative to the largest of
     the tensor). So: loss within 1e-5 relative, BN statistics within
     1e-4, every gradient within 1e-3 of the largest of its module's."""
-    lr, wd, npoints, nsamples = 1e-3, 1e-3, (32, 16), (8, 16)
-    clouds, labels, jmodel, variables, masks = _step_case(
-        4, 128, npoints, nsamples, 5)
-    want = _jax_step(jmodel, variables, clouds, labels, masks, lr, wd,
-                     fused=False)
-    port = _port_step(variables, clouds, labels, masks, lr, wd, F32,
-                      npoints, nsamples)
-    grads, w_grads = _compare_step(port, want, variables, lr, wd, 1e-5, 1e-4)
+    lr, wd = 1e-3, 1e-3
+    b, jmodel, variables, masks, make = _step_case(4, 128, (32, 16), (8, 16),
+                                                   5)
+    want = P.jax_step(jmodel, "clas", variables, b, masks, lr, wd,
+                      fused=False)
+    port = P.port_step(make, variables, b, masks, lr, wd, F32)
+    grads, w_grads = P.compare_step(port, want, variables, lr, wd, 1e-5,
+                                    1e-4)
     for key, g in grads.items():
-        _close_to_max(g, w_grads[key], 1e-3, _module_scale(w_grads, key))
+        _close_to_max(g, w_grads[key], 1e-3, P.module_scale(w_grads, key))
 
 
 def test_train_step_bf16_matches_jax_fused_jnp_step():
@@ -674,20 +552,20 @@ def test_train_step_bf16_matches_jax_fused_jnp_step():
     bf16 x-hat (measured up to 2.6e-2 of their module's largest
     gradient, on both sides): within 5e-2 of that, and no farther from
     the float64 step than 1.25 times JAX's."""
-    lr, wd, npoints, nsamples = 1e-3, 1e-3, (128, 128), (16, 16)
-    clouds, labels, jmodel, variables, masks = _step_case(
-        32, 192, npoints, nsamples, 7)
-    want = _jax_step(jmodel, variables, clouds, labels, masks, lr, wd,
-                     fused=True)
-    port = _port_step(variables, clouds, labels, masks, lr, wd, BF16,
-                      npoints, nsamples)
-    exact = _port_step(variables, clouds, labels, masks, lr, wd,
-                       torch.float64, npoints, nsamples)[1]
-    grads, w_grads = _compare_step(port, want, variables, lr, wd, 1e-3, 5e-3)
+    lr, wd = 1e-3, 1e-3
+    b, jmodel, variables, masks, make = _step_case(32, 192, (128, 128),
+                                                   (16, 16), 7)
+    want = P.jax_step(jmodel, "clas", variables, b, masks, lr, wd,
+                      fused=True)
+    port = P.port_step(make, variables, b, masks, lr, wd, BF16)
+    exact = P.port_step(make, variables, b, masks, lr, wd,
+                        torch.float64)[1]
+    grads, w_grads = P.compare_step(port, want, variables, lr, wd, 1e-3,
+                                    5e-3)
     for key, g in grads.items():
         wg, norm = w_grads[key], np.linalg.norm
-        if _noise(key):
-            _close_to_max(g, wg, 5e-2, _module_scale(w_grads, key))
+        if P.is_noise(key, grads):
+            _close_to_max(g, wg, 5e-2, P.module_scale(w_grads, key))
         else:
             assert norm(g - wg) <= 0.35 * norm(wg), key
         assert norm(g - exact[key]) <= 1.25 * norm(wg - exact[key]), key
