@@ -7,7 +7,7 @@ models at the width the JAX package's bench and CLI use (B=32 clouds x
 MSG classification, and MSG and SSG part segmentation; and the
 PointPillars detection serving path (the KITTI car config at full
 width: B=2 frames of up to 25000 points, 12000 pillars, a 496 x 432 BEV
-grid, 107136 anchors, K=1000 before NMS) on the card, in twelve phases;
+grid, 107136 anchors, K=1000 before NMS) on the card, in thirteen phases;
 any failure raises and exits non-zero. TF32 is off for cuDNN
 convolutions and matmuls throughout (float32 references).
 
@@ -75,7 +75,26 @@ convolutions and matmuls throughout (float32 references).
 11. Part segmentation: phases 5 and 6 for ``pointnet2_msg`` seg (#5 4
    times a step) and ``pointnet2_ssg`` seg (#5 twice a step), per-point
    logits, the mean IoU logged.
-12. The per-kernel JSON line (each kernel's launches on its path, error
+12. Recompute mode: the four recompute passes (#11-14) against their
+   plain versions, pass by pass on the SSG stacks' grouped inputs
+   (captured from one eval forward), each fed the plain chain's outputs.
+   Forward: f32 sums within ``TRAIN_TOL`` of their largest; the max within
+   that plus one bf16 ulp of each value (an operand of a row's chain that
+   rounds to the other bf16 neighbour moves it by about that); the argmax
+   equal wherever the plain top-2 margin exceeds the max's bound twice.
+   Backward: each pass re-derives ``a`` with products summed in its own
+   order, so where ``a·scale + shift`` lies within an ulp of 0 the ReLU
+   gate of the walk down opens in one version and not the other and
+   switches a whole ``dy`` element (a few rows in 10^5): the bwd sums, dg,
+   dW and db are held as the step's gradients are, at most ``GRAD_RATIO``
+   times as far (L2) from the plain pass with f32 operands as the plain
+   bf16 pass. Kernel, plain and bound ms. Then phase 6
+   under ``fused_mlp.override(mode="recompute")`` for ``pointnet2_ssg``
+   clas and ``pointnet2_msg`` seg: #11 and #13 launched once per layer
+   of every stack a step, #12 and #14 once per stack, the stream passes
+   (#6, #7, #9, #10) never; and both modes' step ms, busy share and peak
+   memory side by side.
+13. The per-kernel JSON line (each kernel's launches on its path, error
    against plain, ms, plain ms, the bound from this run's inputs and,
    where one PyTorch call computes the same function, its ms), then the
    result line.
@@ -219,19 +238,28 @@ def _bf16_ulp(t):
 
 
 def _compare(row, stage, got, want, *, exact=False, rel=None, ulp=False,
-             scale=None, fn_kernel=None, fn_plain=None, work=None,
+             scale=None, ref=None, fn_kernel=None, fn_plain=None, work=None,
              fn_library=None, record=True):
     """Hold a kernel's output against its plain version's: ``exact``;
     or within ``rel`` of the largest magnitude of ``want`` (of ``scale``
-    when given; plus one bf16 ulp of each element with ``ulp``); else the
-    eval MLP's ``MLP_TOL``. Times both functions when given, adds
-    ``work`` (bytes, seconds of operations at peak) to the row's bound,
-    and times ``fn_library``, one PyTorch call of the same function.
+    when given; plus one bf16 ulp of each element with ``ulp``); or, given
+    ``ref`` (the plain version with f32 operands), at most ``GRAD_RATIO``
+    times as far from ``ref`` as ``want`` is, in L2; else the eval MLP's
+    ``MLP_TOL``. Times both functions when given, adds ``work`` (bytes,
+    seconds of operations at peak) to the row's bound, and times
+    ``fn_library``, one PyTorch call of the same function.
     ``record=False`` prints the times without adding them to the row
     (a call off the main path)."""
     err = (got.double() - want.double()).abs()
     max_err = float(err.max()) if err.numel() else 0.0
-    if exact:
+    if ref is not None:
+        far = float((got.double() - ref.double()).norm())
+        ratio = far / max(float((want.double() - ref.double()).norm()), 1e-30)
+        check(ratio <= GRAD_RATIO,
+              f"{row['name']} {stage}: kernel {ratio:.3f} times as far from "
+              f"the f32-operand pass as plain (limit {GRAD_RATIO})")
+        stage = f"{stage} ratio {ratio:.3f}"
+    elif exact:
         check(torch.equal(got, want),
               f"{row['name']} {stage}: kernel differs from plain "
               f"(max abs err {max_err})")
@@ -506,7 +534,8 @@ def _check_mlp(row, stage, mlp, grouped, record=True):
 def _counters(names) -> dict:
     """The launch counters of the named kernels."""
     from papc_tpu_torch.ops.kernels import (ball_query, fps, gather, samlp,
-                                            samlp_train, scatter_rows)
+                                            samlp_recompute, samlp_train,
+                                            scatter_rows)
 
     every = {"fps": fps.KERNEL, "ball_query": ball_query.KERNEL,
              "group_gather": gather.KERNEL, "samlp_eval": samlp.KERNEL,
@@ -515,7 +544,11 @@ def _counters(names) -> dict:
              "samlp_linear_stats": samlp_train.LINEAR_STATS,
              "samlp_finalize_max": samlp_train.FINALIZE_MAX,
              "samlp_bwd_seed": samlp_train.BWD_SEED,
-             "samlp_bwd_layer": samlp_train.BWD_LAYER}
+             "samlp_bwd_layer": samlp_train.BWD_LAYER,
+             "samlp_rc_stats": samlp_recompute.RC_STATS,
+             "samlp_rc_final": samlp_recompute.RC_FINAL,
+             "samlp_rc_bwd_stats": samlp_recompute.RC_BWD_STATS,
+             "samlp_rc_bwd_final": samlp_recompute.RC_BWD_FINAL}
     return {n: every[n] for n in names}
 
 
@@ -529,6 +562,8 @@ SERVE_KERNELS = {  # (model, mode) -> kernels of its eval forward
 }
 STREAM = ("samlp_linear_stats", "samlp_finalize_max", "samlp_bwd_seed",
           "samlp_bwd_layer")
+RECOMPUTE = ("samlp_rc_stats", "samlp_rc_final", "samlp_rc_bwd_stats",
+             "samlp_rc_bwd_final")
 TRAIN_KERNELS = {  # (model, mode) -> kernels of train(): steps + val pass
     key: serve + (("group_scatter_add",) if "group_gather" in serve else ())
     + (("scatter_rows_add",) if key != ("pointnet2_ssg", "clas") else ())
@@ -656,24 +691,49 @@ def _dropout_masks(mode):
     return [torch.rand(*shape, generator=gen) < 0.6 for shape in shapes]
 
 
-def phase_training(tag, name, mode, smi, rows=None):
+def _sa_stacks(model) -> tuple[int, int]:
+    """(fused SA stacks, their layers) of a model: the recompute passes'
+    launches a step, #12/#14 and #11/#13."""
+    from papc_tpu_torch.nn import PointMLP
+
+    mlps = [m for m in model.modules()
+            if isinstance(m, PointMLP) and m.pool_max]
+    return len(mlps), sum(len(m.features) for m in mlps)
+
+
+def phase_training(tag, name, mode, smi, rows=None, fused="stream"):
     """The training path through its entry point (``train``, 10 steps
     on one batch and a val pass, every launch count read around it,
     #5's equal to its launches a step times the steps), then one kernel
     step against one plain step and an f32-operand step, then step ms,
-    the device's busy share and peak memory."""
+    the device's busy share and peak memory. ``fused``: the training
+    passes' mode, set by ``fused_mlp.override`` around all of it; the
+    other mode's passes must launch 0 times, and the recompute passes
+    once a step per stack (#12, #14) or per layer (#11, #13). Returns the
+    step ms, busy share and peak GB."""
+    from papc_tpu_torch.ops import fused_mlp
+
+    with fused_mlp.override(mode=fused):
+        return _training(tag, name, mode, smi, rows, fused)
+
+
+def _training(tag, name, mode, smi, rows, fused):
     from papc_tpu_torch.models import init_model
     from papc_tpu_torch.ops import fused_mlp
     from papc_tpu_torch.train import make_optimizer, train, train_step
 
-    counters = _counters(TRAIN_KERNELS[(name, mode)])
+    kernels = TRAIN_KERNELS[(name, mode)]
+    if fused == "recompute":
+        kernels = tuple(n for n in kernels if n not in STREAM) + RECOMPUTE
+    counters = _counters(kernels)
+    idle = _counters(STREAM if fused == "recompute" else RECOMPUTE)
     batch = next(iter(_loader(B, mode, seed=2)()))
     val = _loader(2 * B, mode, seed=3)
     loaders = {"train": lambda: iter([batch] * TRAIN_STEPS), "val": val}
-    print(f"{tag} train: {name} {mode} from seed-0 weights, {TRAIN_STEPS} "
-          f"steps on one batch of {B} x {N}, then a val pass over "
-          f"{val.num_samples} clouds")
-    for c in counters.values():
+    print(f"{tag} train: {name} {mode}, {fused} mode, from seed-0 weights, "
+          f"{TRAIN_STEPS} steps on one batch of {B} x {N}, then a val pass "
+          f"over {val.num_samples} clouds")
+    for c in (*counters.values(), *idle.values()):
         c.launches = 0
     t0 = time.perf_counter()
     _, history = train(name, mode, N, NUM_CLASSES, epoch_num=1,
@@ -691,11 +751,21 @@ def phase_training(tag, name, mode, smi, rows=None):
               "kernel")
         if rows is not None and n in rows:
             rows[n]["launches"] = count
-    if "scatter_rows_add" in launches:
-        want = ROW_SCATTERS[(name, mode)] * TRAIN_STEPS
-        check(launches["scatter_rows_add"] == want,
-              f"scatter_rows_add launched {launches['scatter_rows_add']} "
-              f"times in {TRAIN_STEPS} steps, want {want}")
+    for n, c in idle.items():
+        check(c.launches == 0, f"{name} {mode} training in {fused} mode "
+              f"launched the {n} kernel {c.launches} times")
+    want = {"scatter_rows_add": ROW_SCATTERS[(name, mode)] * TRAIN_STEPS}
+    if fused == "recompute":
+        stacks, layers = _sa_stacks(init_model(name, mode, NUM_CLASSES,
+                                               device="cpu").model)
+        want.update({"samlp_rc_stats": layers * TRAIN_STEPS,
+                     "samlp_rc_bwd_stats": layers * TRAIN_STEPS,
+                     "samlp_rc_final": stacks * TRAIN_STEPS,
+                     "samlp_rc_bwd_final": stacks * TRAIN_STEPS})
+    for n, count in want.items():
+        if n in launches:
+            check(launches[n] == count, f"{n} launched {launches[n]} times "
+                  f"in {TRAIN_STEPS} steps, want {count}")
     losses = history[0]["train_loss"]
     check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
           f"training losses {losses}")
@@ -723,7 +793,7 @@ def phase_training(tag, name, mode, smi, rows=None):
     loss_k, grads_k, model, opt, masks = one_step(None)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     loss_p, grads_p, model_p, opt_p, _ = one_step("plain")
-    with fused_mlp.override(operand_dtype=torch.float32):
+    with fused_mlp.override(operand_dtype=torch.float32, mode=fused):
         loss_f, grads_f, _, _, _ = one_step("plain")
     print(f"    one step from the same weights and masks: loss kernels "
           f"{loss_k:.6f}, plain {loss_p:.6f}, plain with f32 operands "
@@ -767,10 +837,11 @@ def phase_training(tag, name, mode, smi, rows=None):
     busy_ms, wall_ms = _device_busy(step_k, top=12)
     busy = (f"{100 * busy_ms / wall_ms:.1f} % ({busy_ms:.3f} of "
             f"{wall_ms:.3f} ms)" if busy_ms > 0 else "not measured")
-    print(f"    train step of {B} x {N}: kernels {step_ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms (CUDA events, median); device busy over 5 "
-          f"kernel steps (profiler) {busy}; peak device memory of the "
-          f"first kernel step {peak_gb:.2f} GB ({smi})")
+    print(f"    train step of {B} x {N}, {fused} mode: kernels "
+          f"{step_ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events, median); "
+          f"device busy over 5 kernel steps (profiler) {busy}; peak device "
+          f"memory of the first kernel step {peak_gb:.2f} GB ({smi})")
+    return {"step_ms": step_ms, "busy": busy, "peak_gb": peak_gb}
 
 
 def _capture(model, store: dict):
@@ -888,6 +959,165 @@ def phase_new_shapes(rows, t_rows):
     with torch.no_grad():
         phase_train_kernels(groups, t_rows, record=False)
     return row
+
+
+RC_ROWS = [  # name, source, TPU kernel it replaces
+    ("samlp_rc_stats", "samlp_rc_fwd.cu", "samlp.py:663"),
+    ("samlp_rc_final", "samlp_rc_fwd.cu", "samlp.py:724"),
+    ("samlp_rc_bwd_stats", "samlp_rc_bwd.cu", "samlp.py:883"),
+    ("samlp_rc_bwd_final", "samlp_rc_bwd.cu", "samlp.py:962"),
+]
+
+
+def _rc_work(m, cs, fwd, bwd, dw):
+    """Seconds at peak of a recompute pass over ``m`` rows of a stack of
+    widths ``cs`` (``cs[0]`` the input): the bf16 products of forward
+    layers ``fwd``, of the walk down through layers ``bwd`` (``da·Wᵀ``)
+    and of the dW of layers ``dw``; f32 epilogues at 4 operations an
+    element forward and 10 backward."""
+    prod = sum(2 * m * cs[j - 1] * cs[j] for j in (*fwd, *bwd, *dw))
+    elem = sum(4 * m * cs[j] for j in fwd) + sum(10 * m * cs[j - 1]
+                                                  for j in bwd)
+    return prod / BF16_OPS_PER_S + elem / F32_OPS_PER_S
+
+
+def phase_recompute_kernels(rows):
+    """#11-14 on each SSG stack's grouped input (captured from one eval
+    forward of the seed-0 model), each pass fed the plain chain's outputs
+    (BN vectors from the plain stats, the plain argmax, gradient means
+    from the plain bwd stats), bwd final without dg on SA1 (data), as on
+    the training path."""
+    from papc_tpu_torch.models import init_model
+    from papc_tpu_torch.nn.layers import BN_EPS
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+    from papc_tpu_torch.ops.kernels import samlp_train as st
+
+    print("[12 recompute kernels] kernel vs plain, pass by pass, at the SSG "
+          f"shapes (B={B}, N={N})")
+    model = init_model("pointnet2_ssg", "clas", NUM_CLASSES, seed=0,
+                       device="cuda").model
+    store = {}
+    handles = _capture(model, store)
+    clouds = torch.from_numpy(_loader(B, "clas", seed=0).data).cuda()
+    with torch.inference_mode():
+        model(clouds)
+    for h in handles:
+        h.remove()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for i in range(3):
+        mlp = model.get_submodule(f"SetAbstraction_{i}.PointMLP_0")
+        grouped = store[f"SetAbstraction_{i}.PointMLP_0"][0][0]
+        b, s, k, c0 = grouped.shape
+        m, n = b * s * k, len(mlp.features)
+        cs = (c0,) + tuple(mlp.features)
+        g2 = grouped.reshape(m, c0).to(torch.bfloat16)
+        layers = [(d.weight.t().contiguous(), d.bias.float(), bn.weight,
+                   bn.bias) for d, bn in mlp.layers()]
+        ws, bs = [w for w, *_ in layers], [bias for _, bias, *_ in layers]
+        packed = [st.pack_weight(w) for w in ws]
+        stage = f"SA{i + 1} {m}x{c0}->" + "->".join(map(str, mlp.features))
+        params = _nbytes(g2, *ws, *bs)
+        vecs = []
+        for upto in range(1, n + 1):
+            def run(impl, upto=upto):
+                return rc.rc_stats(g2, vecs, ws, bs, upto=upto, impl=impl,
+                                   w_packed=None if impl else packed)
+
+            want = run("plain")
+            _compare(rows["samlp_rc_stats"], f"{stage} L{upto}", run(None),
+                     want, rel=TRAIN_TOL, fn_kernel=lambda: run(None),
+                     fn_plain=lambda: run("plain"),
+                     work=(params + _nbytes(*vecs, want),
+                           _rc_work(m, cs, range(1, upto + 1), (), ())))
+            gamma, beta = layers[upto - 1][2:]
+            vecs.append(st.bn_vectors(want, gamma, beta, m, BN_EPS)[0])
+
+        def final(impl):
+            return rc.rc_final(g2, vecs, ws, bs, k=k, impl=impl,
+                               w_packed=None if impl else packed)
+
+        (out, amax), (pout, pamax) = final(None), final("plain")
+        a_list, _ = rc.chain_plain(g2, vecs, ws, bs, n)
+        h = torch.clamp_min(a_list[-1] * vecs[-1][0] + vecs[-1][1], 0.0)
+        top2 = h.reshape(m // k, k, -1).topk(2, dim=1).values
+        del h
+        bound = TRAIN_TOL * float(pout.abs().max()) + _bf16_ulp(top2[:, 0])
+        clear = top2[:, 0] - top2[:, 1] > 2 * bound
+        check(bool((amax == pamax)[clear].all()),
+              f"samlp_rc_final {stage}: argmax differs from plain where "
+              "the plain margin is clear")
+        print(f"    samlp_rc_final     {stage} amax equal on "
+              f"{int(clear.sum())} of {clear.numel()} clear columns")
+        _compare(rows["samlp_rc_final"], f"{stage} k={k} max", out, pout,
+                 rel=TRAIN_TOL, ulp=True, fn_kernel=lambda: final(None),
+                 fn_plain=lambda: final("plain"),
+                 work=(params + _nbytes(*vecs, out, amax),
+                       _rc_work(m, cs, range(1, n + 1), (), ())))
+        dout = torch.randn(pout.shape, generator=gen, device="cuda")
+        mus = [None] * n
+        for level in range(n, 0, -1):
+            def bstats(impl, odt=torch.bfloat16, level=level):
+                return rc.rc_bwd_stats(g2, dout, pamax, vecs, ws, bs, mus,
+                                       level=level, k=k, impl=impl,
+                                       operand_dtype=odt,
+                                       w_packed=None if impl else packed)
+
+            want = bstats("plain")
+            _compare(rows["samlp_rc_bwd_stats"], f"{stage} level {level}",
+                     bstats(None), want, ref=bstats("plain", torch.float32),
+                     fn_kernel=lambda: bstats(None),
+                     fn_plain=lambda: bstats("plain"),
+                     work=(params + _nbytes(dout, pamax, *vecs, want,
+                                            *mus[level:]),
+                           _rc_work(m, cs, range(1, n + 1),
+                                    range(level + 1, n + 1), ())))
+            mus[level - 1] = want / m
+        need_dg = i > 0  # SA1's input is data
+
+        def bfinal(impl, odt=torch.bfloat16):
+            return rc.rc_bwd_final(g2, dout, pamax, vecs, ws, bs, mus, k=k,
+                                   impl=impl, need_dg=need_dg,
+                                   operand_dtype=odt,
+                                   w_packed=None if impl else packed)
+
+        del a_list
+        got, want = bfinal(None), bfinal("plain")
+        ref = bfinal("plain", torch.float32)
+        row = rows["samlp_rc_bwd_final"]
+        if need_dg:
+            _compare(row, f"{stage} dg", got[0], want[0], ref=ref[0])
+        for j in range(n - 1, -1, -1):
+            _compare(row, f"{stage} L{j + 1} db", got[2][j], want[2][j],
+                     ref=ref[2][j])
+            if j:
+                _compare(row, f"{stage} L{j + 1} dW", got[1][j], want[1][j],
+                         ref=ref[1][j])
+        _compare(row, f"{stage} L1 dW", got[1][0], want[1][0], ref=ref[1][0],
+                 fn_kernel=lambda: bfinal(None),
+                 fn_plain=lambda: bfinal("plain"),
+                 work=(params + _nbytes(dout, pamax, *vecs, *mus, *got[1],
+                                        *got[2], got[0]),
+                       _rc_work(m, cs, range(1, n + 1),
+                                range(1 if need_dg else 2, n + 1),
+                                range(1, n + 1))))
+    del model, store
+
+
+def phase_recompute(smi, rows, stream):
+    """Phase 12: #11-14 against plain, then ``train`` in recompute mode
+    for SSG clas and MSG seg, and both modes' step numbers side by side
+    (``stream``: phase 6's and 11's, from this same call)."""
+    with torch.no_grad():
+        phase_recompute_kernels(rows)
+    for key, tag in [(("pointnet2_ssg", "clas"), "[12 recompute SSG clas]"),
+                     (("pointnet2_msg", "seg"), "[12 recompute MSG seg]")]:
+        got = phase_training(tag, *key, smi, rows if key[1] == "clas"
+                             else None, fused="recompute")
+        was = stream[key]
+        print(f"    {key[0]} {key[1]} step, stream vs recompute: "
+              f"{was['step_ms']:.3f} vs {got['step_ms']:.3f} ms; busy "
+              f"{was['busy']} vs {got['busy']}; peak {was['peak_gb']:.2f} "
+              f"vs {got['peak_gb']:.2f} GB ({smi})")
 
 
 def _detect_setup():
@@ -1197,7 +1427,8 @@ def main() -> int:
         phase_train_kernels(groups, t_rows)
     del groups, model
     phase_serving("[5 slice]", "pointnet2_ssg", "clas", smi, rows)
-    phase_training("[6 training]", "pointnet2_ssg", "clas", smi, t_rows)
+    stream = {("pointnet2_ssg", "clas"): phase_training(
+        "[6 training]", "pointnet2_ssg", "clas", smi, t_rows)}
     det = _detect_setup()
     det_rows = phase_nms_kernels(det)
     phase_detect_slice(det, det_rows, smi)
@@ -1206,12 +1437,17 @@ def main() -> int:
     phase_serving("[10 MSG clas serving]", "pointnet2_msg", "clas", smi)
     phase_training("[10 MSG clas training]", "pointnet2_msg", "clas", smi)
     phase_serving("[11 seg serving]", "pointnet2_msg", "seg", smi)
-    phase_training("[11 seg training]", "pointnet2_msg", "seg", smi,
-                   {"scatter_rows_add": scatter_row})
+    stream[("pointnet2_msg", "seg")] = phase_training(
+        "[11 seg training]", "pointnet2_msg", "seg", smi,
+        {"scatter_rows_add": scatter_row})
     phase_serving("[11 seg serving]", "pointnet2_ssg", "seg", smi)
     phase_training("[11 seg training]", "pointnet2_ssg", "seg", smi)
+    rc_rows = {name: _kernel_row(name, f"papc_tpu_torch/csrc/{src}",
+                                 f"papc_tpu/ops/pallas/{tpu}")
+               for name, src, tpu in RC_ROWS}
+    phase_recompute(smi, rc_rows, stream)
     all_rows = (list(rows.values()) + list(t_rows.values()) + [scatter_row]
-                + list(det_rows.values()))
+                + list(det_rows.values()) + list(rc_rows.values()))
     _finish_bounds(all_rows)
     print(json.dumps({"kernels": all_rows}))
     print(json.dumps({"ok": True, "device": {

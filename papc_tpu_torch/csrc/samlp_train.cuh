@@ -1,16 +1,18 @@
 // Shared pieces of the training-mode set-abstraction kernels
-// (samlp_linear_stats.cu, samlp_finalize_seed.cu, samlp_bwd_layer.cu).
+// (samlp_linear_stats.cu, samlp_finalize_seed.cu, samlp_bwd_layer.cu, and
+// the recompute passes through samlp_recompute.cuh).
 //
-// rows_times_matrix: a tile of 64 * row_blocks rows (bf16, in shared or
-// device memory) times a bf16 matrix held in device memory, on tensor
+// rows_times_matrix: a tile of 16 * RF * row_blocks rows (bf16, in shared
+// or device memory) times a bf16 matrix held in device memory, on tensor
 // cores (nvcuda::wmma m16n16k16, f32 accumulators), as in samlp_eval.cu:
-// each warp takes units of 64 rows x 16 columns and loads every weight
-// fragment once for four row fragments. The epilogue is called once per
-// element with (row in tile, column, f32 product) and returns two values
-// to add to that column's sums, which are kept per 64-row unit in shared
-// memory. A unit always belongs to the same warp (unit u -> warp u % 8),
-// so every column sum is formed in a fixed order, and repeated runs give
-// the same bits.
+// each warp takes units of 16 * RF rows x 16 columns (RF = 4 unless the
+// tile is smaller) and loads every weight fragment once for RF row
+// fragments. The epilogue is called once per element with (row in tile,
+// column, f32 product) and returns two values, the first kSums of which
+// are added to that column's sums, kept per unit row in shared memory. A
+// unit always belongs to the same warp (unit u -> warp u % 8), so every
+// column sum is formed in a fixed order, and repeated runs give the same
+// bits.
 //
 // reduce_partials: out[r, c] = sum over i < n of part[i, r, c], one thread
 // per output, in order of i: the fixed-order second stage of every
@@ -43,15 +45,17 @@ __device__ __forceinline__ float affine(float a, float scale, float shift) {
 }
 
 // B is row-major [kdim, ldb] (kTransB false) or, for kTransB, the
-// transpose of a row-major [ncols, ldb] matrix. colsum: [row_blocks][2]
-// [ncols] f32 in shared memory, or null when the epilogue sums nothing.
-template <bool kTransB, typename Epilogue>
+// transpose of a row-major [ncols, ldb] matrix. colsum: [row_blocks]
+// [kSums][ncols] f32 in shared memory, or null when the epilogue sums
+// nothing.
+template <bool kTransB, int RF = kRowFrags, int kSums = 2, typename Epilogue>
 __device__ void rows_times_matrix(const __nv_bfloat16* a, int lda, int kdim,
                                   const __nv_bfloat16* b, int ldb, int ncols,
                                   int row_blocks, float* scratch,
                                   float* colsum, Epilogue epi) {
   using BLayout = typename std::conditional<kTransB, wmma::col_major,
                                             wmma::row_major>::type;
+  constexpr int kRows = 16 * RF;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int col_tiles = ncols / 16;
@@ -60,9 +64,9 @@ __device__ void rows_times_matrix(const __nv_bfloat16* a, int lda, int kdim,
   for (int u = warp; u < units; u += kWarps) {
     const int ct = u % col_tiles;
     const int rb = u / col_tiles;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kRowFrags];
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RF];
 #pragma unroll
-    for (int f = 0; f < kRowFrags; ++f) wmma::fill_fragment(acc[f], 0.f);
+    for (int f = 0; f < RF; ++f) wmma::fill_fragment(acc[f], 0.f);
     for (int kk = 0; kk < kdim; kk += 16) {
       wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> bf;
       const __nv_bfloat16* bp =
@@ -70,24 +74,23 @@ __device__ void rows_times_matrix(const __nv_bfloat16* a, int lda, int kdim,
                   : b + static_cast<size_t>(kk) * ldb + ct * 16;
       wmma::load_matrix_sync(bf, bp, ldb);
 #pragma unroll
-      for (int f = 0; f < kRowFrags; ++f) {
+      for (int f = 0; f < RF; ++f) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                        wmma::row_major>
             af;
         wmma::load_matrix_sync(
-            af, a + static_cast<size_t>(rb * kUnitRows + f * 16) * lda + kk,
-            lda);
+            af, a + static_cast<size_t>(rb * kRows + f * 16) * lda + kk, lda);
         wmma::mma_sync(acc[f], af, bf, acc[f]);
       }
     }
     // lane l always sees column l % 16 of the fragment (rows l / 16 + 2i)
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int f = 0; f < kRowFrags; ++f) {
+    for (int f = 0; f < RF; ++f) {
       wmma::store_matrix_sync(my, acc[f], 16, wmma::mem_row_major);
       __syncwarp();
       for (int e = lane; e < 256; e += 32) {
-        const float2 t = epi(rb * kUnitRows + f * 16 + (e >> 4),
+        const float2 t = epi(rb * kRows + f * 16 + (e >> 4),
                              ct * 16 + (e & 15), my[e]);
         s1 += t.x;
         s2 += t.y;
@@ -98,8 +101,8 @@ __device__ void rows_times_matrix(const __nv_bfloat16* a, int lda, int kdim,
       s1 += __shfl_down_sync(0xffffffffu, s1, 16);
       s2 += __shfl_down_sync(0xffffffffu, s2, 16);
       if (lane < 16) {
-        colsum[(rb * 2) * ncols + ct * 16 + lane] += s1;
-        colsum[(rb * 2 + 1) * ncols + ct * 16 + lane] += s2;
+        colsum[(rb * kSums) * ncols + ct * 16 + lane] += s1;
+        if (kSums == 2) colsum[(rb * 2 + 1) * ncols + ct * 16 + lane] += s2;
       }
     }
   }

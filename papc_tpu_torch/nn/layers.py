@@ -110,8 +110,9 @@ class PointMLP(nn.Module):
     ``pool_max=True``: the input is grouped ``[B, S, K, C]`` and the output
     the max over K, ``[B, S, features[-1]]``, computed by the fused passes
     (``ops/fused_mlp.py``: in eval the samlp kernel, in training the four
-    stream-mode kernels on the card), which also update the running
-    statistics in training. Otherwise the plain per-layer ops,
+    kernels of the active ``fused_mlp.override``'s mode on the card, the
+    stream passes unless it says ``mode="recompute"``), which also update
+    the running statistics in training. Otherwise the plain per-layer ops,
     ``[..., C]`` → ``[..., features[-1]]``.
     """
 

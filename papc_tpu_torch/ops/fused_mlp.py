@@ -1,38 +1,56 @@
 """Fused grouped Dense→BN→ReLU stack + max over K.
 
-Counterpart of ``papc_tpu/ops/fused_mlp.py::fused_mlp_max``, stream mode.
+Counterpart of ``papc_tpu/ops/fused_mlp.py::fused_mlp_max``, in its
+``"stream"`` (the default) and ``"recompute"`` training modes.
 
 - Eval: BatchNorm with running statistics is a constant affine, folded
   into ``(scale, shift) = (γ·rsqrt(var + eps), β - mean·scale)``, and the
   whole stack plus the max runs as one pass (``ops/kernels/samlp.py``,
   whose ``eval_mlp_max_plain`` is the twin of the JAX ``_jnp_eval_mlp_max``).
-- Train: one ``linear_stats`` pass per layer and ``finalize_max`` forward;
-  ``bwd_seed`` and one ``bwd_layer`` pass per layer backward
-  (``ops/kernels/samlp_train.py``), behind one ``torch.autograd.Function``,
-  the counterpart of ``_make_core``'s custom VJP. Its gradient semantics
-  are the JAX one's: the analytic BatchNorm backward with batch
-  statistics as functions of the input, the max's cotangent routed to the
-  FIRST argmax (``torch.amax``'s autograd would split ties), no gradient
-  through the batch mean and variance, which only feed the running
-  update (flax's ``0.9·running + 0.1·batch``, biased variance).
+  The mode does not change it.
+- Train, stream mode: one ``linear_stats`` pass per layer and
+  ``finalize_max`` forward; ``bwd_seed`` and one ``bwd_layer`` pass per
+  layer backward (``ops/kernels/samlp_train.py``), behind one
+  ``torch.autograd.Function``, the counterpart of ``_make_core``'s custom
+  VJP. Pre-activations are stored in the operand dtype between passes.
+- Train, recompute mode: every pass re-derives the chain from the block
+  input (``ops/kernels/samlp_recompute.py``): one stats pass per layer and
+  a final max forward, one bwd-stats pass per layer and a bwd-final pass
+  backward. Nothing of ``M`` rows but the block input is kept for the
+  backward, and no pre-activation is rounded.
+
+Both training modes have the JAX one's gradient semantics: the analytic
+BatchNorm backward with batch statistics as functions of the input, the
+max's cotangent routed to the FIRST argmax (``torch.amax``'s autograd
+would split ties), no gradient through the batch mean and variance, which
+only feed the running update (flax's ``0.9·running + 0.1·batch``, biased
+variance).
 """
 
 from __future__ import annotations
 
 import torch
 
-from papc_tpu_torch.ops.kernels import samlp, samlp_train, use_kernel
+from papc_tpu_torch.ops.kernels import (samlp, samlp_recompute,
+                                        samlp_train, use_kernel)
 
-# ``with override(impl="plain", operand_dtype=torch.float32)`` changes the
-# defaults of fused_mlp_max for a test, as the JAX package's
-# ``fused_mlp.override`` does. Arguments passed explicitly win.
-_OVERRIDE = {"impl": None, "operand_dtype": torch.bfloat16}
+MODES = ("stream", "recompute", "recompute1")
+
+# ``with override(impl="plain", operand_dtype=torch.float32,
+# mode="recompute")`` changes the defaults of fused_mlp_max for a test or
+# a run, as the JAX package's ``fused_mlp.override`` does. Arguments passed
+# explicitly win. Entering an override sets EVERY key, to the defaults
+# where it is not given: an inner ``override(impl="plain")`` puts an outer
+# ``mode="recompute"`` back to stream, so give all keys in one call.
+_OVERRIDE = {"impl": None, "operand_dtype": torch.bfloat16, "mode": "stream"}
 
 
 class override:
     def __init__(self, impl: str | None = None,
-                 operand_dtype: torch.dtype = torch.bfloat16):
-        self._new = {"impl": impl, "operand_dtype": operand_dtype}
+                 operand_dtype: torch.dtype = torch.bfloat16,
+                 mode: str = "stream"):
+        self._new = {"impl": impl, "operand_dtype": operand_dtype,
+                     "mode": mode}
 
     def __enter__(self):
         self._old = dict(_OVERRIDE)
@@ -116,23 +134,109 @@ class _FusedTrain(torch.autograd.Function):
         return (dy, None, None, None, None, *flat)
 
 
+class _FusedRecompute(torch.autograd.Function):
+    """Recompute-mode training forward and backward, the counterpart of
+    ``_make_core(mode="recompute")``: the same arguments and outputs as
+    :class:`_FusedTrain`.
+
+    Forward: one stats pass per layer (layer ``l`` re-derives ``a_1 ..
+    a_l`` from ``g2`` with the ``l-1`` BN affines known so far), then the
+    final max pass. Backward: one bwd-stats pass per layer from the top
+    down (each needs the gradient means ``mus`` of the layers above it),
+    then the bwd-final pass for ``dW``, ``db`` and, when
+    ``needs_input_grad[0]``, the block input's gradient. Saved for the
+    backward: ``g2``, the argmax, the ``[4, C]`` BN vectors, the weights
+    and biases and, on the kernel path, the bf16 weights packed once in the
+    forward; no tensor of ``M`` rows but ``g2`` (as
+    ``papc_tpu/ops/fused_mlp.py:727``).
+    """
+
+    @staticmethod
+    def forward(ctx, x, k, eps, impl, operand_dtype, *flat):
+        params = [flat[i:i + 4] for i in range(0, len(flat), 4)]
+        n, m = len(params), x.shape[0]
+        kernel = use_kernel(x, impl)
+        g2 = x.to(operand_dtype)
+        ws = [p[0] for p in params]
+        bs = [p[1] for p in params]
+        packed = [samlp_train.pack_weight(w) for w in ws] if kernel else None
+        opts = {"impl": impl, "operand_dtype": operand_dtype,
+                "w_packed": packed}
+        vecs, means, vars_ = [], [], []
+        for upto, (_, _, gamma, beta) in enumerate(params, start=1):
+            sums = samlp_recompute.rc_stats(g2, vecs, ws, bs, upto=upto,
+                                            **opts)
+            vec, (mean, var) = samlp_train.bn_vectors(sums, gamma, beta, m,
+                                                      eps)
+            vecs.append(vec)
+            means.append(mean)
+            vars_.append(var)
+        out, amax = samlp_recompute.rc_final(g2, vecs, ws, bs, k=k, **opts)
+        ctx.save_for_backward(g2, amax, *vecs, *ws, *bs,
+                              *(packed if kernel else ()))
+        ctx.n, ctx.k, ctx.impl = n, k, impl
+        ctx.operand_dtype, ctx.kernel = operand_dtype, kernel
+        ctx.mark_non_differentiable(*means, *vars_)
+        return (out, *means, *vars_)
+
+    @staticmethod
+    def backward(ctx, dout, *_stats):
+        n, k = ctx.n, ctx.k
+        g2, amax, *rest = ctx.saved_tensors
+        vecs, ws, bs = rest[:n], rest[n:2 * n], rest[2 * n:3 * n]
+        opts = {"impl": ctx.impl, "operand_dtype": ctx.operand_dtype,
+                "w_packed": list(rest[3 * n:]) if ctx.kernel else None}
+        m = g2.shape[0]
+        mus, s_list = [None] * n, [None] * n
+        for level in range(n, 0, -1):
+            s = samlp_recompute.rc_bwd_stats(g2, dout, amax, vecs, ws, bs,
+                                             mus, level=level, k=k, **opts)
+            s_list[level - 1] = s
+            mus[level - 1] = s / m
+        dg, dws, dbs = samlp_recompute.rc_bwd_final(
+            g2, dout, amax, vecs, ws, bs, mus, k=k,
+            need_dg=ctx.needs_input_grad[0], **opts)
+        flat = [g for j in range(n)
+                for g in (dws[j], dbs[j], s_list[j][1], s_list[j][0])]
+        return (dg, None, None, None, None, *flat)
+
+
+_TRAIN = {"stream": _FusedTrain, "recompute": _FusedRecompute}
+
+
+def _training_function(mode: str):
+    """The autograd Function of a training mode of ``MODES``;
+    ``recompute1`` (the single-launch passes) is not ported yet and
+    raises: it does not fall back to another mode."""
+    if mode not in _TRAIN:
+        raise NotImplementedError(
+            f"fused_mlp mode {mode!r} (samlp_single.py's single-launch "
+            "recompute passes, kernels #15-18) is not ported yet; see "
+            "ROADMAP.md, Queue 2")
+    return _TRAIN[mode]
+
+
 def fused_mlp_max(grouped: torch.Tensor, params, running, *,
                   train: bool = False, momentum: float = 0.9,
                   eps: float = 1e-5, impl: str | None = None,
-                  operand_dtype: torch.dtype | None = None):
+                  operand_dtype: torch.dtype | None = None,
+                  mode: str | None = None):
     """Fused Dense→BN→ReLU stack + max over the K axis.
 
     Args:
       grouped: ``[B, S, K, C0]`` neighbourhoods.
       params: per layer ``(W [Cin, Cout], b, gamma, beta)``.
       running: per layer ``(mean, var)`` running statistics.
-      train: batch statistics and a differentiable result (the stream
-        passes), else the running statistics (the fused eval pass).
+      train: batch statistics and a differentiable result (the passes
+        of ``mode``), else the running statistics (the fused eval pass).
       momentum: flax's: ``running ← momentum·running + (1-momentum)·batch``.
       impl: ``None`` (kernel on CUDA, plain on the CPU) or ``"plain"``;
         defaults to the active :class:`override`.
       operand_dtype: the matrix products' operand type, bf16 unless an
         :class:`override` or the caller says f32 (plain version only).
+      mode: the training passes, ``"stream"`` or ``"recompute"``;
+        defaults to the active :class:`override`'s (``"stream"``).
+        ``"recompute1"`` raises ``NotImplementedError`` in training.
 
     Returns:
       eval: ``[B, S, C_last]`` f32. train: ``(out [B, S, C_last] f32,
@@ -142,12 +246,15 @@ def fused_mlp_max(grouped: torch.Tensor, params, running, *,
     impl = _OVERRIDE["impl"] if impl is None else impl
     if operand_dtype is None:
         operand_dtype = _OVERRIDE["operand_dtype"]
+    mode = _OVERRIDE["mode"] if mode is None else mode
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     b, s, k, c0 = grouped.shape
     if train:
         if not params:
             raise ValueError("fused_mlp_max needs at least one layer")
         flat = [t for p in params for t in p]
-        out2, *stats = _FusedTrain.apply(
+        out2, *stats = _training_function(mode).apply(
             grouped.reshape(b * s * k, c0).float(), k, float(eps), impl,
             operand_dtype, *flat)
         n = len(params)

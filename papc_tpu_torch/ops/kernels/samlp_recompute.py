@@ -1,0 +1,394 @@
+"""Recompute-mode set-abstraction training passes: the CUDA kernels and
+their plain PyTorch versions.
+
+Counterpart of the recompute passes of ``papc_tpu/ops/pallas/samlp.py``
+(``recompute_stats``, ``recompute_final_max``, ``recompute_bwd_stats``,
+``recompute_bwd_final``) and of their jnp twins in
+``papc_tpu/ops/fused_mlp.py`` (``_jnp_chain``, ``_jnp_rc_stats``,
+``_jnp_rc_final``, ``_jnp_chain_bwd``, ``_jnp_rc_bwd_stats``,
+``_jnp_rc_bwd_final``), which the plain versions here mirror op for op.
+``ops/fused_mlp.py`` chains them into the training forward and backward of
+one Dense→BN→ReLU stack + max when the mode is ``"recompute"``.
+
+Numeric contract, kept from the TPU kernels and unlike stream mode: every
+pass re-derives the layer chain from ``g2`` (the block input in the operand
+dtype) and keeps it in f32; only the operands of a product are rounded to
+``operand_dtype`` (bf16 on the card; f32 or float64 allowed for the plain
+versions, as the twins' ``sdtype``). No pre-activation is ever stored, so
+the backward saves only ``g2``, the ``[4, C]`` BN vectors and the argmax.
+
+Kernels (``csrc/``): ``samlp_rc_fwd.cu`` (stats, final max) and
+``samlp_rc_bwd.cu`` (bwd stats, bwd final), on ``samlp_recompute.cuh``.
+Each sum is reduced in a fixed order, so repeated runs give the same bits.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from papc_tpu_torch._build import Kernel, ptr, stream_of
+from papc_tpu_torch.ops.kernels import check, use_kernel
+from papc_tpu_torch.ops.kernels.samlp_train import (_f32, _kernel_dtype, _op,
+                                                    _pad, _smem_limit,
+                                                    pack_weight)
+
+P, I = ctypes.c_void_p, ctypes.c_int
+RC_STATS = Kernel("papc_samlp_rc_stats",
+                  [P, I, I, I, I, P, P, P, P, I, I, P, P, P])
+RC_FINAL = Kernel("papc_samlp_rc_final",
+                  [P, I, I, I, I, P, P, P, P, I, I, P, P, P, P])
+RC_BWD_STATS = Kernel("papc_samlp_rc_bwd_stats",
+                      [P, I, I, I, I, I, P, P, P, P, P, P, P, I, I, P, P, P])
+RC_BWD_FINAL = Kernel("papc_samlp_rc_bwd_final",
+                      [P, I, I, I, I, P, P, P, P, P, P, P, I, I, P, P, P, P,
+                       P, P])
+KERNELS = (RC_STATS, RC_FINAL, RC_BWD_STATS, RC_BWD_FINAL)
+
+MAX_LAYERS = 4
+PASSES = ("stats", "final", "bwd_stats", "bwd_final")
+_TILES = (128, 64, 32, 16)  # rows per tile, largest that fits first
+_SKEW = 8  # bf16 elements of padding per shared-memory row
+_WARPS = 8
+_SM_SMEM = 233472  # shared memory of one H100 SM, for blocks per SM
+_MAX_PER_SM = 4
+
+
+# ------------------------------------------------------- plain versions
+
+def chain_plain(g2, vecs, ws, bs, upto, *, operand_dtype=torch.bfloat16):
+    """``a_1 .. a_upto`` and ``h_1 .. h_{upto-1}`` re-derived from ``g2``
+    with the known BN affines ``vecs[i]`` (rows scale, shift)."""
+    h = _f32(g2)
+    a_list, h_list = [], []
+    for i in range(upto):
+        a = _op(h, operand_dtype) @ _op(ws[i], operand_dtype) + _f32(bs[i])
+        a_list.append(a)
+        if i < upto - 1:
+            h = torch.clamp_min(a * vecs[i][0] + vecs[i][1], 0.0)
+            h_list.append(h)
+    return a_list, h_list
+
+
+def rc_stats_plain(g2, vecs, ws, bs, *, upto: int,
+                   operand_dtype=torch.bfloat16):
+    """Layer ``upto``'s ``(Σa, Σa²)`` ``[2, C]`` of the f32 ``a``."""
+    a = chain_plain(g2, vecs, ws, bs, upto, operand_dtype=operand_dtype)[0][-1]
+    return torch.stack([a.sum(0), (a * a).sum(0)])
+
+
+def rc_final_plain(g2, vecs, ws, bs, *, k: int, operand_dtype=torch.bfloat16):
+    """The whole chain, the last BN+ReLU, the max over each group of ``k``
+    rows and the first row attaining it: ``(out [M/k, C] f32, amax i32)``."""
+    a_list, _ = chain_plain(g2, vecs, ws, bs, len(ws),
+                            operand_dtype=operand_dtype)
+    h = torch.clamp_min(a_list[-1] * vecs[-1][0] + vecs[-1][1], 0.0)
+    m, c = h.shape
+    h3 = h.reshape(m // k, k, c)
+    mx = h3.amax(dim=1)
+    kio = torch.arange(k, dtype=torch.int32, device=h.device)[None, :, None]
+    amax = torch.where(h3 == mx[:, None, :], kio, k).amin(dim=1)
+    return mx, amax.int()
+
+
+def chain_bwd_plain(a_list, dout, amax, vecs, ws, mus, *, k: int, level: int,
+                    operand_dtype=torch.bfloat16, need_dg: bool = True):
+    """Walk the max's cotangent down from layer L to ``level``: ``dout``
+    at the first argmax through the last ReLU gate, then per layer
+    ``da = scale·((dy − mu[0]) − x̂·mu[1])``, ``dhp = op(da)·op(W)ᵀ`` and
+    the previous gate. Returns ``(dy at level, {j: da_j})``; at level 0
+    ``dy`` is the block input's gradient (``None`` without ``need_dg``)."""
+    n = len(ws)
+    a_top = a_list[n - 1]
+    m, c = a_top.shape
+    o = a_top * vecs[n - 1][0] + vecs[n - 1][1]
+    kio = torch.arange(k, dtype=torch.int32, device=a_top.device)[None, :,
+                                                                    None]
+    dh = torch.where(kio == amax[:, None, :], _f32(dout)[:, None, :],
+                     0.0).reshape(m, c)
+    dy = torch.where(o > 0, dh, 0.0)
+    da_map = {}
+    for j in range(n, level, -1):
+        vj = vecs[j - 1]
+        xhat = (a_list[j - 1] - vj[2]) * vj[3]
+        da = vj[0] * (dy - mus[j - 1][0] - xhat * mus[j - 1][1])
+        da_map[j] = da
+        if j == 1 and not need_dg:
+            return None, da_map
+        dhp = _op(da, operand_dtype) @ _op(ws[j - 1], operand_dtype).t()
+        if j > 1:
+            vp = vecs[j - 2]
+            dy = torch.where(a_list[j - 2] * vp[0] + vp[1] > 0, dhp, 0.0)
+        else:
+            dy = dhp
+    return dy, da_map
+
+
+def rc_bwd_stats_plain(g2, dout, amax, vecs, ws, bs, mus, *, level: int,
+                       k: int, operand_dtype=torch.bfloat16):
+    """Layer ``level``'s ``(Σdy, Σdy·x̂)`` ``[2, C]``; ``vecs`` ``[4, C]``,
+    ``mus[j]`` ``[2, C]`` for the layers above ``level``."""
+    a_list, _ = chain_plain(g2, vecs, ws, bs, len(ws),
+                            operand_dtype=operand_dtype)
+    dy, _ = chain_bwd_plain(a_list, dout, amax, vecs, ws, mus, k=k,
+                            level=level, operand_dtype=operand_dtype)
+    vl = vecs[level - 1]
+    xhat = (a_list[level - 1] - vl[2]) * vl[3]
+    return torch.stack([dy.sum(0), (dy * xhat).sum(0)])
+
+
+def rc_bwd_final_plain(g2, dout, amax, vecs, ws, bs, mus, *, k: int,
+                       operand_dtype=torch.bfloat16, need_dg: bool = True):
+    """``(dg [M, C0] | None, [dW_j [Cin, Cout]], [db_j [Cout]])``, all f32:
+    ``dW_j = op(h_{j-1})ᵀ·op(da_j)``, ``db_j = Σda_j``."""
+    a_list, h_list = chain_plain(g2, vecs, ws, bs, len(ws),
+                                 operand_dtype=operand_dtype)
+    dg, da_map = chain_bwd_plain(a_list, dout, amax, vecs, ws, mus, k=k,
+                                 level=0, operand_dtype=operand_dtype,
+                                 need_dg=need_dg)
+    h_prev = [_f32(g2)] + h_list
+    dws = [_op(h_prev[j - 1], operand_dtype).t() @ _op(da_map[j],
+                                                        operand_dtype)
+           for j in range(1, len(ws) + 1)]
+    dbs = [da_map[j].sum(0) for j in range(1, len(ws) + 1)]
+    return dg, dws, dbs
+
+
+# ------------------------------------------------------------ the plans
+
+def _r128(nbytes: int) -> int:
+    return -(-nbytes // 128) * 128
+
+
+def smem_bytes(kind: str, tm: int, k: int, c0: int, widths, *,
+               upto: int | None = None, level: int | None = None) -> int:
+    """Dynamic shared memory of one block of a pass at ``tm`` rows a
+    tile (``samlp_recompute.cuh::make_layout``, byte for byte)."""
+    p = [_pad(c0)] + [_pad(c) for c in widths]
+    n = upto if kind == "stats" else len(widths)
+    rb = max(1, tm // 64)
+    if kind in ("stats", "final"):
+        ld_x = max(p[i] + _SKEW for i in range(0, n, 2))
+        ld_y = max([p[i] + _SKEW for i in range(1, n, 2)], default=0)
+        total = _r128(tm * ld_x * 2) + _r128(tm * ld_y * 2)
+    else:  # h_0 .. h_{n-1}, da_n (bf16); a_1 .. a_{n-1} (f32)
+        total = sum(_r128(tm * (p[i] + _SKEW) * 2) for i in range(n + 1))
+        total += sum(_r128(tm * p[j] * 4) for j in range(1, n))
+    total += _WARPS * 256 * 4
+    if kind == "stats":
+        return total + rb * 2 * p[n] * 4
+    if kind == "final":  # pooled keys of the groups a tile touches
+        return total + (-(-tm // k) + 1) * p[n] * 8
+    if kind == "bwd_stats":
+        return total + rb * 2 * p[level] * 4
+    return total + rb * sum(p[1:]) * 4
+
+
+def plan(kind: str, m: int, k: int, c0: int, widths, limit: int, *,
+         upto: int | None = None, level: int | None = None,
+         sms: int = 132) -> dict:
+    """Rows a tile (the largest of 128, 64, 32, 16 whose shared memory
+    fits ``limit``), the grid (up to ``_MAX_PER_SM`` blocks an SM, as
+    shared memory allows; each block walks the tiles ``b, b + blocks,
+    ...``) and the scratch sizes of one pass."""
+    if kind not in PASSES:
+        raise ValueError(f"pass must be one of {PASSES}, got {kind!r}")
+    if not 1 <= len(widths) <= MAX_LAYERS:
+        raise ValueError(f"the kernels take 1..{MAX_LAYERS} layers, "
+                         f"got {len(widths)}")
+    for tm in _TILES:
+        smem = smem_bytes(kind, tm, k, c0, widths, upto=upto, level=level)
+        if smem <= limit:
+            break
+    else:
+        raise ValueError(
+            f"recompute {kind} needs {smem} B of shared memory at 16 rows "
+            f"for c0={c0} widths={list(widths)}; the card allows {limit}")
+    tiles = -(-m // tm)
+    per_sm = max(1, min(_MAX_PER_SM, _SM_SMEM // (smem + 1024)))
+    p = [_pad(c0)] + [_pad(c) for c in widths]
+    blocks = min(tiles, sms * per_sm)
+    return {"tm": tm, "smem": smem, "tiles": tiles, "blocks": blocks,
+            "db_part": blocks * sum(p[1:]),
+            "dw_part": blocks * sum(a * b for a, b in zip(p, p[1:]))}
+
+
+# ------------------------------------------------------ kernel wrappers
+
+def _ints(vals):
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(
+        *[None if t is None else t.data_ptr() for t in ts])
+
+
+def _plan_for(kind, g2, k, widths, **kw) -> dict:
+    props = torch.cuda.get_device_properties(g2.device)
+    return plan(kind, g2.shape[0], k, g2.shape[1], widths, _smem_limit(g2),
+                sms=props.multi_processor_count, **kw)
+
+
+def _check_stack(g2, w_packed, bs, vecs, rows: int, layers: int):
+    """g2 bf16; the first ``layers`` packed weights, biases and vectors
+    (``rows`` of them, or ``None``: any)."""
+    m, c0 = g2.shape
+    check(g2, "g2", torch.bfloat16, (m, c0))
+    cin = c0
+    for j in range(layers):
+        c = bs[j].shape[0]
+        check(w_packed[j], f"w_packed[{j}]", torch.bfloat16,
+              (_pad(cin), _pad(c)))
+        check(bs[j], f"b[{j}]", torch.float32, (c,))
+        if vecs[j] is not None:
+            check(vecs[j], f"vec[{j}]", torch.float32, (rows, c))
+        cin = c
+
+
+def rc_stats_cuda(g2, vecs, w_packed, bs, *, upto: int):
+    m, c0 = g2.shape
+    widths = [b.shape[0] for b in bs]
+    vecs = list(vecs[:upto - 1]) + [None] * (len(bs) - upto + 1)
+    _check_stack(g2, w_packed, bs, vecs, None, upto)
+    pl = _plan_for("stats", g2, 1, widths, upto=upto)
+    c = widths[upto - 1]
+    partials = torch.empty((pl["blocks"], 2, _pad(c)), dtype=torch.float32,
+                           device=g2.device)
+    sums = torch.empty((2, c), dtype=torch.float32, device=g2.device)
+    RC_STATS(ptr(g2), m, c0, len(bs), upto, _ints(widths), _ptrs(w_packed),
+             _ptrs(bs), _ptrs(vecs), pl["tm"], pl["blocks"], ptr(partials),
+             ptr(sums), stream_of(g2))
+    return sums
+
+
+def rc_final_cuda(g2, vecs, w_packed, bs, *, k: int):
+    m, c0 = g2.shape
+    widths = [b.shape[0] for b in bs]
+    _check_stack(g2, w_packed, bs, vecs, None, len(bs))
+    if m % k:
+        raise ValueError(f"{m} rows are not whole groups of k={k}")
+    pl = _plan_for("final", g2, k, widths)
+    shape = (m // k, widths[-1])
+    keys = torch.empty(shape, dtype=torch.int64, device=g2.device)
+    out = torch.empty(shape, dtype=torch.float32, device=g2.device)
+    amax = torch.empty(shape, dtype=torch.int32, device=g2.device)
+    RC_FINAL(ptr(g2), m, c0, k, len(bs), _ints(widths), _ptrs(w_packed),
+             _ptrs(bs), _ptrs(vecs), pl["tm"], pl["blocks"], ptr(keys),
+             ptr(out), ptr(amax), stream_of(g2))
+    return out, amax
+
+
+def _check_cotangent(g2, dout, amax, k, c_last, vecs, mus, above: int):
+    m = g2.shape[0]
+    if m % k:
+        raise ValueError(f"{m} rows are not whole groups of k={k}")
+    check(dout, "dout", torch.float32, (m // k, c_last))
+    check(amax, "amax", torch.int32, (m // k, c_last))
+    for j, (vec, mu) in enumerate(zip(vecs, mus)):
+        if j >= above:
+            if mu is None:
+                raise ValueError(f"mu[{j}] is needed above level {above}")
+            check(mu, f"mu[{j}]", torch.float32, (2, vec.shape[1]))
+
+
+def rc_bwd_stats_cuda(g2, dout, amax, vecs, w_packed, bs, mus, *,
+                      level: int, k: int):
+    m, c0 = g2.shape
+    widths = [b.shape[0] for b in bs]
+    _check_stack(g2, w_packed, bs, vecs, 4, len(bs))
+    _check_cotangent(g2, dout, amax, k, widths[-1], vecs, mus, level)
+    pl = _plan_for("bwd_stats", g2, k, widths, level=level)
+    c = widths[level - 1]
+    partials = torch.empty((pl["blocks"], 2, _pad(c)), dtype=torch.float32,
+                           device=g2.device)
+    sums = torch.empty((2, c), dtype=torch.float32, device=g2.device)
+    RC_BWD_STATS(ptr(g2), m, c0, k, len(bs), level, _ints(widths),
+                 _ptrs(w_packed), _ptrs(bs), _ptrs(vecs), _ptrs(mus),
+                 ptr(dout), ptr(amax), pl["tm"], pl["blocks"], ptr(partials),
+                 ptr(sums), stream_of(g2))
+    return sums
+
+
+def rc_bwd_final_cuda(g2, dout, amax, vecs, w_packed, bs, mus, *, k: int,
+                      need_dg: bool = True):
+    m, c0 = g2.shape
+    widths = [b.shape[0] for b in bs]
+    _check_stack(g2, w_packed, bs, vecs, 4, len(bs))
+    _check_cotangent(g2, dout, amax, k, widths[-1], vecs, mus, 0)
+    pl = _plan_for("bwd_final", g2, k, widths)
+    dev = g2.device
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    cins = [c0] + widths[:-1]
+    dws = [f32(ci, co) for ci, co in zip(cins, widths)]
+    dbs = [f32(c) for c in widths]
+    dg = f32(m, c0) if need_dg else None
+    db_part, dw_part = f32(pl["db_part"]), f32(pl["dw_part"])
+    RC_BWD_FINAL(ptr(g2), m, c0, k, len(bs), _ints(widths), _ptrs(w_packed),
+                 _ptrs(bs), _ptrs(vecs), _ptrs(mus), ptr(dout), ptr(amax),
+                 pl["tm"], pl["blocks"], ptr(db_part), ptr(dw_part),
+                 _ptrs(dbs), _ptrs(dws), ptr(dg), stream_of(g2))
+    return dg, dws, dbs
+
+
+# ----------------------------------------------------------- dispatch
+
+def _kernel_args(g2, vecs, ws, bs, w_packed):
+    """The kernels' operands: bf16 ``g2``, f32 vectors and biases, the
+    weights packed (once per step by the caller, or here)."""
+    if w_packed is None:
+        w_packed = [pack_weight(w) for w in ws]
+    return (g2.to(torch.bfloat16).contiguous(),
+            [None if v is None else v.float().contiguous() for v in vecs],
+            w_packed, [b.detach().float().contiguous() for b in bs])
+
+
+def _f32_list(ts):
+    return [None if t is None else t.float().contiguous() for t in ts]
+
+
+def rc_stats(g2, vecs, ws, bs, *, upto: int, impl=None,
+             operand_dtype=torch.bfloat16, w_packed=None):
+    if use_kernel(g2, impl):
+        _kernel_dtype(operand_dtype)
+        g, v, wp, b = _kernel_args(g2, vecs, ws, bs, w_packed)
+        return rc_stats_cuda(g, v, wp, b, upto=upto)
+    return rc_stats_plain(g2, vecs, ws, bs, upto=upto,
+                          operand_dtype=operand_dtype)
+
+
+def rc_final(g2, vecs, ws, bs, *, k: int, impl=None,
+             operand_dtype=torch.bfloat16, w_packed=None):
+    if use_kernel(g2, impl):
+        _kernel_dtype(operand_dtype)
+        return rc_final_cuda(*_kernel_args(g2, vecs, ws, bs, w_packed), k=k)
+    return rc_final_plain(g2, vecs, ws, bs, k=k, operand_dtype=operand_dtype)
+
+
+def rc_bwd_stats(g2, dout, amax, vecs, ws, bs, mus, *, level: int, k: int,
+                 impl=None, operand_dtype=torch.bfloat16, w_packed=None):
+    if use_kernel(g2, impl):
+        _kernel_dtype(operand_dtype)
+        g, v, wp, b = _kernel_args(g2, vecs, ws, bs, w_packed)
+        return rc_bwd_stats_cuda(g, dout.float().contiguous(),
+                                 amax.int().contiguous(), v, wp, b,
+                                 _f32_list(mus), level=level, k=k)
+    return rc_bwd_stats_plain(g2, dout, amax, vecs, ws, bs, mus, level=level,
+                              k=k, operand_dtype=operand_dtype)
+
+
+def rc_bwd_final(g2, dout, amax, vecs, ws, bs, mus, *, k: int, impl=None,
+                 operand_dtype=torch.bfloat16, w_packed=None,
+                 need_dg: bool = True):
+    if use_kernel(g2, impl):
+        _kernel_dtype(operand_dtype)
+        g, v, wp, b = _kernel_args(g2, vecs, ws, bs, w_packed)
+        return rc_bwd_final_cuda(g, dout.float().contiguous(),
+                                 amax.int().contiguous(), v, wp, b,
+                                 _f32_list(mus), k=k, need_dg=need_dg)
+    return rc_bwd_final_plain(g2, dout, amax, vecs, ws, bs, mus, k=k,
+                              operand_dtype=operand_dtype, need_dg=need_dg)

@@ -33,6 +33,17 @@ eval MLP at MSG classification's SA3 width (c0 = 643, a group split over
 two 64-row blocks) and the training passes at MSG's widths (196, 643)
 and K = 16 under the tolerances above; the MSG classifier and both
 segmentation models' train steps with every kernel launched.
+
+The recompute passes (#11-14) on every SA stack shape of the registry's
+models (c0 3 to 643, width 196, K 16 to 128, ragged last tiles): forward
+sums within 1e-3 of their largest, the max within that plus one bf16 ulp,
+the argmax equal where the plain margin is clear of both; the backward
+outputs (whose ReLU gates may open in one version and not the other where
+a recomputed ``a·scale + shift`` is within an ulp of 0) no more than 1.5
+times as far from the f32-operand plain pass as the bf16 one; the
+recompute Function
+and a reduced training step under ``override(mode="recompute")`` with
+only #11-14 of the training passes launched.
 """
 
 import numpy as np
@@ -447,6 +458,190 @@ def test_training_step_on_the_card_runs_every_kernel(device):
     before = [k.launches for k in kernels]
     loss, model = step(None)
     assert all(k.launches > b for k, b in zip(kernels, before))
+    plain_loss, _ = step("plain")
+    assert loss == pytest.approx(plain_loss, rel=5e-3)
+    assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+
+
+# ------------------------------------------------------ recompute mode
+
+RC_STACKS = [  # (groups, k, c0, widths)
+    (5, 32, 3, (64, 64, 128)),          # the last 128-row tile ragged
+    (16384, 32, 3, (64, 64, 128)),      # SSG SA1 at B=32
+    (4096, 64, 131, (128, 128, 256)),   # SSG SA2
+    (32, 128, 259, (256, 512, 1024)),   # SSG SA3: 16-row backward tiles
+    (32, 128, 643, (256, 512, 1024)),   # MSG clas SA3: a group over tiles
+    (64, 128, 323, (128, 196, 256)),    # MSG seg SA2: width 196
+    (96, 16, 3, (32, 32, 64)),          # MSG clas SA1: K = 16
+    (9, 8, 20, (16, 16, 16, 32)),       # four layers, ragged
+]
+
+
+def _rc_stack(groups, k, c0, widths, device):
+    """g2, W, b and BN vectors from the plain stats passes (so the chain
+    is normalised as in training), a cotangent, the plain argmax and the
+    gradient means from the plain bwd-stats passes."""
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+
+    m = groups * k
+    g2 = _bf16((m, c0), m + c0, device)
+    ws, bs, _, _ = _mlp(c0 + k, c0, widths, device)
+    g = torch.Generator().manual_seed(k)
+    vecs = []
+    for j, c in enumerate(widths, start=1):
+        sums = rc.rc_stats(g2, vecs, ws, bs, upto=j, impl="plain")
+        gamma = (1 + 0.2 * torch.randn(c, generator=g)).to(device)
+        beta = (0.1 * torch.randn(c, generator=g)).to(device)
+        vecs.append(samlp_train.bn_vectors(sums, gamma, beta, m, 1e-5)[0])
+    _, amax = rc.rc_final(g2, vecs, ws, bs, k=k, impl="plain")
+    dout = torch.randn(groups, widths[-1], generator=g).to(device)
+    mus = [None] * len(widths)
+    for level in range(len(widths), 0, -1):
+        s = rc.rc_bwd_stats(g2, dout, amax, vecs, ws, bs, mus, level=level,
+                            k=k, impl="plain")
+        mus[level - 1] = s / m
+    return g2, ws, bs, vecs, dout, amax, mus
+
+
+def _no_farther(got, want, ref, limit=1.5):
+    """``got`` at most ``limit`` times as far (L2) from ``ref`` as
+    ``want`` is."""
+    far = float((got.double() - ref.double()).norm())
+    assert far <= limit * float((want.double() - ref.double()).norm()), far
+
+
+@pytest.mark.parametrize("groups,k,c0,widths", RC_STACKS)
+def test_recompute_kernels_match_plain(device, groups, k, c0, widths):
+    """#11-14 against their plain versions on the same inputs. Forward:
+    every layer's sums within 1e-3 of their largest (products summed in
+    another order); the max within that plus one bf16 ulp of each value
+    (an operand of the row's chain that rounds to the other bf16
+    neighbour moves it by about that: measured up to 1.8e-3 of the
+    largest, with kernel and plain equally far from an f32-operand
+    chain); the argmax equal wherever the plain top-2 margin exceeds the
+    max's bound twice. Backward: each version re-derives ``a`` in its own
+    sum order, so where ``a·scale + shift`` is within an ulp of 0 a ReLU
+    gate of the walk down opens in one and not the other (measured: 1-4
+    rows of dg off in 10^5); the bwd sums, dg, dW and db are each at most
+    1.5 times as far (L2) from the plain pass with f32 operands as the
+    plain bf16 pass, as the card's step check holds gradients. Each launch
+    counted once; repeated runs the same bits."""
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+
+    g2, ws, bs, vecs, dout, amax, mus = _rc_stack(groups, k, c0, widths,
+                                                  device)
+    n = len(widths)
+    packed = [samlp_train.pack_weight(w) for w in ws]
+    for upto in range(1, n + 1):
+        before = rc.RC_STATS.launches
+        got = rc.rc_stats(g2, vecs[:upto - 1], ws, bs, upto=upto,
+                          w_packed=packed)
+        assert rc.RC_STATS.launches == before + 1
+        _near(got, rc.rc_stats(g2, vecs, ws, bs, upto=upto, impl="plain"),
+              1e-3)
+        torch.testing.assert_close(
+            rc.rc_stats(g2, vecs, ws, bs, upto=upto, w_packed=packed), got,
+            rtol=0, atol=0)
+    out, got_amax = rc.rc_final(g2, vecs, ws, bs, k=k, w_packed=packed)
+    want, want_amax = rc.rc_final(g2, vecs, ws, bs, k=k, impl="plain")
+    _near(out, want, 1e-3, ulp=True)
+    a_list, _ = rc.chain_plain(g2, vecs, ws, bs, n)
+    h = torch.clamp_min(a_list[-1] * vecs[-1][0] + vecs[-1][1], 0.0)
+    top2 = h.reshape(groups, k, -1).topk(2, dim=1).values
+    bound = 1e-3 * float(want.abs().max()) + _bf16_ulp(top2[:, 0])
+    clear = top2[:, 0] - top2[:, 1] > 2 * bound
+    assert bool((got_amax == want_amax)[clear].all())
+    f32 = {"impl": "plain", "operand_dtype": torch.float32}
+    for level in range(n, 0, -1):
+        args = (g2, dout, amax, vecs, ws, bs, mus)
+        got = rc.rc_bwd_stats(*args, level=level, k=k, w_packed=packed)
+        _no_farther(got, rc.rc_bwd_stats(*args, level=level, k=k,
+                                         impl="plain"),
+                    rc.rc_bwd_stats(*args, level=level, k=k, **f32))
+    args = (g2, dout, amax, vecs, ws, bs, mus)
+    got = rc.rc_bwd_final(*args, k=k, w_packed=packed)
+    want = rc.rc_bwd_final(*args, k=k, impl="plain")
+    ref = rc.rc_bwd_final(*args, k=k, **f32)
+    _no_farther(got[0], want[0], ref[0])
+    for j in range(n):
+        _no_farther(got[1][j], want[1][j], ref[1][j])
+        _no_farther(got[2][j], want[2][j], ref[2][j])
+    skip = rc.rc_bwd_final(*args, k=k, w_packed=packed, need_dg=False)
+    assert skip[0] is None
+    for a, b in zip(skip[1] + skip[2], got[1] + got[2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)  # fixed order
+
+
+def test_fused_recompute_kernels_match_plain(device):
+    """``fused_mlp_max(mode="recompute")`` with the kernels against the
+    plain passes on the card: outputs within 1e-3 of the largest plus one
+    bf16 ulp and statistics within 1e-3, every gradient within 1e-2 of
+    its layer's largest (an operand rounded to the other bf16 neighbour
+    moves the chain after it); the four kernels launched L, 1, L and 1
+    times."""
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+
+    gen = torch.Generator().manual_seed(11)
+    shape, widths = (8, 64, 32, 3), (64, 64, 128)
+    x = torch.randn(*shape, generator=gen).to(device)
+    ws, bs, gammas, betas = _mlp(1, shape[-1], widths, device)
+    running = [(torch.zeros(c, device=device), torch.ones(c, device=device))
+               for c in widths]
+    cot = torch.randn(*shape[:2], widths[-1], generator=gen).to(device)
+    results = []
+    for impl in (None, "plain"):
+        xg = x.clone().requires_grad_()
+        params = [tuple(t.clone().requires_grad_() for t in layer)
+                  for layer in zip(ws, bs, gammas, betas)]
+        before = [k.launches for k in rc.KERNELS]
+        out, new_running = fused_mlp.fused_mlp_max(
+            xg, params, running, train=True, impl=impl, mode="recompute")
+        (out * cot).sum().backward()
+        counts = [k.launches - b for k, b in zip(rc.KERNELS, before)]
+        assert counts == ([3, 1, 3, 1] if impl is None else [0, 0, 0, 0])
+        results.append((out, new_running, xg.grad,
+                        [[t.grad for t in layer] for layer in params]))
+    (out, run, dx, grads), (pout, prun, pdx, pgrads) = results
+    _near(out, pout, 1e-3, ulp=True)
+    for (m, v), (pm, pv) in zip(run, prun):
+        _near(m, pm, 1e-3)
+        _near(v, pv, 1e-3)
+    _near(dx, pdx, 1e-2)
+    for layer, players in zip(grads, pgrads):
+        scale = max(float(g.abs().max()) for g in players)
+        for g, pg in zip(layer, players):
+            assert float((g - pg).abs().max()) <= 1e-2 * scale
+
+
+def test_training_step_under_recompute_runs_its_kernels(device):
+    """A reduced SSG train step under ``override(mode="recompute")``:
+    #11-14 launched (9/3/9/3 a step: three stacks of three layers), no
+    stream pass launched, the loss within 5e-3 of the plain recompute
+    step's, every gradient finite."""
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+    from papc_tpu_torch.train import make_optimizer, train_step
+
+    def step(impl):
+        model = PointNet2SSGClas(num_classes=16, npoints=(128, 32),
+                                 nsamples=(32, 64))
+        init_params(model, torch.Generator().manual_seed(0))
+        model = model.to(device)
+        opt = make_optimizer(model.parameters(), 1e-3, 1e-3)
+        batch = {"points": _cloud(9, 8, 512).numpy(),
+                 "label": np.arange(8) % 16, "mask": np.ones(8, bool)}
+        masks = [torch.rand(8, 512, generator=torch.Generator().manual_seed(1))
+                 < 0.6, torch.rand(8, 256, generator=torch.Generator()
+                                   .manual_seed(2)) < 0.6]
+        with fused_mlp.override(mode="recompute"):
+            loss, _ = train_step(model, opt, batch, device, impl=impl,
+                                 dropout_masks=masks)
+        return float(loss), model
+
+    kernels = [*rc.KERNELS, *samlp_train.KERNELS]
+    before = [k.launches for k in kernels]
+    loss, model = step(None)
+    counts = [k.launches - b for k, b in zip(kernels, before)]
+    assert counts == [9, 3, 9, 3, 0, 0, 0, 0]
     plain_loss, _ = step("plain")
     assert loss == pytest.approx(plain_loss, rel=5e-3)
     assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())

@@ -110,10 +110,13 @@ def _capture_grads():
         lambda updates, state, params=None: (updates, updates))
 
 
-def jax_step(jmodel, mode, variables, b, masks, lr, wd, fused):
+def jax_step(jmodel, mode, variables, b, masks, lr, wd, fused,
+             fused_mode="stream"):
     """One ``make_train_step`` step with the given dropout keep-masks (by
     the Dropout module's index): (loss, grads, new params, new
-    batch_stats), flax-keyed numpy."""
+    batch_stats), flax-keyed numpy. ``fused``: under
+    ``override(enable=True, impl="jnp", mode=fused_mode)``, every key in
+    the one call (entering an override resets the keys it is not given)."""
     spec = ModelSpec(model=jmodel, input_kind="points", mode=mode)
     jb = {k: jnp.asarray(v) for k, v in b.items()}
     fresh = jax.tree_util.tree_map(jnp.array, variables)  # step donates
@@ -133,7 +136,7 @@ def jax_step(jmodel, mode, variables, b, masks, lr, wd, fused):
     step, _ = jtrainer.make_train_step(spec)
     with fnn.intercept_methods(intercept):
         if fused:
-            with jfused.override(enable=True, impl="jnp"):
+            with jfused.override(enable=True, impl="jnp", mode=fused_mode):
                 state, loss, _ = step(state, jb, jax.random.PRNGKey(1))
         else:
             state, loss, _ = step(state, jb, jax.random.PRNGKey(1))
@@ -143,15 +146,18 @@ def jax_step(jmodel, mode, variables, b, masks, lr, wd, fused):
             jax.tree_util.tree_map(np.asarray, state.batch_stats))
 
 
-def port_step(make, variables, b, masks, lr, wd, dtype):
+def port_step(make, variables, b, masks, lr, wd, dtype, fused_mode="stream"):
     """One port step from the same weights; ``dtype`` float64 runs the
-    whole model and the plain passes in float64 (the exact reference)."""
+    whole model and the plain passes in float64 (the exact reference).
+    ``fused_mode`` goes into the same ``override`` call as ``impl`` and
+    ``operand_dtype``: a nested override would put it back to stream."""
     model = port_model(make, variables)
     if dtype == torch.float64:
         model = model.double()
         b = dict(b, points=b["points"].astype(np.float64))
     opt = make_optimizer(model.parameters(), lr, wd)
-    with fused_mlp.override(impl="plain", operand_dtype=dtype):
+    with fused_mlp.override(impl="plain", operand_dtype=dtype,
+                            mode=fused_mode):
         loss, _ = train_step(model, opt, b, torch.device("cpu"),
                              dropout_masks=[T(m) for m in masks])
     grads = state_dict_to_flax({n: p.grad for n, p in
