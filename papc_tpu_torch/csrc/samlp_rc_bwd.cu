@@ -41,40 +41,9 @@
 
 namespace {
 
-using namespace nvcuda;
-using samlp_rc::affine;
 using samlp_rc::at;
-using samlp_rc::bf16;
 using samlp_rc::Chain;
 using samlp_rc::Layout;
-
-// slot [cin_p, cout_p] f32 += h^T . da over the tile's rows (set on the
-// block's first tile). Fragment (i, j) always belongs to the same warp.
-__device__ void accumulate_dw(const bf16* h, int ldh, int cin_p,
-                              const bf16* da, int ldd, int cout_p, int tm,
-                              float* slot, bool first) {
-  const int warp = threadIdx.x >> 5;
-  const int col_tiles = cout_p / 16;
-  const int units = (cin_p / 16) * col_tiles;
-  for (int u = warp; u < units; u += samlp_rc::kWarps) {
-    const int ci = u / col_tiles, co = u - ci * col_tiles;
-    float* out = slot + static_cast<size_t>(ci) * 16 * cout_p + co * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (first)
-      wmma::fill_fragment(acc, 0.f);
-    else
-      wmma::load_matrix_sync(acc, out, cout_p, wmma::mem_row_major);
-    for (int kk = 0; kk < tm; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
-          af;  // h^T: element (cin i, row r) at h[r][i]
-      wmma::load_matrix_sync(af, h + kk * ldh + ci * 16, ldh);
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf;
-      wmma::load_matrix_sync(bf, da + kk * ldd + co * 16, ldd);
-      wmma::mma_sync(acc, af, bf, acc);
-    }
-    wmma::store_matrix_sync(out, acc, cout_p, wmma::mem_row_major);
-  }
-}
 
 // kFinal false: the bwd stats pass at `level`, sums [row_blocks][2][p_level]
 // -> partials [blocks][2][p_level]. kFinal true: db sums [row_blocks][p_j]
@@ -87,129 +56,34 @@ __global__ void __launch_bounds__(samlp_rc::kWarps * 32)
                   const float* __restrict__ dout,
                   const int* __restrict__ amax, float* __restrict__ dg,
                   float* __restrict__ dw_part, float* __restrict__ partials) {
-  constexpr int kSums = kFinal ? 1 : 2;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* scratch = at<float>(smem, l.scratch);
   float* sums = at<float>(smem, l.sums);
-  const int n = ch.n, m = ch.m, k = ch.k;
+  const int n = ch.n, m = ch.m;
   const int rb = l.row_blocks;
-  int sum_off[samlp_rc::kMaxLayers + 1];  // layer j's sums in `sums`
-  size_t dw_off[samlp_rc::kMaxLayers + 1];  // layer j's slots in dw_part
+  float* slot[samlp_rc::kMaxLayers + 1] = {};  // layer j's dW slot
   int total = 0;
-  size_t dw_total = 0;
+  size_t dw_off = 0;
   for (int j = 1; j <= n; ++j) {
-    sum_off[j] = kFinal ? total : 0;
-    dw_off[j] = dw_total;
     total += ch.p[j];
-    dw_total += static_cast<size_t>(ch.p[j - 1]) * ch.p[j];
+    if (kFinal)
+      slot[j] = dw_part + dw_off * gridDim.x +
+                static_cast<size_t>(blockIdx.x) * ch.p[j - 1] * ch.p[j];
+    dw_off += static_cast<size_t>(ch.p[j - 1]) * ch.p[j];
   }
   const int nsums = kFinal ? rb * total : rb * 2 * ch.p[level];
   for (int e = threadIdx.x; e < nsums; e += blockDim.x) sums[e] = 0.f;
-  // the column sums an epilogue at layer j feeds, or null
-  auto sums_of = [&](int j) -> float* {
-    if (kFinal) return j >= 1 ? sums + rb * sum_off[j] : nullptr;
-    return j == level ? sums : nullptr;
-  };
-
   const int tiles = (m + l.tm - 1) / l.tm;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int row0 = t * l.tm;
     samlp_rc::hidden_layers<RF>(ch, l, smem, row0, n, true);
-    {  // layer n: a_n, the max's cotangent and da_n, in one epilogue
-      const int c = ch.c[n], p = ch.p[n], ld = l.ld[n];
-      const float* bias = ch.bias[n];
-      const float* vec = ch.vec[n];
-      const float* mu = ch.mu[n];
-      bf16* da = at<bf16>(smem, l.h[n]);
-      const bool at_level = !kFinal && level == n;
-      samlp_train::rows_times_matrix<false, RF, kSums>(
-          at<bf16>(smem, l.h[n - 1]), l.ld[n - 1], ch.p[n - 1], ch.w[n], p, p,
-          rb, scratch, sums_of(n), [&](int r, int col, float acc) {
-            const int row = row0 + r;
-            if (row >= m || col >= c) {
-              if (!at_level) da[r * ld + col] = __float2bfloat16_rn(0.f);
-              return make_float2(0.f, 0.f);
-            }
-            const float a = __fadd_rn(acc, bias[col]);
-            const float xhat =
-                __fmul_rn(__fsub_rn(a, vec[2 * c + col]), vec[3 * c + col]);
-            const int g = row / k;
-            const size_t gc = static_cast<size_t>(g) * c + col;
-            const float dy = (affine(a, vec[col], vec[c + col]) > 0.f &&
-                              amax[gc] == row - g * k)
-                                 ? dout[gc]
-                                 : 0.f;
-            if (at_level) return make_float2(dy, __fmul_rn(dy, xhat));
-            const float d = __fmul_rn(
-                vec[col], __fsub_rn(__fsub_rn(dy, mu[col]),
-                                    __fmul_rn(xhat, mu[c + col])));
-            da[r * ld + col] = __float2bfloat16_rn(d);
-            return make_float2(d, 0.f);
-          });
-      __syncthreads();
-      if (at_level) continue;
-    }
-    for (int j = n; j > (kFinal ? 0 : level); --j) {
-      const bf16* da = at<bf16>(smem, l.h[j]);
-      bf16* below = at<bf16>(smem, l.h[j - 1]);  // h_{j-1}, then da_{j-1}
-      if (kFinal) {
-        accumulate_dw(below, l.ld[j - 1], ch.p[j - 1], da, l.ld[j], ch.p[j],
-                      l.tm,
-                      dw_part + dw_off[j] * gridDim.x +
-                          static_cast<size_t>(blockIdx.x) * ch.p[j - 1] *
-                              ch.p[j],
-                      t == blockIdx.x);
-        __syncthreads();
-        if (j == 1 && dg == nullptr) break;
-      }
-      const int c = ch.c[j - 1], p = ch.p[j - 1], ld = l.ld[j - 1];
-      const float* vec = ch.vec[j - 1];
-      const float* mu = ch.mu[j - 1];
-      const float* a_prev = j > 1 ? at<float>(smem, l.a[j - 1]) : nullptr;
-      const bool at_level = !kFinal && j - 1 == level;
-      samlp_train::rows_times_matrix<true, RF, kSums>(
-          da, l.ld[j], ch.p[j], ch.w[j], ch.p[j], p, rb, scratch,
-          sums_of(j - 1), [&](int r, int col, float acc) {
-            const int row = row0 + r;
-            if (j == 1) {  // dg: the gradient of the raw block input
-              if (row < m && col < c)
-                dg[static_cast<size_t>(row) * c + col] = acc;
-              return make_float2(0.f, 0.f);
-            }
-            if (row >= m || col >= c) {
-              if (!at_level) below[r * ld + col] = __float2bfloat16_rn(0.f);
-              return make_float2(0.f, 0.f);
-            }
-            const float a = a_prev[r * p + col];
-            const float dy =
-                affine(a, vec[col], vec[c + col]) > 0.f ? acc : 0.f;
-            const float xhat =
-                __fmul_rn(__fsub_rn(a, vec[2 * c + col]), vec[3 * c + col]);
-            if (at_level) return make_float2(dy, __fmul_rn(dy, xhat));
-            const float d = __fmul_rn(
-                vec[col], __fsub_rn(__fsub_rn(dy, mu[col]),
-                                    __fmul_rn(xhat, mu[c + col])));
-            below[r * ld + col] = __float2bfloat16_rn(d);
-            return make_float2(d, 0.f);
-          });
-      __syncthreads();
-    }
+    samlp_rc::bwd_tile<RF, kFinal>(ch, l, smem, row0, m, level, dout, amax,
+                                   0, dg, slot, t == blockIdx.x);
   }
   __syncthreads();
-  if (!kFinal) {
+  if (kFinal)
+    samlp_rc::write_block_db(ch, l, smem, partials);
+  else
     samlp_train::write_block_sums(sums, rb, ch.p[level], partials);
-    return;
-  }
-  for (int j = 1; j <= n; ++j) {
-    const float* src = sums + rb * sum_off[j];
-    float* dst = partials + static_cast<size_t>(sum_off[j]) * gridDim.x +
-                 static_cast<size_t>(blockIdx.x) * ch.p[j];
-    for (int e = threadIdx.x; e < ch.p[j]; e += blockDim.x) {
-      float s = 0.f;
-      for (int b = 0; b < rb; ++b) s += src[b * ch.p[j] + e];
-      dst[e] = s;
-    }
-  }
 }
 
 bool bwd_args_ok(int tm, int blocks, const float* const* mu, int n,

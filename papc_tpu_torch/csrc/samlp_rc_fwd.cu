@@ -31,9 +31,7 @@
 
 namespace {
 
-using samlp_rc::affine;
 using samlp_rc::at;
-using samlp_rc::bf16;
 using samlp_rc::Chain;
 using samlp_rc::Layout;
 
@@ -43,22 +41,14 @@ __global__ void __launch_bounds__(samlp_rc::kWarps * 32)
                     float* __restrict__ partials) {
   extern __shared__ __align__(128) unsigned char smem[];
   float* colsum = at<float>(smem, l.sums);
-  const int c = ch.c[upto], p = ch.p[upto];
+  const int p = ch.p[upto];
   for (int e = threadIdx.x; e < l.row_blocks * 2 * p; e += blockDim.x)
     colsum[e] = 0.f;
-  const float* bias = ch.bias[upto];
   const int tiles = (ch.m + l.tm - 1) / l.tm;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int row0 = t * l.tm;
     samlp_rc::hidden_layers<RF>(ch, l, smem, row0, upto, false);
-    samlp_train::rows_times_matrix<false, RF>(
-        at<bf16>(smem, l.h[upto - 1]), l.ld[upto - 1], ch.p[upto - 1],
-        ch.w[upto], p, p, l.row_blocks, at<float>(smem, l.scratch), colsum,
-        [&](int r, int col, float acc) {
-          if (row0 + r >= ch.m || col >= c) return make_float2(0.f, 0.f);
-          const float a = __fadd_rn(acc, bias[col]);
-          return make_float2(a, __fmul_rn(a, a));
-        });
+    samlp_rc::stats_product<RF>(ch, l, smem, row0, ch.m, upto, colsum);
   }
   __syncthreads();
   samlp_train::write_block_sums(colsum, l.row_blocks, p, partials);
@@ -73,30 +63,12 @@ __global__ void __launch_bounds__(samlp_rc::kWarps * 32)
   const int n = ch.n, k = ch.k, c = ch.c[n], p = ch.p[n];
   const int groups = ch.m / k;
   for (int e = threadIdx.x; e < l.gpt * p; e += blockDim.x) pooled[e] = 0ull;
-  const float* bias = ch.bias[n];
-  const float* vec = ch.vec[n];
   const int tiles = (ch.m + l.tm - 1) / l.tm;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int row0 = t * l.tm;
     const int g0 = row0 / k;
     samlp_rc::hidden_layers<RF>(ch, l, smem, row0, n, false);
-    samlp_train::rows_times_matrix<false, RF>(
-        at<bf16>(smem, l.h[n - 1]), l.ld[n - 1], ch.p[n - 1], ch.w[n], p, p,
-        l.row_blocks, at<float>(smem, l.scratch), nullptr,
-        [&](int r, int col, float acc) {
-          const int row = row0 + r;
-          if (row < ch.m && col < c) {
-            float h = affine(__fadd_rn(acc, bias[col]), vec[col],
-                             vec[c + col]);
-            h = h > 0.f ? h : 0.f;  // +0 for -0 too: the keys compare bits
-            const int g = row / k;
-            const unsigned long long key =
-                (static_cast<unsigned long long>(__float_as_uint(h)) << 32) |
-                static_cast<unsigned>(k - 1 - (row - g * k));
-            atomicMax(&pooled[(g - g0) * p + col], key);
-          }
-          return make_float2(0.f, 0.f);
-        });
+    samlp_rc::final_pool<RF>(ch, l, smem, row0, ch.m, g0, pooled);
     __syncthreads();
     for (int e = threadIdx.x; e < l.gpt * c; e += blockDim.x) {
       const int gl = e / c, col = e - gl * c;

@@ -1,6 +1,8 @@
 // Shared pieces of the recompute-mode set-abstraction passes
 // (samlp_rc_fwd.cu: #11 stats, #12 final max; samlp_rc_bwd.cu: #13 bwd
-// stats, #14 bwd final).
+// stats, #14 bwd final; and their single-launch counterparts #15-18 in
+// samlp_single_{fwd,bwd}.cu through samlp_single.cuh): the tile chain and
+// each pass's per-tile body, the same code for both launch structures.
 //
 // Each pass re-derives the layer chain of a tile of rows from the block
 // input g2 = bf16(grouped) alone: for layer j,
@@ -26,6 +28,7 @@
 
 namespace samlp_rc {
 
+namespace wmma = nvcuda::wmma;
 using samlp_train::affine;
 using samlp_train::kWarps;
 using bf16 = __nv_bfloat16;
@@ -150,24 +153,13 @@ __device__ __forceinline__ T* at(unsigned char* smem, unsigned offset) {
   return reinterpret_cast<T*>(smem + offset);
 }
 
-// Loads the tile's g2 rows into h_0 (zero past row m and in the channel
-// padding), then runs layers 1 .. n-1: h_j in bf16 for the next product
-// and, with keep_a, the f32 a_j. Starts and ends with a block barrier.
+// Runs layers 1 .. n-1 of a tile whose h_0 is in place (after a block
+// barrier): h_j in bf16 for the next product and, with keep_a, the f32
+// a_j. Ends with a block barrier. Rows past the end carry what a zero
+// input gives; the last layer's epilogue masks them.
 template <int RF>
-__device__ void hidden_layers(const Chain& ch, const Layout& l,
-                              unsigned char* smem, int row0, int n,
-                              bool keep_a) {
-  __syncthreads();  // the previous tile is done with every buffer
-  bf16* x0 = at<bf16>(smem, l.h[0]);
-  const int c0 = ch.c[0], p0 = ch.p[0];
-  for (int e = threadIdx.x; e < l.tm * p0; e += blockDim.x) {
-    const int r = e / p0, c = e - r * p0;
-    const int row = row0 + r;
-    x0[r * l.ld[0] + c] = (row < ch.m && c < c0)
-                              ? ch.g2[static_cast<size_t>(row) * c0 + c]
-                              : __float2bfloat16_rn(0.f);
-  }
-  __syncthreads();
+__device__ void run_hidden(const Chain& ch, const Layout& l,
+                           unsigned char* smem, int n, bool keep_a) {
   float* scratch = at<float>(smem, l.scratch);
   for (int j = 1; j < n; ++j) {
     bf16* h = at<bf16>(smem, l.h[j]);
@@ -189,6 +181,231 @@ __device__ void hidden_layers(const Chain& ch, const Layout& l,
           return make_float2(0.f, 0.f);
         });
     __syncthreads();
+  }
+}
+
+// Loads the tile's g2 rows from device memory into h_0 (zero past row m
+// and in the channel padding), then runs layers 1 .. n-1 (run_hidden).
+// Starts and ends with a block barrier.
+template <int RF>
+__device__ void hidden_layers(const Chain& ch, const Layout& l,
+                              unsigned char* smem, int row0, int n,
+                              bool keep_a) {
+  __syncthreads();  // the previous tile is done with every buffer
+  bf16* x0 = at<bf16>(smem, l.h[0]);
+  const int c0 = ch.c[0], p0 = ch.p[0];
+  for (int e = threadIdx.x; e < l.tm * p0; e += blockDim.x) {
+    const int r = e / p0, c = e - r * p0;
+    const int row = row0 + r;
+    x0[r * l.ld[0] + c] = (row < ch.m && c < c0)
+                              ? ch.g2[static_cast<size_t>(row) * c0 + c]
+                              : __float2bfloat16_rn(0.f);
+  }
+  __syncthreads();
+  run_hidden<RF>(ch, l, smem, n, keep_a);
+}
+
+// The stats pass's last product (layer upto, after the hidden layers):
+// the f32 a and a^2 of the rows below row_end into colsum.
+template <int RF>
+__device__ void stats_product(const Chain& ch, const Layout& l,
+                              unsigned char* smem, int row0, int row_end,
+                              int upto, float* colsum) {
+  const int c = ch.c[upto], p = ch.p[upto];
+  const float* bias = ch.bias[upto];
+  samlp_train::rows_times_matrix<false, RF>(
+      at<bf16>(smem, l.h[upto - 1]), l.ld[upto - 1], ch.p[upto - 1],
+      ch.w[upto], p, p, l.row_blocks, at<float>(smem, l.scratch), colsum,
+      [&](int r, int col, float acc) {
+        if (row0 + r >= row_end || col >= c) return make_float2(0.f, 0.f);
+        const float a = __fadd_rn(acc, bias[col]);
+        return make_float2(a, __fmul_rn(a, a));
+      });
+}
+
+// The final pass's last product: each ReLU output of the rows below
+// row_end folded into its group's key, pooled[(g - g_base) * p + col].
+// ReLU output is >= +0, so its float bits order like the floats; the key
+// (bits << 32) | (k - 1 - row in group) is the max and its first argmax
+// in one 64-bit word, and atomicMax gives it in any order.
+template <int RF>
+__device__ void final_pool(const Chain& ch, const Layout& l,
+                           unsigned char* smem, int row0, int row_end,
+                           int g_base, unsigned long long* pooled) {
+  const int n = ch.n, k = ch.k, c = ch.c[n], p = ch.p[n];
+  const float* bias = ch.bias[n];
+  const float* vec = ch.vec[n];
+  samlp_train::rows_times_matrix<false, RF>(
+      at<bf16>(smem, l.h[n - 1]), l.ld[n - 1], ch.p[n - 1], ch.w[n], p, p,
+      l.row_blocks, at<float>(smem, l.scratch), nullptr,
+      [&](int r, int col, float acc) {
+        const int row = row0 + r;
+        if (row < row_end && col < c) {
+          float h = affine(__fadd_rn(acc, bias[col]), vec[col], vec[c + col]);
+          h = h > 0.f ? h : 0.f;  // +0 for -0 too: the keys compare bits
+          const int g = row / k;
+          const unsigned long long key =
+              (static_cast<unsigned long long>(__float_as_uint(h)) << 32) |
+              static_cast<unsigned>(k - 1 - (row - g * k));
+          atomicMax(&pooled[(g - g_base) * p + col], key);
+        }
+        return make_float2(0.f, 0.f);
+      });
+}
+
+// slot [cin_p, cout_p] f32 += h^T . da over the tile's rows (set on the
+// block's first tile). Fragment (i, j) always belongs to the same warp.
+__device__ inline void accumulate_dw(const bf16* h, int ldh, int cin_p,
+                                     const bf16* da, int ldd, int cout_p,
+                                     int tm, float* slot, bool first) {
+  const int warp = threadIdx.x >> 5;
+  const int col_tiles = cout_p / 16;
+  const int units = (cin_p / 16) * col_tiles;
+  for (int u = warp; u < units; u += kWarps) {
+    const int ci = u / col_tiles, co = u - ci * col_tiles;
+    float* out = slot + static_cast<size_t>(ci) * 16 * cout_p + co * 16;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    if (first)
+      wmma::fill_fragment(acc, 0.f);
+    else
+      wmma::load_matrix_sync(acc, out, cout_p, wmma::mem_row_major);
+    for (int kk = 0; kk < tm; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
+          af;  // h^T: element (cin i, row r) at h[r][i]
+      wmma::load_matrix_sync(af, h + kk * ldh + ci * 16, ldh);
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf;
+      wmma::load_matrix_sync(bf, da + kk * ldd + co * 16, ldd);
+      wmma::mma_sync(acc, af, bf, acc);
+    }
+    wmma::store_matrix_sync(out, acc, cout_p, wmma::mem_row_major);
+  }
+}
+
+// Offsets of layer j's sums in a backward pass's shared sums: bwd stats
+// keeps one layer's (level's) [row_blocks][2][p]; bwd final every layer's
+// db, [row_blocks][p_j] at row_blocks * (p_1 + .. + p_{j-1}).
+template <bool kFinal>
+__device__ inline float* bwd_sums_of(const Chain& ch, const Layout& l,
+                                     unsigned char* smem, int level, int j) {
+  float* sums = at<float>(smem, l.sums);
+  if (!kFinal) return j == level ? sums : nullptr;
+  if (j < 1) return nullptr;
+  int off = 0;
+  for (int i = 1; i < j; ++i) off += ch.p[i];
+  return sums + l.row_blocks * off;
+}
+
+// One tile of a backward pass, after hidden_layers (keep_a) or
+// run_hidden: a_n in the last forward product's epilogue, the max's
+// cotangent and da_n, then the walk down to `level` (bwd stats, its sums
+// in shared memory) or to the input (bwd final: every dW_j added into
+// slot[j], db_j into the shared sums, dg written when not null). The
+// cotangent of group g is dout[(g - g_base) * c_n + col] (amax alike);
+// rows at and past row_end carry da = 0.
+template <int RF, bool kFinal>
+__device__ void bwd_tile(const Chain& ch, const Layout& l,
+                         unsigned char* smem, int row0, int row_end,
+                         int level, const float* dout, const int* amax,
+                         int g_base, float* dg, float* const* slot,
+                         bool first) {
+  constexpr int kSums = kFinal ? 1 : 2;
+  float* scratch = at<float>(smem, l.scratch);
+  const int n = ch.n, k = ch.k, rb = l.row_blocks;
+  {  // layer n: a_n, the max's cotangent and da_n, in one epilogue
+    const int c = ch.c[n], p = ch.p[n], ld = l.ld[n];
+    const float* bias = ch.bias[n];
+    const float* vec = ch.vec[n];
+    const float* mu = ch.mu[n];
+    bf16* da = at<bf16>(smem, l.h[n]);
+    const bool at_level = !kFinal && level == n;
+    samlp_train::rows_times_matrix<false, RF, kSums>(
+        at<bf16>(smem, l.h[n - 1]), l.ld[n - 1], ch.p[n - 1], ch.w[n], p, p,
+        rb, scratch, bwd_sums_of<kFinal>(ch, l, smem, level, n),
+        [&](int r, int col, float acc) {
+          const int row = row0 + r;
+          if (row >= row_end || col >= c) {
+            if (!at_level) da[r * ld + col] = __float2bfloat16_rn(0.f);
+            return make_float2(0.f, 0.f);
+          }
+          const float a = __fadd_rn(acc, bias[col]);
+          const float xhat =
+              __fmul_rn(__fsub_rn(a, vec[2 * c + col]), vec[3 * c + col]);
+          const int g = row / k;
+          const size_t gc = static_cast<size_t>(g - g_base) * c + col;
+          const float dy = (affine(a, vec[col], vec[c + col]) > 0.f &&
+                            amax[gc] == row - g * k)
+                               ? dout[gc]
+                               : 0.f;
+          if (at_level) return make_float2(dy, __fmul_rn(dy, xhat));
+          const float d = __fmul_rn(
+              vec[col], __fsub_rn(__fsub_rn(dy, mu[col]),
+                                  __fmul_rn(xhat, mu[c + col])));
+          da[r * ld + col] = __float2bfloat16_rn(d);
+          return make_float2(d, 0.f);
+        });
+    __syncthreads();
+    if (at_level) return;
+  }
+  for (int j = n; j > (kFinal ? 0 : level); --j) {
+    const bf16* da = at<bf16>(smem, l.h[j]);
+    bf16* below = at<bf16>(smem, l.h[j - 1]);  // h_{j-1}, then da_{j-1}
+    if (kFinal) {
+      accumulate_dw(below, l.ld[j - 1], ch.p[j - 1], da, l.ld[j], ch.p[j],
+                    l.tm, slot[j], first);
+      __syncthreads();
+      if (j == 1 && dg == nullptr) break;
+    }
+    const int c = ch.c[j - 1], p = ch.p[j - 1], ld = l.ld[j - 1];
+    const float* vec = ch.vec[j - 1];
+    const float* mu = ch.mu[j - 1];
+    const float* a_prev = j > 1 ? at<float>(smem, l.a[j - 1]) : nullptr;
+    const bool at_level = !kFinal && j - 1 == level;
+    samlp_train::rows_times_matrix<true, RF, kSums>(
+        da, l.ld[j], ch.p[j], ch.w[j], ch.p[j], p, rb, scratch,
+        bwd_sums_of<kFinal>(ch, l, smem, level, j - 1),
+        [&](int r, int col, float acc) {
+          const int row = row0 + r;
+          if (j == 1) {  // dg: the gradient of the raw block input
+            if (row < row_end && col < c)
+              dg[static_cast<size_t>(row) * c + col] = acc;
+            return make_float2(0.f, 0.f);
+          }
+          if (row >= row_end || col >= c) {
+            if (!at_level) below[r * ld + col] = __float2bfloat16_rn(0.f);
+            return make_float2(0.f, 0.f);
+          }
+          const float a = a_prev[r * p + col];
+          const float dy =
+              affine(a, vec[col], vec[c + col]) > 0.f ? acc : 0.f;
+          const float xhat =
+              __fmul_rn(__fsub_rn(a, vec[2 * c + col]), vec[3 * c + col]);
+          if (at_level) return make_float2(dy, __fmul_rn(dy, xhat));
+          const float d = __fmul_rn(
+              vec[col], __fsub_rn(__fsub_rn(dy, mu[col]),
+                                  __fmul_rn(xhat, mu[c + col])));
+          below[r * ld + col] = __float2bfloat16_rn(d);
+          return make_float2(d, 0.f);
+        });
+    __syncthreads();
+  }
+}
+
+// The block's db sums (kFinal) over its row units, in order: layer j's
+// at part + (p_1 + .. + p_{j-1}) * blocks + block * p_j.
+__device__ inline void write_block_db(const Chain& ch, const Layout& l,
+                                      unsigned char* smem, float* part) {
+  const float* sums = at<float>(smem, l.sums);
+  size_t off = 0;
+  for (int j = 1; j <= ch.n; ++j) {
+    const float* src = sums + l.row_blocks * off;
+    float* dst = part + off * gridDim.x +
+                 static_cast<size_t>(blockIdx.x) * ch.p[j];
+    for (int e = threadIdx.x; e < ch.p[j]; e += blockDim.x) {
+      float s = 0.f;
+      for (int b = 0; b < l.row_blocks; ++b) s += src[b * ch.p[j] + e];
+      dst[e] = s;
+    }
+    off += ch.p[j];
   }
 }
 

@@ -55,8 +55,11 @@ def make_predict_step(model: torch.nn.Module, predict_cfg, box_coder,
     (for ``pillarize``), ``anchors [B, A, 7]`` and optionally
     ``anchors_mask``. The host-pillarize and flat-PFN inputs are not
     ported yet (ROADMAP.md, Queue 1 item 6). The model runs in
-    eval mode under :func:`torch.inference_mode`. ``impl`` goes to the
-    NMS op: ``None`` launches the kernel on a CUDA device."""
+    eval mode under :func:`torch.inference_mode`, its convolutions in
+    full float32: inside ``torch.backends.cudnn.flags(enabled=True,
+    allow_tf32=False)``, a context local to the call (PyTorch's own
+    default lets cuDNN use TF32). ``impl`` goes to the NMS op: ``None``
+    launches the kernel on a CUDA device."""
     if precision != "fp32":
         raise NotImplementedError(
             f"precision {precision!r}: bf16 serving is not ported yet "
@@ -70,7 +73,8 @@ def make_predict_step(model: torch.nn.Module, predict_cfg, box_coder,
 
     def predict_step(batch: Mapping) -> dict:
         batch = batch_to_device(batch, device)
-        with torch.inference_mode():
+        with torch.inference_mode(), torch.backends.cudnn.flags(
+                enabled=True, allow_tf32=False):
             preds = model(*pillarize(batch))
             return predict(preds, batch["anchors"], box_coder.decode,
                            predict_cfg, anchors_mask=batch.get("anchors_mask"),

@@ -111,7 +111,9 @@ class PointMLP(nn.Module):
     the max over K, ``[B, S, features[-1]]``, computed by the fused passes
     (``ops/fused_mlp.py``: in eval the samlp kernel, in training the four
     kernels of the active ``fused_mlp.override``'s mode on the card, the
-    stream passes unless it says ``mode="recompute"``), which also update
+    stream passes unless it says ``mode="recompute"`` or ``"recompute1"``,
+    the latter demoted to stream on a stack its gate refuses), which also
+    update
     the running statistics in training. Otherwise the plain per-layer ops,
     ``[..., C]`` → ``[..., features[-1]]``.
     """

@@ -1,7 +1,8 @@
 """Fused grouped Dense→BN→ReLU stack + max over K.
 
-Counterpart of ``papc_tpu/ops/fused_mlp.py::fused_mlp_max``, in its
-``"stream"`` (the default) and ``"recompute"`` training modes.
+Counterpart of ``papc_tpu/ops/fused_mlp.py::fused_mlp_max``, in its three
+training modes, ``"stream"`` (the default), ``"recompute"`` and
+``"recompute1"``.
 
 - Eval: BatchNorm with running statistics is a constant affine, folded
   into ``(scale, shift) = (γ·rsqrt(var + eps), β - mean·scale)``, and the
@@ -18,8 +19,12 @@ Counterpart of ``papc_tpu/ops/fused_mlp.py::fused_mlp_max``, in its
   a final max forward, one bwd-stats pass per layer and a bwd-final pass
   backward. Nothing of ``M`` rows but the block input is kept for the
   backward, and no pre-activation is rounded.
+- Train, recompute1 mode: the same passes, each as one persistent launch
+  (``ops/kernels/samlp_single.py``), on the stacks its gate admits; a
+  stack it does not admit (the ``group_all`` ones) demotes to stream mode
+  with a warning, as in JAX (:func:`effective_mode`).
 
-Both training modes have the JAX one's gradient semantics: the analytic
+Every training mode has the JAX one's gradient semantics: the analytic
 BatchNorm backward with batch statistics as functions of the input, the
 max's cotangent routed to the FIRST argmax (``torch.amax``'s autograd
 would split ties), no gradient through the batch mean and variance, which
@@ -29,10 +34,15 @@ variance).
 
 from __future__ import annotations
 
+import logging
+
 import torch
 
 from papc_tpu_torch.ops.kernels import (samlp, samlp_recompute,
-                                        samlp_train, use_kernel)
+                                        samlp_single, samlp_train,
+                                        use_kernel)
+
+_logger = logging.getLogger(__name__)
 
 MODES = ("stream", "recompute", "recompute1")
 
@@ -134,10 +144,25 @@ class _FusedTrain(torch.autograd.Function):
         return (dy, None, None, None, None, *flat)
 
 
+def _recompute_passes(mode: str):
+    """The four recompute passes of ``mode`` (stats, final, bwd stats, bwd
+    final), looked up when called: ``"recompute"`` the grid passes (#11-14),
+    ``"recompute1"`` the single-launch ones (#15-18), as the JAX package's
+    ``_rc_module(single)``. Both take the same arguments and compute the
+    same function."""
+    if mode == "recompute1":
+        return (samlp_single.rc1_stats, samlp_single.rc1_final,
+                samlp_single.rc1_bwd_stats, samlp_single.rc1_bwd_final)
+    return (samlp_recompute.rc_stats, samlp_recompute.rc_final,
+            samlp_recompute.rc_bwd_stats, samlp_recompute.rc_bwd_final)
+
+
 class _FusedRecompute(torch.autograd.Function):
     """Recompute-mode training forward and backward, the counterpart of
-    ``_make_core(mode="recompute")``: the same arguments and outputs as
-    :class:`_FusedTrain`.
+    ``_make_core(mode="recompute" | "recompute1")``: ``forward(x, k, eps,
+    impl, operand_dtype, mode, W0, b0, γ0, β0, W1, ...)``, otherwise the
+    arguments and outputs of :class:`_FusedTrain`; ``mode`` picks the
+    passes (:func:`_recompute_passes`).
 
     Forward: one stats pass per layer (layer ``l`` re-derives ``a_1 ..
     a_l`` from ``g2`` with the ``l-1`` BN affines known so far), then the
@@ -152,9 +177,10 @@ class _FusedRecompute(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, k, eps, impl, operand_dtype, *flat):
+    def forward(ctx, x, k, eps, impl, operand_dtype, mode, *flat):
         params = [flat[i:i + 4] for i in range(0, len(flat), 4)]
         n, m = len(params), x.shape[0]
+        stats_pass, final_pass, _, _ = _recompute_passes(mode)
         kernel = use_kernel(x, impl)
         g2 = x.to(operand_dtype)
         ws = [p[0] for p in params]
@@ -164,17 +190,16 @@ class _FusedRecompute(torch.autograd.Function):
                 "w_packed": packed}
         vecs, means, vars_ = [], [], []
         for upto, (_, _, gamma, beta) in enumerate(params, start=1):
-            sums = samlp_recompute.rc_stats(g2, vecs, ws, bs, upto=upto,
-                                            **opts)
+            sums = stats_pass(g2, vecs, ws, bs, upto=upto, **opts)
             vec, (mean, var) = samlp_train.bn_vectors(sums, gamma, beta, m,
                                                       eps)
             vecs.append(vec)
             means.append(mean)
             vars_.append(var)
-        out, amax = samlp_recompute.rc_final(g2, vecs, ws, bs, k=k, **opts)
+        out, amax = final_pass(g2, vecs, ws, bs, k=k, **opts)
         ctx.save_for_backward(g2, amax, *vecs, *ws, *bs,
                               *(packed if kernel else ()))
-        ctx.n, ctx.k, ctx.impl = n, k, impl
+        ctx.n, ctx.k, ctx.impl, ctx.mode = n, k, impl, mode
         ctx.operand_dtype, ctx.kernel = operand_dtype, kernel
         ctx.mark_non_differentiable(*means, *vars_)
         return (out, *means, *vars_)
@@ -182,6 +207,7 @@ class _FusedRecompute(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout, *_stats):
         n, k = ctx.n, ctx.k
+        _, _, bwd_stats_pass, bwd_final_pass = _recompute_passes(ctx.mode)
         g2, amax, *rest = ctx.saved_tensors
         vecs, ws, bs = rest[:n], rest[n:2 * n], rest[2 * n:3 * n]
         opts = {"impl": ctx.impl, "operand_dtype": ctx.operand_dtype,
@@ -189,31 +215,45 @@ class _FusedRecompute(torch.autograd.Function):
         m = g2.shape[0]
         mus, s_list = [None] * n, [None] * n
         for level in range(n, 0, -1):
-            s = samlp_recompute.rc_bwd_stats(g2, dout, amax, vecs, ws, bs,
-                                             mus, level=level, k=k, **opts)
+            s = bwd_stats_pass(g2, dout, amax, vecs, ws, bs, mus,
+                               level=level, k=k, **opts)
             s_list[level - 1] = s
             mus[level - 1] = s / m
-        dg, dws, dbs = samlp_recompute.rc_bwd_final(
+        dg, dws, dbs = bwd_final_pass(
             g2, dout, amax, vecs, ws, bs, mus, k=k,
             need_dg=ctx.needs_input_grad[0], **opts)
         flat = [g for j in range(n)
                 for g in (dws[j], dbs[j], s_list[j][1], s_list[j][0])]
-        return (dg, None, None, None, None, *flat)
+        return (dg, None, None, None, None, None, *flat)
 
 
-_TRAIN = {"stream": _FusedTrain, "recompute": _FusedRecompute}
+def effective_mode(mode: str, m: int, k: int, c0: int, widths) -> str:
+    """The training mode one stack of ``m`` grouped rows (groups of ``k``,
+    ``c0`` input channels, layer ``widths``) actually runs: ``recompute1``
+    demotes to ``stream`` where the single-launch passes have no plan
+    within the card's shared memory (``samlp_single.fits``: the
+    ``group_all`` stacks, whose resident bf16 weights alone exceed it).
+    A/B harnesses query this to report which stacks ran the labelled
+    mode (``papc_tpu/ops/fused_mlp.py:126``)."""
+    if mode == "recompute1" and not samlp_single.fits(m, k, c0, widths):
+        return "stream"
+    return mode
 
 
-def _training_function(mode: str):
-    """The autograd Function of a training mode of ``MODES``;
-    ``recompute1`` (the single-launch passes) is not ported yet and
-    raises: it does not fall back to another mode."""
-    if mode not in _TRAIN:
-        raise NotImplementedError(
-            f"fused_mlp mode {mode!r} (samlp_single.py's single-launch "
-            "recompute passes, kernels #15-18) is not ported yet; see "
-            "ROADMAP.md, Queue 2")
-    return _TRAIN[mode]
+_DEMOTED: set = set()  # the stack shapes whose demotion was logged
+
+
+def _demote(mode: str, m: int, k: int, c0: int, widths) -> str:
+    """:func:`effective_mode`, with JAX's warning once per stack shape (JAX
+    warns once per trace of a stack)."""
+    eff = effective_mode(mode, m, k, c0, widths)
+    if eff != mode and (m, k, c0, tuple(widths)) not in _DEMOTED:
+        _DEMOTED.add((m, k, c0, tuple(widths)))
+        _logger.warning(
+            "fused_mlp: recompute1 demoted to stream for layer stack m=%d "
+            "k=%d c0=%d widths=%s (fails samlp_single.fits) — A/Bs labeled "
+            "recompute1 run stream for this stack", m, k, c0, list(widths))
+    return eff
 
 
 def fused_mlp_max(grouped: torch.Tensor, params, running, *,
@@ -234,9 +274,10 @@ def fused_mlp_max(grouped: torch.Tensor, params, running, *,
         defaults to the active :class:`override`.
       operand_dtype: the matrix products' operand type, bf16 unless an
         :class:`override` or the caller says f32 (plain version only).
-      mode: the training passes, ``"stream"`` or ``"recompute"``;
-        defaults to the active :class:`override`'s (``"stream"``).
-        ``"recompute1"`` raises ``NotImplementedError`` in training.
+      mode: the training passes, ``"stream"``, ``"recompute"`` or
+        ``"recompute1"``; defaults to the active :class:`override`'s
+        (``"stream"``). ``"recompute1"`` runs stream mode on a stack that
+        :func:`effective_mode` demotes, and logs it once per stack shape.
 
     Returns:
       eval: ``[B, S, C_last]`` f32. train: ``(out [B, S, C_last] f32,
@@ -254,9 +295,15 @@ def fused_mlp_max(grouped: torch.Tensor, params, running, *,
         if not params:
             raise ValueError("fused_mlp_max needs at least one layer")
         flat = [t for p in params for t in p]
-        out2, *stats = _training_function(mode).apply(
-            grouped.reshape(b * s * k, c0).float(), k, float(eps), impl,
-            operand_dtype, *flat)
+        x = grouped.reshape(b * s * k, c0).float()
+        mode = _demote(mode, x.shape[0], k, c0,
+                       [p[0].shape[1] for p in params])
+        if mode == "stream":
+            out2, *stats = _FusedTrain.apply(x, k, float(eps), impl,
+                                             operand_dtype, *flat)
+        else:
+            out2, *stats = _FusedRecompute.apply(x, k, float(eps), impl,
+                                                 operand_dtype, mode, *flat)
         n = len(params)
         with torch.no_grad():
             new_running = [

@@ -136,12 +136,12 @@ def evaluate(
     result = {
         "loss": sum(losses) / total,
         metric_name(mode): sum(metrics) / total,
-        "num_samples": int(sum(counts)),
+        "num_samples": int(total),  # 1 on an empty split, as in JAX
     }
     log(f"eval[{split}]: " + ", ".join(
         f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}"
         for k, v in result.items()
     ))
-    result["logits"] = (torch.cat(kept) if kept
-                        else torch.zeros((0, num_classes)))
+    empty = (0, max_point, num_parts) if mode == "seg" else (0, num_classes)
+    result["logits"] = torch.cat(kept) if kept else torch.zeros(empty)
     return result

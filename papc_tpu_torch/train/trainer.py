@@ -103,7 +103,8 @@ def train(
 
     ``make_loader(split)`` returns an epoch callable yielding batches
     (default: :class:`~papc_tpu_torch.data.ShapeNetLoader` over ``path``,
-    the train split shuffled with ``seed``, with the part labels in
+    the train split shuffled by ``RandomState(0)`` whatever ``seed`` is,
+    as the JAX package's ``make_dataloader`` does, with the part labels in
     ``seg`` mode). Weights start from ``seed``; dropout draws from a CPU
     ``torch.Generator`` seeded with ``seed``. ``history`` holds one dict
     per epoch: ``epoch``, ``epoch_time`` (s, host clock, synchronized),
@@ -114,9 +115,9 @@ def train(
     if make_loader is None:
         from papc_tpu_torch.data import ShapeNetLoader
 
-        def make_loader(split):
+        def make_loader(split):  # shuffled by RandomState(0), as in JAX
             return ShapeNetLoader(path, split, max_point, batchsize,
-                                  with_pid=mode == "seg", seed=seed)
+                                  with_pid=mode == "seg")
 
     train_loader, val_loader = make_loader("train"), make_loader("val")
     model = init_model(model_name, mode, num_classes, num_parts, max_point,

@@ -44,6 +44,14 @@ times as far from the f32-operand plain pass as the bf16 one; the
 recompute Function
 and a reduced training step under ``override(mode="recompute")`` with
 only #11-14 of the training passes launched.
+
+The single-launch recompute passes (#15-18, ``mode="recompute1"``) on
+every stack shape their gate admits (SSG SA1 and SA2, MSG SA1, ragged and
+unaligned ones), under the tolerances of #11-14, against their plain
+versions and against #11-14 on the same inputs; repeated calls the same
+bits; one device kernel a call in the profiler; a reduced training step
+under ``override(mode="recompute1")`` with #15-18 launched on the admitted
+stacks, the stream passes on the demoted one and #11-14 never.
 """
 
 import numpy as np
@@ -572,14 +580,17 @@ def test_recompute_kernels_match_plain(device, groups, k, c0, widths):
         torch.testing.assert_close(a, b, rtol=0, atol=0)  # fixed order
 
 
-def test_fused_recompute_kernels_match_plain(device):
-    """``fused_mlp_max(mode="recompute")`` with the kernels against the
-    plain passes on the card: outputs within 1e-3 of the largest plus one
-    bf16 ulp and statistics within 1e-3, every gradient within 1e-2 of
-    its layer's largest (an operand rounded to the other bf16 neighbour
-    moves the chain after it); the four kernels launched L, 1, L and 1
+@pytest.mark.parametrize("mode", ["recompute", "recompute1"])
+def test_fused_recompute_kernels_match_plain(device, mode):
+    """``fused_mlp_max(mode=...)`` with the kernels against the plain
+    passes on the card: outputs within 1e-3 of the largest plus one bf16
+    ulp and statistics within 1e-3, every gradient within 1e-2 of its
+    layer's largest (an operand rounded to the other bf16 neighbour moves
+    the chain after it); the mode's four kernels launched L, 1, L and 1
     times."""
-    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+    from papc_tpu_torch.ops.kernels import samlp_recompute, samlp_single
+
+    rc = samlp_single if mode == "recompute1" else samlp_recompute
 
     gen = torch.Generator().manual_seed(11)
     shape, widths = (8, 64, 32, 3), (64, 64, 128)
@@ -595,7 +606,7 @@ def test_fused_recompute_kernels_match_plain(device):
                   for layer in zip(ws, bs, gammas, betas)]
         before = [k.launches for k in rc.KERNELS]
         out, new_running = fused_mlp.fused_mlp_max(
-            xg, params, running, train=True, impl=impl, mode="recompute")
+            xg, params, running, train=True, impl=impl, mode=mode)
         (out * cot).sum().backward()
         counts = [k.launches - b for k, b in zip(rc.KERNELS, before)]
         assert counts == ([3, 1, 3, 1] if impl is None else [0, 0, 0, 0])
@@ -642,6 +653,165 @@ def test_training_step_under_recompute_runs_its_kernels(device):
     loss, model = step(None)
     counts = [k.launches - b for k, b in zip(kernels, before)]
     assert counts == [9, 3, 9, 3, 0, 0, 0, 0]
+    plain_loss, _ = step("plain")
+    assert loss == pytest.approx(plain_loss, rel=5e-3)
+    assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
+
+
+# ------------------------------------------- single-launch recompute
+
+RC1_STACKS = [  # (groups, k, c0, widths): stacks samlp_single.fits admits
+    (5, 32, 3, (64, 64, 128)),          # fewer groups than blocks
+    (16384, 32, 3, (64, 64, 128)),      # SSG SA1 at B=32: dW on chip
+    (4096, 64, 131, (128, 128, 256)),   # SSG SA2: dW in device memory
+    (96, 16, 3, (32, 32, 64)),          # MSG clas SA1: K = 16
+    (16384, 128, 6, (64, 96, 128)),     # MSG seg SA1 branch 2: 2 M rows
+    (4096, 32, 323, (64, 64, 128)),     # MSG clas SA2 branch 0: c0 = 323
+    (9, 8, 20, (16, 16, 16, 32)),       # four layers
+    (7, 5, 7, (16, 24)),                # rows of 14 B: unaligned tiles
+]
+
+
+@pytest.mark.parametrize("groups,k,c0,widths", RC1_STACKS)
+def test_single_launch_kernels_match_plain(device, groups, k, c0, widths):
+    """#15-18 against their plain versions and against #11-14 on the same
+    inputs, under #11-14's tolerances (``test_recompute_kernels_match_
+    plain``): forward sums within 1e-3 of their largest, the max within
+    that plus one bf16 ulp, the argmax equal where the plain margin is
+    clear; the backward outputs no more than 1.5 times as far from the
+    f32-operand plain pass as the plain bf16 pass (and as #13/#14). Each
+    call launches its kernel once and repeated calls give the same bits."""
+    from papc_tpu_torch.ops import fused_mlp as fm
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+    from papc_tpu_torch.ops.kernels import samlp_single as s1
+
+    m = groups * k
+    assert fm.effective_mode("recompute1", m, k, c0, widths) == "recompute1"
+    g2, ws, bs, vecs, dout, amax, mus = _rc_stack(groups, k, c0, widths,
+                                                  device)
+    n = len(widths)
+    packed = [samlp_train.pack_weight(w) for w in ws]
+    for upto in range(1, n + 1):
+        before = s1.RC1_STATS.launches
+        got = s1.rc1_stats(g2, vecs[:upto - 1], ws, bs, upto=upto,
+                           w_packed=packed)
+        assert s1.RC1_STATS.launches == before + 1
+        _near(got, rc.rc_stats(g2, vecs, ws, bs, upto=upto, impl="plain"),
+              1e-3)
+        _near(got, rc.rc_stats(g2, vecs, ws, bs, upto=upto,
+                               w_packed=packed), 1e-3)
+        torch.testing.assert_close(
+            s1.rc1_stats(g2, vecs, ws, bs, upto=upto, w_packed=packed), got,
+            rtol=0, atol=0)
+    out, got_amax = s1.rc1_final(g2, vecs, ws, bs, k=k, w_packed=packed)
+    want, want_amax = rc.rc_final(g2, vecs, ws, bs, k=k, impl="plain")
+    _near(out, want, 1e-3, ulp=True)
+    grid_out, grid_amax = rc.rc_final(g2, vecs, ws, bs, k=k, w_packed=packed)
+    _near(out, grid_out, 1e-3, ulp=True)
+    a_list, _ = rc.chain_plain(g2, vecs, ws, bs, n)
+    h = torch.clamp_min(a_list[-1] * vecs[-1][0] + vecs[-1][1], 0.0)
+    top2 = h.reshape(groups, k, -1).topk(2, dim=1).values
+    bound = 1e-3 * float(want.abs().max()) + _bf16_ulp(top2[:, 0])
+    clear = top2[:, 0] - top2[:, 1] > 2 * bound
+    assert bool((got_amax == want_amax)[clear].all())
+    assert bool((got_amax == grid_amax)[clear].all())
+    again = s1.rc1_final(g2, vecs, ws, bs, k=k, w_packed=packed)
+    assert torch.equal(again[0], out) and torch.equal(again[1], got_amax)
+    f32 = {"impl": "plain", "operand_dtype": torch.float32}
+    args = (g2, dout, amax, vecs, ws, bs, mus)
+    for level in range(n, 0, -1):
+        got = s1.rc1_bwd_stats(*args, level=level, k=k, w_packed=packed)
+        ref = rc.rc_bwd_stats(*args, level=level, k=k, **f32)
+        _no_farther(got, rc.rc_bwd_stats(*args, level=level, k=k,
+                                         impl="plain"), ref)
+        _no_farther(got, rc.rc_bwd_stats(*args, level=level, k=k,
+                                         w_packed=packed), ref)
+        torch.testing.assert_close(
+            s1.rc1_bwd_stats(*args, level=level, k=k, w_packed=packed), got,
+            rtol=0, atol=0)
+    before = s1.RC1_BWD_FINAL.launches
+    got = s1.rc1_bwd_final(*args, k=k, w_packed=packed)
+    assert s1.RC1_BWD_FINAL.launches == before + 1
+    want = rc.rc_bwd_final(*args, k=k, impl="plain")
+    grid = rc.rc_bwd_final(*args, k=k, w_packed=packed)
+    ref = rc.rc_bwd_final(*args, k=k, **f32)
+    for other in (want, grid):
+        _no_farther(got[0], other[0], ref[0])
+        for j in range(n):
+            _no_farther(got[1][j], other[1][j], ref[1][j])
+            _no_farther(got[2][j], other[2][j], ref[2][j])
+    again = s1.rc1_bwd_final(*args, k=k, w_packed=packed)
+    for a, b in zip([again[0], *again[1], *again[2]],
+                    [got[0], *got[1], *got[2]]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    skip = s1.rc1_bwd_final(*args, k=k, w_packed=packed, need_dg=False)
+    assert skip[0] is None
+    for a, b in zip(skip[1] + skip[2], got[1] + got[2]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_single_launch_is_one_device_kernel(device):
+    """Each of #15-18 is ONE device kernel a call (``torch.profiler``): no
+    reduce, key-splitting or fill kernel beside it, at SSG SA2's shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from papc_tpu_torch.ops.kernels import samlp_single as s1
+
+    groups, k, c0, widths = 4096, 64, 131, (128, 128, 256)
+    g2, ws, bs, vecs, dout, amax, mus = _rc_stack(groups, k, c0, widths,
+                                                  device)
+    packed = [samlp_train.pack_weight(w) for w in ws]
+    args = (g2, dout, amax, vecs, ws, bs, mus)
+    calls = {
+        "stats": lambda: s1.rc1_stats(g2, vecs, ws, bs, upto=3,
+                                      w_packed=packed),
+        "final": lambda: s1.rc1_final(g2, vecs, ws, bs, k=k,
+                                      w_packed=packed),
+        "bwd_stats": lambda: s1.rc1_bwd_stats(*args, level=1, k=k,
+                                              w_packed=packed),
+        "bwd_final": lambda: s1.rc1_bwd_final(*args, k=k, w_packed=packed),
+    }
+    for name, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(kernels) == 1 and "rc1_" in kernels[0], (name, kernels)
+
+
+def test_training_step_under_recompute1_runs_its_kernels(device):
+    """A reduced SSG train step under ``override(mode="recompute1")``:
+    #15-18 launched 6/2/6/2 (SA1 and SA2, three layers each), the stream
+    passes 3/1/1/3 on the demoted SA3, #11-14 never; the loss within 5e-3
+    of the plain recompute1 step's, every gradient finite."""
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+    from papc_tpu_torch.ops.kernels import samlp_single as s1
+    from papc_tpu_torch.train import make_optimizer, train_step
+
+    def step(impl):
+        model = PointNet2SSGClas(num_classes=16, npoints=(128, 32),
+                                 nsamples=(32, 64))
+        init_params(model, torch.Generator().manual_seed(0))
+        model = model.to(device)
+        opt = make_optimizer(model.parameters(), 1e-3, 1e-3)
+        batch = {"points": _cloud(9, 8, 512).numpy(),
+                 "label": np.arange(8) % 16, "mask": np.ones(8, bool)}
+        masks = [torch.rand(8, 512, generator=torch.Generator().manual_seed(1))
+                 < 0.6, torch.rand(8, 256, generator=torch.Generator()
+                                   .manual_seed(2)) < 0.6]
+        with fused_mlp.override(mode="recompute1"):
+            loss, _ = train_step(model, opt, batch, device, impl=impl,
+                                 dropout_masks=masks)
+        return float(loss), model
+
+    kernels = [*s1.KERNELS, *rc.KERNELS, *samlp_train.KERNELS]
+    before = [k.launches for k in kernels]
+    loss, model = step(None)
+    counts = [k.launches - b for k, b in zip(kernels, before)]
+    assert counts == [6, 2, 6, 2, 0, 0, 0, 0, 3, 1, 1, 3]
     plain_loss, _ = step("plain")
     assert loss == pytest.approx(plain_loss, rel=5e-3)
     assert all(bool(torch.isfinite(p.grad).all()) for p in model.parameters())
@@ -722,8 +892,8 @@ def test_nms_kernels_raise_above_their_limits(device):
 
 def test_reduced_detection_slice_on_the_card(device):
     """Raw points → detections on a reduced car config (64 × 64 grid):
-    both NMS kernels launched, detections equal to the plain run."""
-    torch.backends.cudnn.allow_tf32 = False
+    both NMS kernels launched, detections equal to the plain run (the
+    serving step runs its convolutions in f32 itself)."""
     cfg = car_config()
     cfg_from_list(cfg, ["VOXEL_GENERATOR.VOXEL_SIZE", "[1.08, 1.24, 4]",
                         "VOXEL_GENERATOR.MAX_NUMBER_OF_POINTS_PER_VOXEL", "32",

@@ -13,15 +13,16 @@ import pytest
 
 from papc_tpu_torch import _build
 from papc_tpu_torch.ops.kernels import (ball_query, fps, gather, nms, samlp,
-                                        samlp_recompute, samlp_train,
-                                        scatter_rows)
+                                        samlp_recompute, samlp_single,
+                                        samlp_train, scatter_rows)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "papc_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "papc_tpu"}
 KERNEL_MODULES = (fps, ball_query, gather, samlp)
 TRAINING_KERNELS = (gather.SCATTER_KERNEL, *samlp_train.KERNELS,
-                    scatter_rows.KERNEL, *samlp_recompute.KERNELS)
+                    scatter_rows.KERNEL, *samlp_recompute.KERNELS,
+                    *samlp_single.KERNELS)
 NMS_KERNELS = nms.KERNELS
 
 
@@ -95,7 +96,8 @@ def test_ctypes_argtypes_match_the_c_entry_points(mod):
 @pytest.mark.parametrize("kernel", TRAINING_KERNELS, ids=lambda k: k.symbol)
 def test_ctypes_argtypes_of_the_training_kernels(kernel):
     """The same check for the training path's entry points (the two
-    scatter-adds, the four stream passes and the four recompute passes)."""
+    scatter-adds, the four stream passes, the four recompute passes and
+    their four single-launch counterparts)."""
     sigs = _exported_signatures()
     assert kernel.argtypes == sigs[kernel.symbol]
     assert kernel.argtypes[-1] is ctypes.c_void_p
@@ -137,7 +139,8 @@ def test_library_path_is_keyed_by_sources_and_flags(monkeypatch):
             "samlp_finalize_seed.cu", "samlp_bwd_layer.cu",
             "samlp_train.cuh", "nms_greedy.cu", "nms_rotate.cu",
             "scatter_rows_add.cu", "samlp_recompute.cuh", "samlp_rc_fwd.cu",
-            "samlp_rc_bwd.cu"} <= {
+            "samlp_rc_bwd.cu", "samlp_single.cuh", "samlp_single_fwd.cu",
+            "samlp_single_bwd.cu"} <= {
                 p.name for p in _build.sources()}
 
 

@@ -34,7 +34,7 @@ from papc_tpu_torch.models.classify import PointNet2MSGClas, PointNet2SSGClas
 from papc_tpu_torch.nn import PointMLP, SetAbstraction, SetAbstractionMsg
 from papc_tpu_torch.ops import fused_mlp
 from papc_tpu_torch.ops.kernels import samlp_recompute as rc
-from papc_tpu_torch.ops.kernels import samlp_train
+from papc_tpu_torch.ops.kernels import samlp_single, samlp_train
 
 from tests import torch_parity as P
 
@@ -307,7 +307,8 @@ def test_fused_recompute_gradcheck_in_float64():
 
     def f(x, *flat):
         return fused_mlp._FusedRecompute.apply(x, k, 1e-5, "plain",
-                                               torch.float64, *flat)[0]
+                                               torch.float64, "recompute",
+                                               *flat)[0]
 
     assert torch.autograd.gradcheck(f, (x, *flat), eps=1e-6, atol=1e-5,
                                     rtol=1e-4)
@@ -334,11 +335,13 @@ def test_recompute_close_to_stream():
         np.testing.assert_allclose(vb, va, rtol=0, atol=2e-3)
 
 
-@pytest.mark.parametrize("mode,rows", [("recompute", 1), ("stream", 4)])
+@pytest.mark.parametrize("mode,rows", [("recompute", 1), ("stream", 4),
+                                       ("recompute1", 1)])
 def test_saved_for_backward(mode, rows):
     """What each mode keeps for the backward, counted under
-    ``saved_tensors_hooks``: tensors of ``M`` rows. Recompute saves ``g2``
-    alone; stream saves ``g2`` and the L = 3 stored pre-activations."""
+    ``saved_tensors_hooks``: tensors of ``M`` rows. Recompute and
+    recompute1 save ``g2`` alone; stream saves ``g2`` and the L = 3 stored
+    pre-activations."""
     rs = np.random.RandomState(6)
     shape, widths = (2, 8, 8, 5), (16, 24, 8)
     m = shape[0] * shape[1] * shape[2]
@@ -388,19 +391,28 @@ def test_input_gradient_only_when_asked():
 
 # ------------------------------------------------------- mode routing
 
-STREAM_PLAIN = ("linear_stats_plain", "finalize_max_plain", "bwd_seed_plain",
-                "bwd_layer_plain")
-RC_PLAIN = ("rc_stats_plain", "rc_final_plain", "rc_bwd_stats_plain",
-            "rc_bwd_final_plain")
+STREAM_PASSES = ("linear_stats", "finalize_max", "bwd_seed", "bwd_layer")
+RC_PASSES = ("rc_stats", "rc_final", "rc_bwd_stats", "rc_bwd_final")
+RC1_PASSES = ("rc1_stats", "rc1_final", "rc1_bwd_stats", "rc1_bwd_final")
 
 
-@pytest.mark.parametrize("mode", ["stream", "recompute"])
-def test_mode_routes_every_pass(monkeypatch, mode):
+@pytest.mark.parametrize("mode,features,want", [
+    ("stream", (16, 24, 8), dict(zip(STREAM_PASSES, (3, 1, 1, 3)))),
+    ("recompute", (16, 24, 8), dict(zip(RC_PASSES, (3, 1, 3, 1)))),
+    ("recompute1", (16, 24, 8), dict(zip(RC1_PASSES, (3, 1, 3, 1)))),
+    # bf16 weights of 2.1 MB: no single-launch plan, stream passes
+    ("recompute1", (1024, 1024), dict(zip(STREAM_PASSES, (2, 1, 1, 2)))),
+], ids=["stream", "recompute", "recompute1", "recompute1-demoted"])
+def test_mode_routes_every_pass(monkeypatch, mode, features, want):
     """Under ``override(mode=...)`` a training step of a PointMLP calls
-    only that mode's passes, each as often as the mode says (L = 3:
-    stream 3/1/1/3, recompute 3/1/3/1); the other mode's passes never."""
+    only that mode's passes (the dispatchers: kernel on the card, plain
+    here), each as often as the mode says (L = 3: stream 3/1/1/3,
+    recompute and recompute1 3/1/3/1); the other modes' passes never. A
+    stack that ``samlp_single.fits`` refuses runs the stream passes under
+    ``recompute1``."""
     counts = {}
-    for mod, names in ((samlp_train, STREAM_PLAIN), (rc, RC_PLAIN)):
+    for mod, names in ((samlp_train, STREAM_PASSES), (rc, RC_PASSES),
+                       (samlp_single, RC1_PASSES)):
         for name in names:
             real = getattr(mod, name)
 
@@ -409,24 +421,27 @@ def test_mode_routes_every_pass(monkeypatch, mode):
                 return _real(*args, **kw)
 
             monkeypatch.setattr(mod, name, spy)
-    mlp = PointMLP(5, (16, 24, 8), pool_max=True).train()
+    mlp = PointMLP(5, features, pool_max=True).train()
     with fused_mlp.override(mode=mode):
         mlp(torch.randn(2, 8, 8, 5)).sum().backward()
-    want = ({"linear_stats_plain": 3, "finalize_max_plain": 1,
-             "bwd_seed_plain": 1, "bwd_layer_plain": 3} if mode == "stream"
-            else {"rc_stats_plain": 3, "rc_final_plain": 1,
-                  "rc_bwd_stats_plain": 3, "rc_bwd_final_plain": 1})
     assert counts == want
 
 
 def test_unported_and_unknown_modes_raise():
-    """``recompute1`` (kernels #15-18) raises in training and names the
-    roadmap; an unknown mode raises; neither falls back to stream."""
-    mlp = PointMLP(5, (16,), pool_max=True).train()
-    x = torch.randn(1, 4, 8, 5)
-    with fused_mlp.override(mode="recompute1"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            mlp(x)
+    """``recompute1`` (kernels #15-18) trains: its step gives the
+    recompute step's output and gradients exactly (the same plain passes
+    here); an unknown mode raises and does not fall back to stream."""
+    x = torch.randn(1, 8, 8, 5)
+    got = []
+    for mode in ("recompute", "recompute1"):
+        torch.manual_seed(0)
+        mlp = PointMLP(5, (16, 8), pool_max=True).train()
+        with fused_mlp.override(mode=mode):
+            out = mlp(x)
+        out.sum().backward()
+        got.append([out.detach()] + [p.grad for p in mlp.parameters()])
+    for a, b in zip(*got):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(ValueError, match="mode must be one of"):
         fused_mlp.fused_mlp_max(x, [(torch.ones(5, 16), torch.zeros(16),
                                      torch.ones(16), torch.zeros(16))],

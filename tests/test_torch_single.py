@@ -1,0 +1,363 @@
+"""The port's single-launch recompute mode (``mode="recompute1"``, kernels
+#15-18) against the JAX package on the CPU, its gate, and the repairs of
+three faults of the port (the training shuffle, ``evaluate`` on an empty
+split, f32 detection convolutions).
+
+Inputs are numpy arrays from one seed, handed to both packages in the same
+process. The JAX side runs as its own suite runs on the CPU:
+``fused_mlp_max(..., impl="jnp", mode="recompute1")`` (the same jnp twins
+as recompute mode), the Pallas single-launch passes with
+``interpret=True`` and ``make_train_step`` under ``fused_mlp.override``.
+The port runs its plain versions (no card here), which for recompute1 ARE
+the recompute passes' plain versions.
+
+Tolerances, stated at each test, are those of ``test_torch_recompute.py``.
+"""
+
+import logging
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from papc_tpu.data.dispatch import make_dataloader
+from papc_tpu.data.synthetic import write_shapenet_h5
+from papc_tpu.models.classify import PointNet2SSGClas as JaxSSG
+from papc_tpu.ops import fused_mlp as jfused
+from papc_tpu.ops.pallas import samlp_single as jsingle
+
+from papc_tpu_torch.convert import state_dict_to_flax
+from papc_tpu_torch.detect import train as detect_train
+from papc_tpu_torch.models import init_model, registry
+from papc_tpu_torch.models.classify import PointNet2SSGClas
+from papc_tpu_torch.nn import SetAbstraction, SetAbstractionMsg
+from papc_tpu_torch.ops import fused_mlp
+from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+from papc_tpu_torch.ops.kernels import samlp_single
+from papc_tpu_torch.train import evaluate
+from papc_tpu_torch.train import trainer
+
+from tests import torch_parity as P
+from tests.test_torch_recompute import (J_DTYPE, _compare_fused, _layers,
+                                        _np, _port_fused)
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+def _jax_fused(g, layers, running, cot, *, mode, dtype, impl="jnp"):
+    """JAX's training stack under ``jax.value_and_grad``: ``(out,
+    new_running, dg, [[dW, db, dγ, dβ]])`` as numpy."""
+    jrun = tuple((jnp.asarray(m), jnp.asarray(v)) for m, v in running)
+
+    def loss(gj, pj):
+        o, nr = jfused.fused_mlp_max(gj, pj, jrun, train=True, impl=impl,
+                                     interpret=impl == "pallas",
+                                     sdtype=J_DTYPE[dtype], mode=mode)
+        return jnp.sum(o * jnp.asarray(cot)), (o, nr)
+
+    jp = tuple(tuple(jnp.asarray(p) for p in layer) for layer in layers)
+    (_, (o, nr)), (dg, dp) = jax.value_and_grad(
+        loss, argnums=(0, 1), has_aux=True)(jnp.asarray(g), jp)
+    return (_np(o), [(_np(m), _np(v)) for m, v in nr], _np(dg),
+            [[_np(p) for p in layer] for layer in dp])
+
+
+def _case(seed, shape, widths):
+    rs = np.random.RandomState(seed)
+    g = (rs.randn(*shape) + 0.5).astype(np.float32)
+    layers, running = _layers(rs, shape[-1], widths)
+    cot = rs.randn(*shape[:2], widths[-1]).astype(np.float32)
+    return g, layers, running, cot
+
+
+def _both_gates(shape, widths):
+    b, s, k, c0 = shape
+    m = b * s * k
+    return (jfused.effective_mode("recompute1", m, k, c0, list(widths)),
+            fused_mlp.effective_mode("recompute1", m, k, c0, widths))
+
+
+# ------------------------------------------------ the fused Function
+
+SHAPES = [((2, 16, 8, 6), (32, 16, 24)), ((4, 16, 8, 6), (16, 32))]
+
+
+@pytest.mark.parametrize("shape,widths", SHAPES,
+                         ids=["2x16x8x6-32-16-24", "4x16x8x6-16-32"])
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+def test_fused_recompute1_matches_jax(shape, widths, dtype):
+    """``fused_mlp_max(mode="recompute1")`` against JAX's
+    ``fused_mlp_max(train=True, impl="jnp", mode="recompute1")`` at shapes
+    where both gates keep recompute1 (``m % 8k == 0`` for JAX, the port's
+    plan fits): outputs, BN statistics and every gradient, within 1e-5 /
+    1e-4 of the largest with f32 operands, 1e-3 / 1e-2 with bf16 (the
+    tolerances of ``test_fused_recompute_matches_jax``)."""
+    assert _both_gates(shape, widths) == ("recompute1", "recompute1")
+    g, layers, running, cot = _case(5, shape, widths)
+    port = _port_fused(g, layers, running, cot, mode="recompute1",
+                       dtype=dtype)
+    want = _jax_fused(g, layers, running, cot, mode="recompute1",
+                      dtype=dtype)
+    if dtype == F32:
+        _compare_fused(port, want, 1e-5, 1e-4)
+    else:
+        _compare_fused(port, want, 1e-3, 1e-2)
+
+
+def test_fused_recompute1_matches_jax_pallas_interpret():
+    """At a tiny shape, against JAX's Pallas single-launch passes
+    (``impl="pallas"``, ``interpret=True``, bf16 operands, as
+    ``tests/test_fused_mlp.py:404`` runs them): outputs and statistics
+    within 1e-3 of the largest, gradients within 1e-2."""
+    shape, widths = (2, 8, 8, 6), (16, 24)
+    assert _both_gates(shape, widths) == ("recompute1", "recompute1")
+    g, layers, running, cot = _case(7, shape, widths)
+    port = _port_fused(g, layers, running, cot, mode="recompute1",
+                       dtype=BF16)
+    want = _jax_fused(g, layers, running, cot, mode="recompute1",
+                      dtype=BF16, impl="pallas")
+    _compare_fused(port, want, 1e-3, 1e-2)
+
+
+def test_gates_disagree_on_a_ragged_batch(caplog):
+    """96 rows of groups of 8: JAX's gate wants whole 64-row chunks and
+    demotes the stack to stream (with its warning); the port's plan takes
+    any row count and keeps recompute1. The port's recompute1 step then
+    matches JAX's ``mode="recompute"``, the same arithmetic (f32 operands:
+    1e-5 / 1e-4 of the largest), and the port logs no demotion."""
+    shape, widths = (1, 12, 8, 5), (16, 24)
+    assert _both_gates(shape, widths) == ("stream", "recompute1")
+    g, layers, running, cot = _case(8, shape, widths)
+    with caplog.at_level(logging.WARNING):
+        port = _port_fused(g, layers, running, cot, mode="recompute1",
+                           dtype=F32)
+        _jax_fused(g, layers, running, cot, mode="recompute1", dtype=F32)
+    want = _jax_fused(g, layers, running, cot, mode="recompute", dtype=F32)
+    _compare_fused(port, want, 1e-5, 1e-4)
+    names = [r.name for r in caplog.records if "demoted" in r.getMessage()]
+    assert names == ["papc_tpu.ops.fused_mlp"]
+
+
+def test_demotion_runs_stream_and_warns_once(caplog, monkeypatch):
+    """A stack whose single-launch plan does not fit (2.1 MB of bf16
+    weights) trains in stream mode: the same output and gradients as
+    ``mode="stream"``; JAX's message is logged once for the stack shape,
+    however many steps run."""
+    monkeypatch.setattr(fused_mlp, "_DEMOTED", set())
+    shape, widths = (1, 4, 8, 5), (1024, 1024)
+    g, layers, running, cot = _case(9, shape, widths)
+    with caplog.at_level(logging.WARNING, logger="papc_tpu_torch"):
+        got = [_port_fused(g, layers, running, cot, mode="recompute1",
+                           dtype=BF16) for _ in range(2)]
+    want = _port_fused(g, layers, running, cot, mode="stream", dtype=BF16)
+    for a, b in zip(jax.tree_util.tree_leaves(got[1]),
+                    jax.tree_util.tree_leaves(want)):
+        np.testing.assert_array_equal(a, b)
+    msgs = [r.getMessage() for r in caplog.records
+            if r.name == "papc_tpu_torch.ops.fused_mlp"]
+    assert msgs == ["fused_mlp: recompute1 demoted to stream for layer "
+                    "stack m=32 k=8 c0=5 widths=[1024, 1024] (fails "
+                    "samlp_single.fits) — A/Bs labeled recompute1 run "
+                    "stream for this stack"]
+
+
+# ------------------------------------------------------------- the gate
+
+def _stack_shapes(model, batch=32):
+    """``(stage, m, k, c0, widths)`` of every fused SA stack of a model at
+    ``batch`` clouds: K is the ball-query size, or for ``group_all`` the
+    previous stage's centre count (one centre a cloud)."""
+    out, prev = [], None
+    for name, mod in model.named_modules():
+        if isinstance(mod, SetAbstraction):
+            mlps = [(mod.PointMLP_0, prev if mod.group_all else mod.nsample)]
+            centres = 1 if mod.group_all else mod.npoint
+        elif isinstance(mod, SetAbstractionMsg):
+            mlps = [(getattr(mod, f"PointMLP_{i}"), k)
+                    for i, k in enumerate(mod.nsample_list)]
+            centres = mod.npoint
+        else:
+            continue
+        for mlp, k in mlps:
+            out.append((name, batch * centres * k, k,
+                        mlp.Dense_0.in_features, mlp.features))
+        prev = mod.npoint
+    return out
+
+
+# Each registry stack's recompute1 decision at B=32 x 1024, in stack
+# order: (JAX's samlp_single.fits, the port's). The port keeps SSG SA1 and
+# SA2 as JAX does and demotes every group_all stack as JAX does; it also
+# demotes MSG SA2 at c0 = 323 with 128-128-256 (184 320 B of resident bf16
+# weights, 282 304 B a bwd block at 16 rows) where JAX keeps it.
+GATES = {
+    ("pointnet2_ssg", "clas"): [(True, True), (True, True), (False, False)],
+    ("pointnet2_msg", "clas"): [(True, True)] * 4 + [(True, False)]
+    + [(False, False)] * 2,
+    ("pointnet2_ssg", "seg"): [(True, True), (True, True), (False, False)],
+    ("pointnet2_msg", "seg"): [(True, True)] * 3 + [(True, False)]
+    + [(False, False)] * 2,
+}
+
+
+@pytest.mark.parametrize("combo", registry.registry_combos(),
+                         ids=lambda c: "-".join(c))
+def test_recompute1_gate_of_every_stack(combo):
+    """Every registry stack's gate decision at B=32 x 1024, the JAX
+    package's and the port's, pinned (``GATES``); every admitted stack's
+    plans fit the H100's shared memory, and SSG SA1's bwd final keeps dW
+    on chip where SA2's keeps it in device memory."""
+    spec = registry.init_model(*combo, device="cpu")
+    got = [(jsingle.fits(m, k, c0, list(w)), samlp_single.fits(m, k, c0, w))
+           for _, m, k, c0, w in _stack_shapes(spec.model)]
+    assert got == GATES[combo]
+    for (_, m, k, c0, w), (_, port) in zip(_stack_shapes(spec.model), got):
+        assert fused_mlp.effective_mode("recompute1", m, k, c0, w) == (
+            "recompute1" if port else "stream")
+        if not port:
+            continue
+        pl = samlp_single.plan("bwd_final", m, k, c0, w,
+                               samlp_single.SMEM_LIMIT)
+        assert pl["smem"] <= samlp_single.SMEM_LIMIT
+        assert pl["smem"] == samlp_single.smem_bytes(
+            "bwd_final", pl["tm"], k, c0, w, dw_on_chip=pl["dw_on_chip"])
+        if combo == ("pointnet2_ssg", "clas"):
+            assert pl["dw_on_chip"] == (c0 == 3)
+
+
+def test_plan_counts_the_resident_constants():
+    """The single-launch plan is the grid plan's chain plus what stays
+    resident: at SSG SA2 the stats pass at layer 3 at 64 rows needs the
+    grid plan's bytes plus 135 168 B of bf16 weights, the biases, the two
+    known BN vectors and two 64-row g2 buffers; a stack whose weights
+    alone exceed the card fails the gate and the plan."""
+    w, tm = (128, 128, 256), 64
+    extra = (samlp_single.smem_bytes("stats", tm, 1, 131, w, upto=3)
+             - rc.smem_bytes("stats", tm, 1, 131, w, upto=3))
+    weights = (144 * 128 + 128 * 128 + 128 * 256) * 2
+    assert weights == 135168
+    assert extra == (weights + 4 * (128 + 128 + 256) + 2 * 4 * (128 + 128)
+                     + 2 * 16768)  # 64 x 131 bf16 = 16768 B, 128-aligned
+    assert not samlp_single.fits(4096, 128, 259, (256, 512, 1024))
+    with pytest.raises(ValueError, match="shared memory"):
+        samlp_single.plan("final", 4096, 128, 259, (256, 512, 1024),
+                          samlp_single.SMEM_LIMIT)
+
+
+# ------------------------------------------------- whole steps, bf16
+
+# Measured on these inputs (B=8, reduced SSG; SA1 and SA2 in recompute1 on
+# both sides, SA3 demoted to stream on both): the port's gradients at most
+# 1.21 times (median 0.95) as far from its float64 step as JAX's, 0.145
+# apart in median relative L2, the noise biases within 1.3e-3 of their
+# module's largest. SA3 stores bf16 activations: its input differs between
+# the two sides by the recompute passes' sum order, which flips ties of its
+# max (at B=4 one such flip put a BN scale's gradient 2.5 times as far).
+STEP_LIMITS = {"loss": 1e-3, "stats": 1e-2, "ratio": 1.5,
+               "median_ratio": 1.15, "median_rel": 0.35, "noise": 2e-2}
+
+
+def test_recompute1_train_step_matches_jax(monkeypatch):
+    """One reduced SSG clas step at B=8 with bf16 operands under
+    ``override(mode="recompute1")`` against ``make_train_step`` under
+    ``override(enable=True, impl="jnp", mode="recompute1")``, every SA
+    stage fused (``permissive_fused_gate``), both judged by the port's
+    float64 step (``check_bf16_step``, within ``STEP_LIMITS``)."""
+    b = P.batch(8, 128, seed=5)
+    kw = {"npoints": (32, 16), "nsamples": (8, 16)}
+    jmodel = JaxSSG(num_classes=16, **kw)
+    variables = P.perturbed_variables(jmodel, "clas", b, 5)
+    rs = np.random.RandomState(6)
+    masks = [rs.uniform(size=(8, 512)) < 0.6, rs.uniform(size=(8, 256)) < 0.5]
+    P.permissive_fused_gate(monkeypatch)
+
+    def make():
+        return PointNet2SSGClas(num_classes=16, **kw)
+
+    want = P.jax_step(jmodel, "clas", variables, b, masks, 1e-3, 1e-3,
+                      fused=True, fused_mode="recompute1")
+    port = P.port_step(make, variables, b, masks, 1e-3, 1e-3, BF16,
+                       fused_mode="recompute1")
+    exact = P.port_step(make, variables, b, masks, 1e-3, 1e-3, torch.float64,
+                        fused_mode="recompute1")
+    P.check_bf16_step(port, want, exact, variables, 1e-3, 1e-3, STEP_LIMITS)
+
+
+# ---------------------------------------------- repairs of three faults
+
+@pytest.fixture(scope="module")
+def shapenet(tmp_path_factory):
+    return write_shapenet_h5(str(tmp_path_factory.mktemp("shapenet")),
+                             n_train=23, n_test=3, n_val=3, n_points=64,
+                             num_classes=4, num_parts=8, seed=3)
+
+
+def test_train_shuffles_as_jax_whatever_the_seed(shapenet, monkeypatch,
+                                                 tmp_path):
+    """``train(seed=1)`` feeds the train split in the order JAX's
+    ``make_dataloader`` gives it (``RandomState(0)``: JAX's ``train`` never
+    passes its seed to the loaders); the seed moves weights and dropout
+    only. A loader shuffled with the seed would differ."""
+    seen = []
+
+    def step(model, opt, batch, device, generator=None, impl=None):
+        seen.append(np.asarray(batch["label"])[np.asarray(batch["mask"])])
+        return torch.zeros(()), torch.zeros(())
+
+    monkeypatch.setattr(trainer, "train_step", step)
+    monkeypatch.setattr(trainer, "eval_step", lambda *a: (None, 0.0, 0.0))
+    trainer.train(max_point=64, epoch_num=1, batchsize=5, path=shapenet,
+                  model_dir=str(tmp_path), seed=1, device="cpu",
+                  log=lambda line: None)
+    want = [w.label[w.mask] for w in make_dataloader(
+        "pointnet2_ssg", 64, 5, shapenet, "clas", "train")()]
+    np.testing.assert_array_equal(np.concatenate(seen), np.concatenate(want))
+    seeded = make_dataloader("pointnet2_ssg", 64, 5, shapenet, "clas",
+                             "train", seed=1)
+    assert not np.array_equal(np.concatenate(seen), np.concatenate(
+        [w.label[w.mask] for w in seeded()]))
+
+
+@pytest.mark.parametrize("mode,shape", [("clas", (0, 16)),
+                                        ("seg", (0, 1024, 50))])
+def test_evaluate_on_an_empty_split(tmp_path, mode, shape):
+    """An empty split reports ``num_samples`` 1, as JAX's ``evaluate``
+    (``int(max(Σmask, 1))``), and logits of the mode's shape with no rows:
+    ``[0, classes]``, or ``[0, N, parts]`` for segmentation."""
+    spec = init_model("pointnet2_ssg", mode, seed=0, device="cpu")
+    weights = tmp_path / "w.npz"
+    np.savez(weights, **state_dict_to_flax(spec.model.state_dict()))
+    result = evaluate("pointnet2_ssg", mode, weights=weights,
+                      make_loader=lambda split: lambda: iter(()),
+                      device="cpu", log=lambda line: None)
+    assert result["num_samples"] == 1
+    assert tuple(result["logits"].shape) == shape
+    assert result["loss"] == 0.0
+
+
+def test_detection_serving_runs_f32_convolutions(monkeypatch):
+    """``predict_step`` runs the network inside
+    ``torch.backends.cudnn.flags(enabled=True, allow_tf32=False)``: cuDNN
+    may not take TF32 for the float32 convolutions while the network runs,
+    and the process-wide flag is what it was before and after."""
+    seen = []
+
+    class Net(torch.nn.Module):
+        def forward(self, *args):
+            seen.append((torch.backends.cudnn.enabled,
+                         torch.backends.cudnn.allow_tf32))
+            return {}
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(detect_train, "predict",
+                        lambda *args, **kw: {"valid": torch.ones(1)})
+    step = detect_train.make_predict_step(
+        Net(), SimpleNamespace(multiclass_nms=False),
+        SimpleNamespace(decode=None), lambda batch: (), device="cpu")
+    assert step({"anchors": np.zeros((1, 2, 7), np.float32)})["valid"].shape \
+        == (1,)
+    assert seen == [(True, False)]
+    assert torch.backends.cudnn.allow_tf32
