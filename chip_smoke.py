@@ -20,7 +20,11 @@ convolutions in f32 itself, as a user gets it.
    PyTorch version on the same inputs (FPS, ball query and gather
    exactly, the eval SA-MLP within 1e-2 abs and rel: both round every
    activation to bf16 and sum exact f32 products in another order), and
-   both times from CUDA events, median of 20 after warm-up.
+   both times from CUDA events, median of 20 after warm-up (the eval
+   SA-MLP's as the module call, BN folding included); for each eval
+   SA-MLP call also the wrapper alone on BN folded once, with its TFLOP/s
+   and its share of its bound, and both times summed over one SSG
+   forward.
 4. Training kernels at the SSG shapes, pass by pass on identical inputs
    (each pass fed the plain chain's previous outputs): ``finalize_max``
    (max and argmax) and ``bwd_seed``'s dy exactly; stored bf16
@@ -69,8 +73,9 @@ convolutions in f32 itself, as a user gets it.
    version on MSG segmentation's four index sets a step (SA2's two
    ball-query branches with their padding runs, FP1's and FP0's 3-NN
    rows), on MSG classification's SA2 branches and on a set with indices
-   outside the rows; the eval pass at MSG classification's SA3 (c0 =
-   643, 64-row tiles) as in phase 3; the stream passes at K = 16, at
+   outside the rows; the eval pass on all seven MSG classification
+   stacks (SA1 at K 16/32/128, SA2 at K 32/64/128, SA3 at c0 = 643) as in
+   phase 3, with their sum over one forward; the stream passes at K = 16, at
    K = 128 with width 196 and at c0 = 643 as in phase 4; with kernel,
    plain and ``index_add_`` ms.
 10. MSG classification: phases 5 and 6 for ``pointnet2_msg`` clas, #5
@@ -295,7 +300,7 @@ def _compare(row, stage, got, want, *, exact=False, rel=None, ulp=False,
     row["max_abs_err"] = max(row["max_abs_err"], max_err)
     if fn_kernel is None:
         print(f"    {row['name']:<18} {stage:<34} max_abs_err {max_err:.3e}")
-        return
+        return None
     ms, plain_ms = cuda_ms(fn_kernel), cuda_ms(fn_plain)
     if record:
         row["ms"] += ms
@@ -313,6 +318,7 @@ def _compare(row, stage, got, want, *, exact=False, rel=None, ulp=False,
     print(f"    {row['name']:<18} {stage:<34} max_abs_err {max_err:.3e}  "
           f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms{library}  "
           f"bound {bound_ms:.4f} ms")
+    return ms, bound_ms
 
 
 def phase_kernels(model, clouds):
@@ -337,6 +343,7 @@ def phase_kernels(model, clouds):
     xyz, feats = clouds, None
     groups = []  # (stage, grouped, idx, source points, PointMLP, input is
     # data) for phase 4
+    eval_ms = []  # samlp_eval ms of SA1-SA3
     stages = [(model.SetAbstraction_0, SA1), (model.SetAbstraction_1, SA2)]
     for i, (sa, cfg) in enumerate(stages, start=1):
         npoint, radius, k = cfg["npoint"], cfg["radius"], cfg["nsample"]
@@ -379,12 +386,18 @@ def phase_kernels(model, clouds):
                        B * npoint * k * 3 / F32_OPS_PER_S))
         groups.append((f"SA{i}", grouped, idx, xyz.shape[1], sa.PointMLP_0,
                        i == 1))
-        feats = _check_mlp(rows["samlp_eval"], f"SA{i}", sa.PointMLP_0,
-                           grouped)
+        feats, *ms = _check_mlp(rows["samlp_eval"], f"SA{i}", sa.PointMLP_0,
+                                grouped)
+        eval_ms.append(ms)
         xyz = new_xyz
     grouped = torch.cat([xyz, feats], dim=-1)[:, None]  # SA3: group_all
-    _check_mlp(rows["samlp_eval"], "SA3", model.SetAbstraction_2.PointMLP_0,
-               grouped)
+    eval_ms.append(_check_mlp(rows["samlp_eval"], "SA3",
+                              model.SetAbstraction_2.PointMLP_0, grouped)[1:])
+    for i, what in enumerate(("module calls", "wrapper alone")):
+        each = [t[i] for t in eval_ms]
+        print(f"    samlp_eval over one SSG forward, {what}: "
+              f"{sum(each):.4f} ms (SA1 {each[0]:.4f}, SA2 {each[1]:.4f}, "
+              f"SA3 {each[2]:.4f})")
     groups.append(("SA3", grouped, None, None,
                    model.SetAbstraction_2.PointMLP_0, False))
     return rows, groups
@@ -528,22 +541,86 @@ def _ball_scan(idx, n) -> int:
 
 def _check_mlp(row, stage, mlp, grouped, record=True):
     """One SA stage's MLP+max (``PointMLP`` with ``pool_max``: BN folded,
-    then the samlp_eval wrapper) on its grouped input."""
+    then the samlp_eval wrapper) on its grouped input, against the plain
+    version; the module calls, which a user's forward pays, are the row's
+    kernel and plain ms. Besides, the wrapper alone on the stack's weights
+    and its BN folded once (its output must equal the module's bit for
+    bit) with its plain version: their ms, the kernel's rate (bf16
+    products at the layers' own widths over the wrapper's time), its
+    share of its bound and the profiler's view of one call. Returns
+    ``(output, module ms, wrapper ms)``."""
+    from papc_tpu_torch.nn.layers import BN_EPS
+    from papc_tpu_torch.ops.fused_mlp import fold_bn
+    from papc_tpu_torch.ops.kernels import samlp
+
     b, s, k, c0 = grouped.shape
     got = mlp(grouped)
     widths = "->".join(str(f) for f in mlp.features)
     m = b * s * k
     cins = (c0,) + tuple(mlp.features[:-1])
-    ops = (sum(2 * m * ci * co for ci, co in zip(cins, mlp.features))
-           / BF16_OPS_PER_S
+    flops = sum(2 * m * ci * co for ci, co in zip(cins, mlp.features))
+    ops = (flops / BF16_OPS_PER_S
            + sum(3 * m * co for co in mlp.features) / F32_OPS_PER_S)
-    _compare(row, f"{stage} M={m} k={k} {c0}->{widths}", got,
-             mlp(grouped, impl="plain"), exact=False,
-             fn_kernel=lambda: mlp(grouped),
-             fn_plain=lambda: mlp(grouped, impl="plain"),
-             work=(_nbytes(grouped, got, *mlp.parameters()), ops),
-             record=record)
-    return got
+    ms, bound_ms = _compare(
+        row, f"{stage} M={m} k={k} {c0}->{widths}", got,
+        mlp(grouped, impl="plain"), exact=False,
+        fn_kernel=lambda: mlp(grouped),
+        fn_plain=lambda: mlp(grouped, impl="plain"),
+        work=(_nbytes(grouped, got, *mlp.parameters()), ops), record=record)
+
+    x = grouped.reshape(m, c0)
+    args = [[], [], [], []]  # W [Cin, Cout], bias, scale, shift per layer
+    for dense, bn in mlp.layers():
+        scale, shift = fold_bn(bn.weight, bn.bias, bn.running_mean,
+                               bn.running_var, BN_EPS)
+        for dst, t in zip(args, (dense.weight.t(), dense.bias.float(), scale,
+                                 shift)):
+            dst.append(t)
+
+    def kernel():
+        return samlp.eval_mlp_max(x, *args, k=k)
+
+    def plain():
+        return samlp.eval_mlp_max(x, *args, k=k, impl="plain")
+
+    check(torch.equal(kernel().reshape(b, s, -1), got),
+          f"{stage}: the wrapper's output differs from the module's")
+    wrapper_ms, wrapper_plain_ms = cuda_ms(kernel), cuda_ms(plain)
+    kernel_ms, device_ms, kernels, wall_ms = _call_profile(
+        kernel, "samlp_eval_kernel")
+    # the profiler now and then drops a window's kernel records
+    seen = (f"the kernel {kernel_ms:.4f} ms ({flops / kernel_ms / 1e9:.1f} "
+            f"TFLOP/s)" if kernel_ms > 0 else "no kernel record")
+    print(f"    {'':<18} {stage}: wrapper on folded BN {wrapper_ms:.4f} ms "
+          f"(plain {wrapper_plain_ms:.4f} ms), "
+          f"{flops / wrapper_ms / 1e9:.1f} TFLOP/s, "
+          f"{100 * bound_ms / wrapper_ms:.2f} % of its bound; profiler: "
+          f"{seen}, the call {device_ms:.4f} ms on the device in {kernels} "
+          f"kernels, {wall_ms:.4f} ms of host wall")
+    return got, ms, wrapper_ms
+
+
+def _call_profile(fn, name: str, steps: int = 10):
+    """One call of ``fn`` seen by ``torch.profiler`` over ``steps`` calls:
+    device ms of the kernels whose name holds ``name``, device ms of all
+    its kernels, their count, and the synchronized host-clock wall ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    mine = sum(e.time_range.elapsed_us() for e in device if name in e.name)
+    total = sum(e.time_range.elapsed_us() for e in device)
+    return (mine / steps / 1e3, total / steps / 1e3, len(device) // steps,
+            wall / steps * 1e3)
 
 
 def _counters(names) -> dict:
@@ -907,13 +984,18 @@ def _capture(model, store: dict):
         if type(mod).__name__ in kinds]
 
 
+MSG_CLAS_STACKS = tuple(  # the eval stacks of one MSG clas forward
+    [f"SetAbstractionMsg_{i}.PointMLP_{j}" for i in (0, 1) for j in (0, 1, 2)]
+    + ["SetAbstraction_0.PointMLP_0"])
+
+
 def phase_new_shapes(rows, t_rows):
     """The row scatter-add (#5) against its plain version on MSG
     segmentation's four index sets a step (SA2's two ball-query branches
     with their padding runs, the two 3-NN interpolations: the recorded
     row), MSG classification's SA2 branches and a set with indices
-    outside the rows; the eval pass at MSG classification's SA3 (c0 =
-    643, 64-row tiles); the stream passes at K = 16, at K = 128 with
+    outside the rows; the eval pass on MSG classification's seven stacks
+    (``MSG_CLAS_STACKS``); the stream passes at K = 16, at K = 128 with
     width 196 and at c0 = 643, pass by pass. Inputs are the seed-0
     models' own tensors, captured from one eval forward each."""
     from papc_tpu_torch.models import init_model
@@ -990,10 +1072,21 @@ def phase_new_shapes(rows, t_rows):
 
     sa3 = got["clas"]["SetAbstraction_0.PointMLP_0"][0][0]
     check(sa3.shape[-1] == 643, f"MSG clas SA3 input {tuple(sa3.shape)}")
+    msg_ms = [0.0, 0.0]  # module calls, wrapper alone
     with torch.inference_mode():
-        _check_mlp(rows["samlp_eval"], "MSG clas SA3",
-                   models["clas"].SetAbstraction_0.PointMLP_0, sa3,
-                   record=False)
+        for name in MSG_CLAS_STACKS:
+            grouped = got["clas"][name][0][0]
+            sa, mlp = name.split(".")
+            stage = (f"MSG clas SA{int(sa[-1]) + 1} b{mlp[-1]}"
+                     if sa.startswith("SetAbstractionMsg") else "MSG clas SA3")
+            _, module_ms, wrapper_ms = _check_mlp(
+                rows["samlp_eval"], stage, models["clas"].get_submodule(name),
+                grouped, record=False)
+            msg_ms[0] += module_ms
+            msg_ms[1] += wrapper_ms
+    print(f"    samlp_eval over one MSG clas forward ({len(MSG_CLAS_STACKS)} "
+          f"stacks): module calls {msg_ms[0]:.4f} ms, wrapper alone "
+          f"{msg_ms[1]:.4f} ms")
 
     def stage(tag, mode, name, data_input):
         mlp = models[mode].get_submodule(name)

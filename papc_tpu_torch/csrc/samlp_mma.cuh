@@ -1,0 +1,194 @@
+// Tensor-core product core for the set-abstraction kernels on Hopper SMs:
+// bf16 operands in shared memory, f32 accumulators held in registers.
+//
+// Pieces, all with fixed, documented PTX register layouts:
+//  - cp.async.cg 16-byte copies, grouped and awaited (a ring of weight
+//    tiles: load_tile_async fills one stage while the warps run the MMAs of
+//    another), and 4-byte cp.async.ca copies that zero-fill;
+//  - ldmatrix.x4 for A fragments from a row-major bf16 buffer, and
+//    ldmatrix.x4.trans for B fragments from a row-major [k, n] tile (the
+//    weights W [Cin, Cout] as stored: no transposed copy);
+//  - mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32.
+//
+// A warp tile is 32 rows x up to 64 columns: two m16 row tiles by up to
+// eight n8 column tiles, taken in n16 pairs (one ldmatrix.x4.trans feeds
+// two n8 tiles). Per k16 step a warp issues 2 A loads and up to 4 B loads
+// for up to 16 MMAs: each A fragment feeds up to 8 MMAs, each B fragment 2.
+//
+// Accumulator layout (mma m16n8 C fragment): acc[i][j][2h + e] is row
+// 16 i + 8 h + lane / 4 and column 8 j + 2 (lane % 4) + e of the warp tile.
+// for_each_pair hands (row, column, the column pair's constants, the two
+// values of columns col and col + 1) to an epilogue callable, which may
+// change them in place; the constants (a bias, a scale) are fetched once
+// per column pair by a second callable. A caller that reduces over rows
+// (a max, a column sum) then reads the registers in that layout (see
+// lane_row / lane_col).
+//
+// Shared-memory rows handed to ldmatrix must start on 16 bytes: row
+// strides are multiples of 8 bf16. A stride of an odd number of 16-byte
+// units (a width padded to 16 plus a skew of 8) puts the 8 rows of one
+// 8x8 matrix in 8 different bank groups.
+#pragma once
+
+#include <cuda_bf16.h>
+
+namespace samlp_mma {
+
+constexpr int kWarpRows = 32;
+constexpr int kWarpCols = 64;
+constexpr int kPairs = kWarpCols / 16;  // n16 pairs of a warp tile
+
+struct WarpTile {
+  float acc[2][2 * kPairs][4];
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// 4 bytes from src into dst in shared memory, or 4 zero bytes when
+// !valid (src is then not read).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), f32 accumulators.
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const unsigned (&a)[4], unsigned b0,
+                                          unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Copy rows x cols bf16 (cols a multiple of 8) of a row-major matrix with
+// row stride ld into a ring stage with row stride lds, 16 bytes a
+// cp.async, spread over the block's threads. Source rows must start on 16
+// bytes (ld and the column offset multiples of 8).
+__device__ __forceinline__ void load_tile_async(__nv_bfloat16* stage, int lds,
+                                                const __nv_bfloat16* src,
+                                                int ld, int rows, int cols) {
+  const int segs = cols >> 3;
+  for (int e = threadIdx.x; e < rows * segs; e += blockDim.x) {
+    const int r = e / segs, q = e - r * segs;
+    cp_async16(stage + r * lds + q * 8,
+               src + static_cast<size_t>(r) * ld + q * 8);
+  }
+}
+
+__device__ __forceinline__ void zero(WarpTile& t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2 * kPairs; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) t.acc[i][j][v] = 0.f;
+}
+
+// t += A[32 rows, ksteps * 16] * B[ksteps * 16, 16 * pairs]. a: the warp's
+// first A row at its first k column (row stride lda elements); b: the
+// first B row of the slice at the warp's first column (row stride ldb).
+// ksteps <= 2 and pairs <= kPairs are warp-uniform.
+__device__ __forceinline__ void mma_slice(WarpTile& t,
+                                          const __nv_bfloat16* a, int lda,
+                                          const __nv_bfloat16* b, int ldb,
+                                          int ksteps, int pairs) {
+  const int lane = threadIdx.x & 31;
+  // ldmatrix.x4: lanes 0-15 give rows 0-15 at k 0, lanes 16-31 at k 8
+  // (matrices a0a1, a2a3, a4a5, a6a7 of the m16k16 A fragment).
+  const unsigned a_addr = smem_u32(a + (lane & 15) * lda + (lane >> 4) * 8);
+  // ldmatrix.x4.trans: lanes 0-15 give k rows 0-15 at n 0, lanes 16-31 at
+  // n 8 (b0b1, b2b3 of n8 tile 0, then of n8 tile 1).
+  const unsigned b_addr = smem_u32(b + (lane & 15) * ldb + (lane >> 4) * 8);
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    if (kk < ksteps) {
+      unsigned af[2][4];
+      ldmatrix_x4(af[0], a_addr + kk * 32);
+      ldmatrix_x4(af[1], a_addr + (16 * lda + kk * 16) * 2);
+#pragma unroll
+      for (int p = 0; p < kPairs; ++p) {
+        if (p < pairs) {
+          unsigned bf[4];
+          ldmatrix_x4_trans(bf, b_addr + (kk * 16 * ldb + p * 16) * 2);
+          mma_16816(t.acc[0][2 * p], af[0], bf[0], bf[1]);
+          mma_16816(t.acc[0][2 * p + 1], af[0], bf[2], bf[3]);
+          mma_16816(t.acc[1][2 * p], af[1], bf[0], bf[1]);
+          mma_16816(t.acc[1][2 * p + 1], af[1], bf[2], bf[3]);
+        }
+      }
+    }
+  }
+}
+
+// Row of acc[i][j][2h + e] in the warp tile (independent of j and e).
+__device__ __forceinline__ int lane_row(int i, int h) {
+  return 16 * i + 8 * h + ((threadIdx.x & 31) >> 2);
+}
+
+// Column of acc[i][j][2h] in the warp tile (independent of i and h);
+// acc[i][j][2h + 1] is the next column.
+__device__ __forceinline__ int lane_col(int j) {
+  return 8 * j + 2 * (threadIdx.x & 3);
+}
+
+// For each column pair (col, col + 1) of this lane in the first `pairs`
+// n16 pairs: c = at_col(col) once, then epi(row, col, c, v0, v1) for the
+// pair's four rows, v0 and v1 by reference.
+template <typename AtCol, typename Epilogue>
+__device__ __forceinline__ void for_each_pair(WarpTile& t, int pairs,
+                                              AtCol at_col, Epilogue epi) {
+#pragma unroll
+  for (int j = 0; j < 2 * kPairs; ++j) {
+    if (j < 2 * pairs) {
+      const auto c = at_col(lane_col(j));
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          epi(lane_row(i, h), lane_col(j), c, t.acc[i][j][2 * h],
+              t.acc[i][j][2 * h + 1]);
+    }
+  }
+}
+
+}  // namespace samlp_mma

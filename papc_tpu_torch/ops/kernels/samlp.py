@@ -11,7 +11,6 @@ and the result is the max over each group of ``k`` consecutive rows.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -22,13 +21,17 @@ KERNEL = Kernel(
     "papc_samlp_eval",
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-     ctypes.c_void_p],
+     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_void_p, ctypes.c_void_p],
 )
 MAX_LAYERS = 4
+TILE_ROWS = (128, 64, 32)  # rows a block may take, largest first
+SMEM_LIMIT = 232448  # dynamic shared memory a block may opt into (H100)
+SMS = 132  # streaming multiprocessors of the H100 SXM
 _WARPS = 8
 _SKEW = 8  # bf16 elements of padding per shared-memory row (bank spread)
+_SLICE = 32  # weight rows a ring stage holds
+_STAGES = 3  # depth of the weight ring
 
 
 def eval_mlp_max_plain(x, ws, bs, scales, shifts, *, k: int,
@@ -46,50 +49,56 @@ def _pad16(c: int) -> int:
     return -(-c // 16) * 16
 
 
-def _padded(t: torch.Tensor, shape, dtype) -> torch.Tensor:
-    out = torch.zeros(shape, dtype=dtype, device=t.device)
-    out[tuple(slice(0, s) for s in t.shape)] = t
-    return out
+def ring_columns(tm: int) -> int:
+    """Columns of a weight ring stage: 64 per column warp, the 8 warps
+    laid out as ``tm / 32`` row warps of 32 rows."""
+    return 64 * (_WARPS // (tm // 32))
 
 
-def tile_rows(k: int) -> int:
-    """Rows per block: a multiple of 64 (four 16-row fragments a warp)
-    and of ``k`` (groups never straddle blocks), at least 128."""
-    base = math.lcm(k, 64)
-    return base * max(1, 128 // base)
+def pool_slots(tm: int, k: int) -> int:
+    """Groups a block of ``tm`` rows can touch: ``tm / k`` when ``k``
+    divides ``tm``, 1 when ``tm`` divides ``k``, else ``(tm - 1) // k + 2``
+    (the block straddles group bounds)."""
+    if tm % k == 0:
+        return tm // k
+    return 1 if k % tm == 0 else (tm - 1) // k + 2
 
 
 def smem_layout(c0: int, widths, k: int, tm: int) -> tuple[int, int, int]:
     """``(ld_x, ld_y, bytes)``: the two ping-pong activation buffers'
-    row strides (bf16 elements) and the dynamic shared memory a block
-    needs. Buffer X holds the inputs of layers 0, 2, ...; Y those of
-    layers 1, 3, ...; the last layer's output is pooled, never stored."""
+    row strides (bf16 elements) and the dynamic shared memory a block of
+    ``tm`` rows needs: the buffers, the weight ring, every layer's bias,
+    scale and shift, and the pooled maxima.
+    Buffer X holds the inputs of layers 0, 2, ...; Y those of layers 1,
+    3, ...; the last layer's output is pooled, never stored."""
     ins = [_pad16(c0)] + [_pad16(w) for w in widths[:-1]]
-    held_x = [c for i, c in enumerate(ins) if i % 2 == 0]
-    held_y = [c for i, c in enumerate(ins) if i % 2 == 1]
-    ld_x = max(held_x) + _SKEW
-    ld_y = max(held_y) + _SKEW if held_y else 0
-    nbytes = (tm * (ld_x + ld_y) * 2 + _WARPS * 256 * 4
-              + max(tm // k, 1) * _pad16(widths[-1]) * 4)
+    ld_x = max(ins[0::2]) + _SKEW
+    ld_y = max(ins[1::2]) + _SKEW if len(ins) > 1 else 0
+    ring = _STAGES * _SLICE * (ring_columns(tm) + _SKEW) * 2
+    vecs = 3 * sum(_pad16(w) for w in widths) * 4
+    nbytes = (tm * (ld_x + ld_y) * 2 + ring + vecs
+              + pool_slots(tm, k) * _pad16(widths[-1]) * 4)
     return ld_x, ld_y, nbytes
 
 
-def plan(c0: int, widths, k: int, limit: int) -> tuple[int, int, int, int]:
-    """``(tm, ld_x, ld_y, bytes)`` of a launch: ``tile_rows(k)`` rows a
-    block, or 64 where that tile's buffers exceed ``limit`` bytes of
-    shared memory and ``k`` is a multiple of 64 (a group then spans
-    ``k / 64`` blocks, merged by the kernel). MSG classification's SA3
-    (c0 = 643, k = 128) needs 249 856 B at 128 rows, 131 072 B at 64."""
-    tm = tile_rows(k)
-    layout = smem_layout(c0, widths, k, tm)
-    if layout[2] > limit and k % 64 == 0:
-        tm = 64
-        layout = smem_layout(c0, widths, k, tm)
-    if layout[2] > limit:
+def plan(m: int, c0: int, widths, k: int, limit: int = SMEM_LIMIT,
+         sms: int = SMS) -> dict:
+    """The launch of one stack: the largest row tile of ``TILE_ROWS``
+    whose shared memory fits ``limit`` and that gives at least one block
+    per SM, else (M too small for a wave) the smallest that fits. SSG SA3
+    (4096 rows) takes 32-row tiles: 128 blocks, a group of 128 rows spread
+    over 4 of them. ``{"tm", "blocks", "ld_x", "ld_y", "smem"}``."""
+    fits = [tm for tm in TILE_ROWS
+            if smem_layout(c0, widths, k, tm)[2] <= limit]
+    if not fits:
+        need = smem_layout(c0, widths, k, TILE_ROWS[-1])[2]
         raise ValueError(
-            f"samlp_eval needs {layout[2]} B of shared memory a block for "
+            f"samlp_eval needs {need} B of shared memory a block for "
             f"c0={c0} widths={list(widths)} k={k}; the card allows {limit}")
-    return (tm, *layout)
+    tm = next((t for t in fits if -(-m // t) >= sms), fits[-1])
+    ld_x, ld_y, nbytes = smem_layout(c0, widths, k, tm)
+    return {"tm": tm, "blocks": -(-m // tm), "ld_x": ld_x, "ld_y": ld_y,
+            "smem": nbytes}
 
 
 def eval_mlp_max_cuda(x, ws, bs, scales, shifts, *, k: int) -> torch.Tensor:
@@ -100,23 +109,29 @@ def eval_mlp_max_cuda(x, ws, bs, scales, shifts, *, k: int) -> torch.Tensor:
         raise ValueError(f"kernel takes 1..{MAX_LAYERS} layers, got {n}")
     if m % k:
         raise ValueError(f"{m} rows are not whole groups of k={k}")
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernel reads the input tile as float4
     widths = [w.shape[1] for w in ws]
     cin = [c0] + widths[:-1]
-    cin_p = [_pad16(c) for c in cin]
-    cout_p = [_pad16(c) for c in widths]
-    w_p, vecs = [], []
+    # W goes to the kernel in f32 at the caller's strides; the C side
+    # packs it into wbuf as bf16, zero-padded to 16s
+    ws = [w.float() for w in ws]
+    vecs = []
     for i, (w, b, scale, shift) in enumerate(zip(ws, bs, scales, shifts)):
         if tuple(w.shape) != (cin[i], widths[i]):
             raise ValueError(f"layer {i}: W {tuple(w.shape)} after {cin[i]} channels")
-        w_p.append(_padded(w, (cin_p[i], cout_p[i]), torch.bfloat16))
-        vecs.append([_padded(v.float(), (cout_p[i],), torch.float32)
-                     for v in (b, scale, shift)])
-    limit = torch.cuda.get_device_properties(
-        x.device).shared_memory_per_block_optin
-    tm, ld_x, ld_y, _ = plan(c0, widths, k, limit)
-    # a group split over blocks is merged by atomicMax into +0.0 bits
-    out = (torch.zeros if tm < k else torch.empty)(
-        (m // k, widths[-1]), dtype=torch.float32, device=x.device)
+        if w.device != x.device:
+            raise ValueError(f"layer {i}: W on {w.device}, x on {x.device}")
+        vecs.append([v.float().contiguous() for v in (b, scale, shift)])
+        for v in vecs[-1]:
+            check(v, f"layer {i} vector", torch.float32, (widths[i],))
+    wbuf = torch.empty(sum(_pad16(a) * _pad16(b) for a, b in zip(cin, widths)),
+                       dtype=torch.bfloat16, device=x.device)
+    props = torch.cuda.get_device_properties(x.device)
+    p = plan(m, c0, widths, k, props.shared_memory_per_block_optin,
+             props.multi_processor_count)
+    out = torch.empty((m // k, widths[-1]), dtype=torch.float32,
+                      device=x.device)
 
     def ints(vals):
         return (ctypes.c_int * n)(*vals)
@@ -124,10 +139,12 @@ def eval_mlp_max_cuda(x, ws, bs, scales, shifts, *, k: int) -> torch.Tensor:
     def ptrs(ts):
         return (ctypes.c_void_p * n)(*[t.data_ptr() for t in ts])
 
-    KERNEL(ptr(x), m, c0, k, n, ints(cin_p), ints(cout_p), ptrs(w_p),
+    strides = (ctypes.c_longlong * (2 * n))(
+        *[s for w in ws for s in w.stride()])
+    KERNEL(ptr(x), m, c0, k, n, ints(widths), ptrs(ws), strides,
            ptrs([v[0] for v in vecs]), ptrs([v[1] for v in vecs]),
-           ptrs([v[2] for v in vecs]), widths[-1], tm, ld_x, ld_y,
-           ptr(out), stream_of(x))
+           ptrs([v[2] for v in vecs]), p["tm"], p["ld_x"], p["ld_y"],
+           ptr(wbuf), ptr(out), stream_of(x))
     return out
 
 
@@ -140,9 +157,7 @@ def eval_mlp_max(x, ws, bs, scales, shifts, *, k: int,
                 "the samlp_eval kernel takes bf16 operands; pass "
                 "impl='plain' for other operand dtypes"
             )
-        return eval_mlp_max_cuda(
-            x.float().contiguous(), [w.contiguous() for w in ws],
-            bs, scales, shifts, k=k,
-        )
+        return eval_mlp_max_cuda(x.float().contiguous(), ws, bs, scales,
+                                 shifts, k=k)
     return eval_mlp_max_plain(x, ws, bs, scales, shifts, k=k,
                               operand_dtype=operand_dtype)

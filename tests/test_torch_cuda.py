@@ -10,7 +10,8 @@ JAX conftest::
 FPS, ball query and the gather must equal their plain versions exactly;
 the eval MLP+max within 1e-2 (abs and rel), because both round every
 activation to bf16 and sum the exact f32 products in another order, so a
-sum next to a bf16 rounding boundary can round the other way.
+sum next to a bf16 rounding boundary can round the other way; two of its
+calls on the same inputs give the same bits.
 
 The training kernels on identical inputs: ``finalize_max`` (max and
 argmax) and ``bwd_seed``'s ``dy`` exactly; stored bf16 activations
@@ -30,7 +31,7 @@ plain run's.
 The row scatter-add (the backward of ``index_points``) within 1e-5 of its
 largest (f32 atomics), out-of-range indices contributing nothing; the
 eval MLP at MSG classification's SA3 width (c0 = 643, a group split over
-two 64-row blocks) and the training passes at MSG's widths (196, 643)
+four 32-row blocks) and the training passes at MSG's widths (196, 643)
 and K = 16 under the tolerances above; the MSG classifier and both
 segmentation models' train steps with every kernel launched.
 
@@ -166,19 +167,66 @@ def _mlp(seed, c0, widths, device):
     (32, 128, 259, (256, 512, 1024)),  # SSG SA3
     (40, 16, 7, (40, 24)),            # widths off the 16-column tiles
     (9, 8, 20, (16, 16, 16, 32)),     # four layers
-    (32, 128, 643, (256, 512, 1024)),  # MSG clas SA3: 64-row tiles, split
+    (32, 128, 643, (256, 512, 1024)),  # MSG clas SA3: 32-row tiles, split
     (5, 128, 643, (256, 512, 1024)),   # split groups, few blocks
     (64, 128, 323, (128, 196, 256)),   # MSG seg SA2: width 196
     (96, 16, 3, (32, 32, 64)),         # MSG clas SA1: K = 16
+    (48, 64, 259, (256, 512, 1024)),   # 32-row tiles, a group over 2 blocks
+    (7, 24, 40, (64, 1024)),           # 1024 wide; ragged M, straddling k
+    (40, 64, 131, (128, 196, 256)),    # width 196 at k = 64
+    (13, 5, 9, (32, 48)),              # k = 5: one-row register runs
 ])
 def test_samlp_kernel_matches_plain(device, groups, k, c0, widths):
     ws, bs, scales, shifts = _mlp(groups * k, c0, widths, device)
     x = torch.randn(groups * k, c0,
                     generator=torch.Generator().manual_seed(k)).to(device)
+    p = samlp.plan(groups * k, c0, widths, k)
+    if (groups, k, c0) == (32, 128, 259):  # SSG SA3: across the card
+        assert (p["tm"], p["blocks"]) == (32, 128)
+    before = samlp.KERNEL.launches
     got = samlp.eval_mlp_max(x, ws, bs, scales, shifts, k=k)
+    assert samlp.KERNEL.launches == before + 1
     want = samlp.eval_mlp_max(x, ws, bs, scales, shifts, k=k, impl="plain")
     assert got.shape == (groups, widths[-1])
     torch.testing.assert_close(got, want, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("groups,k,c0,widths", [
+    (16384, 32, 3, (64, 64, 128)),     # SSG SA1: 4096 blocks of 128 rows
+    (32, 128, 259, (256, 512, 1024)),  # SSG SA3: groups merged over blocks
+])
+def test_samlp_kernel_is_repeatable(device, groups, k, c0, widths):
+    """Two calls on the same inputs give the same bits: every sum has a
+    fixed order in the registers, and the max (in shared memory and, for
+    a group over several blocks, in device memory) is exact in any
+    order."""
+    ws, bs, scales, shifts = _mlp(groups + k, c0, widths, device)
+    x = torch.randn(groups * k, c0,
+                    generator=torch.Generator().manual_seed(c0)).to(device)
+    first = samlp.eval_mlp_max(x, ws, bs, scales, shifts, k=k)
+    again = samlp.eval_mlp_max(x, ws, bs, scales, shifts, k=k)
+    assert torch.equal(first, again)
+    assert bool((first >= 0).all()) and float(first.max()) > 0
+
+
+@pytest.mark.parametrize("layout", ["linear_t", "bf16", "bf16_t", "f64"])
+def test_samlp_kernel_takes_weights_as_held(device, layout):
+    """The kernel packs f32 W at the caller's strides itself: a transposed
+    view (the model passes ``Linear.weight.t()``) gives the same bits as
+    contiguous W, and so do bf16 and f64 weights, which the wrapper turns
+    into f32 exactly and the kernel rounds once to the same bf16."""
+    groups, k, c0, widths = 24, 32, 131, (128, 196, 256)
+    ws, bs, scales, shifts = _mlp(7, c0, widths, device)
+    x = torch.randn(groups * k, c0,
+                    generator=torch.Generator().manual_seed(3)).to(device)
+    held = {"linear_t": [w.t().contiguous().t() for w in ws],
+            "bf16": [w.bfloat16() for w in ws],
+            "bf16_t": [w.bfloat16().t().contiguous().t() for w in ws],
+            "f64": [w.double() for w in ws]}[layout]
+    assert layout in ("bf16", "f64") or not held[0].is_contiguous()
+    want = samlp.eval_mlp_max(x, ws, bs, scales, shifts, k=k)
+    got = samlp.eval_mlp_max(x, held, bs, scales, shifts, k=k)
+    assert torch.equal(got, want)
 
 
 def test_no_silent_plain_path_on_the_card(device):

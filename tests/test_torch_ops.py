@@ -22,9 +22,12 @@ from papc_tpu.ops.pallas.fps import farthest_point_sample_pallas
 from papc_tpu.ops.pallas.gather_t import gather_cols_pallas
 from papc_tpu.ops.pallas.samlp import eval_mlp_max as jeval_mlp_max
 
+from papc_tpu_torch.models import registry
 from papc_tpu_torch.ops import fused_mlp, geometry, grouping, sampling
 from papc_tpu_torch.ops.kernels import (ball_query, fps, gather, samlp,
                                         samlp_train, use_kernel)
+
+from tests import torch_parity as P
 
 T = torch.from_numpy
 
@@ -293,17 +296,87 @@ def test_eval_mlp_override_and_kernel_guard(rng):
         fused_mlp.fused_mlp_max(T(x).reshape(1, 4, 8, 6), [], [], train=True)
 
 
+@pytest.mark.parametrize("layout", ["linear_t", "bf16", "f64"])
+def test_eval_mlp_takes_weights_as_held(rng, layout):
+    """W as a transposed view (the model passes ``Linear.weight.t()``), in
+    bf16 or in f64 gives the same bits as contiguous f32 W: each is
+    rounded once to the same bf16 operand, as the card test holds the
+    kernel to."""
+    x, layers = _mlp_case(rng, 6, 8, 20, (24, 40))
+    x = T(x)
+    ws = [T(l[0]) for l in layers]
+    vecs = [[T(l[i]) for l in layers] for i in (1, 2, 3)]
+    held = {"linear_t": [w.t().contiguous().t() for w in ws],
+            "bf16": [w.bfloat16() for w in ws],
+            "f64": [w.double() for w in ws]}[layout]
+    want = samlp.eval_mlp_max(x, ws, *vecs, k=8)
+    assert torch.equal(samlp.eval_mlp_max(x, held, *vecs, k=8), want)
+
+
 def test_samlp_tile_and_shared_memory_plan():
-    """The kernel's block plan at the SSG stages: whole K-groups per
-    block, and SA3 (k=128, 259->256->512->1024) inside the 227 KB a
-    block may opt into on the H100."""
+    """The kernel's block plan: a row tile of 32, 64 or 128 rows, the
+    largest that fits the 227 KB a block may opt into on the H100 and
+    still gives one block per SM (SSG SA1 and SA2 at 128 rows, SA3 at 32
+    rows, 128 blocks); whole K-groups per block or a group spread over
+    k / tm blocks; shared memory as ``smem_layout`` counts it. A stack
+    that fits no tile raises; a k that neither divides the tile nor is a
+    multiple of it is planned with the straddling blocks' slots."""
     for k in (16, 32, 64, 128):
-        tm = samlp.tile_rows(k)
-        assert tm % 64 == 0 and tm % k == 0
-    for c0, widths, k in [(3, (64, 64, 128), 32), (131, (128, 128, 256), 64),
-                          (259, (256, 512, 1024), 128)]:
-        _, _, nbytes = samlp.smem_layout(c0, widths, k, samlp.tile_rows(k))
-        assert nbytes <= 232448, (c0, widths, nbytes)
+        for tm in samlp.TILE_ROWS:
+            assert tm % k == 0 or k % tm == 0
+    ssg = [(524288, 3, (64, 64, 128), 32, 128),
+           (262144, 131, (128, 128, 256), 64, 128),
+           (4096, 259, (256, 512, 1024), 128, 32)]
+    for m, c0, widths, k, tm in ssg:
+        p = samlp.plan(m, c0, widths, k)
+        assert p["tm"] == tm and p["blocks"] == -(-m // tm)
+        assert p["smem"] == samlp.smem_layout(c0, widths, k, tm)[2] <= 232448
+        assert p["ld_x"] % 8 == 0 and p["ld_y"] % 8 == 0
+    # fewer rows than a wave: the smallest tile; a tight limit: a smaller one
+    assert samlp.plan(640, 259, (256, 512, 1024), 128)["tm"] == 32
+    assert samlp.plan(524288, 131, (128, 128, 256), 64,
+                      limit=100000)["tm"] == 64
+    with pytest.raises(ValueError, match="shared memory"):
+        samlp.plan(4096, 259, (256, 512, 1024), 128, limit=100000)
+    assert samlp.pool_slots(128, 32) == 4 and samlp.pool_slots(32, 128) == 1
+    assert samlp.pool_slots(32, 24) == 3  # a bound: 32 rows meet <= 3 groups
+    ld_x, ld_y, _ = samlp.smem_layout(3, (16,), 8, 32)
+    assert (ld_x, ld_y) == (24, 0)
+
+
+# Each registry stack's (tm, blocks, shared-memory bytes) at B=32 x 1024,
+# in stack order (``torch_parity.stack_shapes``).
+EVAL_PLANS = {
+    ("pointnet2_ssg", "clas"): [(128, 4096, 68096), (128, 2048, 108032),
+                                (32, 128, 175616)],
+    ("pointnet2_msg", "clas"): [(128, 2048, 50176), (128, 4096, 68096),
+                                (128, 16384, 75136), (128, 1024, 137728),
+                                (128, 2048, 157184), (128, 4096, 156160),
+                                (32, 128, 184832)],
+    ("pointnet2_ssg", "seg"): [(128, 4096, 68096), (128, 2048, 108032),
+                               (32, 128, 175616)],
+    ("pointnet2_msg", "seg"): [(128, 4096, 49152), (128, 8192, 67072),
+                               (128, 16384, 75136), (128, 2048, 157184),
+                               (128, 4096, 157120), (32, 128, 176640)],
+}
+
+
+@pytest.mark.parametrize("combo", sorted(EVAL_PLANS), ids="-".join)
+def test_samlp_eval_plan_of_every_registry_stack(combo):
+    """The eval kernel's plan at every fused SA stack of the registry's
+    PointNet++ models (B=32 x 1024), pinned: within the 232 448 B a block
+    may opt into, whole groups per block or a group over k / tm blocks,
+    every group_all SA3 (4096 rows) spread over 128 blocks of 32 rows."""
+    spec = registry.init_model(*combo, device="cpu")
+    got = []
+    for stage, m, k, c0, widths in P.stack_shapes(spec.model):
+        p = samlp.plan(m, c0, widths, k)
+        assert p["smem"] <= 232448
+        assert p["tm"] % k == 0 or k % p["tm"] == 0
+        if m == 4096:
+            assert stage.startswith("SetAbstraction_") and p["blocks"] == 128
+        got.append((p["tm"], p["blocks"], p["smem"]))
+    assert got == EVAL_PLANS[combo]
 
 
 # ------------------------------------------------------------ dispatch

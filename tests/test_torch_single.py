@@ -33,7 +33,6 @@ from papc_tpu_torch.convert import state_dict_to_flax
 from papc_tpu_torch.detect import train as detect_train
 from papc_tpu_torch.models import init_model, registry
 from papc_tpu_torch.models.classify import PointNet2SSGClas
-from papc_tpu_torch.nn import SetAbstraction, SetAbstractionMsg
 from papc_tpu_torch.ops import fused_mlp
 from papc_tpu_torch.ops.kernels import samlp_recompute as rc
 from papc_tpu_torch.ops.kernels import samlp_single
@@ -166,28 +165,6 @@ def test_demotion_runs_stream_and_warns_once(caplog, monkeypatch):
 
 # ------------------------------------------------------------- the gate
 
-def _stack_shapes(model, batch=32):
-    """``(stage, m, k, c0, widths)`` of every fused SA stack of a model at
-    ``batch`` clouds: K is the ball-query size, or for ``group_all`` the
-    previous stage's centre count (one centre a cloud)."""
-    out, prev = [], None
-    for name, mod in model.named_modules():
-        if isinstance(mod, SetAbstraction):
-            mlps = [(mod.PointMLP_0, prev if mod.group_all else mod.nsample)]
-            centres = 1 if mod.group_all else mod.npoint
-        elif isinstance(mod, SetAbstractionMsg):
-            mlps = [(getattr(mod, f"PointMLP_{i}"), k)
-                    for i, k in enumerate(mod.nsample_list)]
-            centres = mod.npoint
-        else:
-            continue
-        for mlp, k in mlps:
-            out.append((name, batch * centres * k, k,
-                        mlp.Dense_0.in_features, mlp.features))
-        prev = mod.npoint
-    return out
-
-
 # Each registry stack's recompute1 decision at B=32 x 1024, in stack
 # order: (JAX's samlp_single.fits, the port's). The port keeps SSG SA1 and
 # SA2 as JAX does and demotes every group_all stack as JAX does; it also
@@ -212,9 +189,9 @@ def test_recompute1_gate_of_every_stack(combo):
     on chip where SA2's keeps it in device memory."""
     spec = registry.init_model(*combo, device="cpu")
     got = [(jsingle.fits(m, k, c0, list(w)), samlp_single.fits(m, k, c0, w))
-           for _, m, k, c0, w in _stack_shapes(spec.model)]
+           for _, m, k, c0, w in P.stack_shapes(spec.model)]
     assert got == GATES[combo]
-    for (_, m, k, c0, w), (_, port) in zip(_stack_shapes(spec.model), got):
+    for (_, m, k, c0, w), (_, port) in zip(P.stack_shapes(spec.model), got):
         assert fused_mlp.effective_mode("recompute1", m, k, c0, w) == (
             "recompute1" if port else "stream")
         if not port:

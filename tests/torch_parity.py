@@ -19,6 +19,7 @@ from papc_tpu.train import trainer as jtrainer
 from papc_tpu_torch.convert import (flatten, load_flax_weights,
                                     state_dict_to_flax)
 from papc_tpu_torch.data import make_cloud
+from papc_tpu_torch.nn import SetAbstraction, SetAbstractionMsg
 from papc_tpu_torch.ops import fused_mlp
 from papc_tpu_torch.train import make_optimizer, train_step
 
@@ -277,3 +278,25 @@ def check_bf16_step(port, want, exact, variables, lr, wd, lim):
     assert ratios[worst] <= lim["ratio"], (worst, ratios[worst])
     assert np.median(list(ratios.values())) <= lim["median_ratio"]
     assert np.median(rels) <= lim["median_rel"], np.median(rels)
+
+
+def stack_shapes(model, batch=32):
+    """``(stage, m, k, c0, widths)`` of every fused SA stack of a model at
+    ``batch`` clouds: K is the ball-query size, or for ``group_all`` the
+    previous stage's centre count (one centre a cloud)."""
+    out, prev = [], None
+    for name, mod in model.named_modules():
+        if isinstance(mod, SetAbstraction):
+            mlps = [(mod.PointMLP_0, prev if mod.group_all else mod.nsample)]
+            centres = 1 if mod.group_all else mod.npoint
+        elif isinstance(mod, SetAbstractionMsg):
+            mlps = [(getattr(mod, f"PointMLP_{i}"), k)
+                    for i, k in enumerate(mod.nsample_list)]
+            centres = mod.npoint
+        else:
+            continue
+        for mlp, k in mlps:
+            out.append((name, batch * centres * k, k,
+                        mlp.Dense_0.in_features, mlp.features))
+        prev = mod.npoint
+    return out
