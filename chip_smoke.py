@@ -34,7 +34,13 @@ convolutions in f32 itself, as a user gets it.
    other bf16 neighbour); f32
    sums, dW, db and dg within 1e-3 of their largest (sums over up to
    524288 rows in another order); the scatter-add within 1e-5 of its
-   largest (f32 atomics). Times as in phase 3.
+   largest (f32 atomics). Times as in phase 3. ``bwd_layer``'s dW must
+   equal itself bit for bit over two calls; each call's device time by
+   part (da, dW = dw_kernel + its reduce, dh, the other reduces; the
+   profiler's kernel names) beside the dW part's byte bound and one
+   cuBLAS call of ``h^T . da`` on the bf16 operands (h materialized
+   beforehand; row 10's ``library_ms``), and their sums over one SSG
+   step.
 5. Serving slice: ``papc_tpu_torch.train.evaluate`` over synthetic
    batches with the kernels, its launch counts, and its logits against
    the same run with every op on its plain version (within
@@ -48,7 +54,8 @@ convolutions in f32 itself, as a user gets it.
    held against a plain step with f32 operands (loss within
    ``LOSS_RTOL``; each gradient as ``GRAD_RATIO`` says), step ms (CUDA
    events, median) for both, the device's busy share over 5 kernel
-   steps (``torch.profiler``) and peak device memory.
+   steps (``torch.profiler``), in stream mode ``bwd_layer``'s device
+   time a step by part (as in phase 4), and peak device memory.
 7. Detection kernels at the detection shapes (B=2, K=1000): the rotated
    and the matrix NMS sweep against their plain versions, on the
    score-sorted top 1000 boxes of the slice's first batch and on
@@ -429,6 +436,7 @@ def phase_train_kernels(groups, rows, record=True):
     from papc_tpu_torch.ops.kernels import samlp_train as st
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    split_sum = {}  # row 10's device ms by part over the stages
     for stage, grouped, idx, n_src, mlp, data_input in groups:
         b, s, k, c0 = grouped.shape
         m = b * s * k
@@ -519,7 +527,14 @@ def phase_train_kernels(groups, rows, record=True):
                          - (a_list[i].float() - v[2]) * v[3] * sd[1] / m)
             _compare(row, tag + " db", got[2], want[2], rel=DB_TOL,
                      scale=float(da.abs().sum(0).max()))
+            # the cuBLAS yardstick of the dW part: h^T . da on the bf16
+            # operands, h materialized beforehand
+            hb = (a_prev if vprev is None else torch.clamp_min(
+                a_prev.float() * vprev[0] + vprev[1], 0.0)).to(torch.bfloat16)
+            dab = da.to(torch.bfloat16)
             del da
+            check(torch.equal(run(None)[1], got[1]),
+                  f"{tag}: dW differs between two calls")
             cin, cout = w.shape
             products = (2 if need else 1) * 2 * m * cin * cout
             _compare(row, tag + " dW", got[1], want[1], rel=TRAIN_TOL,
@@ -527,8 +542,40 @@ def phase_train_kernels(groups, rows, record=True):
                      work=(_nbytes(dy, a_list[i], a_prev, w, vecs[i], sd,
                                    vprev, *got),
                            products / BF16_OPS_PER_S
-                           + 10 * m * cout / F32_OPS_PER_S), record=record)
+                           + 10 * m * cout / F32_OPS_PER_S),
+                     fn_library=lambda: hb.t() @ dab, record=record)
+            _dw_part(tag, run, hb, dab, a_prev, m, cin, cout, split_sum)
+            del hb, dab
             dy, sd = want[0], want[3]
+    if record:
+        dw_ms, lib_ms, bound_ms = split_sum.pop("dW totals")
+        print(f"    samlp_bwd_layer over one SSG step by part (device, "
+              f"profiler; launches a step): {_split_line(split_sum)}; the "
+              f"dW part {dw_ms:.4f} ms against its bound {bound_ms:.4f} ms "
+              f"(a_prev and da read once) and cuBLAS h^T.da "
+              f"{lib_ms:.4f} ms")
+
+
+def _dw_part(tag, run, hb, dab, a_prev, m, cin, cout, split_sum):
+    """One ``bwd_layer`` call's device ms by part (profiler, 10 calls),
+    its dW part against the byte bound of reading a_prev and da once and
+    against one cuBLAS call of ``h^T . da`` on the bf16 operands (the
+    profiler's device time of its kernels); added to ``split_sum``."""
+    split = _bwd_layer_split(_device_events(lambda: run(None), 10)[0], 10)
+    lib = _device_events(lambda: hb.t() @ dab, 10)[0]
+    lib_ms = sum(e.time_range.elapsed_us() for e in lib) / 10 / 1e3
+    bound_ms = max((_nbytes(a_prev) + 2 * m * cout + 4 * cin * cout)
+                   / HBM_BYTES_PER_S,
+                   2 * m * cin * cout / BF16_OPS_PER_S) * 1e3
+    print(f"    {'':<18} {tag}: device {_split_line(split)}; dW part "
+          f"{split['dW'][0]:.4f} ms, bound {bound_ms:.4f} ms, cuBLAS "
+          f"{lib_ms:.4f} ms")
+    for p, (ms, n) in split.items():
+        have = split_sum.setdefault(p, (0.0, 0))
+        split_sum[p] = (have[0] + ms, have[1] + n)
+    have = split_sum.setdefault("dW totals", (0.0, 0.0, 0.0))
+    split_sum["dW totals"] = (have[0] + split["dW"][0], have[1] + lib_ms,
+                              have[2] + bound_ms)
 
 
 def _ball_scan(idx, n) -> int:
@@ -963,7 +1010,8 @@ def _training(tag, name, mode, smi, rows, fused):
     plain_ms = cuda_ms(lambda: train_step(model_p, opt_p, bdict, dev,
                                           impl="plain", dropout_masks=masks),
                        reps=3, warmup=1)
-    busy_ms, wall_ms = _device_busy(step_k, top=12)
+    busy_ms, wall_ms = _device_busy(step_k, top=12,
+                                    split=fused == "stream")
     busy = (f"{100 * busy_ms / wall_ms:.1f} % ({busy_ms:.3f} of "
             f"{wall_ms:.3f} ms)" if busy_ms > 0 else "not measured")
     print(f"    train step of {B} x {N}, {fused} mode: kernels "
@@ -1499,11 +1547,9 @@ def phase_nms_kernels(det):
     return rows
 
 
-def _device_busy(fn, steps: int = 5, top: int = 0):
-    """Device busy share of ``steps`` calls: kernel time on the card
-    (``torch.profiler``) over the synchronized host-clock wall. With
-    ``top``, also prints the ``top`` device kernels by time a call, with
-    their launches a call."""
+def _device_events(fn, steps: int):
+    """The card's records (``torch.profiler``) of ``steps`` calls of
+    ``fn``, in stream order, and the synchronized host-clock wall in us."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1516,7 +1562,59 @@ def _device_busy(fn, steps: int = 5, top: int = 0):
         wall_us = (time.perf_counter() - t0) * 1e6
     device = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(device, key=lambda e: e.time_range.start), wall_us
+
+
+def _base_name(e) -> str:
+    """A device record's function name without namespace, template
+    arguments or parameters."""
+    name = e.name.replace("(anonymous namespace)::", "")
+    return name.split("(")[0].split("<")[0].split()[-1].split("::")[-1]
+
+
+BWD_LAYER_PARTS = ("da", "dW", "dh", "reduces")
+_BWD_LAYER_KERNELS = {"da_kernel": "da", "dw_kernel": "dW",
+                      "dw_reduce_kernel": "dW", "dh_kernel": "dh"}
+
+
+def _bwd_layer_split(device, calls: int) -> dict:
+    """Row 10's (``bwd_layer``'s) device ms a call by part, from kernel
+    records in stream order: ``da`` (da_kernel), ``dW`` (dw_kernel and
+    its reduce: dw_reduce_kernel, or in trees before it the
+    reduce_partials_kernel launched right after dw_kernel), ``dh``
+    (dh_kernel), and ``reduces``, the reduce_partials_kernel launches of
+    db and of the sums that follow the dW reduce or dh_kernel. Values:
+    ``(ms, launches)`` a call."""
+    parts = {p: [0.0, 0] for p in BWD_LAYER_PARTS}
+    prev, prev_part = None, None
+    for e in device:
+        name = _base_name(e)
+        part = _BWD_LAYER_KERNELS.get(name)
+        if name == "reduce_partials_kernel" and prev_part in ("dW", "dh"):
+            part = "dW" if prev == "dw_kernel" else "reduces"
+        if part is not None:
+            parts[part][0] += e.time_range.elapsed_us() / 1e3
+            parts[part][1] += 1
+        prev, prev_part = name, part
+    return {p: (ms / calls, n / calls) for p, (ms, n) in parts.items()}
+
+
+def _split_line(split: dict) -> str:
+    return ", ".join(f"{p} {split[p][0]:.4f} ms ({split[p][1]:g})"
+                     for p in BWD_LAYER_PARTS)
+
+
+def _device_busy(fn, steps: int = 5, top: int = 0, split: bool = False):
+    """Device busy share of ``steps`` calls: kernel time on the card
+    (``torch.profiler``) over the synchronized host-clock wall. With
+    ``top``, also prints the ``top`` device kernels by time a call, with
+    their launches a call; with ``split``, row 10's device ms a call by
+    part (``_bwd_layer_split``)."""
+    device, wall_us = _device_events(fn, steps)
     busy_us = sum(e.time_range.elapsed_us() for e in device)
+    if split:
+        print("    samlp_bwd_layer device ms a step by part (launches a "
+              "step): " + _split_line(_bwd_layer_split(device, steps)))
     if top:
         by_name: dict = {}
         for e in device:

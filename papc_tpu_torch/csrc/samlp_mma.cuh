@@ -5,9 +5,13 @@
 //  - cp.async.cg 16-byte copies, grouped and awaited (a ring of weight
 //    tiles: load_tile_async fills one stage while the warps run the MMAs of
 //    another), and 4-byte cp.async.ca copies that zero-fill;
-//  - ldmatrix.x4 for A fragments from a row-major bf16 buffer, and
+//  - ldmatrix.x4 for A fragments from a row-major bf16 buffer [m][k]
+//    (mma_slice), ldmatrix.x4.trans for A fragments from a row-major
+//    [k][m] buffer, i.e. the transpose of the buffer is the A operand
+//    (mma_slice_at: dW = h^T . da with h staged as rows x channels), and
 //    ldmatrix.x4.trans for B fragments from a row-major [k, n] tile (the
-//    weights W [Cin, Cout] as stored: no transposed copy);
+//    weights W [Cin, Cout] as stored, or da [rows, Cout]: no transposed
+//    copy);
 //  - mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32.
 //
 // A warp tile is 32 rows x up to 64 columns: two m16 row tiles by up to
@@ -60,6 +64,18 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// 16 bytes into dst in shared memory, of which the first `bytes` (0-16)
+// come from src and the rest are zero: a span whose end is not a
+// multiple of 16 bytes is copied without reading past it. src is 16-byte
+// aligned.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(bytes)
                : "memory");
 }
 
@@ -124,6 +140,33 @@ __device__ __forceinline__ void zero(WarpTile& t) {
       for (int v = 0; v < 4; ++v) t.acc[i][j][v] = 0.f;
 }
 
+// One k16 step: t += A (fragments af[0], af[1] of rows 0-15 and 16-31)
+// times the first `pairs` n16 pairs of B, whose ldmatrix.x4.trans lane
+// address at the step's first k row is b_addr (row stride ldb elements).
+__device__ __forceinline__ void mma_kstep(WarpTile& t,
+                                          const unsigned (&af)[2][4],
+                                          unsigned b_addr, int pairs) {
+#pragma unroll
+  for (int p = 0; p < kPairs; ++p) {
+    if (p < pairs) {
+      unsigned bf[4];
+      ldmatrix_x4_trans(bf, b_addr + p * 32);
+      mma_16816(t.acc[0][2 * p], af[0], bf[0], bf[1]);
+      mma_16816(t.acc[0][2 * p + 1], af[0], bf[2], bf[3]);
+      mma_16816(t.acc[1][2 * p], af[1], bf[0], bf[1]);
+      mma_16816(t.acc[1][2 * p + 1], af[1], bf[2], bf[3]);
+    }
+  }
+}
+
+// ldmatrix.x4.trans lane address of B: lanes 0-15 give k rows 0-15 at n
+// 0, lanes 16-31 at n 8 (b0b1, b2b3 of n8 tile 0, then of n8 tile 1).
+__device__ __forceinline__ unsigned b_lane_addr(const __nv_bfloat16* b,
+                                                int ldb) {
+  const int lane = threadIdx.x & 31;
+  return smem_u32(b + (lane & 15) * ldb + (lane >> 4) * 8);
+}
+
 // t += A[32 rows, ksteps * 16] * B[ksteps * 16, 16 * pairs]. a: the warp's
 // first A row at its first k column (row stride lda elements); b: the
 // first B row of the slice at the warp's first column (row stride ldb).
@@ -136,26 +179,54 @@ __device__ __forceinline__ void mma_slice(WarpTile& t,
   // ldmatrix.x4: lanes 0-15 give rows 0-15 at k 0, lanes 16-31 at k 8
   // (matrices a0a1, a2a3, a4a5, a6a7 of the m16k16 A fragment).
   const unsigned a_addr = smem_u32(a + (lane & 15) * lda + (lane >> 4) * 8);
-  // ldmatrix.x4.trans: lanes 0-15 give k rows 0-15 at n 0, lanes 16-31 at
-  // n 8 (b0b1, b2b3 of n8 tile 0, then of n8 tile 1).
-  const unsigned b_addr = smem_u32(b + (lane & 15) * ldb + (lane >> 4) * 8);
+  const unsigned b_addr = b_lane_addr(b, ldb);
 #pragma unroll
   for (int kk = 0; kk < 2; ++kk) {
     if (kk < ksteps) {
       unsigned af[2][4];
       ldmatrix_x4(af[0], a_addr + kk * 32);
       ldmatrix_x4(af[1], a_addr + (16 * lda + kk * 16) * 2);
+      mma_kstep(t, af, b_addr + kk * 16 * ldb * 2, pairs);
+    }
+  }
+}
+
+// No change to the A fragments (mma_slice_at's default).
+struct KeepA {
+  __device__ __forceinline__ void operator()(unsigned (&)[2][4]) const {}
+};
+
+// The same product with A stored transposed: A[i][k] = a[k * lda + i], a
+// row-major [k][m] buffer (rows of the layer input, channels along the
+// row) whose transpose is the warp's 32 x (ksteps * 16) A operand. a: the
+// first k row at the warp's first m column. ksteps <= 2 and pairs <=
+// kPairs are warp-uniform. fix(af) runs on the two A fragments after
+// each load, before the products (an elementwise function of A, such as
+// a per-channel affine): register r of af[i] holds two k values of the
+// one m row 16 i + 8 (r & 1) + lane / 4.
+template <typename FixA = KeepA>
+__device__ __forceinline__ void mma_slice_at(WarpTile& t,
+                                             const __nv_bfloat16* a, int lda,
+                                             const __nv_bfloat16* b, int ldb,
+                                             int ksteps, int pairs,
+                                             FixA fix = FixA()) {
+  const int lane = threadIdx.x & 31;
+  // ldmatrix.x4.trans, each 8x8 matrix read as 8 k rows of 8 m values and
+  // handed out transposed: lanes 0-7 give k rows 0-7 at m 0 (a0a1), lanes
+  // 8-15 k rows 0-7 at m 8 (a2a3), lanes 16-23 k rows 8-15 at m 0 (a4a5),
+  // lanes 24-31 k rows 8-15 at m 8 (a6a7); the second m16 tile is 16
+  // columns on.
+  const unsigned a_addr = smem_u32(
+      a + ((lane & 7) + ((lane >> 4) << 3)) * lda + ((lane >> 3) & 1) * 8);
+  const unsigned b_addr = b_lane_addr(b, ldb);
 #pragma unroll
-      for (int p = 0; p < kPairs; ++p) {
-        if (p < pairs) {
-          unsigned bf[4];
-          ldmatrix_x4_trans(bf, b_addr + (kk * 16 * ldb + p * 16) * 2);
-          mma_16816(t.acc[0][2 * p], af[0], bf[0], bf[1]);
-          mma_16816(t.acc[0][2 * p + 1], af[0], bf[2], bf[3]);
-          mma_16816(t.acc[1][2 * p], af[1], bf[0], bf[1]);
-          mma_16816(t.acc[1][2 * p + 1], af[1], bf[2], bf[3]);
-        }
-      }
+  for (int kk = 0; kk < 2; ++kk) {
+    if (kk < ksteps) {
+      unsigned af[2][4];
+      ldmatrix_x4_trans(af[0], a_addr + kk * 16 * lda * 2);
+      ldmatrix_x4_trans(af[1], a_addr + (kk * 16 * lda + 16) * 2);
+      fix(af);
+      mma_kstep(t, af, b_addr + kk * 16 * ldb * 2, pairs);
     }
   }
 }

@@ -39,7 +39,7 @@ FINALIZE_MAX = Kernel("papc_samlp_finalize_max", [P, I, I, I, P, P, P, P])
 BWD_SEED = Kernel("papc_samlp_bwd_seed", [P, I, I, I, P, P, P, I, P, P, P, P])
 BWD_LAYER = Kernel(
     "papc_samlp_bwd_layer",
-    [P, P, P, I, I, I, I, P, I, I, P, P, P, I, I, I, I, I,
+    [P, P, P, I, I, I, I, P, I, I, P, P, P, I, I, I, I, I, I, I, I, I,
      P, P, P, P, P, P, P, P, P, P],
 )
 KERNELS = (LINEAR_STATS, FINALIZE_MAX, BWD_SEED, BWD_LAYER)
@@ -49,6 +49,13 @@ _SKEW = 8  # bf16 elements of padding per shared-memory row (bank spread)
 _WARPS = 8
 _MAX_BLOCKS = 1024  # grid of the row-tiled products; fixes the sum order
 _THREADS = 131072  # target thread count of the per-column passes
+# The dW product of bwd_layer (csrc/samlp_bwd_layer.cu::dw_kernel)
+_SMS = 132  # the H100's SMs: the dW grid is at least one block each
+_DW_GRID = 2 * _SMS  # blocks it aims for
+_DW_STAGES = 3  # cp.async ring stages
+_DW_MAX_WARPS = 16
+_DW_STAGE_BYTES = 32 * 1024  # a ring stage at most, where rows allow
+_SMEM_OPTIN = 232448  # shared memory a block may opt into
 
 
 # ------------------------------------------------------- plain versions
@@ -190,20 +197,94 @@ def slices(rows: int, c: int) -> int:
     return max(1, min(rows, _THREADS // c))
 
 
+def _dw_smem(cin: int, wm: int, wn: int, wk: int, rows: int) -> tuple:
+    """Bytes of one ring stage and of the dW block's shared memory, as
+    ``DwShape::smem`` reckons them: for a Cin whose rows start on 16
+    bytes (a multiple of 8), stages of ``[rows][tm + 8]`` a_prev rows
+    read where they land, else stages of a whole-row span and
+    ``h [rows][tm + 8]`` copied from it; each stage with
+    ``da [rows][tn + 8]``. The wk warps' sums reuse all of it."""
+    tm, tn = 32 * wm, 64 * wn
+    aligned = cin % 8 == 0
+    a = _pad(rows * (tm + _SKEW), 8) if aligned else _pad(rows * cin, 8) + 8
+    stage = 2 * (a + rows * (tn + _SKEW))
+    main = (0 if aligned else 2 * rows * (tm + _SKEW)) + _DW_STAGES * stage
+    return stage, max(main, 4 * (wk - 1) * wm * wn * 32 * 64)
+
+
+def _split_evenly(n: int, most: int) -> int:
+    """The least per-part count that cuts ``n`` into as few parts of at
+    most ``most`` as possible."""
+    return -(-n // -(-n // most))
+
+
+def _dw_tile(m: int, cin: int, cout_p: int) -> dict:
+    """The dW block: ``wm x wn`` warp tiles of 32 x 64, ``wk`` warps
+    sharing each warp tile so that a block has 8 warps where its tile is
+    small (each at least one k16 step of a chunk), and ``rows`` a chunk
+    (the most of 128, 64, 32 whose ring stage holds at most 32 KB, or
+    64 KB for a block of more than 8 warps, where one does).
+
+    Where a_prev's rows start on 16 bytes (Cin a multiple of 8) a block
+    copies only its own channels: it takes every Cin channel it can
+    within 16 warp tiles (a_prev read once from device memory), then as
+    much of Cout as fits. Else every block copies whole rows and lays out
+    only its own channels: it takes every Cout column it can within 16
+    warp tiles, then as many Cin channels as fit, cut evenly, so each
+    row is laid out about once. A tile is halved along its longer side
+    while the grid could not reach one block per SM."""
+    wm_all, wn_all = -(-cin // 32), -(-cout_p // 64)
+    operand = 2 * m * cin + 2 * _pad(m, _TM) * cout_p
+    max_splits = max(1, operand // (4 * _pad(cin) * cout_p))
+    if cin % 8 == 0:
+        wm = min(wm_all, _DW_MAX_WARPS)
+        wn = min(wn_all, _DW_MAX_WARPS // wm)
+    else:
+        wn = _split_evenly(wn_all, 4)
+        wm = _split_evenly(wm_all, _DW_MAX_WARPS // wn)
+    while True:
+        fits = []
+        # more than 8 warps (about 120 registers a thread) hold an SM alone:
+        # such a block takes stages twice as large
+        cap = _DW_STAGE_BYTES * (2 if wm * wn > 8 else 1)
+        for rows in (128, 64, 32):
+            wk = min(max(1, 8 // (wm * wn)), rows // 16)
+            stage, smem = _dw_smem(cin, wm, wn, wk, rows)
+            if smem <= _SMEM_OPTIN:
+                fits.append((stage > cap, -rows, wk, smem))
+        if not fits:
+            raise ValueError(f"no dW tile fits cin={cin}, cout_p={cout_p}")
+        _, rows, wk, smem = min(fits)
+        rows = -rows
+        tiles = -(-wm_all // wm) * -(-wn_all // wn)
+        most = tiles * min(max_splits, -(-m // rows))
+        if most >= _SMS or wm * wn == 1:
+            break
+        if wm >= wn:
+            wm = -(-wm // 2)
+        else:
+            wn = -(-wn // 2)
+    return {"dw_wm": wm, "dw_wn": wn, "dw_wk": wk, "dw_rows": rows,
+            "dw_smem": smem, "dw_tiles": tiles,
+            "dw_max_splits": max_splits}
+
+
 def bwd_layer_plan(m: int, cin: int, cout: int) -> dict:
     """Grids and scratch of the bwd_layer kernels: the ``da`` pass
-    (``slices`` x ``cout_p`` threads), the ``dW`` product (64x64 tiles of
-    ``[Cin, Cout]`` times ``splits`` row ranges of ``rows_per_split``, a
-    multiple of 32) and the ``dh_prev`` product (as linear_stats)."""
+    (``slices`` x ``cout_p`` threads), the ``dW`` product (``_dw_tile``'s
+    block tiles times ``splits`` row ranges of ``rows_per_split``, a
+    multiple of the chunk rows, about ``_DW_GRID`` blocks in all and f32
+    partials ``[splits, cin_p, cout_p]`` of at most the operands' bytes)
+    and the ``dh_prev`` product (as linear_stats)."""
     cin_p, cout_p = _pad(cin), _pad(cout)
-    cin_pp, cout_pp = _pad(cin, 64), _pad(cout, 64)
-    tiles = (cin_pp // 64) * (cout_pp // 64)
-    want = max(1, min(-(-_MAX_BLOCKS // tiles), -(-m // 32)))
-    rows_per_split = _pad(-(-m // want), 32)
+    dw = _dw_tile(m, cin, cout_p)
+    want = min(dw["dw_max_splits"], -(-_DW_GRID // dw["dw_tiles"]),
+               -(-m // dw["dw_rows"]))
+    rows_per_split = _pad(-(-m // want), dw["dw_rows"])
     tiles_m = -(-m // _TM)
-    return {"cin_p": cin_p, "cout_p": cout_p, "cin_pp": cin_pp,
-            "cout_pp": cout_pp, "m_pad": tiles_m * _TM,
-            "slices": slices(m, cout_p), "rows_per_split": rows_per_split,
+    return {"cin_p": cin_p, "cout_p": cout_p, "m_pad": tiles_m * _TM,
+            "slices": slices(m, cout_p), **dw,
+            "rows_per_split": rows_per_split,
             "splits": -(-m // rows_per_split), "tm": _TM,
             "blocks": min(tiles_m, _MAX_BLOCKS)}
 
@@ -272,6 +353,8 @@ def bwd_layer_cuda(dy, a, a_prev, w_packed, vec, s_in, vec_prev, *,
     check(dy, "dy", torch.bfloat16, (m, cout))
     check(a, "a", torch.bfloat16, (m, cout))
     check(a_prev, "a_prev", torch.bfloat16, (m, cin))
+    if a_prev.data_ptr() % 16:  # the dW ring copies its rows 16 B at a time
+        a_prev = a_prev.clone()
     check(w_packed, "w_packed", torch.bfloat16, (plan["cin_p"], plan["cout_p"]))
     check(vec, "vec", torch.float32, (4, cout))
     check(s_in, "s_in", torch.float32, (2, cout))
@@ -285,7 +368,7 @@ def bwd_layer_cuda(dy, a, a_prev, w_packed, vec, s_in, vec_prev, *,
     da = torch.empty((plan["m_pad"], plan["cout_p"]), dtype=torch.bfloat16,
                      device=dev)
     db_part = f32(plan["slices"], plan["cout_p"])
-    dw_part = f32(plan["splits"], plan["cin_pp"], plan["cout_pp"])
+    dw_part = f32(plan["splits"], plan["cin_p"], plan["cout_p"])
     s_part = f32(plan["blocks"], 2, plan["cin_p"])
     dw, db = f32(cin, cout), f32(cout)
     dy_prev = dg = s_prev = None
@@ -296,7 +379,8 @@ def bwd_layer_cuda(dy, a, a_prev, w_packed, vec, s_in, vec_prev, *,
         dg = f32(m, cin)
     BWD_LAYER(ptr(dy), ptr(a), ptr(a_prev), m, plan["m_pad"], cin, cout,
               ptr(w_packed), plan["cin_p"], plan["cout_p"], ptr(vec),
-              ptr(s_in), ptr(vec_prev), plan["slices"], plan["splits"],
+              ptr(s_in), ptr(vec_prev), plan["slices"], plan["dw_wm"],
+              plan["dw_wn"], plan["dw_wk"], plan["dw_rows"], plan["splits"],
               plan["rows_per_split"], plan["tm"], plan["blocks"], ptr(da),
               ptr(db_part), ptr(dw_part), ptr(s_part), ptr(dw), ptr(db),
               ptr(dy_prev), ptr(dg), ptr(s_prev), stream_of(dy))

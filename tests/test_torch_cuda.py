@@ -349,7 +349,13 @@ def test_finalize_and_seed_kernels_equal_plain(device, m, cin, cout, k):
     torch.testing.assert_close(again, s, rtol=0, atol=0)  # fixed order
 
 
-@pytest.mark.parametrize("m,cin,cout,k", TRAIN_LAYERS)
+# bwd_layer only: the dW product's ragged cases. M a multiple of neither
+# 32 nor its split (the last chunk of a_prev runs past M: zero-filled),
+# and Cin = 4 (mod 8) (a_prev's rows 8-byte aligned).
+DW_EDGES = [(1000, 7, 24, 8), (4000, 196, 72, 8)]
+
+
+@pytest.mark.parametrize("m,cin,cout,k", TRAIN_LAYERS + DW_EDGES)
 def test_bwd_layer_kernel_matches_plain(device, m, cin, cout, k):
     dy = _bf16((m, cout), 1, device, 0.01)
     a = _bf16((m, cout), 2, device)
@@ -376,6 +382,27 @@ def test_bwd_layer_kernel_matches_plain(device, m, cin, cout, k):
     assert skip[0] is None
     torch.testing.assert_close(skip[1], got[1], rtol=0, atol=0)  # fixed order
     torch.testing.assert_close(skip[2], got[2], rtol=0, atol=0)
+    again = samlp_train.bwd_layer(dy, a, a_prev, w, vec, s_in, None)
+    torch.testing.assert_close(again[1], got[1], rtol=0, atol=0)
+
+
+def test_bwd_layer_takes_an_a_prev_off_16_bytes(device):
+    """A view of a_prev that starts 2 bytes into a row: the wrapper hands
+    the dW ring an aligned copy, and every output equals the aligned
+    call's."""
+    m, cin, cout = 500, 7, 24
+    dy, a = _bf16((m, cout), 1, device, 0.01), _bf16((m, cout), 2, device)
+    base = _bf16((m * cin + 1,), 3, device)
+    off = base[1:].view(m, cin)
+    assert off.data_ptr() % 16
+    g = torch.Generator().manual_seed(cin)
+    w = (torch.randn(cin, cout, generator=g) / cin ** 0.5).to(device)
+    vec, vec_prev = _vec4(cout, 4, device), _vec4(cin, 5, device)
+    s_in = torch.randn(2, cout, generator=g).to(device) * m ** 0.5 * 0.01
+    got = samlp_train.bwd_layer(dy, a, off, w, vec, s_in, vec_prev)
+    want = samlp_train.bwd_layer(dy, a, off.clone(), w, vec, s_in, vec_prev)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("B,N,S,K,C", [(2, 50, 7, 8, 5), (32, 1024, 512, 32, 3),

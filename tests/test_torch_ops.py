@@ -394,14 +394,23 @@ def test_cpu_tensors_take_the_plain_version(rng):
             for m in (fps, ball_query, gather, samlp)] == before
 
 
+SSG_TRAIN_LAYERS = [  # (M, Cin, Cout) of every SSG layer at B=32
+    (524288, 3, 64), (524288, 64, 64), (524288, 64, 128),
+    (262144, 131, 128), (262144, 128, 128), (262144, 128, 256),
+    (4096, 259, 256), (4096, 256, 512), (4096, 512, 1024)]
+MSG_TRAIN_LAYERS = [  # MSG: K = 16, c0 = 323, width 196, c0 = 643
+    (262144, 3, 32), (524288, 323, 128), (524288, 128, 196),
+    (524288, 196, 256), (4096, 643, 256)]
+
+
 def test_training_kernel_plans_at_the_ssg_shapes():
-    """The training kernels' plans at every SSG layer (B=32): shared
-    memory within the 227 KB a block may opt into, tiles of whole 64-row
-    units, and row splits of the dW product that cover every row."""
-    layers = [(524288, 3, 64), (524288, 64, 64), (524288, 64, 128),
-              (262144, 131, 128), (262144, 128, 128), (262144, 128, 256),
-              (4096, 259, 256), (4096, 256, 512), (4096, 512, 1024)]
-    for m, cin, cout in layers:
+    """The training kernels' plans at every SSG layer (B=32) and the MSG
+    layers of the card tests: shared memory within the 227 KB a block may
+    opt into, tiles of whole 64-row units; the dW product's row splits
+    cover every row once in whole chunks, its ring fits, its grid has a
+    block for each of the 132 SMs, and its f32 partials move no more
+    bytes than its operands (a_prev and da read once)."""
+    for m, cin, cout in SSG_TRAIN_LAYERS + MSG_TRAIN_LAYERS:
         plan = samlp_train.linear_stats_plan(m, cin, cout)
         assert plan["smem"] <= 232448 and plan["tm"] % 64 == 0
         assert plan["cin_p"] % 16 == 0 and plan["ld_x"] % 8 == 0
@@ -410,7 +419,54 @@ def test_training_kernel_plans_at_the_ssg_shapes():
         assert (bw["splits"] - 1) * bw["rows_per_split"] < m
         assert bw["rows_per_split"] % 32 == 0 and bw["m_pad"] % bw["tm"] == 0
         assert bw["m_pad"] >= m and bw["blocks"] <= 1024
+        assert bw["rows_per_split"] % bw["dw_rows"] == 0
+        assert bw["tm"] % bw["dw_rows"] == 0  # chunks stay inside m_pad
+        assert bw["dw_rows"] % (16 * bw["dw_wk"]) == 0
+        assert bw["dw_wm"] * bw["dw_wn"] * bw["dw_wk"] <= 16
+        assert bw["dw_smem"] <= 232448
+        assert bw["dw_tiles"] * bw["splits"] >= 132
+        operand = 2 * m * cin + 2 * bw["m_pad"] * bw["cout_p"]
+        assert 4 * bw["splits"] * bw["cin_p"] * bw["cout_p"] <= operand
     assert samlp_train.slices(16384, 128) * 128 <= 131072
+
+
+@pytest.mark.parametrize("m,cin,cout", [
+    (256, 7, 24), (1000, 7, 24), (4000, 196, 72), (3000, 3, 64),
+    (5000, 131, 128), (700, 64, 196), (520, 259, 40), (1200, 256, 512)])
+def test_dw_plan_takes_every_product_once(m, cin, cout):
+    """The dW kernel's decomposition as ``dw_kernel`` walks it: blocks
+    (Cin x Cout tile, row split), chunks of ``dw_rows`` rows, warps
+    (wk_i, wm_i, wn_i) each taking a contiguous 1/wk of a chunk's k16
+    steps on its 32 x 64 warp tile, skipping columns past ``cout_p`` and
+    tiles past Cin. Every (row, Cin channel, Cout channel) product is
+    taken exactly once, and no chunk reads da past ``m_pad``."""
+    bw = samlp_train.bwd_layer_plan(m, cin, cout)
+    wm, wn, wk, rows = bw["dw_wm"], bw["dw_wn"], bw["dw_wk"], bw["dw_rows"]
+    tm, tn, cout_p = 32 * wm, 64 * wn, bw["cout_p"]
+    tiles_n = -(-cout_p // tn)
+    assert -(-cin // tm) * tiles_n == bw["dw_tiles"]
+    taken = np.zeros((m, cin, cout), np.int32)
+    for tile in range(bw["dw_tiles"]):
+        c0, n0 = tile // tiles_n * tm, tile % tiles_n * tn
+        win, cols = min(tm, cin - c0), min(tn, cout_p - n0)
+        for split in range(bw["splits"]):
+            r_begin = split * bw["rows_per_split"]
+            r_end = min(m, r_begin + bw["rows_per_split"])
+            for r0 in range(r_begin, r_end, rows):
+                assert r0 + rows <= bw["m_pad"]
+                for warp in range(wm * wn * wk):
+                    wn_i, wm_i = warp % wn, warp // wn % wm
+                    wk_i = warp // (wn * wm)
+                    pairs = max(0, min(64, cols - wn_i * 64)) // 16
+                    if pairs == 0 or wm_i * 32 >= win:
+                        continue
+                    k = rows // wk
+                    lo = r0 + wk_i * k
+                    ci = c0 + wm_i * 32
+                    co = n0 + wn_i * 64
+                    taken[lo:min(lo + k, r_end), ci:min(ci + 32, cin),
+                          co:min(co + 16 * pairs, cout)] += 1
+    assert (taken == 1).all()
 
 
 def test_cpu_training_launches_no_kernel(rng):
