@@ -34,12 +34,14 @@ convolutions in f32 itself, as a user gets it.
    other bf16 neighbour); f32
    sums, dW, db and dg within 1e-3 of their largest (sums over up to
    524288 rows in another order); the scatter-add within 1e-5 of its
-   largest (f32 atomics). Times as in phase 3. ``bwd_layer``'s dW must
-   equal itself bit for bit over two calls; each call's device time by
-   part (da, dW = dw_kernel + its reduce, dh, the other reduces; the
-   profiler's kernel names) beside the dW part's byte bound and one
-   cuBLAS call of ``h^T . da`` on the bf16 operands (h materialized
-   beforehand; row 10's ``library_ms``), and their sums over one SSG
+   largest (f32 atomics). Times as in phase 3. ``bwd_layer``'s outputs
+   must equal themselves bit for bit over two calls; each call's device
+   time by part (da+dh = da_dh_kernel, dW = dw_kernel + its reduce, the
+   reduces of db and the sums; the profiler's kernel names), the dW part
+   beside its byte bound and one cuBLAS call of ``h^T . da`` on the bf16
+   operands (h materialized beforehand; row 10's ``library_ms``), the
+   da+dh part beside its byte bound and one cuBLAS call of ``da . W^T``
+   on the bf16 operands (device time), and their sums over one SSG
    step.
 5. Serving slice: ``papc_tpu_torch.train.evaluate`` over synthetic
    batches with the kernels, its launch counts, and its logits against
@@ -527,14 +529,17 @@ def phase_train_kernels(groups, rows, record=True):
                          - (a_list[i].float() - v[2]) * v[3] * sd[1] / m)
             _compare(row, tag + " db", got[2], want[2], rel=DB_TOL,
                      scale=float(da.abs().sum(0).max()))
-            # the cuBLAS yardstick of the dW part: h^T . da on the bf16
-            # operands, h materialized beforehand
+            # the cuBLAS yardsticks of the two products on the bf16
+            # operands: h^T . da (h materialized beforehand) and da . W^T
             hb = (a_prev if vprev is None else torch.clamp_min(
                 a_prev.float() * vprev[0] + vprev[1], 0.0)).to(torch.bfloat16)
             dab = da.to(torch.bfloat16)
             del da
-            check(torch.equal(run(None)[1], got[1]),
-                  f"{tag}: dW differs between two calls")
+            again = run(None)
+            for x, y, what in zip(got, again, ("dy'/dg", "dW", "db",
+                                                "sums")):
+                check(x is None or torch.equal(x, y),
+                      f"{tag}: {what} differs between two calls")
             cin, cout = w.shape
             products = (2 if need else 1) * 2 * m * cin * cout
             _compare(row, tag + " dW", got[1], want[1], rel=TRAIN_TOL,
@@ -544,38 +549,58 @@ def phase_train_kernels(groups, rows, record=True):
                            products / BF16_OPS_PER_S
                            + 10 * m * cout / F32_OPS_PER_S),
                      fn_library=lambda: hb.t() @ dab, record=record)
-            _dw_part(tag, run, hb, dab, a_prev, m, cin, cout, split_sum)
-            del hb, dab
+            _bwd_parts(tag, run, hb, dab, w.to(torch.bfloat16), a_prev, m,
+                       cin, cout, need, bool(i), split_sum)
+            del hb, dab, again
             dy, sd = want[0], want[3]
     if record:
         dw_ms, lib_ms, bound_ms = split_sum.pop("dW totals")
+        dh_ms, dh_lib, dh_bound = split_sum.pop("da+dh totals")
         print(f"    samlp_bwd_layer over one SSG step by part (device, "
               f"profiler; launches a step): {_split_line(split_sum)}; the "
               f"dW part {dw_ms:.4f} ms against its bound {bound_ms:.4f} ms "
               f"(a_prev and da read once) and cuBLAS h^T.da "
-              f"{lib_ms:.4f} ms")
+              f"{lib_ms:.4f} ms; the da+dh part {dh_ms:.4f} ms against its "
+              f"bound {dh_bound:.4f} ms and cuBLAS da.W^T {dh_lib:.4f} ms")
 
 
-def _dw_part(tag, run, hb, dab, a_prev, m, cin, cout, split_sum):
+def _device_ms(fn, calls: int = 10) -> float:
+    """Device ms a call of ``fn`` (the profiler's kernel records)."""
+    device = _device_events(fn, calls)[0]
+    return sum(e.time_range.elapsed_us() for e in device) / calls / 1e3
+
+
+def _bwd_parts(tag, run, hb, dab, wb, a_prev, m, cin, cout, need, gate,
+               split_sum):
     """One ``bwd_layer`` call's device ms by part (profiler, 10 calls),
-    its dW part against the byte bound of reading a_prev and da once and
-    against one cuBLAS call of ``h^T . da`` on the bf16 operands (the
-    profiler's device time of its kernels); added to ``split_sum``."""
+    each product's part against its byte bound and against one cuBLAS
+    call on the bf16 operands (device time): dW (a_prev and da read once;
+    ``h^T . da``) and, where the layer passes a gradient down, da+dh (dy
+    and a read, bf16 da written, then a_prev read and dy' written, or f32
+    dg written; ``da . W^T``); added to ``split_sum``."""
     split = _bwd_layer_split(_device_events(lambda: run(None), 10)[0], 10)
-    lib = _device_events(lambda: hb.t() @ dab, 10)[0]
-    lib_ms = sum(e.time_range.elapsed_us() for e in lib) / 10 / 1e3
-    bound_ms = max((_nbytes(a_prev) + 2 * m * cout + 4 * cin * cout)
+    dw_lib = _device_ms(lambda: hb.t() @ dab)
+    dw_bound = max((_nbytes(a_prev) + 2 * m * cout + 4 * cin * cout)
                    / HBM_BYTES_PER_S,
                    2 * m * cin * cout / BF16_OPS_PER_S) * 1e3
+    dh_bytes = 6 * m * cout + (4 * m * cin if need else 0)
+    dh_bound = max(dh_bytes / HBM_BYTES_PER_S,
+                   (2 * m * cin * cout if need else 0) / BF16_OPS_PER_S) * 1e3
+    dh_lib = _device_ms(lambda: dab @ wb.t()) if need else 0.0
+    what = ("a_prev read, dy' written" if gate else "f32 dg written") \
+        if need else "no product"
     print(f"    {'':<18} {tag}: device {_split_line(split)}; dW part "
-          f"{split['dW'][0]:.4f} ms, bound {bound_ms:.4f} ms, cuBLAS "
-          f"{lib_ms:.4f} ms")
+          f"{split['dW'][0]:.4f} ms, bound {dw_bound:.4f} ms, cuBLAS "
+          f"{dw_lib:.4f} ms; da+dh {split['da+dh'][0]:.4f} ms, bound "
+          f"{dh_bound:.4f} ms ({what}), cuBLAS da.W^T {dh_lib:.4f} ms")
     for p, (ms, n) in split.items():
         have = split_sum.setdefault(p, (0.0, 0))
         split_sum[p] = (have[0] + ms, have[1] + n)
-    have = split_sum.setdefault("dW totals", (0.0, 0.0, 0.0))
-    split_sum["dW totals"] = (have[0] + split["dW"][0], have[1] + lib_ms,
-                              have[2] + bound_ms)
+    for key, vals in (("dW totals", (split["dW"][0], dw_lib, dw_bound)),
+                      ("da+dh totals", (split["da+dh"][0], dh_lib,
+                                        dh_bound))):
+        have = split_sum.setdefault(key, (0.0, 0.0, 0.0))
+        split_sum[key] = tuple(h + v for h, v in zip(have, vals))
 
 
 def _ball_scan(idx, n) -> int:
@@ -1572,30 +1597,26 @@ def _base_name(e) -> str:
     return name.split("(")[0].split("<")[0].split()[-1].split("::")[-1]
 
 
-BWD_LAYER_PARTS = ("da", "dW", "dh", "reduces")
-_BWD_LAYER_KERNELS = {"da_kernel": "da", "dw_kernel": "dW",
-                      "dw_reduce_kernel": "dW", "dh_kernel": "dh"}
+BWD_LAYER_PARTS = ("da+dh", "dW", "reduces")
 
 
 def _bwd_layer_split(device, calls: int) -> dict:
     """Row 10's (``bwd_layer``'s) device ms a call by part, from kernel
-    records in stream order: ``da`` (da_kernel), ``dW`` (dw_kernel and
-    its reduce: dw_reduce_kernel, or in trees before it the
-    reduce_partials_kernel launched right after dw_kernel), ``dh``
-    (dh_kernel), and ``reduces``, the reduce_partials_kernel launches of
-    db and of the sums that follow the dW reduce or dh_kernel. Values:
-    ``(ms, launches)`` a call."""
+    records in stream order: ``da+dh`` (da_dh_kernel), ``dW`` (dw_kernel
+    and the split_reduce_kernel launched right after it) and ``reduces``
+    (the split_reduce_kernel of db and the sums). Values: ``(ms,
+    launches)`` a call."""
     parts = {p: [0.0, 0] for p in BWD_LAYER_PARTS}
-    prev, prev_part = None, None
+    prev = None
     for e in device:
         name = _base_name(e)
-        part = _BWD_LAYER_KERNELS.get(name)
-        if name == "reduce_partials_kernel" and prev_part in ("dW", "dh"):
+        part = {"da_dh_kernel": "da+dh", "dw_kernel": "dW"}.get(name)
+        if name == "split_reduce_kernel":
             part = "dW" if prev == "dw_kernel" else "reduces"
         if part is not None:
             parts[part][0] += e.time_range.elapsed_us() / 1e3
             parts[part][1] += 1
-        prev, prev_part = name, part
+        prev = name
     return {p: (ms / calls, n / calls) for p, (ms, n) in parts.items()}
 
 

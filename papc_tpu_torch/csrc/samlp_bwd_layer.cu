@@ -13,18 +13,52 @@
 // da in f32, rounded to bf16 once and used by both products; f32
 // accumulation, db and sums from the f32 values.
 //
-// What bounds it on the H100: the two products (the same FLOPs as the
-// forward layer's, twice) and the bytes of dy, a and a_prev read and dy'
-// written, 2 bytes a value. The dW product alone is bound by the bytes
-// of a_prev and da read once (0.90 GB over a SSG step at B=32, 0.27 ms
-// at 3.35 TB/s; its 53.6 GFLOP take 0.054 ms at the bf16 peak).
+// What bounds it on the H100: the bytes of dy, a, a_prev and da read and
+// da and dy' (or dg) written, 2 bytes a value (dg 4): 2.35 GB for da + dh
+// and 0.90 GB for dW over a SSG step at B=32, 0.70 + 0.27 ms at 3.35
+// TB/s; the two products (53.4 GFLOP each) take 0.054 ms each at the
+// bf16 peak.
 //
-// Design, in four steps on the stream:
-// 1. da_kernel: one thread per (row slice, channel); writes bf16 da
-//    [m_pad, cout_p] (zero in the padding, so the products need no masks)
-//    and per-slice f32 partials of db. The affine, x-hat and da use the
-//    _rn intrinsics, so da equals the plain version's before rounding.
-// 2. dw_kernel (csrc/samlp_mma.cuh's ldmatrix + mma.sync core): dW is a
+// Design, in four launches on the stream:
+// 1. da_dh_kernel (csrc/samlp_mma.cuh's ldmatrix + mma.sync core): one
+//    pass per row tile. A block of 8 warps owns TM = 32 rw rows (rw row
+//    warps by 8 / rw column warps) and a run of Cin tiles of TN = 64 x 8
+//    / rw columns; Cout is the k dimension. The plan
+//    (samlp_train._da_dh_tile) takes the largest TM that keeps two blocks
+//    on an SM: a block's time goes mostly to fixed round trips (its
+//    loads, W's slices in turn), so fewer, larger tiles win.
+//    - First, all in flight at once: W's first two k-slices and, on a
+//      later layer, a_prev's rows at the block's Cin columns into a
+//      shared tile (cp.async of 16, 8 or 4 bytes as Cin's rows align).
+//    - da: the block reads the tile's dy and a (16-, 8- or 2-byte loads
+//      by Cout's alignment, 4 or 8 rows in flight a thread),
+//      computes da with the _rn intrinsics op for op as the plain version
+//      (the same f32 value), rounds it to bf16 once into a skewed shared
+//      tile [TM][cout_p + 8] and, in the block that owns the tile's da
+//      (the first of its Cin splits), stores the same rows to the da
+//      scratch [m_pad, cout_p] for dw_kernel, zero from row M and column
+//      Cout on, with db's f32 column partials of the tile (each thread
+//      sums its rows in order, then the threads of a column in order).
+//    - dh = da . W^T: W's packed rows [Cin, Cout] are the B operand as
+//      [n][k], read by ldmatrix.x4 without .trans (mma_slice<true>);
+//      they stream through a 3-stage cp.async ring of [TN][32] k-slices,
+//      the A fragments come from the shared da tile, the f32
+//      accumulators stay in registers on 32 x 64 warp tiles over all of
+//      Cout.
+//    - Epilogue: each warp passes its tile through a small stage in
+//      shared memory, 8 rows x 32 columns at a time, so that a lane owns
+//      one column and each row leaves as one coalesced run (the first
+//      layers' odd Cin, 131 to 643, included: a value a lane). On a later
+//      layer the gate a_prev * scale' + shift' > 0 (_rn; a_prev from its
+//      shared tile), the bf16 dy' store and the column sums (sum dy',
+//      sum dy' * xhat') of the f32 dy', each lane's in row order, then
+//      the row warps' in warp order through shared memory, into the
+//      tile's partial [tiles, 2, cin_p]; on the first layer the f32 dg,
+//      no gate, no sums.
+//    - SA3 (4096 rows) has few row tiles: blocks that share one split
+//      Cin between them, each computing the tile's da again from dy and
+//      a, so that the grid reaches the SMs.
+// 2. dw_kernel (the same core): dW is a
 //    sum over all M rows (524288 in SA1), bound by the bytes of a_prev
 //    and da. A block owns a [32 wm x 64 wn] tile of [Cin, Cout] (every
 //    Cin channel wherever 16 warps allow, so a_prev comes from device
@@ -53,13 +87,15 @@
 //    block writes its f32 tile from the registers as float2 into
 //    dw_part[split], and a reduce adds the splits in a fixed order: 8
 //    lanes of a column each sum every 8th split in order, then the 8
-//    sums in order.
-// 3. dh_kernel (skipped when neither dy' nor dg is wanted): da . W^T over
-//    tiles of 128 rows, operands read by the tensor-core loads straight
-//    from device memory (W^T as a column-major B of the packed W); the
-//    epilogue gates, stores and sums as in samlp_linear_stats.cu.
-// 4. The fixed-order reduces of db, dW and the sums.
+//    sums in order (split_reduce_kernel, which adds db's and the sums'
+//    tile partials the same way, 32 lanes a column).
+// 3. split_reduce_kernel: dW's splits added in a fixed order.
+// 4. split_reduce_kernel again, for db's and the sums' tile partials.
+// Without dy' or dg (the first layer of SA1, whose input is data), the
+// pass computes da and db only.
+#include <algorithm>
 #include <cstdint>
+#include <cstring>
 
 #include "samlp_mma.cuh"
 #include "samlp_train.cuh"
@@ -71,9 +107,17 @@ using samlp_train::bf2f;
 
 namespace mma = samlp_mma;
 
-constexpr int kStages = 3;  // dW ring stages
+constexpr int kStages = 3;  // ring stages (dW's and W's)
 constexpr int kSkew = 8;    // bf16 of padding per shared-memory row
 constexpr int kMaxWarps = 16;
+constexpr int kDhWarps = 8;  // the da + dh pass's block
+constexpr int kDhThreads = kDhWarps * 32;
+constexpr int kSlice = 32;            // W's Cout (k) columns a ring stage
+constexpr int kLdW = kSlice + kSkew;  // its row stride
+// a warp's epilogue stage: 8 rows x 32 f32 columns (a stride of 8 mod 32
+// floats: the float2 stores of a quarter's 8 rows hit 32 distinct banks)
+constexpr int kStageLd = 40;
+constexpr int kStageFloats = 8 * kStageLd;
 
 // The dW product's plan (ops/kernels/samlp_train.py::bwd_layer_plan):
 // warp tiles down Cin (wm) and across Cout (wn), warps sharing each
@@ -109,44 +153,343 @@ struct DwShape {
   }
 };
 
-__global__ void da_kernel(const __nv_bfloat16* __restrict__ dy,
-                          const __nv_bfloat16* __restrict__ a, int m,
-                          int m_pad, int cout, int cout_p,
-                          const float* __restrict__ vec,
-                          const float* __restrict__ s_in, int slices,
-                          __nv_bfloat16* __restrict__ da,
-                          float* __restrict__ db_part) {
-  const long long total = static_cast<long long>(slices) * cout_p;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const float fm = static_cast<float>(m);
-  for (long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       t < total; t += stride) {
-    const int p = static_cast<int>(t / cout_p);
-    const int ch = static_cast<int>(t - static_cast<long long>(p) * cout_p);
-    float sum = 0.f;
-    if (ch < cout) {
-      const float scale = vec[ch], mean = vec[2 * cout + ch];
-      const float inv_std = vec[3 * cout + ch];
-      const float mu1 = __fdiv_rn(s_in[ch], fm), s2 = s_in[cout + ch];
-      for (int r = p; r < m_pad; r += slices) {
-        float v = 0.f;
-        if (r < m) {
-          const size_t i = static_cast<size_t>(r) * cout + ch;
-          const float xhat = __fmul_rn(__fsub_rn(bf2f(a[i]), mean), inv_std);
-          v = __fmul_rn(scale,
-                        __fsub_rn(__fsub_rn(bf2f(dy[i]), mu1),
-                                  __fdiv_rn(__fmul_rn(xhat, s2), fm)));
-          sum += v;
-        }
-        da[static_cast<size_t>(r) * cout_p + ch] = __float2bfloat16_rn(v);
-      }
-    } else {
-      for (int r = p; r < m_pad; r += slices)
-        da[static_cast<size_t>(r) * cout_p + ch] = __float2bfloat16_rn(0.f);
-    }
-    db_part[static_cast<size_t>(p) * cout_p + ch] = sum;
+// The da + dh pass's plan (ops/kernels/samlp_train.py::_da_dh_tile): rw
+// row warps of 32 rows by kDhWarps / rw column warps of 64 Cin columns,
+// tiles_per_split Cin tiles a block; gate: a later layer, whose a_prev
+// rows for the block's Cin columns are staged in shared memory. v: Cout
+// columns a thread of the da phase takes (8, 4 or 1: the widest load
+// Cout's rows align to).
+struct DaDhShape {
+  int rw, tiles_per_split, gate;
+  __host__ __device__ int tm() const { return mma::kWarpRows * rw; }
+  __host__ __device__ int cw() const { return kDhWarps / rw; }
+  __host__ __device__ int tn() const { return mma::kWarpCols * cw(); }
+  __host__ __device__ static int k_slices(int cout_p) {
+    return (cout_p + kSlice - 1) / kSlice;
   }
+  // a W slice holds the rows of one Cin tile: at most Cin's
+  __host__ __device__ int ring_rows(int cin_p) const {
+    return tn() < cin_p ? tn() : cin_p;
+  }
+  // the Cin tiles of a split (the last may have fewer)
+  __host__ __device__ int split_tiles(int cin_p) const {
+    const int n = (cin_p + tn() - 1) / tn();
+    return tiles_per_split < n ? tiles_per_split : n;
+  }
+  // a_prev's tile [tm][ld_ap]: the block's Cin columns and a skew
+  __host__ __device__ int ld_ap(int cin_p) const {
+    const int cols = split_tiles(cin_p) * tn();
+    return gate ? (cols < cin_p ? cols : cin_p) + kSkew : 0;
+  }
+  __host__ __device__ static int vec_cols(int cout) {
+    return cout % 8 == 0 ? 8 : cout % 4 == 0 ? 4 : 1;
+  }
+  // the da phase's row phases: the threads that share one column group
+  __host__ __device__ static int phases(int cout_p, int v) {
+    const int groups = cout_p / v;
+    return groups >= kDhThreads ? 1 : kDhThreads / groups;
+  }
+  // floats of db's per-phase column sums, later of each warp's epilogue
+  // stage, where the warp leaves its two column sums of a Cin tile
+  __host__ __device__ static int red_floats(int cout_p, int v) {
+    const int db = phases(cout_p, v) * cout_p;
+    const int stages = kDhWarps * kStageFloats;
+    return db > stages ? db : stages;
+  }
+  // the da tile [tm][cout_p + 8], the W ring, the sums, a_prev's tile
+  size_t smem(int cin_p, int cout_p, int v) const {
+    return 2 * (static_cast<size_t>(tm()) * (cout_p + kSkew) +
+                static_cast<size_t>(kStages) * ring_rows(cin_p) * kLdW +
+                static_cast<size_t>(tm()) * ld_ap(cin_p)) +
+           4 * static_cast<size_t>(red_floats(cout_p, v));
+  }
+};
+
+// V bf16 values as one load or store.
+template <int V>
+struct Bf16s;
+template <>
+struct Bf16s<8> {
+  using T = uint4;
+};
+template <>
+struct Bf16s<4> {
+  using T = uint2;
+};
+template <>
+struct Bf16s<1> {
+  using T = unsigned short;
+};
+
+__device__ __forceinline__ float bits2f(unsigned short h) {
+  return __uint_as_float(static_cast<unsigned>(h) << 16);
+}
+
+// The row tile's da: rows row0 + r (r < tm) of dy and a, V columns a
+// thread (rows r = phase, phase + phases, ..., kBatch of them in flight),
+// rounded to bf16 into da_s [tm][ld_s] and, given da_g, into the same
+// rows of the da scratch [m_pad, cout_p]; 0 from row M and column Cout
+// on. Each thread sums its f32 values (rows below M) in row order into
+// red[phase][cout_p]. Where M is a power of two (every layer of the
+// models at B=32), x / M is x * (1 / M): both round the same exact
+// quotient, so the bits are the division's, at a fraction of its cost.
+template <int V>
+__device__ __forceinline__ void da_tile(
+    const __nv_bfloat16* __restrict__ dy, const __nv_bfloat16* __restrict__ a,
+    int m, int cout, int cout_p, const float* __restrict__ vec,
+    const float* __restrict__ s_in, int row0, int tm, __nv_bfloat16* da_s,
+    int ld_s, __nv_bfloat16* __restrict__ da_g, float* red) {
+  using T = typename Bf16s<V>::T;
+  constexpr int kBatch = V == 8 ? 4 : 8;
+  const int groups = cout_p / V;
+  const int phases = DaDhShape::phases(cout_p, V);
+  const float fm = static_cast<float>(m);
+  const bool pow2 = (m & (m - 1)) == 0;
+  const float inv_m = __frcp_rn(fm);  // exact where pow2
+  auto over_m = [&](float x) {
+    return pow2 ? __fmul_rn(x, inv_m) : __fdiv_rn(x, fm);
+  };
+  for (int e = threadIdx.x; e < groups * phases; e += blockDim.x) {
+    const int g = e % groups, p = e / groups, c0 = g * V;
+    const bool in = c0 < cout;  // V divides Cout: all of a group or none
+    float scale[V], mean[V], inv_std[V], mu1[V], s2[V], sum[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int c = in ? c0 + v : 0;
+      scale[v] = vec[c];
+      mean[v] = vec[2 * cout + c];
+      inv_std[v] = vec[3 * cout + c];
+      mu1[v] = over_m(s_in[c]);
+      s2[v] = s_in[cout + c];
+      sum[v] = 0.f;
+    }
+    for (int r = p; r < tm; r += kBatch * phases) {
+      T dyr[kBatch], ar[kBatch];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int rr = r + b * phases;
+        if (in && rr < tm && row0 + rr < m) {
+          const size_t i = static_cast<size_t>(row0 + rr) * cout + c0;
+          dyr[b] = __ldg(reinterpret_cast<const T*>(dy + i));
+          ar[b] = __ldg(reinterpret_cast<const T*>(a + i));
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        const int rr = r + b * phases;
+        if (rr >= tm) break;
+        const bool live = in && row0 + rr < m;
+        unsigned short dyh[V], ah[V], out[V];
+        if (live) {
+          memcpy(dyh, &dyr[b], sizeof(T));
+          memcpy(ah, &ar[b], sizeof(T));
+        }
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          float d = 0.f;
+          if (live) {
+            const float xhat =
+                __fmul_rn(__fsub_rn(bits2f(ah[v]), mean[v]), inv_std[v]);
+            d = __fmul_rn(scale[v],
+                          __fsub_rn(__fsub_rn(bits2f(dyh[v]), mu1[v]),
+                                    over_m(__fmul_rn(xhat, s2[v]))));
+            sum[v] += d;
+          }
+          out[v] = __bfloat16_as_ushort(__float2bfloat16_rn(d));
+        }
+        T o;
+        memcpy(&o, out, sizeof(T));
+        *reinterpret_cast<T*>(da_s + rr * ld_s + c0) = o;
+        if (da_g != nullptr)
+          *reinterpret_cast<T*>(da_g + static_cast<size_t>(row0 + rr) * cout_p +
+                                c0) = o;
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) red[p * cout_p + c0 + v] = sum[v];
+  }
+}
+
+// Grid: (row tiles, Cin splits). Block tile's rows row0 = blockIdx.x * tm
+// on; Cin tiles [blockIdx.y * tiles_per_split, + tiles_per_split). The
+// first split of a tile writes its da rows and db partial.
+template <int V>
+__global__ void __launch_bounds__(kDhThreads, 2)
+    da_dh_kernel(const __nv_bfloat16* __restrict__ dy,
+                 const __nv_bfloat16* __restrict__ a, int m, int cout,
+                 int cout_p, const float* __restrict__ vec,
+                 const float* __restrict__ s_in,
+                 const __nv_bfloat16* __restrict__ w,
+                 const __nv_bfloat16* __restrict__ a_prev, int cin, int cin_p,
+                 const float* __restrict__ vec_prev, DaDhShape sh,
+                 __nv_bfloat16* __restrict__ da, float* __restrict__ db_part,
+                 __nv_bfloat16* __restrict__ dy_prev, float* __restrict__ dg,
+                 float* __restrict__ s_part) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const int tm = sh.tm(), tn = sh.tn(), cw = sh.cw();
+  const int ld_da = cout_p + kSkew, ld_ap = sh.ld_ap(cin_p);
+  __nv_bfloat16* da_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ring = da_s + tm * ld_da;
+  const int stage_elems = sh.ring_rows(cin_p) * kLdW;
+  float* red = reinterpret_cast<float*>(ring + kStages * stage_elems);
+  __nv_bfloat16* ap_s = reinterpret_cast<__nv_bfloat16*>(
+      red + DaDhShape::red_floats(cout_p, V));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tile = blockIdx.x, row0 = tile * tm;
+  const bool owner = blockIdx.y == 0;
+  const bool gate = dy_prev != nullptr;
+  const int nt_begin = blockIdx.y * sh.tiles_per_split;
+  const int nt_end =
+      min((cin_p + tn - 1) / tn, nt_begin + sh.tiles_per_split);
+  const int c_begin = nt_begin * tn;  // the block's first Cin column
+  const int k_slices = DaDhShape::k_slices(cout_p);
+  const int steps =
+      gate || dg != nullptr ? (nt_end - nt_begin) * k_slices : 0;
+
+  // W's k-slice t of the block's sequence (Cin tiles, then k-slices)
+  auto issue = [&](int t) {
+    const int n0 = (nt_begin + t / k_slices) * tn;
+    const int k0 = (t % k_slices) * kSlice;
+    mma::load_tile_async(ring + (t % kStages) * stage_elems, kLdW,
+                         w + static_cast<size_t>(n0) * cout_p + k0, cout_p,
+                         min(tn, cin_p - n0), min(kSlice, cout_p - k0));
+  };
+  // The first group: W's first slice and, on a later layer, a_prev's rows
+  // at the block's Cin columns, by copies of 16, 8 or 4 bytes as Cin's
+  // rows align (an odd Cin, which no later layer of the models has, by
+  // plain loads), all in flight while da is computed.
+  if (steps > 0) issue(0);
+  if (gate) {
+    const int cols =
+        min(min(ld_ap - kSkew, (nt_end - nt_begin) * tn), cin - c_begin);
+    const int rows = min(tm, m - row0);
+    const int seg = cin % 8 == 0 ? 8 : cin % 4 == 0 ? 4 : cin % 2 == 0 ? 2 : 1;
+    const int per_row = (cols + seg - 1) / seg;
+    for (int e = tid; e < rows * per_row; e += blockDim.x) {
+      const int r = e / per_row, c = (e - r * per_row) * seg;
+      __nv_bfloat16* dst = ap_s + r * ld_ap + c;
+      const __nv_bfloat16* src =
+          a_prev + static_cast<size_t>(row0 + r) * cin + c_begin + c;
+      if (seg == 8)
+        mma::cp_async16(dst, src);
+      else if (seg == 4)
+        mma::cp_async8(dst, src);
+      else if (seg == 2)
+        mma::cp_async4(dst, src, true);
+      else
+        *dst = *src;
+    }
+  }
+  mma::cp_async_commit();
+  if (1 < steps) issue(1);
+  mma::cp_async_commit();
+
+  da_tile<V>(dy, a, m, cout, cout_p, vec, s_in, row0, tm, da_s, ld_da,
+             owner ? da : nullptr, red);
+  __syncthreads();  // the da tile and db's phase sums are complete
+  if (owner) {
+    const int phases = DaDhShape::phases(cout_p, V);
+    for (int c = tid; c < cout_p; c += blockDim.x) {
+      float s = red[c];
+      for (int q = 1; q < phases; ++q) s += red[q * cout_p + c];
+      db_part[static_cast<size_t>(tile) * cout_p + c] = s;
+    }
+  }
+
+  const int wr = warp / cw, wc = warp % cw;
+  const int rbase = row0 + wr * mma::kWarpRows;
+  mma::WarpTile acc;
+  for (int t = 0; t < steps; ++t) {
+    mma::cp_async_wait<kStages - 2>();
+    __syncthreads();  // slice t landed; every warp is done with slice t - 1
+    if (t + kStages - 1 < steps) issue(t + kStages - 1);
+    mma::cp_async_commit();
+    const int nt = nt_begin + t / k_slices, ks = t % k_slices;
+    const int n0 = nt * tn + wc * mma::kWarpCols;  // the warp's Cin columns
+    const int pairs = max(0, min(mma::kWarpCols, cin_p - n0)) / 16;
+    if (ks == 0) mma::zero(acc);
+    if (pairs > 0)
+      mma::mma_slice<true>(
+          acc, da_s + wr * mma::kWarpRows * ld_da + ks * kSlice, ld_da,
+          ring + (t % kStages) * stage_elems + wc * mma::kWarpCols * kLdW,
+          kLdW, min(kSlice, cout_p - ks * kSlice) / 16, pairs);
+    if (ks + 1 < k_slices) continue;
+
+    // Epilogue: the warp's tile goes out 8 rows by 32 columns at a time
+    // through its stage in shared memory, so that each row's 32 columns
+    // leave (and a_prev's arrive) as one coalesced run, a column a lane:
+    // column 32 q + lane of the warp tile, rows in order (i, h, row).
+    float* stage = red + warp * kStageFloats;
+    float s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      if (32 * q >= 16 * pairs) continue;  // warp-uniform
+      const int col = n0 + 32 * q + lane;
+      const bool in = 32 * q + lane < 16 * pairs && col < cin;
+      float scale = 0.f, shift = 0.f, mean = 0.f, inv_std = 0.f;
+      if (gate && in) {
+        scale = vec_prev[col];
+        shift = vec_prev[cin + col];
+        mean = vec_prev[2 * cin + col];
+        inv_std = vec_prev[3 * cin + col];
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          __syncwarp();  // the last rows were read
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            if (4 * q + jj < 2 * pairs)
+              *reinterpret_cast<float2*>(
+                  stage + (lane >> 2) * kStageLd + 8 * jj + 2 * (lane & 3)) =
+                  make_float2(acc.acc[i][4 * q + jj][2 * h],
+                              acc.acc[i][4 * q + jj][2 * h + 1]);
+          __syncwarp();
+          const int rt = wr * mma::kWarpRows + 16 * i + 8 * h;  // tile row
+          const int rows = in ? min(8, m - row0 - rt) : 0;
+          const float* v = stage + lane;
+          const size_t g = static_cast<size_t>(row0 + rt) * cin + col;
+          if (!gate) {
+#pragma unroll 2
+            for (int r = 0; r < rows; ++r)
+              dg[g + static_cast<size_t>(r) * cin] = v[r * kStageLd];
+            continue;
+          }
+          const __nv_bfloat16* x = ap_s + rt * ld_ap + col - c_begin;
+#pragma unroll 2
+          for (int r = 0; r < rows; ++r) {
+            const float ap = bf2f(x[r * ld_ap]);
+            const float y =
+                affine(ap, scale, shift) > 0.f ? v[r * kStageLd] : 0.f;
+            dy_prev[g + static_cast<size_t>(r) * cin] =
+                __float2bfloat16_rn(y);
+            s1[q] += y;
+            s2[q] += __fmul_rn(y, __fmul_rn(__fsub_rn(ap, mean), inv_std));
+          }
+        }
+    }
+    if (!gate) continue;
+    // the warp's column sums over its 32 rows, where its stage was
+    __syncwarp();
+    stage[lane] = s1[0];
+    stage[32 + lane] = s1[1];
+    stage[mma::kWarpCols + lane] = s2[0];
+    stage[mma::kWarpCols + 32 + lane] = s2[1];
+    __syncthreads();  // every warp's sums of this Cin tile are in red
+    // the tile's partial: the row warps' sums of each column in warp order
+    for (int q = tid; q < 2 * tn; q += blockDim.x) {
+      const int k = q / tn, col = q - k * tn;
+      const int n = nt * tn + col;
+      if (n >= cin_p) continue;
+      const int at = (col / mma::kWarpCols) * kStageFloats +
+                     k * mma::kWarpCols + col % mma::kWarpCols;
+      float s = red[at];
+      for (int r = 1; r < sh.rw; ++r) s += red[r * cw * kStageFloats + at];
+      s_part[(static_cast<size_t>(tile) * 2 + k) * cin_p + n] = s;
+    }
+  }
+  mma::cp_async_wait<0>();
 }
 
 // max(x * scale + shift, 0) rounded to bf16, as the plain version's h.
@@ -371,117 +714,92 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
       });
 }
 
-// dw[r, c] = the sum over splits of part[split, r, c] in a fixed order:
-// lane row y of a block sums splits y, y + 8, ... of 32 columns in order,
-// then row 0 adds the 8 sums in order. Grid: (column blocks, Cin).
-__global__ void dw_reduce_kernel(const float* __restrict__ part, int splits,
-                                 int cin_p, int cout, int cout_p,
-                                 float* __restrict__ dw) {
-  __shared__ float sums[8][33];
-  const int x = threadIdx.x & 31, y = threadIdx.x >> 5;
+// One sum over splits: out[r * cols + c] = the sum over i < n of
+// part[(i * part_rows + r) * ld + c], for r < rows and c < cols.
+struct SplitSum {
+  const float* part;
+  int n, part_rows, ld, rows, cols;
+  float* out;
+};
+
+// Job blockIdx.z's sums in a fixed order: lane row y of a block (of
+// blockDim.y <= 32) sums splits y, y + blockDim.y, ... of 32 columns in
+// order, then row 0 adds the blockDim.y sums in order. Grid: (column
+// blocks, rows, jobs); a block past its job's rows or columns returns.
+__global__ void split_reduce_kernel(SplitSum j0, SplitSum j1) {
+  __shared__ float sums[32][33];
+  const SplitSum j = blockIdx.z == 0 ? j0 : j1;
+  const int x = threadIdx.x, y = threadIdx.y, lanes = blockDim.y;
   const int r = blockIdx.y, c = blockIdx.x * 32 + x;
+  if (r >= j.rows || blockIdx.x * 32 >= j.cols) return;
   float s = 0.f;
-  if (c < cout) {
-    const float* p = part + static_cast<size_t>(r) * cout_p + c;
-    const size_t step = static_cast<size_t>(cin_p) * cout_p;
+  if (c < j.cols) {
+    const float* p = j.part + static_cast<size_t>(r) * j.ld + c;
+    const size_t step = static_cast<size_t>(j.part_rows) * j.ld;
 #pragma unroll 4
-    for (int i = y; i < splits; i += 8) s += p[i * step];
+    for (int i = y; i < j.n; i += lanes) s += p[i * step];
   }
   sums[y][x] = s;
   __syncthreads();
-  if (y != 0 || c >= cout) return;
+  if (y != 0 || c >= j.cols) return;
   s = sums[0][x];
-#pragma unroll
-  for (int j = 1; j < 8; ++j) s += sums[j][x];
-  dw[static_cast<size_t>(r) * cout + c] = s;
+  for (int k = 1; k < lanes; ++k) s += sums[k][x];
+  j.out[static_cast<size_t>(r) * j.cols + c] = s;
 }
 
-__global__ void __launch_bounds__(samlp_train::kWarps * 32)
-    dh_kernel(const __nv_bfloat16* __restrict__ da, int m, int cout_p,
-              const __nv_bfloat16* __restrict__ w, int cin, int cin_p,
-              const __nv_bfloat16* __restrict__ a_prev,
-              const float* __restrict__ vec_prev, int tm,
-              __nv_bfloat16* __restrict__ dy_prev, float* __restrict__ dg,
-              float* __restrict__ s_part) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  float* scratch = reinterpret_cast<float*>(smem_raw);
-  float* colsum = scratch + samlp_train::kWarps * 256;
-  const bool gate = vec_prev != nullptr;
-  const int row_blocks = tm / samlp_train::kUnitRows;
-  if (gate)
-    for (int e = threadIdx.x; e < row_blocks * 2 * cin_p; e += blockDim.x)
-      colsum[e] = 0.f;
-  __syncthreads();
-  const int tiles = (m + tm - 1) / tm;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int row0 = t * tm;
-    samlp_train::rows_times_matrix<true>(
-        da + static_cast<size_t>(row0) * cout_p, cout_p, cout_p, w, cout_p,
-        cin_p, row_blocks, scratch, gate ? colsum : nullptr,
-        [&](int rl, int col, float acc) {
-          const int row = row0 + rl;
-          if (row >= m || col >= cin) return make_float2(0.f, 0.f);
-          const size_t i = static_cast<size_t>(row) * cin + col;
-          if (!gate) {
-            dg[i] = acc;
-            return make_float2(0.f, 0.f);
-          }
-          const float ap = bf2f(a_prev[i]);
-          const float v =
-              affine(ap, vec_prev[col], vec_prev[cin + col]) > 0.f ? acc : 0.f;
-          dy_prev[i] = __float2bfloat16_rn(v);
-          const float xhat = __fmul_rn(__fsub_rn(ap, vec_prev[2 * cin + col]),
-                                       vec_prev[3 * cin + col]);
-          return make_float2(v, __fmul_rn(v, xhat));
-        });
-  }
-  if (gate) {
-    __syncthreads();
-    samlp_train::write_block_sums(colsum, row_blocks, cin_p, s_part);
-  }
-}
-
-int grid_for(long long total, int threads) {
-  long long blocks = (total + threads - 1) / threads;
-  return static_cast<int>(blocks > 132 * 64 ? 132 * 64 : blocks);
+// The two jobs' sums, `lanes` (8 or 32) lanes a column.
+cudaError_t split_reduce(const SplitSum& j0, const SplitSum& j1, int lanes,
+                         cudaStream_t s) {
+  const int col_blocks = std::max((j0.cols + 31) / 32, (j1.cols + 31) / 32);
+  const int rows = std::max(j0.rows, j1.rows);
+  return papc_launch(split_reduce_kernel,
+                     dim3(col_blocks, rows, j1.rows > 0 ? 2 : 1),
+                     dim3(32, lanes), 0, s, j0, j1);
 }
 
 }  // namespace
 
-// dy, a [M, Cout] bf16; a_prev [M, Cin] bf16, 16-byte aligned (the
-// previous pre-activation, or the block input on the first layer); w
-// bf16 [cin_p, cout_p] packed (zero-padded to multiples of 16); vec f32
-// [4, Cout] (scale, shift, mean, inv_std); s_in f32 [2, Cout]; vec_prev
-// f32 [4, Cin] or null on the first layer. Plan (see
-// ops/kernels/samlp_train.py::bwd_layer_plan): m_pad = rows rounded up to
-// tm (a multiple of 64), slices, the dW product's warp tiles dw_wm x
-// dw_wn with dw_wk warps each, chunks of dw_rows rows (32, 64 or 128,
-// dividing tm, a multiple of 16 dw_wk), splits x rows_per_split (a
-// multiple of dw_rows) covering M once, blocks of the dh product.
-// Scratch: da [m_pad, cout_p] bf16, db_part [slices, cout_p], dw_part
-// [splits, cin_p, cout_p], s_part [blocks, 2, cin_p].
+// dy, a [M, Cout] bf16, 16-byte aligned; a_prev [M, Cin] bf16, 16-byte
+// aligned (the previous pre-activation, or the block input on the first
+// layer); w bf16 [cin_p, cout_p] packed (zero-padded to multiples of 16);
+// vec f32 [4, Cout] (scale, shift, mean, inv_std); s_in f32 [2, Cout];
+// vec_prev f32 [4, Cin] or null on the first layer. Plan (see
+// ops/kernels/samlp_train.py::bwd_layer_plan): m_pad = M rounded up to a
+// multiple of the da + dh pass's 32 dh_rw rows and of dw_rows; that
+// pass's dh_rw row warps (1, 2, 4 or 8) and dh_tiles_per_split Cin tiles
+// a block; the dW product's warp tiles dw_wm x dw_wn with dw_wk warps
+// each, chunks of dw_rows rows (32, 64 or 128, a multiple of 16 dw_wk),
+// splits x rows_per_split (a multiple of dw_rows) covering M once.
+// Scratch: da [m_pad, cout_p] bf16, db_part [tiles, cout_p], dw_part
+// [splits, cin_p, cout_p], s_part [tiles, 2, cin_p], tiles = m_pad / (32
+// dh_rw).
 // -> dw [Cin, Cout], db [Cout] f32; and dy_prev [M, Cin] bf16 with s_prev
 // [2, Cin] (vec_prev given), or dg [M, Cin] f32 (first layer), or neither.
 PAPC_EXPORT int papc_samlp_bwd_layer(
     const void* dy, const void* a, const void* a_prev, int m, int m_pad,
     int cin, int cout, const void* w, int cin_p, int cout_p, const float* vec,
-    const float* s_in, const float* vec_prev, int slices, int dw_wm,
-    int dw_wn, int dw_wk, int dw_rows, int splits, int rows_per_split,
-    int tm, int blocks, void* da, float* db_part, float* dw_part,
+    const float* s_in, const float* vec_prev, int dh_rw,
+    int dh_tiles_per_split, int dw_wm, int dw_wn, int dw_wk, int dw_rows,
+    int splits, int rows_per_split, void* da, float* db_part, float* dw_part,
     float* s_part, float* dw, float* db, void* dy_prev, float* dg,
     float* s_prev, void* stream) {
   const DwShape sh{dw_wm, dw_wn, dw_wk, dw_rows, rows_per_split};
+  const DaDhShape dh{dh_rw, dh_tiles_per_split, dy_prev != nullptr};
+  const int v = DaDhShape::vec_cols(cout);
   if (m <= 0 || cin <= 0 || cout <= 0 || cin_p % 16 != 0 ||
-      cout_p % 16 != 0 || cin_p < cin || cout_p < cout || tm <= 0 ||
-      tm % samlp_train::kUnitRows != 0 || m_pad < m || m_pad % tm != 0 ||
-      slices <= 0 || blocks <= 0 || dw_wm <= 0 || dw_wn <= 0 || dw_wk <= 0 ||
-      dw_wm * dw_wn * dw_wk > kMaxWarps ||
+      cout_p % 16 != 0 || cin_p < cin || cout_p < cout ||
+      (dh_rw != 1 && dh_rw != 2 && dh_rw != 4 && dh_rw != 8) ||
+      dh_tiles_per_split <= 0 || m_pad < m || m_pad % dh.tm() != 0 ||
+      dh.smem(cin_p, cout_p, v) > 232448 || dw_wm <= 0 || dw_wn <= 0 ||
+      dw_wk <= 0 || dw_wm * dw_wn * dw_wk > kMaxWarps ||
       (dw_rows != 32 && dw_rows != 64 && dw_rows != 128) ||
-      tm % dw_rows != 0 || dw_rows % (16 * dw_wk) != 0 || splits <= 0 ||
+      m_pad % dw_rows != 0 || dw_rows % (16 * dw_wk) != 0 || splits <= 0 ||
       rows_per_split <= 0 || rows_per_split % dw_rows != 0 ||
       static_cast<long long>(splits) * rows_per_split < m ||
       static_cast<long long>(splits - 1) * rows_per_split >= m ||
       reinterpret_cast<std::uintptr_t>(a_prev) % 16 != 0 ||
+      reinterpret_cast<std::uintptr_t>(dy) % 16 != 0 ||
+      reinterpret_cast<std::uintptr_t>(a) % 16 != 0 ||
       (vec_prev != nullptr && dg != nullptr) ||
       (vec_prev == nullptr && dy_prev != nullptr) ||
       ((dy_prev == nullptr) != (s_prev == nullptr)))
@@ -492,11 +810,28 @@ PAPC_EXPORT int papc_samlp_bwd_layer(
   const auto* ap_b = static_cast<const __nv_bfloat16*>(a_prev);
   const auto* w_b = static_cast<const __nv_bfloat16*>(w);
   auto* da_b = static_cast<__nv_bfloat16*>(da);
+  auto* dyp_b = static_cast<__nv_bfloat16*>(dy_prev);
 
-  cudaError_t err = papc_launch(
-      da_kernel, dim3(grid_for(static_cast<long long>(slices) * cout_p, 256)),
-      dim3(256), 0, s, dy_b, a_b, m, m_pad, cout, cout_p, vec, s_in, slices,
-      da_b, db_part);
+  const int tiles = m_pad / dh.tm();
+  const int n_tiles = (cin_p + dh.tn() - 1) / dh.tn();
+  const bool product = dy_prev != nullptr || dg != nullptr;
+  const dim3 grid(tiles, product ? (n_tiles + dh_tiles_per_split - 1) /
+                                       dh_tiles_per_split
+                                 : 1);
+  const size_t smem = dh.smem(cin_p, cout_p, v);
+  cudaError_t err;
+  if (v == 8)
+    err = papc_launch(da_dh_kernel<8>, grid, dim3(kDhThreads), smem, s, dy_b,
+                      a_b, m, cout, cout_p, vec, s_in, w_b, ap_b, cin, cin_p,
+                      vec_prev, dh, da_b, db_part, dyp_b, dg, s_part);
+  else if (v == 4)
+    err = papc_launch(da_dh_kernel<4>, grid, dim3(kDhThreads), smem, s, dy_b,
+                      a_b, m, cout, cout_p, vec, s_in, w_b, ap_b, cin, cin_p,
+                      vec_prev, dh, da_b, db_part, dyp_b, dg, s_part);
+  else
+    err = papc_launch(da_dh_kernel<1>, grid, dim3(kDhThreads), smem, s, dy_b,
+                      a_b, m, cout, cout_p, vec, s_in, w_b, ap_b, cin, cin_p,
+                      vec_prev, dh, da_b, db_part, dyp_b, dg, s_part);
   if (err != cudaSuccess) return err;
   const int tiles_m = (cin + sh.tm() - 1) / sh.tm();
   const int tiles_n = (cout_p + sh.tn() - 1) / sh.tn();
@@ -506,25 +841,13 @@ PAPC_EXPORT int papc_samlp_bwd_layer(
                     static_cast<const __nv_bfloat16*>(da_b), cout_p, sh,
                     tiles_n, dw_part);
   if (err != cudaSuccess) return err;
-  err = papc_launch(dw_reduce_kernel, dim3((cout + 31) / 32, cin), dim3(256),
-                    0, s, static_cast<const float*>(dw_part), splits, cin_p,
-                    cout, cout_p, dw);
+  const SplitSum none{nullptr, 0, 0, 0, 0, 0, nullptr};
+  err = split_reduce({dw_part, splits, cin_p, cout_p, cin, cout, dw}, none, 8,
+                     s);
   if (err != cudaSuccess) return err;
-  err = samlp_train::reduce_partials(db_part, slices, 1, cout, 1, cout_p, db,
-                                     s);
-  if (err != cudaSuccess) return err;
-  if (dy_prev == nullptr && dg == nullptr) return cudaSuccess;
-  const bool gate = vec_prev != nullptr;
-  const size_t smem =
-      samlp_train::kWarps * 256 * sizeof(float) +
-      (gate ? static_cast<size_t>(tm / samlp_train::kUnitRows) * 2 * cin_p *
-                  sizeof(float)
-            : 0);
-  err = papc_launch(dh_kernel, dim3(blocks), dim3(samlp_train::kWarps * 32),
-                    smem, s, static_cast<const __nv_bfloat16*>(da_b), m,
-                    cout_p, w_b, cin, cin_p, ap_b, vec_prev, tm,
-                    static_cast<__nv_bfloat16*>(dy_prev), dg, s_part);
-  if (err != cudaSuccess || !gate) return err;
-  return samlp_train::reduce_partials(s_part, blocks, 2, cin, 2, cin_p,
-                                      s_prev, s);
+  // the row tiles' partials: up to thousands a column, 32 lanes each
+  const SplitSum db_sum{db_part, tiles, 1, cout_p, 1, cout, db};
+  if (dy_prev == nullptr) return split_reduce(db_sum, none, 32, s);
+  return split_reduce(db_sum, {s_part, tiles, 2, cin_p, 2, cin, s_prev}, 32,
+                      s);
 }

@@ -4,14 +4,16 @@
 // Pieces, all with fixed, documented PTX register layouts:
 //  - cp.async.cg 16-byte copies, grouped and awaited (a ring of weight
 //    tiles: load_tile_async fills one stage while the warps run the MMAs of
-//    another), and 4-byte cp.async.ca copies that zero-fill;
+//    another), 8-byte cp.async.ca copies, and 4-byte ones that zero-fill;
 //  - ldmatrix.x4 for A fragments from a row-major bf16 buffer [m][k]
 //    (mma_slice), ldmatrix.x4.trans for A fragments from a row-major
 //    [k][m] buffer, i.e. the transpose of the buffer is the A operand
 //    (mma_slice_at: dW = h^T . da with h staged as rows x channels), and
 //    ldmatrix.x4.trans for B fragments from a row-major [k, n] tile (the
 //    weights W [Cin, Cout] as stored, or da [rows, Cout]: no transposed
-//    copy);
+//    copy), and ldmatrix.x4 (no .trans) for B fragments from a row-major
+//    [n, k] tile, i.e. B given transposed (mma_slice<true>: da . W^T with
+//    W [Cin, Cout] as stored, Cin the n and Cout the k dimension);
 //  - mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32.
 //
 // A warp tile is 32 rows x up to 64 columns: two m16 row tiles by up to
@@ -64,6 +66,14 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// 8 bytes from src (8-byte aligned) into dst in shared memory.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
                : "memory");
 }
 
@@ -141,16 +151,23 @@ __device__ __forceinline__ void zero(WarpTile& t) {
 }
 
 // One k16 step: t += A (fragments af[0], af[1] of rows 0-15 and 16-31)
-// times the first `pairs` n16 pairs of B, whose ldmatrix.x4.trans lane
-// address at the step's first k row is b_addr (row stride ldb elements).
+// times the first `pairs` n16 pairs of B, whose lane address at the
+// step's first k is b_addr: ldmatrix.x4.trans from [k][n] rows, the next
+// pair 16 columns (32 bytes) on; or, kBT, ldmatrix.x4 from [n][k] rows,
+// the next pair pair_bytes (16 rows) on.
+template <bool kBT = false>
 __device__ __forceinline__ void mma_kstep(WarpTile& t,
                                           const unsigned (&af)[2][4],
-                                          unsigned b_addr, int pairs) {
+                                          unsigned b_addr, int pairs,
+                                          int pair_bytes = 32) {
 #pragma unroll
   for (int p = 0; p < kPairs; ++p) {
     if (p < pairs) {
       unsigned bf[4];
-      ldmatrix_x4_trans(bf, b_addr + p * 32);
+      if (kBT)
+        ldmatrix_x4(bf, b_addr + p * pair_bytes);
+      else
+        ldmatrix_x4_trans(bf, b_addr + p * 32);
       mma_16816(t.acc[0][2 * p], af[0], bf[0], bf[1]);
       mma_16816(t.acc[0][2 * p + 1], af[0], bf[2], bf[3]);
       mma_16816(t.acc[1][2 * p], af[1], bf[0], bf[1]);
@@ -167,10 +184,25 @@ __device__ __forceinline__ unsigned b_lane_addr(const __nv_bfloat16* b,
   return smem_u32(b + (lane & 15) * ldb + (lane >> 4) * 8);
 }
 
+// ldmatrix.x4 (no .trans) lane address of B given transposed, as [n][k]
+// rows (row stride ldb elements): each 8x8 matrix is 8 n rows of 8 k
+// values, handed out as the col-major B fragment wants them. Lanes 0-7
+// give n rows 0-7 at k 0 (b0b1 of n8 tile 0), lanes 8-15 n 0-7 at k 8
+// (its b2b3), lanes 16-23 n 8-15 at k 0 and lanes 24-31 n 8-15 at k 8
+// (n8 tile 1): the same four registers as b_lane_addr's.
+__device__ __forceinline__ unsigned bt_lane_addr(const __nv_bfloat16* b,
+                                                 int ldb) {
+  const int lane = threadIdx.x & 31;
+  return smem_u32(b + ((lane & 7) + ((lane >> 4) << 3)) * ldb +
+                  ((lane >> 3) & 1) * 8);
+}
+
 // t += A[32 rows, ksteps * 16] * B[ksteps * 16, 16 * pairs]. a: the warp's
 // first A row at its first k column (row stride lda elements); b: the
-// first B row of the slice at the warp's first column (row stride ldb).
-// ksteps <= 2 and pairs <= kPairs are warp-uniform.
+// first B row of the slice at the warp's first column (row stride ldb),
+// or, kBT (B stored as [n][k]), the warp's first n row at the slice's
+// first k. ksteps <= 2 and pairs <= kPairs are warp-uniform.
+template <bool kBT = false>
 __device__ __forceinline__ void mma_slice(WarpTile& t,
                                           const __nv_bfloat16* a, int lda,
                                           const __nv_bfloat16* b, int ldb,
@@ -179,14 +211,17 @@ __device__ __forceinline__ void mma_slice(WarpTile& t,
   // ldmatrix.x4: lanes 0-15 give rows 0-15 at k 0, lanes 16-31 at k 8
   // (matrices a0a1, a2a3, a4a5, a6a7 of the m16k16 A fragment).
   const unsigned a_addr = smem_u32(a + (lane & 15) * lda + (lane >> 4) * 8);
-  const unsigned b_addr = b_lane_addr(b, ldb);
+  const unsigned b_addr = kBT ? bt_lane_addr(b, ldb) : b_lane_addr(b, ldb);
 #pragma unroll
   for (int kk = 0; kk < 2; ++kk) {
     if (kk < ksteps) {
       unsigned af[2][4];
       ldmatrix_x4(af[0], a_addr + kk * 32);
       ldmatrix_x4(af[1], a_addr + (16 * lda + kk * 16) * 2);
-      mma_kstep(t, af, b_addr + kk * 16 * ldb * 2, pairs);
+      if (kBT)
+        mma_kstep<true>(t, af, b_addr + kk * 32, pairs, 16 * ldb * 2);
+      else
+        mma_kstep(t, af, b_addr + kk * 16 * ldb * 2, pairs);
     }
   }
 }

@@ -39,23 +39,28 @@ FINALIZE_MAX = Kernel("papc_samlp_finalize_max", [P, I, I, I, P, P, P, P])
 BWD_SEED = Kernel("papc_samlp_bwd_seed", [P, I, I, I, P, P, P, I, P, P, P, P])
 BWD_LAYER = Kernel(
     "papc_samlp_bwd_layer",
-    [P, P, P, I, I, I, I, P, I, I, P, P, P, I, I, I, I, I, I, I, I, I,
+    [P, P, P, I, I, I, I, P, I, I, P, P, P, I, I, I, I, I, I, I, I,
      P, P, P, P, P, P, P, P, P, P],
 )
 KERNELS = (LINEAR_STATS, FINALIZE_MAX, BWD_SEED, BWD_LAYER)
 
-_TM = 128  # rows per tile of the row-tiled products (two 64-row units)
+_TM = 128  # rows per tile of linear_stats (two 64-row units)
 _SKEW = 8  # bf16 elements of padding per shared-memory row (bank spread)
 _WARPS = 8
 _MAX_BLOCKS = 1024  # grid of the row-tiled products; fixes the sum order
 _THREADS = 131072  # target thread count of the per-column passes
+_SMS = 132  # the H100's SMs
+_SMEM_OPTIN = 232448  # shared memory a block may opt into
+_SMEM_SM = 233472  # shared memory of an SM (1 KB of it reserved a block)
 # The dW product of bwd_layer (csrc/samlp_bwd_layer.cu::dw_kernel)
-_SMS = 132  # the H100's SMs: the dW grid is at least one block each
 _DW_GRID = 2 * _SMS  # blocks it aims for
-_DW_STAGES = 3  # cp.async ring stages
+_DW_STAGES = 3  # cp.async ring stages (the da + dh pass's W ring too)
 _DW_MAX_WARPS = 16
 _DW_STAGE_BYTES = 32 * 1024  # a ring stage at most, where rows allow
-_SMEM_OPTIN = 232448  # shared memory a block may opt into
+# The da + dh pass of bwd_layer (csrc/samlp_bwd_layer.cu::da_dh_kernel)
+_DH_THREADS = _WARPS * 32
+_DH_SLICE = 32  # W's Cout columns a ring stage holds
+_ROWS_ALIGN = 256  # m_pad: a multiple of every row tile and dW chunk
 
 
 # ------------------------------------------------------- plain versions
@@ -269,24 +274,97 @@ def _dw_tile(m: int, cin: int, cout_p: int) -> dict:
             "dw_max_splits": max_splits}
 
 
-def bwd_layer_plan(m: int, cin: int, cout: int) -> dict:
-    """Grids and scratch of the bwd_layer kernels: the ``da`` pass
-    (``slices`` x ``cout_p`` threads), the ``dW`` product (``_dw_tile``'s
-    block tiles times ``splits`` row ranges of ``rows_per_split``, a
-    multiple of the chunk rows, about ``_DW_GRID`` blocks in all and f32
-    partials ``[splits, cin_p, cout_p]`` of at most the operands' bytes)
-    and the ``dh_prev`` product (as linear_stats)."""
+def _vec_cols(cout: int) -> int:
+    """Cout columns a thread of the da phase loads at once: 8 (16 bytes)
+    where Cout's rows start on 16 bytes, 4 where on 8 (width 196), else 1
+    (no layer of the models)."""
+    return 8 if cout % 8 == 0 else 4 if cout % 4 == 0 else 1
+
+
+def _da_dh_smem(rw: int, cin: int, cout: int, *, gate: bool,
+                tiles_per_split: int) -> int:
+    """Shared memory of the da + dh block with ``rw`` row warps, as
+    ``DaDhShape::smem`` reckons it: the bf16 da tile ``[32 rw][cout_p +
+    8]``; a ring of ``_DW_STAGES`` of W's 32-column k-slices ``[min(TN,
+    cin_p)][32 + 8]`` (TN = 64 x 8 / rw Cin columns); f32 scratch: db's
+    per-phase column sums (the threads that share a column group take
+    every ``phases``-th row), later each warp's epilogue stage of 8 rows
+    x 32 columns (stride 40), which ends holding its two column sums; and
+    on a later layer (``gate``) a_prev's rows at the block's Cin columns,
+    ``[32 rw][cols + 8]`` bf16."""
+    cin_p, cout_p, v = _pad(cin), _pad(cout), _vec_cols(cout)
+    tm, tn = 32 * rw, 64 * (_WARPS // rw)
+    tiles = min(tiles_per_split, -(-cin_p // tn))
+    groups = cout_p // v
+    phases = 1 if groups >= _DH_THREADS else _DH_THREADS // groups
+    red = max(phases * cout_p, _WARPS * 8 * 40)
+    ld_ap = min(tiles * tn, cin_p) + _SKEW if gate else 0
+    return 2 * (tm * (cout_p + _SKEW) + _DW_STAGES * min(tn, cin_p)
+                * (_DH_SLICE + _SKEW) + tm * ld_ap) + 4 * red
+
+
+def _da_dh_tile(m_pad: int, cin: int, cout: int, *, product: bool,
+                gate: bool) -> dict:
+    """The da + dh block: ``rw`` row warps (TM = 32 rw rows) by ``8 / rw``
+    column warps (TN = 64 x 8 / rw Cin columns a Cin tile), and the Cin
+    tiles a block takes. Where the row tiles alone leave SMs idle (SA3's
+    4096 rows), the Cin tiles are split over blocks that each compute the
+    tile's da again. Of the layouts whose shared memory fits, the one
+    with the most blocks (up to one an SM), then at least 64 rows, then
+    the most blocks resident on an SM (up to 2), then the fewest idle Cin
+    columns, then the fewest Cin tiles a block, then the most rows: a
+    block's fixed costs (its loads' round trips, W's slices in turn)
+    outweigh the rest, as the card measured. A first layer (no gate)
+    takes the same layout with or without the product (``product``
+    False: Cin not split), so that da and db keep their sum order."""
+    cin_p = _pad(cin)
+    best = None
+    for rw in (8, 4, 2, 1):
+        tm, tn = 32 * rw, 64 * (_WARPS // rw)
+        tiles, n_tiles = m_pad // tm, -(-cin_p // tn)
+        splits = min(n_tiles, -(-_SMS // tiles))
+        per = -(-n_tiles // splits)
+        splits = -(-n_tiles // per)
+        smem = _da_dh_smem(rw, cin, cout, gate=gate, tiles_per_split=per)
+        if smem > _SMEM_OPTIN:
+            continue
+        resident = min(2, _SMEM_SM // (smem + 1024))
+        key = (min(tiles * splits, _SMS), tm >= 64, resident,
+               cin_p / (n_tiles * tn), -per, tm)
+        if best is None or key > best[0]:
+            best = (key, {"dh_rw": rw, "dh_tm": tm, "dh_tn": tn,
+                          "dh_tiles": tiles, "dh_n_tiles": n_tiles,
+                          "dh_tiles_per_split": per,
+                          "dh_splits": splits if product else 1,
+                          "dh_smem": smem, "dh_v": _vec_cols(cout)})
+    if best is None:
+        raise ValueError(f"no da + dh tile fits cin={cin}, cout={cout}")
+    return best[1]
+
+
+def bwd_layer_plan(m: int, cin: int, cout: int, *, need_dprev: bool = True,
+                   first: bool = False) -> dict:
+    """Grids and scratch of the bwd_layer kernels for a later layer (dy'
+    through the gate) or, ``first``, the first layer of a stack (dg, or
+    nothing with ``need_dprev`` False): the da + dh pass
+    (``_da_dh_tile``: row tiles of ``dh_tm`` rows times ``dh_splits``
+    runs of Cin tiles, ``dh_splits`` 1 without the ``da·Wᵀ`` product, f32
+    partials ``[dh_tiles, cout_p]`` of db and ``[dh_tiles, 2, cin_p]`` of
+    the sums) and the ``dW`` product (``_dw_tile``'s block tiles times
+    ``splits`` row ranges of ``rows_per_split``, a multiple of the chunk
+    rows, about ``_DW_GRID`` blocks in all and f32 partials ``[splits,
+    cin_p, cout_p]`` of at most the operands' bytes)."""
     cin_p, cout_p = _pad(cin), _pad(cout)
+    m_pad = _pad(m, _ROWS_ALIGN)
     dw = _dw_tile(m, cin, cout_p)
     want = min(dw["dw_max_splits"], -(-_DW_GRID // dw["dw_tiles"]),
                -(-m // dw["dw_rows"]))
     rows_per_split = _pad(-(-m // want), dw["dw_rows"])
-    tiles_m = -(-m // _TM)
-    return {"cin_p": cin_p, "cout_p": cout_p, "m_pad": tiles_m * _TM,
-            "slices": slices(m, cout_p), **dw,
+    dh = _da_dh_tile(m_pad, cin, cout, product=need_dprev or not first,
+                     gate=not first)
+    return {"cin_p": cin_p, "cout_p": cout_p, "m_pad": m_pad, **dh, **dw,
             "rows_per_split": rows_per_split,
-            "splits": -(-m // rows_per_split), "tm": _TM,
-            "blocks": min(tiles_m, _MAX_BLOCKS)}
+            "splits": -(-m // rows_per_split)}
 
 
 # ------------------------------------------------------ kernel wrappers
@@ -345,16 +423,22 @@ def bwd_seed_cuda(a, vec, dout, amax, *, k: int):
     return dy, s
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy where its data does not start on 16 bytes (the
+    kernels read its rows 16 bytes at a time)."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def bwd_layer_cuda(dy, a, a_prev, w_packed, vec, s_in, vec_prev, *,
                    need_dprev: bool = True):
     m, cout = dy.shape
     cin = a_prev.shape[1]
-    plan = bwd_layer_plan(m, cin, cout)
+    plan = bwd_layer_plan(m, cin, cout, need_dprev=need_dprev,
+                          first=vec_prev is None)
     check(dy, "dy", torch.bfloat16, (m, cout))
     check(a, "a", torch.bfloat16, (m, cout))
     check(a_prev, "a_prev", torch.bfloat16, (m, cin))
-    if a_prev.data_ptr() % 16:  # the dW ring copies its rows 16 B at a time
-        a_prev = a_prev.clone()
+    dy, a, a_prev = _aligned16(dy), _aligned16(a), _aligned16(a_prev)
     check(w_packed, "w_packed", torch.bfloat16, (plan["cin_p"], plan["cout_p"]))
     check(vec, "vec", torch.float32, (4, cout))
     check(s_in, "s_in", torch.float32, (2, cout))
@@ -367,23 +451,24 @@ def bwd_layer_cuda(dy, a, a_prev, w_packed, vec, s_in, vec_prev, *,
 
     da = torch.empty((plan["m_pad"], plan["cout_p"]), dtype=torch.bfloat16,
                      device=dev)
-    db_part = f32(plan["slices"], plan["cout_p"])
+    db_part = f32(plan["dh_tiles"], plan["cout_p"])
     dw_part = f32(plan["splits"], plan["cin_p"], plan["cout_p"])
-    s_part = f32(plan["blocks"], 2, plan["cin_p"])
     dw, db = f32(cin, cout), f32(cout)
-    dy_prev = dg = s_prev = None
+    dy_prev = dg = s_prev = s_part = None
     if need_dprev and vec_prev is not None:
         dy_prev = torch.empty((m, cin), dtype=torch.bfloat16, device=dev)
         s_prev = f32(2, cin)
+        s_part = f32(plan["dh_tiles"], 2, plan["cin_p"])
     elif need_dprev:
         dg = f32(m, cin)
     BWD_LAYER(ptr(dy), ptr(a), ptr(a_prev), m, plan["m_pad"], cin, cout,
               ptr(w_packed), plan["cin_p"], plan["cout_p"], ptr(vec),
-              ptr(s_in), ptr(vec_prev), plan["slices"], plan["dw_wm"],
-              plan["dw_wn"], plan["dw_wk"], plan["dw_rows"], plan["splits"],
-              plan["rows_per_split"], plan["tm"], plan["blocks"], ptr(da),
-              ptr(db_part), ptr(dw_part), ptr(s_part), ptr(dw), ptr(db),
-              ptr(dy_prev), ptr(dg), ptr(s_prev), stream_of(dy))
+              ptr(s_in), ptr(vec_prev), plan["dh_rw"],
+              plan["dh_tiles_per_split"], plan["dw_wm"], plan["dw_wn"],
+              plan["dw_wk"], plan["dw_rows"], plan["splits"],
+              plan["rows_per_split"], ptr(da), ptr(db_part), ptr(dw_part),
+              ptr(s_part), ptr(dw), ptr(db), ptr(dy_prev), ptr(dg),
+              ptr(s_prev), stream_of(dy))
     return (dy_prev if vec_prev is not None else dg), dw, db, s_prev
 
 

@@ -353,9 +353,16 @@ def test_finalize_and_seed_kernels_equal_plain(device, m, cin, cout, k):
 # 32 nor its split (the last chunk of a_prev runs past M: zero-filled),
 # and Cin = 4 (mod 8) (a_prev's rows 8-byte aligned).
 DW_EDGES = [(1000, 7, 24, 8), (4000, 196, 72, 8)]
+# The da + dh pass's: odd Cin on a first layer (dg stored a value at a
+# time; the layer shapes of SSG SA2 and MSG SA2 cut in rows, the second
+# split over Cin tiles), Cout = 6 (mod 8) and odd Cout (dy and a read a
+# value at a time), the latter with an odd gated Cin (a_prev's tile
+# copied a value at a time).
+DA_DH_EDGES = [(1000, 131, 24, 8), (4000, 323, 72, 8), (2000, 40, 38, 8),
+               (700, 9, 21, 8)]
 
 
-@pytest.mark.parametrize("m,cin,cout,k", TRAIN_LAYERS + DW_EDGES)
+@pytest.mark.parametrize("m,cin,cout,k", TRAIN_LAYERS + DW_EDGES + DA_DH_EDGES)
 def test_bwd_layer_kernel_matches_plain(device, m, cin, cout, k):
     dy = _bf16((m, cout), 1, device, 0.01)
     a = _bf16((m, cout), 2, device)
@@ -377,13 +384,17 @@ def test_bwd_layer_kernel_matches_plain(device, m, cin, cout, k):
             _near(got[3], want[3], 1e-3)
         _near(got[1], want[1], 1e-3)
         _near(got[2], want[2], 1e-3)
+        # fixed order: dy' or dg, dW, db and the sums repeat bit for bit
+        again = samlp_train.bwd_layer(dy, a, a_prev, w, vec, s_in, prev)
+        for x, y in zip(got, again):
+            assert (x is None) == (y is None)
+            if x is not None:
+                torch.testing.assert_close(y, x, rtol=0, atol=0)
     skip = samlp_train.bwd_layer(dy, a, a_prev, w, vec, s_in, None,
                                  need_dprev=False)
     assert skip[0] is None
     torch.testing.assert_close(skip[1], got[1], rtol=0, atol=0)  # fixed order
     torch.testing.assert_close(skip[2], got[2], rtol=0, atol=0)
-    again = samlp_train.bwd_layer(dy, a, a_prev, w, vec, s_in, None)
-    torch.testing.assert_close(again[1], got[1], rtol=0, atol=0)
 
 
 def test_bwd_layer_takes_an_a_prev_off_16_bytes(device):

@@ -406,7 +406,11 @@ MSG_TRAIN_LAYERS = [  # MSG: K = 16, c0 = 323, width 196, c0 = 643
 def test_training_kernel_plans_at_the_ssg_shapes():
     """The training kernels' plans at every SSG layer (B=32) and the MSG
     layers of the card tests: shared memory within the 227 KB a block may
-    opt into, tiles of whole 64-row units; the dW product's row splits
+    opt into, tiles of whole 64-row units; the da + dh pass's row tiles
+    cover ``m_pad`` once, its Cin splits cover the Cin tiles, its grid
+    fills the SMs wherever the layer has enough rows and tiles, and its
+    shared memory fits at every layer (Cin 512 / Cout 1024, the odd-Cin dg
+    layers 131, 259, 323 and 643 included); the dW product's row splits
     cover every row once in whole chunks, its ring fits, its grid has a
     block for each of the 132 SMs, and its f32 partials move no more
     bytes than its operands (a_prev and da read once)."""
@@ -414,13 +418,36 @@ def test_training_kernel_plans_at_the_ssg_shapes():
         plan = samlp_train.linear_stats_plan(m, cin, cout)
         assert plan["smem"] <= 232448 and plan["tm"] % 64 == 0
         assert plan["cin_p"] % 16 == 0 and plan["ld_x"] % 8 == 0
-        bw = samlp_train.bwd_layer_plan(m, cin, cout)
+        with_dg = samlp_train.bwd_layer_plan(m, cin, cout, first=True)
+        for first, need in ((False, True), (True, True), (True, False)):
+            bw = samlp_train.bwd_layer_plan(m, cin, cout, need_dprev=need,
+                                            first=first)
+            if first:  # one row tiling with and without dg: db's sum order
+                assert bw["dh_tm"] == with_dg["dh_tm"]
+            assert bw["dh_smem"] <= 232448
+            assert bw["dh_smem"] == samlp_train._da_dh_smem(
+                bw["dh_rw"], cin, cout, gate=not first,
+                tiles_per_split=bw["dh_tiles_per_split"])
+            assert bw["dh_rw"] in (1, 2, 4, 8)
+            assert bw["dh_tm"] == 32 * bw["dh_rw"]
+            assert bw["dh_tn"] == 64 * 8 // bw["dh_rw"]
+            assert bw["dh_tiles"] * bw["dh_tm"] == bw["m_pad"] >= m
+            assert bw["dh_n_tiles"] == -(-bw["cin_p"] // bw["dh_tn"])
+            per, splits = bw["dh_tiles_per_split"], bw["dh_splits"]
+            if need:
+                assert (splits - 1) * per < bw["dh_n_tiles"] <= splits * per
+                # 128 blocks wherever the layer has as many (row tile,
+                # Cin tile) pairs: SA3's 4096 rows split Cin
+                assert bw["dh_tiles"] * splits >= min(
+                    128, bw["dh_tiles"] * bw["dh_n_tiles"])
+            else:
+                assert splits == 1
+        assert bw["dh_v"] == (8 if cout % 8 == 0 else 4)
         assert bw["splits"] * bw["rows_per_split"] >= m
         assert (bw["splits"] - 1) * bw["rows_per_split"] < m
-        assert bw["rows_per_split"] % 32 == 0 and bw["m_pad"] % bw["tm"] == 0
-        assert bw["m_pad"] >= m and bw["blocks"] <= 1024
+        assert bw["rows_per_split"] % 32 == 0
         assert bw["rows_per_split"] % bw["dw_rows"] == 0
-        assert bw["tm"] % bw["dw_rows"] == 0  # chunks stay inside m_pad
+        assert bw["m_pad"] % bw["dw_rows"] == 0  # chunks stay inside m_pad
         assert bw["dw_rows"] % (16 * bw["dw_wk"]) == 0
         assert bw["dw_wm"] * bw["dw_wn"] * bw["dw_wk"] <= 16
         assert bw["dw_smem"] <= 232448
@@ -428,6 +455,55 @@ def test_training_kernel_plans_at_the_ssg_shapes():
         operand = 2 * m * cin + 2 * bw["m_pad"] * bw["cout_p"]
         assert 4 * bw["splits"] * bw["cin_p"] * bw["cout_p"] <= operand
     assert samlp_train.slices(16384, 128) * 128 <= 131072
+
+
+@pytest.mark.parametrize("m,cin,cout,first,need", [
+    (256, 7, 24, False, True), (1000, 131, 24, True, True),
+    (3000, 64, 40, False, True), (2000, 196, 38, False, True),
+    (700, 9, 21, False, True), (4096, 259, 16, True, True),
+    (4096, 643, 8, True, True), (4096, 512, 16, False, True),
+    (5000, 3, 64, True, False), (4096, 256, 30, True, False)])
+def test_da_dh_plan_takes_every_product_once(m, cin, cout, first, need):
+    """The da + dh kernel's decomposition as ``da_dh_kernel`` walks it:
+    blocks (row tile, Cin split), the split's Cin tiles, warps (wr, wc)
+    on 32 x 64 warp tiles that skip columns past ``cin_p``, and the W
+    ring's 32-column k-slices of Cout. Every (row, Cin column, Cout k)
+    product of ``da·Wᵀ`` is taken exactly once, every row up to ``m_pad``
+    has its da and db partial written by exactly one block, no block reads
+    a row past ``m_pad``, and a ring stage holds the W rows it is given."""
+    bw = samlp_train.bwd_layer_plan(m, cin, cout, need_dprev=need,
+                                    first=first)
+    tm, tn, rw = bw["dh_tm"], bw["dh_tn"], bw["dh_rw"]
+    cin_p, cout_p, m_pad = bw["cin_p"], bw["cout_p"], bw["m_pad"]
+    per, cw = bw["dh_tiles_per_split"], 8 // rw
+    ring_rows = min(tn, cin_p)
+    taken = np.zeros((m, cin, cout), np.uint8)
+    written = np.zeros(m_pad, np.int32)
+    for tile in range(bw["dh_tiles"]):
+        row0 = tile * tm
+        assert row0 + tm <= m_pad
+        for split in range(bw["dh_splits"]):
+            if split == 0:
+                written[row0:row0 + tm] += 1
+            if not need:
+                continue
+            for nt in range(split * per, min(bw["dh_n_tiles"],
+                                             (split + 1) * per)):
+                assert min(tn, cin_p - nt * tn) <= ring_rows
+                for k0 in range(0, cout_p, 32):
+                    kst = min(32, cout_p - k0) // 16
+                    for warp in range(8):
+                        wr, wc = warp // cw, warp % cw
+                        n0 = nt * tn + wc * 64
+                        pairs = max(0, min(64, cin_p - n0)) // 16
+                        if pairs == 0:
+                            continue
+                        assert wc * 64 + 16 * pairs <= ring_rows
+                        r0 = row0 + wr * 32
+                        taken[r0:min(r0 + 32, m), n0:min(n0 + 16 * pairs, cin),
+                              k0:min(k0 + 16 * kst, cout)] += 1
+    assert (written == 1).all()
+    assert (taken == (1 if need else 0)).all()
 
 
 @pytest.mark.parametrize("m,cin,cout", [
