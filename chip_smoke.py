@@ -34,7 +34,13 @@ convolutions in f32 itself, as a user gets it.
    other bf16 neighbour); f32
    sums, dW, db and dg within 1e-3 of their largest (sums over up to
    524288 rows in another order); the scatter-add within 1e-5 of its
-   largest (f32 atomics). Times as in phase 3. ``bwd_layer``'s outputs
+   largest (f32 atomics). Times as in phase 3. ``linear_stats``' a and
+   sums must equal themselves bit for bit over two calls; each call's
+   device time (its kernel and its reduce, ``torch.profiler``) beside its
+   byte bound (x read, a written once) and one cuBLAS call of the product
+   ``h . W`` on the bf16 operands (h materialized; device time, and by
+   CUDA events row 6's ``library_ms``), and their sums over one SSG step.
+   ``bwd_layer``'s outputs
    must equal themselves bit for bit over two calls; each call's device
    time by part (da+dh = da_dh_kernel, dW = dw_kernel + its reduce, the
    reduces of db and the sums; the profiler's kernel names), the dW part
@@ -57,7 +63,8 @@ convolutions in f32 itself, as a user gets it.
    ``LOSS_RTOL``; each gradient as ``GRAD_RATIO`` says), step ms (CUDA
    events, median) for both, the device's busy share over 5 kernel
    steps (``torch.profiler``), in stream mode ``bwd_layer``'s device
-   time a step by part (as in phase 4), and peak device memory.
+   time a step by part (as in phase 4) and ``linear_stats``' device time
+   a step, and peak device memory.
 7. Detection kernels at the detection shapes (B=2, K=1000): the rotated
    and the matrix NMS sweep against their plain versions, on the
    score-sorted top 1000 boxes of the slice's first batch and on
@@ -439,6 +446,7 @@ def phase_train_kernels(groups, rows, record=True):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     split_sum = {}  # row 10's device ms by part over the stages
+    ls_sum = [0.0, 0.0, 0.0]  # row 6's device, bound and cuBLAS ms
     for stage, grouped, idx, n_src, mlp, data_input in groups:
         b, s, k, c0 = grouped.shape
         m = b * s * k
@@ -470,15 +478,30 @@ def phase_train_kernels(groups, rows, record=True):
             pa, psums = st.linear_stats(h, vec, w, bias, impl="plain")
             row = rows["samlp_linear_stats"]
             _compare(row, tag + " a", a, pa, rel=ACT_TOL, ulp=True)
+            again = st.linear_stats(h, vec, w, bias, w_packed=wp)
+            check(torch.equal(again[0], a) and torch.equal(again[1], sums),
+                  f"{tag}: linear_stats differs between two calls")
+            del again
             cin, cout = w.shape
+            # the cuBLAS yardstick of the product alone on the bf16
+            # operands, h materialized beforehand
+            hb = (h if vec is None else torch.clamp_min(
+                h.float() * vec[0] + vec[1], 0.0)).to(torch.bfloat16)
+            wb = w.to(torch.bfloat16)
+
+            def kernel(h=h, vec=vec, w=w, bias=bias, wp=wp):
+                return st.linear_stats(h, vec, w, bias, w_packed=wp)
+
             _compare(row, tag + " sums", sums, psums, rel=TRAIN_TOL,
-                     fn_kernel=lambda: st.linear_stats(h, vec, w, bias,
-                                                       w_packed=wp),
+                     fn_kernel=kernel,
                      fn_plain=lambda: st.linear_stats(h, vec, w, bias,
                                                       impl="plain"),
                      work=(_nbytes(h, vec, w, bias, a, sums),
                            2 * m * cin * cout / BF16_OPS_PER_S
-                           + 3 * m * cout / F32_OPS_PER_S), record=record)
+                           + 3 * m * cout / F32_OPS_PER_S),
+                     fn_library=lambda: hb @ wb, record=record)
+            _linear_stats_parts(tag, kernel, hb, wb, h, a, ls_sum)
+            del hb, wb
             vec4, _ = st.bn_vectors(psums, gamma, beta, m, BN_EPS)
             a_list.append(pa)
             vecs.append(vec4)
@@ -554,6 +577,9 @@ def phase_train_kernels(groups, rows, record=True):
             del hb, dab, again
             dy, sd = want[0], want[3]
     if record:
+        print(f"    samlp_linear_stats over one SSG step (device, profiler): "
+              f"{ls_sum[0]:.4f} ms against its bound {ls_sum[1]:.4f} ms (x "
+              f"read, a written once) and cuBLAS h.W {ls_sum[2]:.4f} ms")
         dw_ms, lib_ms, bound_ms = split_sum.pop("dW totals")
         dh_ms, dh_lib, dh_bound = split_sum.pop("da+dh totals")
         print(f"    samlp_bwd_layer over one SSG step by part (device, "
@@ -568,6 +594,20 @@ def _device_ms(fn, calls: int = 10) -> float:
     """Device ms a call of ``fn`` (the profiler's kernel records)."""
     device = _device_events(fn, calls)[0]
     return sum(e.time_range.elapsed_us() for e in device) / calls / 1e3
+
+
+def _linear_stats_parts(tag, kernel, hb, wb, x, a, total):
+    """One ``linear_stats`` call's device ms (profiler, 10 calls: the
+    kernel and its fixed-order reduce) against its byte bound (x read, a
+    written once) and one cuBLAS call of the product alone, ``hb @ wb``
+    on the bf16 operands (device time); added to ``total``."""
+    ms = _device_ms(kernel)
+    bound = _nbytes(x, a) / HBM_BYTES_PER_S * 1e3
+    lib = _device_ms(lambda: hb @ wb)
+    print(f"    {'':<18} {tag}: device {ms:.4f} ms, bound {bound:.4f} ms, "
+          f"cuBLAS h.W {lib:.4f} ms")
+    for k, v in enumerate((ms, bound, lib)):
+        total[k] += v
 
 
 def _bwd_parts(tag, run, hb, dab, wb, a_prev, m, cin, cout, need, gate,
@@ -1611,13 +1651,30 @@ def _bwd_layer_split(device, calls: int) -> dict:
     for e in device:
         name = _base_name(e)
         part = {"da_dh_kernel": "da+dh", "dw_kernel": "dW"}.get(name)
-        if name == "split_reduce_kernel":
-            part = "dW" if prev == "dw_kernel" else "reduces"
+        if name == "split_reduce_kernel":  # linear_stats' is neither
+            part = {"dw_kernel": "dW",
+                    "split_reduce_kernel": "reduces"}.get(prev)
         if part is not None:
             parts[part][0] += e.time_range.elapsed_us() / 1e3
             parts[part][1] += 1
         prev = name
     return {p: (ms / calls, n / calls) for p, (ms, n) in parts.items()}
+
+
+def _linear_stats_split(device, calls: int) -> tuple:
+    """Row 6's (``linear_stats``') device ms and launches a call, from
+    kernel records in stream order: linear_stats_kernel and the
+    split_reduce_kernel launched right after it."""
+    ms, n, prev = 0.0, 0, None
+    for e in device:
+        name = _base_name(e)
+        if name == "linear_stats_kernel" or (
+                name == "split_reduce_kernel"
+                and prev == "linear_stats_kernel"):
+            ms += e.time_range.elapsed_us() / 1e3
+            n += name == "linear_stats_kernel"
+        prev = name
+    return ms / calls, n / calls
 
 
 def _split_line(split: dict) -> str:
@@ -1630,12 +1687,15 @@ def _device_busy(fn, steps: int = 5, top: int = 0, split: bool = False):
     (``torch.profiler``) over the synchronized host-clock wall. With
     ``top``, also prints the ``top`` device kernels by time a call, with
     their launches a call; with ``split``, row 10's device ms a call by
-    part (``_bwd_layer_split``)."""
+    part (``_bwd_layer_split``) and row 6's (``_linear_stats_split``)."""
     device, wall_us = _device_events(fn, steps)
     busy_us = sum(e.time_range.elapsed_us() for e in device)
     if split:
         print("    samlp_bwd_layer device ms a step by part (launches a "
               "step): " + _split_line(_bwd_layer_split(device, steps)))
+        ls_ms, ls_n = _linear_stats_split(device, steps)
+        print(f"    samlp_linear_stats device ms a step: {ls_ms:.4f} "
+              f"({ls_n:g} launches)")
     if top:
         by_name: dict = {}
         for e in device:

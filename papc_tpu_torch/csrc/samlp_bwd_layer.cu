@@ -93,7 +93,6 @@
 // 4. split_reduce_kernel again, for db's and the sums' tile partials.
 // Without dy' or dg (the first layer of SA1, whose input is data), the
 // pass computes da and db only.
-#include <algorithm>
 #include <cstdint>
 #include <cstring>
 
@@ -104,6 +103,9 @@ namespace {
 
 using samlp_train::affine;
 using samlp_train::bf2f;
+using samlp_train::relu_affine;
+using samlp_train::split_reduce;
+using samlp_train::SplitSum;
 
 namespace mma = samlp_mma;
 
@@ -492,14 +494,6 @@ __global__ void __launch_bounds__(kDhThreads, 2)
   mma::cp_async_wait<0>();
 }
 
-// max(x * scale + shift, 0) rounded to bf16, as the plain version's h.
-__device__ __forceinline__ __nv_bfloat16 relu_affine(__nv_bfloat16 x,
-                                                     float scale,
-                                                     float shift) {
-  const float v = affine(bf2f(x), scale, shift);
-  return __float2bfloat16_rn(v > 0.f ? v : 0.f);
-}
-
 // The same on a register of two bf16 of one channel.
 __device__ __forceinline__ unsigned relu_affine2(unsigned x, float scale,
                                                  float shift) {
@@ -507,54 +501,6 @@ __device__ __forceinline__ unsigned relu_affine2(unsigned x, float scale,
   h.x = relu_affine(h.x, scale, shift);
   h.y = relu_affine(h.y, scale, shift);
   return *reinterpret_cast<unsigned*>(&h);
-}
-
-// Eight consecutive bf16 from element o (any o) of a 16-byte-aligned
-// buffer: two 16-byte loads, then a shift by o % 8 elements (whole words,
-// then half a word by a funnel shift).
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* base, int o) {
-  const uint4* p = reinterpret_cast<const uint4*>(base) + (o >> 3);
-  const uint4 a = p[0], b = p[1];
-  const unsigned v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-  const int ws = (o & 7) >> 1;
-  unsigned u[5];
-#pragma unroll
-  for (int k = 0; k < 5; ++k)
-    u[k] = ws == 0 ? v[k] : ws == 1 ? v[k + 1] : ws == 2 ? v[k + 2] : v[k + 3];
-  if (o & 1)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) u[k] = __funnelshift_r(u[k], u[k + 1], 16);
-  return make_uint4(u[0], u[1], u[2], u[3]);
-}
-
-// One staged span of a_prev (row r, channel c at span[r * cin + c], rows
-// not 16-byte aligned; the buffer holds 8 elements past the span) copied
-// into rows [rows][ld_h] for the tile's tm channels from c0, 8 a thread
-// step, 0 in rows from `here` on and channels from `win` on.
-__device__ __forceinline__ void lay_out_chunk(const __nv_bfloat16* span,
-                                              int cin, int c0,
-                                              __nv_bfloat16* hbuf, int ld_h,
-                                              int rows, int tm, int here,
-                                              int win) {
-  const int per_row = tm / 8;
-  for (int e = threadIdx.x; e < rows * per_row; e += blockDim.x) {
-    const int r = e / per_row, c = (e - r * per_row) * 8;
-    uint4 out = make_uint4(0u, 0u, 0u, 0u);
-    if (r < here && c < win) {
-      out = load8(span, r * cin + c0 + c);
-      unsigned* w = reinterpret_cast<unsigned*>(&out);
-      // zero the channels from win on
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const int keep = win - c - 2 * k;  // of word k's two channels
-        if (keep <= 0)
-          w[k] = 0u;
-        else if (keep == 1)
-          w[k] &= 0xffffu;
-      }
-    }
-    *reinterpret_cast<uint4*>(hbuf + r * ld_h + c) = out;
-  }
 }
 
 __global__ void __launch_bounds__(kMaxWarps * 32)
@@ -657,8 +603,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
     const __nv_bfloat16* h = aligned ? stage : hbuf;
     const int ldh = aligned ? ld_a : ld_h;
     if (!aligned) {
-      lay_out_chunk(stage, cin, c0, hbuf, ld_h, rows, tm,
-                    min(rows, r_end - (r_begin + t * rows)), win);
+      mma::lay_out_chunk(stage, cin, c0, hbuf, ld_h, rows, tm,
+                         min(rows, r_end - (r_begin + t * rows)), win, tid,
+                         nthreads);
       __syncthreads();
     }
     if (!active) continue;
@@ -712,49 +659,6 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
           *reinterpret_cast<float2*>(out + static_cast<size_t>(r) * cout_p +
                                      c) = make_float2(v0, v1);
       });
-}
-
-// One sum over splits: out[r * cols + c] = the sum over i < n of
-// part[(i * part_rows + r) * ld + c], for r < rows and c < cols.
-struct SplitSum {
-  const float* part;
-  int n, part_rows, ld, rows, cols;
-  float* out;
-};
-
-// Job blockIdx.z's sums in a fixed order: lane row y of a block (of
-// blockDim.y <= 32) sums splits y, y + blockDim.y, ... of 32 columns in
-// order, then row 0 adds the blockDim.y sums in order. Grid: (column
-// blocks, rows, jobs); a block past its job's rows or columns returns.
-__global__ void split_reduce_kernel(SplitSum j0, SplitSum j1) {
-  __shared__ float sums[32][33];
-  const SplitSum j = blockIdx.z == 0 ? j0 : j1;
-  const int x = threadIdx.x, y = threadIdx.y, lanes = blockDim.y;
-  const int r = blockIdx.y, c = blockIdx.x * 32 + x;
-  if (r >= j.rows || blockIdx.x * 32 >= j.cols) return;
-  float s = 0.f;
-  if (c < j.cols) {
-    const float* p = j.part + static_cast<size_t>(r) * j.ld + c;
-    const size_t step = static_cast<size_t>(j.part_rows) * j.ld;
-#pragma unroll 4
-    for (int i = y; i < j.n; i += lanes) s += p[i * step];
-  }
-  sums[y][x] = s;
-  __syncthreads();
-  if (y != 0 || c >= j.cols) return;
-  s = sums[0][x];
-  for (int k = 1; k < lanes; ++k) s += sums[k][x];
-  j.out[static_cast<size_t>(r) * j.cols + c] = s;
-}
-
-// The two jobs' sums, `lanes` (8 or 32) lanes a column.
-cudaError_t split_reduce(const SplitSum& j0, const SplitSum& j1, int lanes,
-                         cudaStream_t s) {
-  const int col_blocks = std::max((j0.cols + 31) / 32, (j1.cols + 31) / 32);
-  const int rows = std::max(j0.rows, j1.rows);
-  return papc_launch(split_reduce_kernel,
-                     dim3(col_blocks, rows, j1.rows > 0 ? 2 : 1),
-                     dim3(32, lanes), 0, s, j0, j1);
 }
 
 }  // namespace

@@ -14,7 +14,11 @@
 //    copy), and ldmatrix.x4 (no .trans) for B fragments from a row-major
 //    [n, k] tile, i.e. B given transposed (mma_slice<true>: da . W^T with
 //    W [Cin, Cout] as stored, Cin the n and Cout the k dimension);
-//  - mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32.
+//  - mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32;
+//  - rows that do not start on 16 bytes (a layer input of odd width):
+//    a tile's rows are copied as one 16-byte-aligned span and laid out
+//    into skewed rows 8 channels at a time (load8, lay_out_chunk), an
+//    elementwise function of the channels applied on the way.
 //
 // A warp tile is 32 rows x up to 64 columns: two m16 row tiles by up to
 // eight n8 column tiles, taken in n16 pairs (one ldmatrix.x4.trans feeds
@@ -154,14 +158,16 @@ __device__ __forceinline__ void zero(WarpTile& t) {
 // times the first `pairs` n16 pairs of B, whose lane address at the
 // step's first k is b_addr: ldmatrix.x4.trans from [k][n] rows, the next
 // pair 16 columns (32 bytes) on; or, kBT, ldmatrix.x4 from [n][k] rows,
-// the next pair pair_bytes (16 rows) on.
-template <bool kBT = false>
+// the next pair pair_bytes (16 rows) on. pairs <= kMaxPairs: a caller
+// whose warp tiles are narrower names their width, and the accumulators
+// past it are never touched (nor kept in registers).
+template <bool kBT = false, int kMaxPairs = kPairs>
 __device__ __forceinline__ void mma_kstep(WarpTile& t,
                                           const unsigned (&af)[2][4],
                                           unsigned b_addr, int pairs,
                                           int pair_bytes = 32) {
 #pragma unroll
-  for (int p = 0; p < kPairs; ++p) {
+  for (int p = 0; p < kMaxPairs; ++p) {
     if (p < pairs) {
       unsigned bf[4];
       if (kBT)
@@ -201,8 +207,8 @@ __device__ __forceinline__ unsigned bt_lane_addr(const __nv_bfloat16* b,
 // first A row at its first k column (row stride lda elements); b: the
 // first B row of the slice at the warp's first column (row stride ldb),
 // or, kBT (B stored as [n][k]), the warp's first n row at the slice's
-// first k. ksteps <= 2 and pairs <= kPairs are warp-uniform.
-template <bool kBT = false>
+// first k. ksteps <= 2 and pairs <= kMaxPairs are warp-uniform.
+template <bool kBT = false, int kMaxPairs = kPairs>
 __device__ __forceinline__ void mma_slice(WarpTile& t,
                                           const __nv_bfloat16* a, int lda,
                                           const __nv_bfloat16* b, int ldb,
@@ -219,9 +225,11 @@ __device__ __forceinline__ void mma_slice(WarpTile& t,
       ldmatrix_x4(af[0], a_addr + kk * 32);
       ldmatrix_x4(af[1], a_addr + (16 * lda + kk * 16) * 2);
       if (kBT)
-        mma_kstep<true>(t, af, b_addr + kk * 32, pairs, 16 * ldb * 2);
+        mma_kstep<true, kMaxPairs>(t, af, b_addr + kk * 32, pairs,
+                                   16 * ldb * 2);
       else
-        mma_kstep(t, af, b_addr + kk * 16 * ldb * 2, pairs);
+        mma_kstep<false, kMaxPairs>(t, af, b_addr + kk * 16 * ldb * 2,
+                                    pairs);
     }
   }
 }
@@ -263,6 +271,65 @@ __device__ __forceinline__ void mma_slice_at(WarpTile& t,
       fix(af);
       mma_kstep(t, af, b_addr + kk * 16 * ldb * 2, pairs);
     }
+  }
+}
+
+// Eight consecutive bf16 from element o (any o) of a 16-byte-aligned
+// buffer: two 16-byte loads, then a shift by o % 8 elements (whole words,
+// then half a word by a funnel shift).
+__device__ __forceinline__ uint4 load8(const __nv_bfloat16* base, int o) {
+  const uint4* p = reinterpret_cast<const uint4*>(base) + (o >> 3);
+  const uint4 a = p[0], b = p[1];
+  const unsigned v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  const int ws = (o & 7) >> 1;
+  unsigned u[5];
+#pragma unroll
+  for (int k = 0; k < 5; ++k)
+    u[k] = ws == 0 ? v[k] : ws == 1 ? v[k + 1] : ws == 2 ? v[k + 2] : v[k + 3];
+  if (o & 1)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) u[k] = __funnelshift_r(u[k], u[k + 1], 16);
+  return make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+// No change to a laid-out chunk (lay_out_chunk's default).
+struct KeepChunk {
+  __device__ __forceinline__ void operator()(uint4&, int) const {}
+};
+
+// One staged span of a layer input (row r, channel c at span[r * cin + c],
+// rows not 16-byte aligned; the buffer holds 8 elements past the span)
+// copied into rows [rows][ld_h] for the tile's tm channels from c0, 8 a
+// thread step, 0 in rows from `here` on and channels from `win` on.
+// Spread over threads tid of nthreads; fix(v, c) runs on each loaded
+// chunk (its channels c0 + c, ..., + 7) before the channels from win on
+// are zeroed.
+template <typename FixChunk = KeepChunk>
+__device__ __forceinline__ void lay_out_chunk(const __nv_bfloat16* span,
+                                              int cin, int c0,
+                                              __nv_bfloat16* hbuf, int ld_h,
+                                              int rows, int tm, int here,
+                                              int win, int tid, int nthreads,
+                                              FixChunk fix = FixChunk()) {
+  const int per_row = tm / 8;
+  for (int e = tid; e < rows * per_row; e += nthreads) {
+    const int r = e / per_row, c = (e - r * per_row) * 8;
+    uint4 out = make_uint4(0u, 0u, 0u, 0u);
+    if (r < here && c < win) {
+      out = load8(span, r * cin + c0 + c);
+      fix(out, c);
+      unsigned* w = reinterpret_cast<unsigned*>(&out);
+      // zero the channels from win on
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int keep = win - c - 2 * k;  // of word k's two channels
+        if (keep <= 0)
+          w[k] = 0u;
+        else if (keep == 1)
+          w[k] &= 0xffffu;
+      }
+    }
+    *reinterpret_cast<uint4*>(hbuf + r * ld_h + c) = out;
   }
 }
 

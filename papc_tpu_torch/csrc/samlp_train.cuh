@@ -2,21 +2,24 @@
 // (samlp_linear_stats.cu, samlp_finalize_seed.cu, samlp_bwd_layer.cu, and
 // the recompute passes through samlp_recompute.cuh).
 //
-// rows_times_matrix: a tile of 16 * RF * row_blocks rows (bf16, in shared
-// or device memory) times a bf16 matrix held in device memory, on tensor
-// cores (nvcuda::wmma m16n16k16, f32 accumulators), as in samlp_eval.cu:
-// each warp takes units of 16 * RF rows x 16 columns (RF = 4 unless the
-// tile is smaller) and loads every weight fragment once for RF row
-// fragments. The epilogue is called once per element with (row in tile,
-// column, f32 product) and returns two values, the first kSums of which
-// are added to that column's sums, kept per unit row in shared memory. A
-// unit always belongs to the same warp (unit u -> warp u % 8), so every
-// column sum is formed in a fixed order, and repeated runs give the same
-// bits.
+// rows_times_matrix (the recompute passes' product): a tile of 16 * RF *
+// row_blocks rows (bf16, in shared or device memory) times a bf16 matrix
+// held in device memory, on tensor cores (nvcuda::wmma m16n16k16, f32
+// accumulators): each warp takes units of 16 * RF rows x 16 columns (RF =
+// 4 unless the tile is smaller) and loads every weight fragment once for
+// RF row fragments. The epilogue is called once per element with (row in
+// tile, column, f32 product) and returns two values, the first kSums of
+// which are added to that column's sums, kept per unit row in shared
+// memory. A unit always belongs to the same warp (unit u -> warp u % 8),
+// so every column sum is formed in a fixed order, and repeated runs give
+// the same bits.
 //
-// reduce_partials: out[r, c] = sum over i < n of part[i, r, c], one thread
-// per output, in order of i: the fixed-order second stage of every
-// cross-block sum.
+// reduce_partials (the recompute passes and samlp_finalize_seed.cu):
+// out[r, c] = sum over i < n of part[i, r, c], one thread per output, in
+// order of i. split_reduce (samlp_linear_stats.cu and samlp_bwd_layer.cu):
+// the same sums, `lanes` lanes a column, each summing every lanes-th
+// part in order, then the lanes' sums in order. Both are fixed-order
+// second stages of a cross-block sum.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -42,6 +45,14 @@ __device__ __forceinline__ float bf2f(__nv_bfloat16 v) {
 // runs the two ops separately, and an ulp moves the o > 0 gate.
 __device__ __forceinline__ float affine(float a, float scale, float shift) {
   return __fadd_rn(__fmul_rn(a, scale), shift);
+}
+
+// max(x * scale + shift, 0) rounded to bf16, as the plain version's h.
+__device__ __forceinline__ __nv_bfloat16 relu_affine(__nv_bfloat16 x,
+                                                     float scale,
+                                                     float shift) {
+  const float v = affine(bf2f(x), scale, shift);
+  return __float2bfloat16_rn(v > 0.f ? v : 0.f);
 }
 
 // B is row-major [kdim, ldb] (kTransB false) or, for kTransB, the
@@ -145,6 +156,50 @@ static inline cudaError_t reduce_partials(const float* part, int n,
   if (blocks > 1024) blocks = 1024;
   return papc_launch(reduce_partials_kernel, dim3(blocks), dim3(threads), 0,
                      stream, part, n, rows, cols, part_rows, ld, out);
+}
+
+// One sum over splits: out[r * cols + c] = the sum over i < n of
+// part[(i * part_rows + r) * ld + c], for r < rows and c < cols.
+struct SplitSum {
+  const float* part;
+  int n, part_rows, ld, rows, cols;
+  float* out;
+};
+
+// Job blockIdx.z's sums in a fixed order: lane row y of a block (of
+// blockDim.y <= 32) sums splits y, y + blockDim.y, ... of 32 columns in
+// order, then row 0 adds the blockDim.y sums in order. Grid: (column
+// blocks, rows, jobs); a block past its job's rows or columns returns.
+static __global__ void split_reduce_kernel(SplitSum j0, SplitSum j1) {
+  __shared__ float sums[32][33];
+  const SplitSum j = blockIdx.z == 0 ? j0 : j1;
+  const int x = threadIdx.x, y = threadIdx.y, lanes = blockDim.y;
+  const int r = blockIdx.y, c = blockIdx.x * 32 + x;
+  if (r >= j.rows || blockIdx.x * 32 >= j.cols) return;
+  float s = 0.f;
+  if (c < j.cols) {
+    const float* p = j.part + static_cast<size_t>(r) * j.ld + c;
+    const size_t step = static_cast<size_t>(j.part_rows) * j.ld;
+#pragma unroll 4
+    for (int i = y; i < j.n; i += lanes) s += p[i * step];
+  }
+  sums[y][x] = s;
+  __syncthreads();
+  if (y != 0 || c >= j.cols) return;
+  s = sums[0][x];
+  for (int k = 1; k < lanes; ++k) s += sums[k][x];
+  j.out[static_cast<size_t>(r) * j.cols + c] = s;
+}
+
+// The two jobs' sums (j1.rows 0: one job), `lanes` (8 or 32) lanes a
+// column.
+static inline cudaError_t split_reduce(const SplitSum& j0, const SplitSum& j1,
+                                       int lanes, cudaStream_t s) {
+  const int col_blocks = (j0.cols > j1.cols ? j0.cols : j1.cols) + 31;
+  const int rows = j0.rows > j1.rows ? j0.rows : j1.rows;
+  return papc_launch(split_reduce_kernel,
+                     dim3(col_blocks / 32, rows, j1.rows > 0 ? 2 : 1),
+                     dim3(32, lanes), 0, s, j0, j1);
 }
 
 }  // namespace samlp_train

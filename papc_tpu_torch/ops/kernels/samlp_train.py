@@ -18,12 +18,18 @@ from the f32 value before it is rounded for storage.
 Kernels (``csrc/``): ``samlp_linear_stats.cu``, ``samlp_finalize_seed.cu``
 (``finalize_max`` and ``bwd_seed``) and ``samlp_bwd_layer.cu``. Each
 column sum is reduced in a fixed order (per block, then across blocks),
-so repeated runs on the card give the same bits.
+so repeated runs on the card give the same bits. ``linear_stats`` and
+both parts of ``bwd_layer`` run on the ``mma.sync`` core
+(``csrc/samlp_mma.cuh``); their plans here pick the tiles: for
+``linear_stats`` persistent blocks that hold their column tile of W in
+shared memory and walk row tiles of x through a ``cp.async`` ring
+(``linear_stats_plan``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -33,7 +39,7 @@ from papc_tpu_torch.ops.kernels import check, use_kernel
 P, I = ctypes.c_void_p, ctypes.c_int
 LINEAR_STATS = Kernel(
     "papc_samlp_linear_stats",
-    [P, I, I, P, P, P, I, I, I, I, I, I, P, P, P, P],
+    [P, I, I, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P],
 )
 FINALIZE_MAX = Kernel("papc_samlp_finalize_max", [P, I, I, I, P, P, P, P])
 BWD_SEED = Kernel("papc_samlp_bwd_seed", [P, I, I, I, P, P, P, I, P, P, P, P])
@@ -44,14 +50,14 @@ BWD_LAYER = Kernel(
 )
 KERNELS = (LINEAR_STATS, FINALIZE_MAX, BWD_SEED, BWD_LAYER)
 
-_TM = 128  # rows per tile of linear_stats (two 64-row units)
 _SKEW = 8  # bf16 elements of padding per shared-memory row (bank spread)
 _WARPS = 8
-_MAX_BLOCKS = 1024  # grid of the row-tiled products; fixes the sum order
 _THREADS = 131072  # target thread count of the per-column passes
 _SMS = 132  # the H100's SMs
 _SMEM_OPTIN = 232448  # shared memory a block may opt into
 _SMEM_SM = 233472  # shared memory of an SM (1 KB of it reserved a block)
+# linear_stats blocks an SM's registers hold, by product warps
+_LS_RESIDENT = {8: 1, 4: 2, 2: 3}
 # The dW product of bwd_layer (csrc/samlp_bwd_layer.cu::dw_kernel)
 _DW_GRID = 2 * _SMS  # blocks it aims for
 _DW_STAGES = 3  # cp.async ring stages (the da + dh pass's W ring too)
@@ -182,18 +188,76 @@ def pack_weight(w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _ls_smem(cin: int, rw: int, cw: int, wp: int, stages: int) -> int:
+    """Shared memory of the linear_stats block, as ``LsShape::smem``
+    reckons it: W's slice ``[cin_p][TN + 8]``; ``stages`` ring stages,
+    each the row tile ``[TM][cin_p + 8]`` where x's rows start on 16 bytes
+    (Cin a multiple of 8), else one span of TM rows and 8 spare elements,
+    and then h ``[TM][cin_p + 8]`` laid out from it; a's two buffers
+    ``[TM][TN + 8]``; and f32 the bias ``[TN]`` and the scale and shift
+    ``[cin_p]``."""
+    cin_p = _pad(cin)
+    tm, tn = 32 * rw, 16 * wp * cw
+    aligned = cin % 8 == 0
+    stage = tm * (cin_p + _SKEW) if aligned else _pad(tm * cin, 8) + 8
+    h = 0 if aligned else tm * (cin_p + _SKEW)
+    return (2 * (cin_p * (tn + _SKEW) + stages * stage + h
+                 + 2 * tm * (tn + _SKEW))
+            + 4 * (tn + 2 * cin_p))
+
+
+@functools.lru_cache(maxsize=None)
 def linear_stats_plan(m: int, cin: int, cout: int) -> dict:
-    """Grid and shared memory of the linear_stats kernel: tiles of
-    ``_TM`` rows, each block walking the tiles ``b, b + blocks, ...``.
-    Shared memory holds the bf16 input tile, one 16x16 f32 scratch a
-    warp and the block's column sums for both 64-row units."""
+    """The linear_stats block: ``rw x cw`` product warps (8, 4 or 2) and
+    two store warps; warp tiles of 32 rows x ``16 wp`` columns, so row
+    tiles of ``TM = 32 rw`` and column tiles of ``TN = 16 wp cw``. Each
+    block holds its column tile's slice of W in shared memory and walks
+    its row tiles through a ring of ``stages`` tiles. ``resident``: the
+    blocks an SM holds, by shared memory and by registers (a thread of the
+    widest warp tiles takes about 160: one block of 8 product warps, two
+    of 4, three of 2). Of the layouts whose shared memory fits
+    (``_ls_smem``) and that leave no column warp without a column, as the
+    card measured: the most (column tile, row tile) units up to one a SM
+    (SA3's 4096 rows split Cout), then the fewest column tiles (x read
+    once), then the most product warps on an SM (up to 8), the widest
+    warp tiles, the most blocks on an SM, the deeper ring, the most rows.
+    ``blocks``: ``resident`` a SM where the units allow, spread over the
+    column tiles in turn (block b takes column tile ``b % col_tiles``);
+    the partials have one row per block of the most loaded column tile.
+    Cached: a step asks for the same shapes every time (not to be
+    changed by the caller)."""
     cin_p, cout_p = _pad(cin), _pad(cout)
-    ld_x = cin_p + _SKEW
-    tiles = -(-m // _TM)
-    smem = (_TM * ld_x * 2 + _WARPS * 256 * 4
-            + (_TM // 64) * 2 * cout_p * 4)
-    return {"tm": _TM, "ld_x": ld_x, "blocks": min(tiles, _MAX_BLOCKS),
-            "smem": smem, "cin_p": cin_p, "cout_p": cout_p}
+    best = None
+    for warps in (8, 4, 2):
+        for cw in (1, 2, 4, 8):
+            rw = warps // cw
+            if rw < 1:
+                continue
+            for wp in (4, 2, 1):
+                wcols = 16 * wp
+                if wcols > cout_p or (cw - 1) * wcols >= cout_p:
+                    continue  # a warp, or a column warp, past Cout
+                tm, tn = 32 * rw, cw * wcols
+                col_tiles = -(-cout_p // tn)
+                units = col_tiles * -(-m // tm)
+                for stages in (3, 2):
+                    smem = _ls_smem(cin, rw, cw, wp, stages)
+                    if smem > _SMEM_OPTIN:
+                        continue
+                    resident = min(_LS_RESIDENT[warps],
+                                   _SMEM_SM // (smem + 1024))
+                    key = (min(units, _SMS), -col_tiles,
+                           min(warps * resident, 8), wp, resident, stages, tm)
+                    if best is None or key > best[0]:
+                        blocks = max(col_tiles, min(units, _SMS * resident))
+                        best = (key, {
+                            "rw": rw, "cw": cw, "wp": wp, "stages": stages,
+                            "tm": tm, "tn": tn, "col_tiles": col_tiles,
+                            "blocks": blocks, "resident": resident,
+                            "groups": -(-blocks // col_tiles), "smem": smem})
+    if best is None:
+        raise ValueError(f"no linear_stats tile fits cin={cin}, cout={cout}")
+    return {"cin_p": cin_p, "cout_p": cout_p, **best[1]}
 
 
 def slices(rows: int, c: int) -> int:
@@ -239,7 +303,7 @@ def _dw_tile(m: int, cin: int, cout_p: int) -> dict:
     row is laid out about once. A tile is halved along its longer side
     while the grid could not reach one block per SM."""
     wm_all, wn_all = -(-cin // 32), -(-cout_p // 64)
-    operand = 2 * m * cin + 2 * _pad(m, _TM) * cout_p
+    operand = 2 * m * cin + 2 * _pad(m, _ROWS_ALIGN) * cout_p
     max_splits = max(1, operand // (4 * _pad(cin) * cout_p))
     if cin % 8 == 0:
         wm = min(wm_all, _DW_MAX_WARPS)
@@ -377,6 +441,7 @@ def linear_stats_cuda(x, vec, w_packed, b, cout: int):
     m, cin = x.shape
     plan = linear_stats_plan(m, cin, cout)
     check(x, "x", torch.bfloat16, (m, cin))
+    x = _aligned16(x)
     check(w_packed, "w_packed", torch.bfloat16, (plan["cin_p"], plan["cout_p"]))
     check(b, "b", torch.float32, (cout,))
     if vec is not None:
@@ -386,13 +451,13 @@ def linear_stats_cuda(x, vec, w_packed, b, cout: int):
                          f"memory for cin={cin}; the card allows "
                          f"{_smem_limit(x)}")
     a = torch.empty((m, cout), dtype=torch.bfloat16, device=x.device)
-    partials = torch.empty((plan["blocks"], 2, plan["cout_p"]),
+    partials = torch.empty((plan["groups"], 2, plan["cout_p"]),
                            dtype=torch.float32, device=x.device)
     sums = torch.empty((2, cout), dtype=torch.float32, device=x.device)
     LINEAR_STATS(ptr(x), m, cin, ptr(vec), ptr(w_packed), ptr(b), cout,
-                 plan["cin_p"], plan["cout_p"], plan["tm"], plan["ld_x"],
-                 plan["blocks"], ptr(a), ptr(partials), ptr(sums),
-                 stream_of(x))
+                 plan["cin_p"], plan["cout_p"], plan["rw"], plan["cw"],
+                 plan["wp"], plan["stages"], plan["blocks"], ptr(a),
+                 ptr(partials), ptr(sums), stream_of(x))
     return a, sums
 
 

@@ -308,12 +308,27 @@ TRAIN_LAYERS = [  # (M, Cin, Cout, k): small, then every SSG layer at B=32
 ]
 
 
-@pytest.mark.parametrize("m,cin,cout,k", TRAIN_LAYERS)
-def test_linear_stats_kernel_matches_plain(device, m, cin, cout, k):
-    x = _bf16((m, cin), m + cin, device)
+# linear_stats only: M a multiple of neither its row tile nor 32; odd Cin
+# on a first and a gated layer (3, 131, 643: x copied as one span a tile
+# and laid out, 643 with Cout split over column tiles); Cin = 4 (mod 8)
+# (196); Cout = 4 (mod 8) (196: a stored 8 bytes at a time) and a Cout
+# below one warp tile (24).
+LINEAR_STATS_EDGES = [(1000, 3, 64, 8), (777, 131, 128, 8),
+                      (2000, 643, 256, 8), (1500, 196, 256, 8),
+                      (999, 128, 196, 8), (333, 64, 24, 8)]
+
+
+def _linear_stats_inputs(m, cin, cout, device):
     g = torch.Generator().manual_seed(cout)
     w = (torch.randn(cin, cout, generator=g) / cin ** 0.5).to(device)
     b = (0.1 * torch.randn(cout, generator=g)).to(device)
+    return w, b
+
+
+@pytest.mark.parametrize("m,cin,cout,k", TRAIN_LAYERS + LINEAR_STATS_EDGES)
+def test_linear_stats_kernel_matches_plain(device, m, cin, cout, k):
+    x = _bf16((m, cin), m + cin, device)
+    w, b = _linear_stats_inputs(m, cin, cout, device)
     for vec in (None, _vec4(cin, cin, device)):
         before = samlp_train.LINEAR_STATS.launches
         a, sums = samlp_train.linear_stats(x, vec, w, b)
@@ -323,8 +338,24 @@ def test_linear_stats_kernel_matches_plain(device, m, cin, cout, k):
         assert a.dtype == torch.bfloat16 and a.shape == (m, cout)
         _near(a, want_a, 1e-4, ulp=True)
         _near(sums, want_sums, 1e-3)
-        again = samlp_train.linear_stats(x, vec, w, b)[1]
+        again_a, again = samlp_train.linear_stats(x, vec, w, b)
         torch.testing.assert_close(again, sums, rtol=0, atol=0)  # fixed order
+        torch.testing.assert_close(again_a, a, rtol=0, atol=0)
+
+
+def test_linear_stats_takes_an_x_off_16_bytes(device):
+    """A view of x that starts 2 bytes into a row: the wrapper hands the
+    ring an aligned copy, and both outputs equal the aligned call's."""
+    m, cin, cout = 500, 8, 24
+    base = _bf16((m * cin + 1,), 3, device)
+    off = base[1:].view(m, cin)
+    assert off.data_ptr() % 16
+    w, b = _linear_stats_inputs(m, cin, cout, device)
+    for vec in (None, _vec4(cin, cin, device)):
+        got = samlp_train.linear_stats(off, vec, w, b)
+        want = samlp_train.linear_stats(off.clone(), vec, w, b)
+        for x, y in zip(got, want):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("m,cin,cout,k", TRAIN_LAYERS)

@@ -405,8 +405,9 @@ MSG_TRAIN_LAYERS = [  # MSG: K = 16, c0 = 323, width 196, c0 = 643
 
 def test_training_kernel_plans_at_the_ssg_shapes():
     """The training kernels' plans at every SSG layer (B=32) and the MSG
-    layers of the card tests: shared memory within the 227 KB a block may
-    opt into, tiles of whole 64-row units; the da + dh pass's row tiles
+    layers of the card tests: linear_stats' shared memory within the 227 KB
+    a block may opt into and equal to ``_ls_smem``, 2, 4 or 8 product warps
+    on 32-row warp tiles, a block on every SM (two where they fit); the da + dh pass's row tiles
     cover ``m_pad`` once, its Cin splits cover the Cin tiles, its grid
     fills the SMs wherever the layer has enough rows and tiles, and its
     shared memory fits at every layer (Cin 512 / Cout 1024, the odd-Cin dg
@@ -416,8 +417,18 @@ def test_training_kernel_plans_at_the_ssg_shapes():
     bytes than its operands (a_prev and da read once)."""
     for m, cin, cout in SSG_TRAIN_LAYERS + MSG_TRAIN_LAYERS:
         plan = samlp_train.linear_stats_plan(m, cin, cout)
-        assert plan["smem"] <= 232448 and plan["tm"] % 64 == 0
-        assert plan["cin_p"] % 16 == 0 and plan["ld_x"] % 8 == 0
+        assert plan["smem"] <= 232448
+        assert plan["smem"] == samlp_train._ls_smem(
+            cin, plan["rw"], plan["cw"], plan["wp"], plan["stages"])
+        assert plan["rw"] * plan["cw"] in (2, 4, 8)
+        assert plan["wp"] in (1, 2, 4) and plan["stages"] in (2, 3)
+        assert plan["tm"] == 32 * plan["rw"]
+        assert plan["tn"] == 16 * plan["wp"] * plan["cw"]
+        assert plan["cin_p"] % 16 == 0 and plan["cout_p"] % 16 == 0
+        # every SM busy at every layer of the models (their M are large)
+        assert plan["blocks"] == 132 * plan["resident"]
+        assert plan["resident"] * (plan["smem"] + 1024) <= 233472
+        assert plan["groups"] == -(-plan["blocks"] // plan["col_tiles"])
         with_dg = samlp_train.bwd_layer_plan(m, cin, cout, first=True)
         for first, need in ((False, True), (True, True), (True, False)):
             bw = samlp_train.bwd_layer_plan(m, cin, cout, need_dprev=need,
@@ -455,6 +466,58 @@ def test_training_kernel_plans_at_the_ssg_shapes():
         operand = 2 * m * cin + 2 * bw["m_pad"] * bw["cout_p"]
         assert 4 * bw["splits"] * bw["cin_p"] * bw["cout_p"] <= operand
     assert samlp_train.slices(16384, 128) * 128 <= 131072
+
+
+@pytest.mark.parametrize("m,cin,cout", SSG_TRAIN_LAYERS + MSG_TRAIN_LAYERS + [
+    (4096, 515, 256), (131072, 323, 64), (2097152, 64, 96), (256, 7, 24),
+    (1000, 3, 64), (2000, 643, 256), (999, 128, 196), (333, 64, 24)])
+def test_linear_stats_plan_takes_every_product_once(m, cin, cout):
+    """The linear_stats kernel's decomposition as ``linear_stats_kernel``
+    walks it: block b on column tile ``b % col_tiles`` and group ``b //
+    col_tiles`` of the blocks on it, which takes the row tiles ``g, g +
+    groups, ...``; warps (wr, wc) on 32 x ``16 wp`` warp tiles that skip
+    columns past ``cout_p``; Cin in k16 steps, two a slice. Every row
+    tile is taken once on every column tile, every (row, column) of a tile
+    by one warp, every Cin channel once; the column tiles cover ``cout_p``
+    once; every row of the partials is written once (by its block, or
+    zeroed by the column tile's first); W's slice is held whole in shared
+    memory, within 232 448 B; SA3's 4096 rows take a block on every SM."""
+    p = samlp_train.linear_stats_plan(m, cin, cout)
+    tm, tn, wcols = p["tm"], p["tn"], 16 * p["wp"]
+    rw, cw, tiles_n, blocks = p["rw"], p["cw"], p["col_tiles"], p["blocks"]
+    cin_p, cout_p = p["cin_p"], p["cout_p"]
+    row_tiles = -(-m // tm)
+    assert (tiles_n - 1) * tn < cout_p <= tiles_n * tn
+    assert tiles_n <= blocks <= tiles_n * row_tiles
+    assert p["smem"] <= 232448
+    assert p["smem"] == samlp_train._ls_smem(cin, rw, cw, p["wp"],
+                                             p["stages"])
+    assert p["smem"] >= 2 * cin_p * (tn + 8)  # W's slice, resident
+    if m == 4096:
+        assert blocks >= 132
+    taken = np.zeros((tiles_n, row_tiles), np.int32)
+    filled = np.zeros((p["groups"], tiles_n), np.int32)
+    for b in range(blocks):
+        ct, g = b % tiles_n, b // tiles_n
+        groups = -(-(blocks - ct) // tiles_n)
+        assert g < row_tiles
+        taken[ct, g::groups] += 1
+        filled[g, ct] += 1
+        if g == 0:
+            filled[groups:, ct] += 1
+    assert (taken == 1).all() and (filled == 1).all()
+    for ct in range(tiles_n):
+        tn_here = min(tn, cout_p - ct * tn)
+        cover = np.zeros((tm, tn_here), np.int32)
+        for warp in range(rw * cw):
+            wr, wc = warp // cw, warp % cw
+            pairs = max(0, min(wcols, tn_here - wc * wcols)) // 16
+            assert pairs <= 4
+            cover[32 * wr:32 * wr + 32,
+                  wc * wcols:wc * wcols + 16 * pairs] += 1
+        assert (cover == 1).all()
+    assert 16 * sum(min(2, (cin_p - k) // 16)
+                    for k in range(0, cin_p, 32)) == cin_p
 
 
 @pytest.mark.parametrize("m,cin,cout,first,need", [
