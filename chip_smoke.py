@@ -24,7 +24,11 @@ convolutions in f32 itself, as a user gets it.
    SA-MLP's as the module call, BN folding included); for each eval
    SA-MLP call also the wrapper alone on BN folded once, with its TFLOP/s
    and its share of its bound, and both times summed over one SSG
-   forward.
+   forward. FPS besides: at each SSG shape under the plans of 1, 2, 4 and
+   8 warps a block (exact against plain, device us a round), the round's
+   floor (the plan's warps at one point a lane), and at B=4 x 16384
+   (npoint 2048) and B=1 x 65536 (npoint 4096), exact against plain, with
+   kernel ms; none of these counts in the row.
 4. Training kernels at the SSG shapes, pass by pass on identical inputs
    (each pass fed the plain chain's previous outputs): ``finalize_max``
    (max and argmax) and ``bwd_seed``'s dy exactly; stored bf16
@@ -53,7 +57,8 @@ convolutions in f32 itself, as a user gets it.
    batches with the kernels, its launch counts, and its logits against
    the same run with every op on its plain version (within
    ``LOGIT_RTOL``/``LOGIT_ATOL``, the argmax equal wherever the plain
-   top-2 margin exceeds twice that); forward ms per batch for both.
+   top-2 margin exceeds twice that); forward ms per batch for both;
+   FPS's device ms a forward (profiler), its launches and us a round.
 6. Training slice: ``papc_tpu_torch.train.train`` for 10 steps on one
    repeated synthetic batch and a val pass, from seed-0 weights, with
    every launch count of the nine kernels read around it; the loss must
@@ -64,7 +69,8 @@ convolutions in f32 itself, as a user gets it.
    events, median) for both, the device's busy share over 5 kernel
    steps (``torch.profiler``), in stream mode ``bwd_layer``'s device
    time a step by part (as in phase 4) and ``linear_stats``' device time
-   a step, and peak device memory.
+   a step, FPS's device ms a step with its launches and us a round, and
+   peak device memory.
 7. Detection kernels at the detection shapes (B=2, K=1000): the rotated
    and the matrix NMS sweep against their plain versions, on the
    score-sorted top 1000 boxes of the slice's first batch and on
@@ -360,12 +366,15 @@ def phase_kernels(model, clouds):
     groups = []  # (stage, grouped, idx, source points, PointMLP, input is
     # data) for phase 4
     eval_ms = []  # samlp_eval ms of SA1-SA3
+    fps_calls = []  # (xyz, npoint, start) of SA1 and SA2
     stages = [(model.SetAbstraction_0, SA1), (model.SetAbstraction_1, SA2)]
     for i, (sa, cfg) in enumerate(stages, start=1):
         npoint, radius, k = cfg["npoint"], cfg["radius"], cfg["nsample"]
         start = torch.zeros(B, dtype=torch.int32, device=xyz.device)
         tag = f"SA{i} {xyz.shape[1]}->{npoint}"
         picks = fps.farthest_point_sample(xyz, npoint, start)
+        fps_calls.append((xyz, npoint, start))
+        tag = f"{tag} plan {tuple(fps.fps_plan(B, xyz.shape[1]))}"
         _compare(rows["fps"], tag, picks,
                  fps.farthest_point_sample(xyz, npoint, start, impl="plain"),
                  exact=True,
@@ -416,7 +425,77 @@ def phase_kernels(model, clouds):
               f"SA3 {each[2]:.4f})")
     groups.append(("SA3", grouped, None, None,
                    model.SetAbstraction_2.PointMLP_0, False))
+    _fps_plans(rows["fps"], fps_calls)
     return rows, groups
+
+
+FPS_LARGE = ((4, 16384, 2048), (1, 65536, 4096))  # bench.py's fps_16k row,
+# and the JAX kernel's largest recorded cloud
+
+
+def _fps_ms(fn, calls: int = 10) -> float:
+    """Device ms of one call of ``fn``: CUDA events around ``calls``
+    calls back to back (the host's enqueue hides behind the kernels)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / calls
+
+
+def _fps_plans(row, calls):
+    """FPS beyond the SSG forward: at each SSG shape the plans of 1, 2, 4
+    and 8 warps a block (exact against plain, device us a round);
+    the round's floor, the plan's warps at one point a lane (a round of
+    little more than its barrier and reductions); and the large clouds
+    of ``FPS_LARGE`` (exact against plain, kernel ms). None of these
+    calls counts in the row."""
+    from papc_tpu_torch.ops.kernels import fps
+
+    for xyz, npoint, start in calls:
+        b, n, _ = xyz.shape
+        plan = fps.fps_plan(b, n)
+        want = fps.farthest_point_sample(xyz, npoint, start, impl="plain")
+        seen = []
+        for warps in (1, 2, 4, 8):
+            p = -(-n // (32 * warps))
+            if p not in fps.POINTS_PER_LANE or warps > fps.MAX_WARPS[p]:
+                continue
+            trial = fps.FpsPlan(warps, p, 1)
+            got = fps.launch_plan(xyz, npoint, start, trial)
+            check(torch.equal(got, want),
+                  f"fps plan {tuple(trial)} at N={n} differs from plain")
+            ms = _fps_ms(lambda: fps.launch_plan(xyz, npoint, start, trial))
+            seen.append(f"W={warps} P={p} {1e3 * ms / npoint:.3f}")
+        floor = fps.FpsPlan(plan.warps, 1, 1)
+        few = xyz[:, :32 * plan.warps].contiguous()
+        ms = _fps_ms(lambda: fps.launch_plan(few, npoint, start, floor))
+        print(f"    {'':<18} N={n}: us a round by plan (device, {npoint} "
+              f"rounds, all exact): {', '.join(seen)}; the round's floor "
+              f"(W={plan.warps}, 1 point a lane) {1e3 * ms / npoint:.3f}")
+    for b, n, npoint in FPS_LARGE:
+        gen = torch.Generator().manual_seed(n)
+        xyz = (torch.randn(b, n, 3, generator=gen) * 0.5).cuda()
+        start = torch.randint(0, n, (b,), generator=gen,
+                              dtype=torch.int32).cuda()
+        got = fps.farthest_point_sample(xyz, npoint, start)
+        t0 = time.perf_counter()
+        want = fps.farthest_point_sample(xyz, npoint, start, impl="plain")
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        _compare(row, f"B={b} N={n} np={npoint}", got, want, exact=True)
+        ms = cuda_ms(lambda: fps.farthest_point_sample(xyz, npoint, start),
+                     reps=5, warmup=1)
+        dev = _fps_ms(lambda: fps.farthest_point_sample(xyz, npoint, start),
+                      calls=3)
+        print(f"    {'':<18} B={b} N={n} np={npoint} plan "
+              f"{tuple(fps.fps_plan(b, n))}: kernel {ms:.4f} ms (device "
+              f"{dev:.4f}, {1e3 * dev / npoint:.3f} us a round), plain "
+              f"{plain_ms:.1f} ms (one call, host clock)")
 
 
 TRAIN_ROWS = [  # name, source, TPU kernel it replaces
@@ -881,8 +960,10 @@ def phase_serving(tag, name, mode, smi, rows=None, n_clouds=100):
     with torch.inference_mode():
         fwd_ms = cuda_ms(lambda: model(*args), reps=10)
         plain_ms = cuda_ms(lambda: model(*args, impl="plain"), reps=10)
+        device, _ = _device_events(lambda: model(*args), 5)
     print(f"    forward per batch of {B} x {N}: kernels {fwd_ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms ({smi})")
+    print("    " + _fps_line(device, 5, model, "forward"))
 
 
 def _noise_grad(name: str, names) -> bool:
@@ -1076,7 +1157,7 @@ def _training(tag, name, mode, smi, rows, fused):
                                           impl="plain", dropout_masks=masks),
                        reps=3, warmup=1)
     busy_ms, wall_ms = _device_busy(step_k, top=12,
-                                    split=fused == "stream")
+                                    split=fused == "stream", fps_model=model)
     busy = (f"{100 * busy_ms / wall_ms:.1f} % ({busy_ms:.3f} of "
             f"{wall_ms:.3f} ms)" if busy_ms > 0 else "not measured")
     print(f"    train step of {B} x {N}, {fused} mode: kernels "
@@ -1682,14 +1763,38 @@ def _split_line(split: dict) -> str:
                      for p in BWD_LAYER_PARTS)
 
 
-def _device_busy(fn, steps: int = 5, top: int = 0, split: bool = False):
+def _fps_rounds(model) -> int:
+    """FPS rounds of one forward: the centres of every sampling SA."""
+    from papc_tpu_torch.nn import SetAbstraction, SetAbstractionMsg
+
+    return sum(mod.npoint for mod in model.modules()
+               if isinstance(mod, SetAbstractionMsg)
+               or (isinstance(mod, SetAbstraction) and not mod.group_all))
+
+
+def _fps_line(device, calls: int, model, what: str) -> str:
+    """Row 1's (FPS's) device ms a call of a forward or step, from the
+    profiler's fps_kernel records, with its launches and us a round."""
+    ms = sum(e.time_range.elapsed_us() for e in device
+             if _base_name(e) == "fps_kernel") / calls / 1e3
+    launches = sum(_base_name(e) == "fps_kernel" for e in device) / calls
+    rounds = _fps_rounds(model)
+    return (f"fps device ms a {what} (profiler): {ms:.4f} ({launches:g} "
+            f"launches, {rounds} rounds, {1e3 * ms / rounds:.3f} us a round)")
+
+
+def _device_busy(fn, steps: int = 5, top: int = 0, split: bool = False,
+                 fps_model=None):
     """Device busy share of ``steps`` calls: kernel time on the card
     (``torch.profiler``) over the synchronized host-clock wall. With
     ``top``, also prints the ``top`` device kernels by time a call, with
     their launches a call; with ``split``, row 10's device ms a call by
-    part (``_bwd_layer_split``) and row 6's (``_linear_stats_split``)."""
+    part (``_bwd_layer_split``) and row 6's (``_linear_stats_split``);
+    with ``fps_model``, FPS's device ms a call (``_fps_line``)."""
     device, wall_us = _device_events(fn, steps)
     busy_us = sum(e.time_range.elapsed_us() for e in device)
+    if fps_model is not None:
+        print("    " + _fps_line(device, steps, fps_model, "step"))
     if split:
         print("    samlp_bwd_layer device ms a step by part (launches a "
               "step): " + _split_line(_bwd_layer_split(device, steps)))

@@ -92,9 +92,16 @@ def _launches():
     return [m.KERNEL.launches for m in KERNEL_MODULES]
 
 
-@pytest.mark.parametrize("B,N,npoint", [(3, 1000, 100), (2, 33, 33),
-                                        (1, 4096, 256), (32, 1024, 512)])
+@pytest.mark.parametrize("B,N,npoint", [
+    (3, 1000, 100), (2, 33, 33), (1, 4096, 256), (32, 1024, 512),
+    (4, 16384, 2048), (1, 65536, 4096),  # clusters of 8 and 16 blocks
+    (2, 4097, 300),  # N off every tile: a cluster of 3 blocks
+    (3, 33, 33),  # npoint = N: the last rounds pick distance-0 points
+    (1, 5000, 200),  # a cluster at a small N
+])
 def test_fps_kernel_equals_plain(device, B, N, npoint):
+    if (B, N) == (1, 5000):
+        assert fps.fps_plan(B, N).cluster > 1
     xyz = _cloud(B + N, B, N).to(device)
     start = torch.randint(0, N, (B,), dtype=torch.int32,
                           generator=torch.Generator().manual_seed(N)).to(device)
@@ -103,6 +110,9 @@ def test_fps_kernel_equals_plain(device, B, N, npoint):
     assert fps.KERNEL.launches == before + 1
     want = fps.farthest_point_sample(xyz, npoint, start, impl="plain")
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+    again = fps.farthest_point_sample(xyz, npoint, start)
+    assert fps.KERNEL.launches == before + 2
+    assert torch.equal(again, got)
 
 
 def test_fps_kernel_ties(device):
@@ -111,6 +121,30 @@ def test_fps_kernel_ties(device):
     got = sampling.farthest_point_sample(xyz, 60)
     want = sampling.farthest_point_sample(xyz, 60, impl="plain")
     torch.testing.assert_close(got, want, rtol=0, atol=0)
+    # copies of one cloud over a cluster: every tie crosses blocks
+    base = _cloud(5, 2, 1500)
+    xyz = torch.cat([base] * 4, dim=1).to(device)
+    assert fps.fps_plan(2, 6000).cluster > 1
+    got = sampling.farthest_point_sample(xyz, 400)
+    want = sampling.farthest_point_sample(xyz, 400, impl="plain")
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_fps_kernel_refuses_clouds_above_its_limit(device):
+    """Above the plan's limit the wrapper raises ``ValueError`` naming
+    it; a plan the kernel cannot hold is refused by the C entry."""
+    n = fps.POINT_LIMIT + 1
+    xyz = torch.zeros(1, n, 3, device=device)
+    start = torch.zeros(1, dtype=torch.int32, device=device)
+    before = fps.KERNEL.launches
+    with pytest.raises(ValueError, match=str(fps.POINT_LIMIT)):
+        fps.farthest_point_sample(xyz, 4, start)
+    small = torch.zeros(1, 4096, 3, device=device)
+    with pytest.raises(RuntimeError, match="papc_fps"):
+        fps.launch_plan(small, 4, start, fps.FpsPlan(4, 8, 1))  # 1024 < N
+    with pytest.raises(RuntimeError, match="papc_fps"):
+        fps.launch_plan(small, 4, start, fps.FpsPlan(16, 32, 1))  # registers
+    assert fps.KERNEL.launches == before
 
 
 @pytest.mark.parametrize("B,N,S,K,r", [(2, 1000, 77, 16, 0.3),

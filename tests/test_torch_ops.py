@@ -8,6 +8,8 @@ EXACTLY (indices and gathered values); the eval MLP+max within the
 tolerances stated at each test.
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -47,6 +49,7 @@ def _queries(rng, xyz, S):
 
 @pytest.mark.parametrize("B,N,npoint,start", [
     (2, 128, 32, 0), (3, 200, 64, 7), (1, 64, 64, 5), (4, 96, 1, 0),
+    (1, 16384, 64, 3),  # above the 12288 points the kernel once held
 ])
 def test_fps_matches_xla_and_pallas(rng, B, N, npoint, start):
     xyz = _cloud(rng, B, N)
@@ -58,6 +61,53 @@ def test_fps_matches_xla_and_pallas(rng, B, N, npoint, start):
     assert got.dtype == torch.int32 and got.shape == (B, npoint)
     np.testing.assert_array_equal(got.numpy(), want_xla)
     np.testing.assert_array_equal(got.numpy(), want_pl)
+
+
+@pytest.mark.parametrize("B,N", [
+    (32, 1024), (32, 512),  # SSG and MSG SA1 / SA2
+    (4, 16384), (1, 65536),  # the JAX kernel's recorded shapes
+    (1, 131072), (2, 33), (3, 1000), (2, 4097),
+])
+def test_fps_plan_owns_every_point_once(B, N):
+    """The kernel's plan: every point owned exactly once, in ascending
+    order over (rank, warp, lane, slot), by a launch the card takes."""
+    plan = fps.fps_plan(B, N)
+    warps, p, cluster = plan
+    own = fps.fps_ownership(N, plan)
+    assert own.shape == (cluster, warps, 32, p)
+    flat = own.flatten()
+    held = flat[flat >= 0]
+    assert torch.equal(held, torch.arange(N))  # once each, ascending
+    # padding only at the tail, and no rank without a point
+    assert bool((flat[:N] >= 0).all()) and bool((flat[N:] < 0).all())
+    assert all(bool((own[r] >= 0).any()) for r in range(cluster))
+    assert p in fps.POINTS_PER_LANE
+    assert 1 <= warps <= min(32, fps.MAX_WARPS[p])
+    assert cluster == 1 and warps <= fps.BLOCK_WARPS or cluster > 1
+    assert 1 <= cluster <= fps.MAX_CLUSTER == 16
+    csrc = Path(fps.__file__).resolve().parents[2] / "csrc"
+    if cluster > fps.PORTABLE_CLUSTER:  # the C side asks for more than 8
+        assert "csize > kPortableCluster" in (csrc / "fps.cu").read_text()
+        assert ("cudaFuncAttributeNonPortableClusterSizeAllowed"
+                in (csrc / "common.cuh").read_text())
+    assert fps.fps_smem_bytes(plan) <= fps.SMEM_PER_BLOCK == 232448
+    regs = fps.fps_registers(p)
+    assert regs <= fps.MAX_REGISTERS_PER_LANE
+    assert regs * 32 * warps <= fps.REGISTERS_PER_SM
+
+
+def test_fps_plan_takes_every_n_up_to_its_limit():
+    """Every N up to 131072, twice the JAX kernel's largest recorded
+    cloud, has a plan; above the limit the plan raises, naming it."""
+    assert fps.POINT_LIMIT >= 131072
+    for n in (1, 31, 32, 4096, 4097, 8192, 8193, 12289, 16384, 65536,
+              100000, fps.POINT_LIMIT):
+        w, p, c = fps.fps_plan(2, n)
+        assert 32 * w * p * c >= n
+    with pytest.raises(ValueError, match=str(fps.POINT_LIMIT)):
+        fps.fps_plan(1, fps.POINT_LIMIT + 1)
+    with pytest.raises(ValueError):
+        fps.fps_plan(0, 16)
 
 
 def test_fps_ties_take_first_occurrence():
