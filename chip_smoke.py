@@ -52,6 +52,13 @@ convolutions in f32 itself, as a user gets it.
    operands (h materialized beforehand; row 10's ``library_ms``), the
    da+dh part beside its byte bound and one cuBLAS call of ``da . W^T``
    on the bf16 operands (device time), and their sums over one SSG
+   step. ``finalize_max`` and ``bwd_seed`` must equal themselves bit for
+   bit over two calls and launch at most one and two kernels a call;
+   each call's device time by part (finalize_max_kernel;
+   bwd_seed_kernel and its reduce) beside its byte bound (#9's: dy
+   written, dout, amax and one element of a a (group, channel) read), one
+   ``torch.max`` over each group of the bf16 h, materialized beforehand
+   (the max alone: row 7's ``library_ms``), and their sums over one SSG
    step.
 5. Serving slice: ``papc_tpu_torch.train.evaluate`` over synthetic
    batches with the kernels, its launch counts, and its logits against
@@ -68,8 +75,8 @@ convolutions in f32 itself, as a user gets it.
    ``LOSS_RTOL``; each gradient as ``GRAD_RATIO`` says), step ms (CUDA
    events, median) for both, the device's busy share over 5 kernel
    steps (``torch.profiler``), in stream mode ``bwd_layer``'s device
-   time a step by part (as in phase 4) and ``linear_stats``' device time
-   a step, FPS's device ms a step with its launches and us a round, and
+   time a step by part (as in phase 4), ``linear_stats``' device time a
+   step and rows 7 and 9's by part beside their byte bounds, FPS's device ms a step with its launches and us a round, and
    peak device memory.
 7. Detection kernels at the detection shapes (B=2, K=1000): the rotated
    and the matrix NMS sweep against their plain versions, on the
@@ -97,7 +104,10 @@ convolutions in f32 itself, as a user gets it.
    rows), on MSG classification's SA2 branches and on a set with indices
    outside the rows; the eval pass on all seven MSG classification
    stacks (SA1 at K 16/32/128, SA2 at K 32/64/128, SA3 at c0 = 643) as in
-   phase 3, with their sum over one forward; the stream passes at K = 16, at
+   phase 3, with their sum over one forward; ``finalize_max`` and
+   ``bwd_seed`` at the last layer of every MSG stack (clas and seg) on a
+   random a with ties and a group at or below 0, as in phase 4 but
+   untimed; the stream passes at K = 16, at
    K = 128 with width 196 and at c0 = 643 as in phase 4; with kernel,
    plain and ``index_add_`` ms.
 10. MSG classification: phases 5 and 6 for ``pointnet2_msg`` clas, #5
@@ -525,6 +535,7 @@ def phase_train_kernels(groups, rows, record=True):
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     split_sum = {}  # row 10's device ms by part over the stages
+    pass_sum = {}  # rows 7 and 9: device ms by part and bounds
     ls_sum = [0.0, 0.0, 0.0]  # row 6's device, bound and cuBLAS ms
     for stage, grouped, idx, n_src, mlp, data_input in groups:
         b, s, k, c0 = grouped.shape
@@ -585,27 +596,9 @@ def phase_train_kernels(groups, rows, record=True):
             a_list.append(pa)
             vecs.append(vec4)
             h, vec = pa, vec4
-        row, tag = rows["samlp_finalize_max"], f"{stage} {m}x{h.shape[1]} k={k}"
-        out, amax = st.finalize_max(h, vec, k=k)
-        pout, pamax = st.finalize_max(h, vec, k=k, impl="plain")
-        _compare(row, tag + " amax", amax, pamax, exact=True)
-        _compare(row, tag + " max", out, pout, exact=True,
-                 fn_kernel=lambda: st.finalize_max(h, vec, k=k),
-                 fn_plain=lambda: st.finalize_max(h, vec, k=k, impl="plain"),
-                 work=(_nbytes(h, vec, out, amax),
-                       4 * h.numel() / F32_OPS_PER_S), record=record)
-        dout = torch.randn(pout.shape, generator=gen, device="cuda")
-        row = rows["samlp_bwd_seed"]
-        dy, sd = st.bwd_seed(h, vec, dout, pamax, k=k)
-        pdy, psd = st.bwd_seed(h, vec, dout, pamax, k=k, impl="plain")
-        _compare(row, tag + " dy", dy, pdy, exact=True)
-        _compare(row, tag + " sums", sd, psd, rel=TRAIN_TOL,
-                 fn_kernel=lambda: st.bwd_seed(h, vec, dout, pamax, k=k),
-                 fn_plain=lambda: st.bwd_seed(h, vec, dout, pamax, k=k,
-                                              impl="plain"),
-                 work=(_nbytes(h, vec, dout, pamax, dy, sd),
-                       8 * h.numel() / F32_OPS_PER_S), record=record)
-        dy, sd = pdy, psd
+        tag = f"{stage} {m}x{h.shape[1]} k={k}"
+        dy, sd = _finalize_seed(rows, tag, h, vec, k, gen, record=record,
+                                total=pass_sum)
         row = rows["samlp_bwd_layer"]
         for i in range(len(layers) - 1, -1, -1):
             w = layers[i][0]
@@ -656,6 +649,8 @@ def phase_train_kernels(groups, rows, record=True):
             del hb, dab, again
             dy, sd = want[0], want[3]
     if record:
+        print("    rows 7 and 9 over one SSG step (device, profiler; "
+              "launches a step): " + _pass_line(pass_sum))
         print(f"    samlp_linear_stats over one SSG step (device, profiler): "
               f"{ls_sum[0]:.4f} ms against its bound {ls_sum[1]:.4f} ms (x "
               f"read, a written once) and cuBLAS h.W {ls_sum[2]:.4f} ms")
@@ -667,6 +662,133 @@ def phase_train_kernels(groups, rows, record=True):
               f"(a_prev and da read once) and cuBLAS h^T.da "
               f"{lib_ms:.4f} ms; the da+dh part {dh_ms:.4f} ms against its "
               f"bound {dh_bound:.4f} ms and cuBLAS da.W^T {dh_lib:.4f} ms")
+
+
+def _finalize_seed(rows, tag, h, vec, k, gen, *, record=True, total=None,
+                   timed=True):
+    """``finalize_max`` (#7) and ``bwd_seed`` (#9) on one stack's last
+    pre-activation ``h``, each against its plain version: max, argmax and
+    dy exactly, the sums within ``TRAIN_TOL`` of plain's largest, all
+    equal over two calls. ``timed``: kernel, plain and library ms
+    (``torch.max`` over each group of the bf16 h, materialized beforehand:
+    the max alone, for #7; #9 has no such call) and each call's device ms
+    by part (profiler) against its byte bound, added to ``total``. #9's
+    bound counts the bytes its function needs: dy written, dout, amax and
+    the vectors read, the sums written, and one bf16 element of h a
+    (group, channel), the one at its argmax row. Returns plain's ``(dy,
+    sums)``."""
+    from papc_tpu_torch.ops.kernels import samlp_train as st
+
+    m, c = h.shape
+    g = m // k
+    row = rows["samlp_finalize_max"]
+    out, amax = st.finalize_max(h, vec, k=k)
+    pout, pamax = st.finalize_max(h, vec, k=k, impl="plain")
+    _compare(row, tag + " amax", amax, pamax, exact=True)
+    again = st.finalize_max(h, vec, k=k)
+    check(torch.equal(again[0], out) and torch.equal(again[1], amax),
+          f"{tag}: finalize_max differs between two calls")
+    del again
+    hb = (torch.clamp_min(h.float() * vec[0] + vec[1], 0.0)
+          .to(torch.bfloat16).view(g, k, c)) if timed else None
+    fin_bytes = _nbytes(h, vec[:2], out, amax)
+    _compare(row, tag + " max", out, pout, exact=True,
+             fn_kernel=(lambda: st.finalize_max(h, vec, k=k)) if timed
+             else None,
+             fn_plain=lambda: st.finalize_max(h, vec, k=k, impl="plain"),
+             work=(fin_bytes, 4 * h.numel() / F32_OPS_PER_S),
+             fn_library=lambda: torch.max(hb, dim=1), record=record)
+    dout = torch.randn(pout.shape, generator=gen, device="cuda")
+    row = rows["samlp_bwd_seed"]
+    dy, sd = st.bwd_seed(h, vec, dout, pamax, k=k)
+    pdy, psd = st.bwd_seed(h, vec, dout, pamax, k=k, impl="plain")
+    _compare(row, tag + " dy", dy, pdy, exact=True)
+    again = st.bwd_seed(h, vec, dout, pamax, k=k)
+    check(torch.equal(again[0], dy) and torch.equal(again[1], sd),
+          f"{tag}: bwd_seed differs between two calls")
+    del again
+    seed_bytes = _nbytes(dy, dout, pamax, vec, sd) + 2 * g * c
+    _compare(row, tag + " sums", sd, psd, rel=TRAIN_TOL,
+             fn_kernel=(lambda: st.bwd_seed(h, vec, dout, pamax, k=k))
+             if timed else None,
+             fn_plain=lambda: st.bwd_seed(h, vec, dout, pamax, k=k,
+                                          impl="plain"),
+             work=(seed_bytes, 8 * g * c / F32_OPS_PER_S), record=record)
+    if timed:
+        split = _pass_split(_device_events(
+            lambda: st.finalize_max(h, vec, k=k), 10)[0], 10)
+        seed_events = _device_events(
+            lambda: st.bwd_seed(h, vec, dout, pamax, k=k), 10)[0]
+        split.update((p, v) for p, v in _pass_split(seed_events, 10).items()
+                     if p != "finalize_max")
+        # one kernel a finalize_max call, two a bwd_seed call (the profiler
+        # may drop a record, never add one)
+        check(split["finalize_max"][1] <= 1 and len(seed_events) <= 20,
+              f"{tag}: finalize_max {split['finalize_max'][1]:g} kernels a "
+              f"call, bwd_seed {len(seed_events) / 10:g}")
+        lib = _device_ms(lambda: torch.max(hb, dim=1))
+        bounds = {"finalize_max": fin_bytes / HBM_BYTES_PER_S * 1e3,
+                  "bwd_seed": seed_bytes / HBM_BYTES_PER_S * 1e3}
+        print(f"    {'':<18} {tag}: device {_pass_line(split, bounds)}; "
+              f"torch.max over k of h materialized (the max alone) "
+              f"{lib:.4f} ms")
+        if total is not None:
+            for p, (ms, n) in split.items():
+                have = total.setdefault(p, (0.0, 0))
+                total[p] = (have[0] + ms, have[1] + n)
+            for p, b in bounds.items():
+                total[p + " bound"] = total.get(p + " bound", 0.0) + b
+    del hb
+    return pdy, psd
+
+
+PASS_PARTS = ("finalize_max", "bwd_seed", "seed reduce")
+
+
+def _pass_split(device, calls: int) -> dict:
+    """Rows 7 and 9's device ms and launches a call by part, from kernel
+    records in stream order: ``finalize_max_kernel``, ``bwd_seed_kernel``
+    and its reduce (the record right after it: ``split_reduce_kernel``,
+    or ``reduce_partials_kernel`` before the two passes' redesign)."""
+    parts = {p: [0.0, 0] for p in PASS_PARTS}
+    prev = None
+    for e in device:
+        name = _base_name(e)
+        part = {"finalize_max_kernel": "finalize_max",
+                "bwd_seed_kernel": "bwd_seed"}.get(name)
+        if prev == "bwd_seed_kernel" and name in ("split_reduce_kernel",
+                                                  "reduce_partials_kernel"):
+            part = "seed reduce"
+        if part is not None:
+            parts[part][0] += e.time_range.elapsed_us() / 1e3
+            parts[part][1] += 1
+        prev = name
+    return {p: (ms / calls, n / calls) for p, (ms, n) in parts.items()}
+
+
+def _pass_line(split: dict, bounds: dict | None = None) -> str:
+    """Rows 7 and 9 by part, each row beside its byte bound (from
+    ``bounds`` or the ``"<row> bound"`` entries of ``split``)."""
+    bounds = bounds or {p: split.get(p + " bound", 0.0)
+                        for p in ("finalize_max", "bwd_seed")}
+    fin, seed, red = (split.get(p, (0.0, 0)) for p in PASS_PARTS)
+    return (f"finalize_max {fin[0]:.4f} ms ({fin[1]:g}), bound "
+            f"{bounds['finalize_max']:.4f} ms; bwd_seed {seed[0]:.4f} ms "
+            f"({seed[1]:g}) + its reduce {red[0]:.4f} ms ({red[1]:g}) = "
+            f"{seed[0] + red[0]:.4f} ms, bound {bounds['bwd_seed']:.4f} ms")
+
+
+def _pass_bounds(model) -> dict:
+    """Rows 7 and 9's byte bounds over one step of ``model`` (every stack
+    in stream mode), as ``_finalize_seed`` counts them."""
+    out = {"finalize_max bound": 0.0, "bwd_seed bound": 0.0}
+    for m, k, _, widths in _stack_shapes(model):
+        c, g = widths[-1], m // k
+        out["finalize_max bound"] += (2 * m * c + 8 * g * c + 8 * c) \
+            / HBM_BYTES_PER_S * 1e3
+        out["bwd_seed bound"] += (2 * m * c + 10 * g * c + 24 * c) \
+            / HBM_BYTES_PER_S * 1e3
+    return out
 
 
 def _device_ms(fn, calls: int = 10) -> float:
@@ -1297,7 +1419,36 @@ def phase_new_shapes(rows, t_rows):
           "the new-shape stages are not K=16, K=128 width 196, c0=643")
     with torch.no_grad():
         phase_train_kernels(groups, t_rows, record=False)
+        _msg_last_layers(t_rows, models)
     return row
+
+
+def _msg_last_layers(t_rows, models):
+    """#7 and #9 against their plain versions at the last layer of every
+    MSG stack, clas and seg (B=32), as ``_finalize_seed`` holds them, on a
+    random bf16 a with exact ties inside each group and one group at or
+    below 0 after the affine (every row ties at 0)."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    seen = set()
+    for mode, model in models.items():
+        for m, k, _, widths in _stack_shapes(model):
+            c = widths[-1]
+            if (m, c, k) in seen:
+                continue
+            seen.add((m, c, k))
+            a = torch.randn(m, c, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            a[1::k] = a[0::k]
+
+            def rand(lo, width):
+                return lo + width * torch.rand(c, generator=gen,
+                                               device="cuda")
+
+            vec = torch.stack([rand(0.7, 0.6), rand(-0.2, 0.4),
+                               rand(-0.1, 0.2), rand(0.5, 1.5)])
+            a[k:2 * k] = -a[k:2 * k].abs() - 2 * vec[1].abs() / vec[0] - 0.01
+            _finalize_seed(t_rows, f"MSG {mode} last layer {m}x{c} k={k}",
+                           a, vec, k, gen, record=False, timed=False)
 
 
 RC_ROWS = [  # name, source, TPU kernel it replaces
@@ -1801,6 +1952,11 @@ def _device_busy(fn, steps: int = 5, top: int = 0, split: bool = False,
         ls_ms, ls_n = _linear_stats_split(device, steps)
         print(f"    samlp_linear_stats device ms a step: {ls_ms:.4f} "
               f"({ls_n:g} launches)")
+        passes = _pass_split(device, steps)
+        if fps_model is not None:
+            passes.update(_pass_bounds(fps_model))
+        print("    rows 7 and 9 device ms a step (launches a step): "
+              + _pass_line(passes))
     if top:
         by_name: dict = {}
         for e in device:

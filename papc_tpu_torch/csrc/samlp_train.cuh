@@ -14,9 +14,9 @@
 // so every column sum is formed in a fixed order, and repeated runs give
 // the same bits.
 //
-// reduce_partials (the recompute passes and samlp_finalize_seed.cu):
-// out[r, c] = sum over i < n of part[i, r, c], one thread per output, in
-// order of i. split_reduce (samlp_linear_stats.cu and samlp_bwd_layer.cu):
+// reduce_partials (the recompute passes): out[r, c] = sum over i < n of
+// part[i, r, c], one thread per output, in order of i. split_reduce
+// (samlp_linear_stats.cu, samlp_finalize_seed.cu, samlp_bwd_layer.cu):
 // the same sums, `lanes` lanes a column, each summing every lanes-th
 // part in order, then the lanes' sums in order. Both are fixed-order
 // second stages of a cross-block sum.

@@ -23,7 +23,9 @@ both parts of ``bwd_layer`` run on the ``mma.sync`` core
 (``csrc/samlp_mma.cuh``); their plans here pick the tiles: for
 ``linear_stats`` persistent blocks that hold their column tile of W in
 shared memory and walk row tiles of x through a ``cp.async`` ring
-(``linear_stats_plan``).
+(``linear_stats_plan``). ``finalize_max`` and ``bwd_seed`` are streaming
+passes of 16-byte loads and stores (``finalize_plan``, ``seed_plan``);
+``bwd_seed`` reads ``a`` only at each column's argmax row.
 """
 
 from __future__ import annotations
@@ -41,8 +43,10 @@ LINEAR_STATS = Kernel(
     "papc_samlp_linear_stats",
     [P, I, I, P, P, P, I, I, I, I, I, I, I, I, P, P, P, P],
 )
-FINALIZE_MAX = Kernel("papc_samlp_finalize_max", [P, I, I, I, P, P, P, P])
-BWD_SEED = Kernel("papc_samlp_bwd_seed", [P, I, I, I, P, P, P, I, P, P, P, P])
+FINALIZE_MAX = Kernel("papc_samlp_finalize_max",
+                      [P, I, I, I, P, I, I, I, I, I, P, P, P])
+BWD_SEED = Kernel("papc_samlp_bwd_seed",
+                  [P, I, I, I, P, P, P, I, I, I, I, P, P, P, P])
 BWD_LAYER = Kernel(
     "papc_samlp_bwd_layer",
     [P, P, P, I, I, I, I, P, I, I, P, P, P, I, I, I, I, I, I, I, I,
@@ -52,7 +56,6 @@ KERNELS = (LINEAR_STATS, FINALIZE_MAX, BWD_SEED, BWD_LAYER)
 
 _SKEW = 8  # bf16 elements of padding per shared-memory row (bank spread)
 _WARPS = 8
-_THREADS = 131072  # target thread count of the per-column passes
 _SMS = 132  # the H100's SMs
 _SMEM_OPTIN = 232448  # shared memory a block may opt into
 _SMEM_SM = 233472  # shared memory of an SM (1 KB of it reserved a block)
@@ -67,6 +70,11 @@ _DW_STAGE_BYTES = 32 * 1024  # a ring stage at most, where rows allow
 _DH_THREADS = _WARPS * 32
 _DH_SLICE = 32  # W's Cout columns a ring stage holds
 _ROWS_ALIGN = 256  # m_pad: a multiple of every row tile and dW chunk
+# finalize_max and bwd_seed (csrc/samlp_finalize_seed.cu)
+_PASS_THREADS = 256  # threads of a block
+_FILL = 131072  # finalize_max threads a call aims for (half the SMs' room)
+_SEED_SPAN = 32768  # dy elements a bwd_seed block writes at most (64 KB)
+_SEED_CELLS = 4096  # (group, channel) cells of a bwd_seed block (48 KB)
 
 
 # ------------------------------------------------------- plain versions
@@ -260,12 +268,6 @@ def linear_stats_plan(m: int, cin: int, cout: int) -> dict:
     return {"cin_p": cin_p, "cout_p": cout_p, **best[1]}
 
 
-def slices(rows: int, c: int) -> int:
-    """Row slices of a per-column pass: ``slices x c`` threads, each
-    summing its rows ``p, p + slices, ...`` in order."""
-    return max(1, min(rows, _THREADS // c))
-
-
 def _dw_smem(cin: int, wm: int, wn: int, wk: int, rows: int) -> tuple:
     """Bytes of one ring stage and of the dW block's shared memory, as
     ``DwShape::smem`` reckons them: for a Cin whose rows start on 16
@@ -279,6 +281,77 @@ def _dw_smem(cin: int, wm: int, wn: int, wk: int, rows: int) -> tuple:
     stage = 2 * (a + rows * (tn + _SKEW))
     main = (0 if aligned else 2 * rows * (tm + _SKEW)) + _DW_STAGES * stage
     return stage, max(main, 4 * (wk - 1) * wm * wn * 32 * 64)
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+@functools.lru_cache(maxsize=None)
+def finalize_plan(m: int, c: int, k: int) -> dict:
+    """The finalize_max grid: a thread takes a chunk of ``v`` channels
+    (``_vec_cols``: one 16-byte load a row where C % 8 == 0) of one group
+    and walks ``rows`` rows of it; ``lanes`` threads (up to 16, a power of
+    two) take neighbouring chunks of a row, ``slices`` threads the row
+    ranges of one group, ``groups`` groups a block of 256 threads. The
+    slices double while the call has fewer than ``_FILL`` threads (SA3's 32
+    groups), as long as each slice keeps at least 4 rows (loads in
+    flight) and none is empty. ``blocks``: the block groups times the
+    ``ranges`` of ``lanes`` chunks that cover a row. Cached."""
+    groups = m // k
+    v = _vec_cols(c)
+    chunks = c // v
+    lanes = min(16, _pow2_ceil(chunks))
+    ranges = -(-chunks // lanes)
+    slices = 1
+    while (groups * ranges * lanes * slices < _FILL
+           and 2 * slices * lanes <= _PASS_THREADS and k >= 8 * slices
+           and (2 * slices - 1) * -(-k // (2 * slices)) < k):
+        slices *= 2
+    per_block = _PASS_THREADS // (lanes * slices)
+    return {"v": v, "lanes": lanes, "ranges": ranges, "slices": slices,
+            "rows": -(-k // slices), "groups": per_block,
+            "blocks": -(-groups // per_block) * ranges}
+
+
+@functools.lru_cache(maxsize=None)
+def seed_plan(m: int, c: int, k: int) -> dict:
+    """The bwd_seed grid: a block writes one contiguous span of dy, the
+    ``rows`` rows of each of ``tile`` groups (``rows`` < k only with one
+    group a block), with stores of ``v`` channels (``_vec_cols``). The
+    span holds at most ``_SEED_SPAN`` elements and the tile at most
+    ``_SEED_CELLS`` (group, channel) cells; then tiles and rows are
+    halved while the call has fewer than two blocks an SM (SA3's 32
+    groups of 128 x 1024 split into 16 ranges of 8 rows), down to 8 rows.
+    ``tiles``: the rows of the f32 partials, one a tile, written by its
+    block that holds the groups' first rows; ``smem``: the block's key, v
+    and v * xhat, 12 bytes a cell. Cached."""
+    if k >= 0xFFFF:
+        raise ValueError(f"bwd_seed takes k below 65535, got {k}")
+    groups = m // k
+    if k * c <= _SEED_SPAN:
+        tile = min(groups, _SEED_SPAN // (k * c), max(1, _SEED_CELLS // c))
+        rows = k
+    else:
+        tile, rows = 1, _SEED_SPAN // c if c <= _SEED_SPAN else 1
+
+    def blocks(tile, rows):
+        return -(-groups // tile) * -(-k // rows)
+
+    while blocks(tile, rows) < 2 * _SMS:
+        if tile > 1:
+            tile = -(-tile // 2)
+        elif rows > 8:
+            rows = -(-rows // 2)
+        else:
+            break
+    smem = 12 * tile * c
+    if smem > _SMEM_OPTIN:
+        raise ValueError(f"bwd_seed needs {smem} B of shared memory for "
+                         f"c={c}; a block may take {_SMEM_OPTIN}")
+    return {"v": _vec_cols(c), "tile": tile, "rows": rows,
+            "tiles": -(-groups // tile), "splits": -(-k // rows),
+            "blocks": blocks(tile, rows), "smem": smem}
 
 
 def _split_evenly(n: int, most: int) -> int:
@@ -461,15 +534,23 @@ def linear_stats_cuda(x, vec, w_packed, b, cout: int):
     return a, sums
 
 
+def _whole_groups(m: int, k: int) -> None:
+    if m % k:
+        raise ValueError(f"{m} rows are not whole groups of k={k}")
+
+
 def finalize_max_cuda(a, vec, *, k: int):
     m, c = a.shape
     check(a, "a", torch.bfloat16, (m, c))
     check(vec, "vec", torch.float32, (None, c))
-    if m % k:
-        raise ValueError(f"{m} rows are not whole groups of k={k}")
+    _whole_groups(m, k)
+    plan = finalize_plan(m, c, k)
+    a = _aligned16(a)
     out = torch.empty((m // k, c), dtype=torch.float32, device=a.device)
     amax = torch.empty((m // k, c), dtype=torch.int32, device=a.device)
-    FINALIZE_MAX(ptr(a), m, c, k, ptr(vec), ptr(out), ptr(amax), stream_of(a))
+    FINALIZE_MAX(ptr(a), m, c, k, ptr(vec), plan["v"], plan["lanes"],
+                 plan["slices"], plan["rows"], plan["blocks"], ptr(out),
+                 ptr(amax), stream_of(a))
     return out, amax
 
 
@@ -477,13 +558,17 @@ def bwd_seed_cuda(a, vec, dout, amax, *, k: int):
     m, c = a.shape
     check(a, "a", torch.bfloat16, (m, c))
     check(vec, "vec", torch.float32, (4, c))
+    _whole_groups(m, k)
     check(dout, "dout", torch.float32, (m // k, c))
     check(amax, "amax", torch.int32, (m // k, c))
-    n = slices(m // k, c)
+    plan = seed_plan(m, c, k)
+    dout, amax = _aligned16(dout), _aligned16(amax)
     dy = torch.empty((m, c), dtype=torch.bfloat16, device=a.device)
-    partials = torch.empty((n, 2, c), dtype=torch.float32, device=a.device)
+    partials = torch.empty((plan["tiles"], 2, c), dtype=torch.float32,
+                           device=a.device)
     s = torch.empty((2, c), dtype=torch.float32, device=a.device)
-    BWD_SEED(ptr(a), m, c, k, ptr(vec), ptr(dout), ptr(amax), n, ptr(dy),
+    BWD_SEED(ptr(a), m, c, k, ptr(vec), ptr(dout), ptr(amax), plan["v"],
+             plan["tile"], plan["rows"], plan["blocks"], ptr(dy),
              ptr(partials), ptr(s), stream_of(a))
     return dy, s
 

@@ -392,26 +392,83 @@ def test_linear_stats_takes_an_x_off_16_bytes(device):
             torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("m,cin,cout,k", TRAIN_LAYERS)
+# finalize_max and bwd_seed only: C = 4 (mod 8) (196: 8-byte chunks) and
+# odd C (a value a thread), fewer groups than a block takes, k from 8 to
+# 128, k = 33 (row slices of unequal length), SA3's 1024 channels at a
+# few groups (a group's rows split over slices and blocks)
+FINALIZE_SEED_EDGES = [(999 * 8, None, 196, 8), (8 * 8, None, 37, 8),
+                       (3 * 16, None, 128, 16), (2 * 32, None, 40, 32),
+                       (5 * 64, None, 24, 64), (7 * 128, None, 37, 128),
+                       (5 * 128, None, 1024, 128), (4 * 33, None, 256, 33)]
+
+
+@pytest.mark.parametrize("m,cin,cout,k", TRAIN_LAYERS + FINALIZE_SEED_EDGES)
 def test_finalize_and_seed_kernels_equal_plain(device, m, cin, cout, k):
+    """Both passes against their plain versions: max, argmax and dy
+    exactly, the sums within 1e-3 of plain's largest and equal over two
+    calls. a has exact ties inside each group (the first row must win)
+    and one group whose every value is at most 0 (every row ties at 0);
+    one launch of finalize_max and at most two of bwd_seed a call; an
+    argmax outside [0, k) routes nothing."""
     if m % k:
         m = m // k * k
     a = _bf16((m, cout), m, device)
     a[1::k] = a[0::k]  # exact ties inside each group
     vec = _vec4(cout, cout, device)
+    vec[0, :] = vec[0].abs()
+    # o < 0 at every row of group 1, after the bf16 rounding of a
+    a[k:2 * k] = -a[k:2 * k].abs() - 2 * vec[1].abs() / vec[0] - 0.01
+    launches = (samlp_train.FINALIZE_MAX.launches,
+                samlp_train.BWD_SEED.launches)
     out, amax = samlp_train.finalize_max(a, vec, k=k)
+    assert samlp_train.FINALIZE_MAX.launches == launches[0] + 1
     want, want_amax = samlp_train.finalize_max(a, vec, k=k, impl="plain")
     torch.testing.assert_close(out, want, rtol=0, atol=0)
     torch.testing.assert_close(amax, want_amax, rtol=0, atol=0)
+    if m >= 2 * k:
+        assert bool((out[1] == 0).all() and (amax[1] == 0).all())
+    again = samlp_train.finalize_max(a, vec, k=k)
+    assert torch.equal(again[0], out) and torch.equal(again[1], amax)
     dout = torch.randn(m // k, cout, generator=torch.Generator().manual_seed(k)
                        ).to(device)
+    dy, s = samlp_train.bwd_seed(a, vec, dout, amax, k=k)
+    assert samlp_train.BWD_SEED.launches == launches[1] + 1
+    want_dy, want_s = samlp_train.bwd_seed(a, vec, dout, amax, k=k,
+                                           impl="plain")
+    torch.testing.assert_close(dy, want_dy, rtol=0, atol=0)
+    _near(s, want_s, 1e-3)
+    again = samlp_train.bwd_seed(a, vec, dout, amax, k=k)
+    torch.testing.assert_close(again[1], s, rtol=0, atol=0)  # fixed order
+    assert torch.equal(again[0], dy)
+    # an amax outside [0, k) selects no row, as plain's kio == amax
+    amax = amax.clone()
+    amax[0, ::3] = -1
+    amax[-1, 1::3] = k + 3
     dy, s = samlp_train.bwd_seed(a, vec, dout, amax, k=k)
     want_dy, want_s = samlp_train.bwd_seed(a, vec, dout, amax, k=k,
                                            impl="plain")
     torch.testing.assert_close(dy, want_dy, rtol=0, atol=0)
     _near(s, want_s, 1e-3)
-    again = samlp_train.bwd_seed(a, vec, dout, amax, k=k)[1]
-    torch.testing.assert_close(again, s, rtol=0, atol=0)  # fixed order
+
+
+def test_finalize_and_seed_take_an_a_off_16_bytes(device):
+    """A view of a that starts 2 bytes into a row: finalize_max reads an
+    aligned copy, bwd_seed reads a where it lies; every output equals the
+    aligned call's."""
+    m, c, k = 64 * 32, 128, 32
+    base = _bf16((m * c + 1,), 5, device)
+    off = base[1:].view(m, c)
+    assert off.data_ptr() % 16
+    vec = _vec4(c, 6, device)
+    got = samlp_train.finalize_max(off, vec, k=k)
+    want = samlp_train.finalize_max(off.clone(), vec, k=k)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    dout = torch.randn(m // k, c, device=device)
+    got = samlp_train.bwd_seed(off, vec, dout, want[1], k=k)
+    want = samlp_train.bwd_seed(off.clone(), vec, dout, want[1], k=k)
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
 # bwd_layer only: the dW product's ragged cases. M a multiple of neither
@@ -925,7 +982,8 @@ def test_single_launch_is_one_device_kernel(device):
     for name, call in calls.items():
         call()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
             call()
             torch.cuda.synchronize()
         kernels = [e.name for e in prof.events()

@@ -515,7 +515,117 @@ def test_training_kernel_plans_at_the_ssg_shapes():
         assert bw["dw_tiles"] * bw["splits"] >= 132
         operand = 2 * m * cin + 2 * bw["m_pad"] * bw["cout_p"]
         assert 4 * bw["splits"] * bw["cin_p"] * bw["cout_p"] <= operand
-    assert samlp_train.slices(16384, 128) * 128 <= 131072
+
+
+def _last_layers():
+    """``(m, C, k)`` of the last layer of every SSG and MSG stack of the
+    registry (B=32 x 1024), each once."""
+    out = []
+    for combo in sorted(EVAL_PLANS):
+        spec = registry.init_model(*combo, device="cpu")
+        for _, m, k, _, widths in P.stack_shapes(spec.model):
+            if (m, widths[-1], k) not in out:
+                out.append((m, widths[-1], k))
+    return out
+
+
+# C = 4 (mod 8) and odd C, fewer groups than a block takes, and k from 8
+# to 128 (k = 33: a split that must leave no slice empty)
+PASS_PLAN_EDGES = [(999 * 8, 196, 8), (8 * 8, 37, 8), (3 * 16, 128, 16),
+                   (2 * 32, 40, 32), (5 * 64, 24, 64), (7 * 128, 37, 128),
+                   (5 * 128, 1024, 128), (4 * 33, 256, 33)]
+
+
+def _finalize_cover(m, c, k):
+    """Mirror of ``finalize_max_kernel``'s indexing: the (group, chunk,
+    row) reads of every live thread, each thread's block, and the
+    blocks."""
+    p = samlp_train.finalize_plan(m, c, k)
+    groups, lanes, slices, rows = m // k, p["lanes"], p["slices"], p["rows"]
+    chunks = c // p["v"]
+    b = np.arange(p["blocks"])[:, None]
+    t = np.arange(256)[None, :]
+    s, gi = (t // lanes) % slices, t // (lanes * slices)
+    g = (b // p["ranges"]) * p["groups"] + gi
+    j = (b % p["ranges"]) * lanes + t % lanes
+    live = (g < groups) & (j < chunks)
+    return (p, g, j, np.broadcast_to(s, g.shape), live,
+            np.broadcast_to(b, g.shape))
+
+
+@pytest.mark.parametrize("m,c,k", _last_layers() + PASS_PLAN_EDGES)
+def test_finalize_and_seed_plans_cover_every_element_once(m, c, k):
+    """The plans of the two per-column passes as their kernels walk them.
+
+    finalize_max: 16-byte chunks where C % 8 == 0 (8 bytes where C = 4 mod
+    8, a value where C is odd); every (group, chunk, slice) taken by one
+    live thread, all slices of a (group, chunk) in one block (their merge
+    is in shared memory), and the slices' row ranges cut k with none empty,
+    so every row of every group is read once in each chunk. bwd_seed: the
+    blocks' spans write every dy element once (the phase-2 walk stepped
+    without division, as the kernel does, on a few blocks), each group's
+    sums added by exactly one block (the one with its first row), a k that
+    fits a key's 16 bits, shared memory without an opt-in. SA3 (and every
+    4096-row stack) takes at least one block an SM in both."""
+    groups = m // k
+    p, g, j, s, live, blk = _finalize_cover(m, c, k)
+    v = 8 if c % 8 == 0 else 4 if c % 4 == 0 else 1
+    assert p["v"] == v and p["lanes"] * p["slices"] <= 256
+    assert 256 % (p["lanes"] * p["slices"]) == 0
+    chunks = c // v
+    key = (g[live] * chunks + j[live]) * p["slices"] + s[live]
+    assert np.array_equal(np.sort(key), np.arange(groups * chunks
+                                                  * p["slices"]))
+    home = np.full(groups * chunks, -1)
+    home[g[live] * chunks + j[live]] = blk[live]
+    assert (home[g[live] * chunks + j[live]] == blk[live]).all()
+    starts = np.arange(p["slices"]) * p["rows"]
+    assert starts[-1] < k <= starts[-1] + p["rows"]  # none empty, k covered
+    if p["slices"] > 1:
+        assert p["rows"] >= 4
+    if m == 4096:
+        assert p["blocks"] >= 132
+
+    q = samlp_train.seed_plan(m, c, k)
+    assert q["v"] == v and k < 0xFFFF and q["smem"] <= 48 * 1024
+    tile, rows, splits = q["tile"], q["rows"], q["splits"]
+    assert rows == k or tile == 1
+    assert q["tiles"] == -(-groups // tile) and splits == -(-k // rows)
+    assert q["blocks"] == q["tiles"] * splits
+    written = np.zeros(m, dtype=np.int64)  # dy rows, by the spans
+    sums = np.zeros(groups, dtype=np.int64)
+    for b in range(q["blocks"]):
+        g0 = (b // splits) * tile
+        ng = min(tile, groups - g0)
+        r0 = (b % splits) * rows
+        r1 = min(k, r0 + rows)
+        assert ng >= 1 and r1 > r0
+        if r0 == 0:
+            sums[g0:g0 + ng] += 1
+        for gl in range(ng):
+            written[(g0 + gl) * k + r0:(g0 + gl) * k + r1] += 1
+    assert (written == 1).all() and (sums == 1).all()
+    for b in {0, q["blocks"] // 2, q["blocks"] - 1}:
+        g0 = (b // splits) * tile
+        ng = min(tile, groups - g0)
+        r0 = (b % splits) * rows
+        nr = min(k, r0 + rows) - r0
+        seen = []
+        for t in range(256):  # the kernel's walk, stepped as it is
+            drow, dj = 256 // chunks, 256 % chunks
+            row, jj = t // chunks, t % chunks
+            gl, r = row // nr, row % nr
+            while row < ng * nr:
+                assert (gl, r) == divmod(row, nr)
+                seen.append(row * chunks + jj)
+                row, r, jj = row + drow, r + drow, jj + dj
+                if jj >= chunks:
+                    jj, row, r = jj - chunks, row + 1, r + 1
+                while r >= nr:
+                    r, gl = r - nr, gl + 1
+        assert sorted(seen) == list(range(ng * nr * chunks))
+    if m == 4096:
+        assert q["blocks"] >= 132
 
 
 @pytest.mark.parametrize("m,cin,cout", SSG_TRAIN_LAYERS + MSG_TRAIN_LAYERS + [
