@@ -28,7 +28,11 @@ convolutions in f32 itself, as a user gets it.
    8 warps a block (exact against plain, device us a round), the round's
    floor (the plan's warps at one point a lane), and at B=4 x 16384
    (npoint 2048) and B=1 x 65536 (npoint 4096), exact against plain, with
-   kernel ms; none of these counts in the row.
+   kernel ms; none of these counts in the row. The gather besides: each
+   stage's device ms (profiler) beside its byte bound and one
+   ``index_select`` of the concatenated source rows by the flat clamped
+   indices (the gather without the centring; row 3's ``library_ms`` by
+   CUDA events), and their sums over one SSG forward.
 4. Training kernels at the SSG shapes, pass by pass on identical inputs
    (each pass fed the plain chain's previous outputs): ``finalize_max``
    (max and argmax) and ``bwd_seed``'s dy exactly; stored bf16
@@ -38,8 +42,12 @@ convolutions in f32 itself, as a user gets it.
    other bf16 neighbour); f32
    sums, dW, db and dg within 1e-3 of their largest (sums over up to
    524288 rows in another order); the scatter-add within 1e-5 of its
-   largest (f32 atomics). Times as in phase 3. ``linear_stats``' a and
-   sums must equal themselves bit for bit over two calls; each call's
+   largest (each point's sum in its list's order, against atomics) and
+   equal to itself bit for bit over two calls, with its device ms by part
+   (the inverse index and the sum, at most one launch of each a call)
+   beside its byte bound and ``index_add_``. Times as in phase 3.
+   ``linear_stats``' a and sums must equal themselves bit for bit over
+   two calls; each call's
    device time (its kernel and its reduce, ``torch.profiler``) beside its
    byte bound (x read, a written once) and one cuBLAS call of the product
    ``h . W`` on the bf16 operands (h materialized; device time, and by
@@ -65,7 +73,8 @@ convolutions in f32 itself, as a user gets it.
    the same run with every op on its plain version (within
    ``LOGIT_RTOL``/``LOGIT_ATOL``, the argmax equal wherever the plain
    top-2 margin exceeds twice that); forward ms per batch for both;
-   FPS's device ms a forward (profiler), its launches and us a round.
+   FPS's device ms a forward (profiler), its launches and us a round,
+   and the gather's device ms a forward.
 6. Training slice: ``papc_tpu_torch.train.train`` for 10 steps on one
    repeated synthetic batch and a val pass, from seed-0 weights, with
    every launch count of the nine kernels read around it; the loss must
@@ -76,7 +85,9 @@ convolutions in f32 itself, as a user gets it.
    events, median) for both, the device's busy share over 5 kernel
    steps (``torch.profiler``), in stream mode ``bwd_layer``'s device
    time a step by part (as in phase 4), ``linear_stats``' device time a
-   step and rows 7 and 9's by part beside their byte bounds, FPS's device ms a step with its launches and us a round, and
+   step and rows 7 and 9's by part beside their byte bounds, FPS's
+   device ms a step with its launches and us a round, the gather's and
+   its scatter-add's by part (the scatter-add launched once a step), and
    peak device memory.
 7. Detection kernels at the detection shapes (B=2, K=1000): the rotated
    and the matrix NMS sweep against their plain versions, on the
@@ -377,6 +388,8 @@ def phase_kernels(model, clouds):
     # data) for phase 4
     eval_ms = []  # samlp_eval ms of SA1-SA3
     fps_calls = []  # (xyz, npoint, start) of SA1 and SA2
+    gather_sum = [0.0, 0.0, 0.0]  # group_gather's device, bound and
+    # index_select ms over one forward
     stages = [(model.SetAbstraction_0, SA1), (model.SetAbstraction_1, SA2)]
     for i, (sa, cfg) in enumerate(stages, start=1):
         npoint, radius, k = cfg["npoint"], cfg["radius"], cfg["nsample"]
@@ -410,6 +423,15 @@ def phase_kernels(model, clouds):
         c = 3 + (0 if feats is None else feats.shape[-1])
         tag = f"SA{i} [{B},{npoint},{k},{c}]"
         grouped = gather.group_gather(xyz, feats, idx, new_xyz)
+        # the library yardstick: one index_select of the concatenated
+        # source rows by the flat clamped indices (the gather without the
+        # centring)
+        n_src = xyz.shape[1]
+        src2d = (xyz if feats is None else torch.cat([xyz, feats], -1)
+                 ).reshape(B * n_src, c)
+        flat = (idx.long().clamp(0, n_src - 1) + n_src * torch.arange(
+            B, device=idx.device)[:, None, None]).reshape(-1)
+        gather_bytes = _nbytes(xyz, feats, idx, new_xyz, grouped)
         _compare(rows["group_gather"], tag, grouped,
                  gather.group_gather(xyz, feats, idx, new_xyz, impl="plain"),
                  exact=True,
@@ -417,8 +439,16 @@ def phase_kernels(model, clouds):
                      xyz, feats, idx, new_xyz),
                  fn_plain=lambda: gather.group_gather(
                      xyz, feats, idx, new_xyz, impl="plain"),
-                 work=(_nbytes(xyz, feats, idx, new_xyz, grouped),
-                       B * npoint * k * 3 / F32_OPS_PER_S))
+                 work=(gather_bytes, B * npoint * k * 3 / F32_OPS_PER_S),
+                 fn_library=lambda: torch.index_select(src2d, 0, flat))
+        parts = (_device_ms(lambda: gather.group_gather(
+            xyz, feats, idx, new_xyz)), gather_bytes / HBM_BYTES_PER_S * 1e3,
+            _device_ms(lambda: torch.index_select(src2d, 0, flat)))
+        print(f"    {'':<18} {tag}: device {parts[0]:.4f} ms, bound "
+              f"{parts[1]:.4f} ms, index_select {parts[2]:.4f} ms, plan "
+              f"{tuple(gather.gather_plan(B, npoint, k, c))}")
+        gather_sum = [t + v for t, v in zip(gather_sum, parts)]
+        del src2d, flat
         groups.append((f"SA{i}", grouped, idx, xyz.shape[1], sa.PointMLP_0,
                        i == 1))
         feats, *ms = _check_mlp(rows["samlp_eval"], f"SA{i}", sa.PointMLP_0,
@@ -435,6 +465,10 @@ def phase_kernels(model, clouds):
               f"SA3 {each[2]:.4f})")
     groups.append(("SA3", grouped, None, None,
                    model.SetAbstraction_2.PointMLP_0, False))
+    print(f"    group_gather over one SSG forward (device, profiler): "
+          f"{gather_sum[0]:.4f} ms against its bound {gather_sum[1]:.4f} ms "
+          f"(idx and the sources read, the groups written once) and "
+          f"index_select {gather_sum[2]:.4f} ms")
     _fps_plans(rows["fps"], fps_calls)
     return rows, groups
 
@@ -557,6 +591,10 @@ def phase_train_kernels(groups, rows, record=True):
                          b * n_src, c0, device="cuda").index_add_(0, flat,
                                                                    g2d),
                      record=record)
+            check(torch.equal(gather.scatter_add(g, idx, n_src), got),
+                  f"{stage}: group_scatter_add differs between two calls")
+            _scatter_parts(stage, g, idx, n_src, got, flat, g2d)
+            del g, got, flat, g2d
         g2 = grouped.reshape(m, c0).to(torch.bfloat16)
         layers = [(d.weight.t().contiguous(), d.bias.float(), bn.weight,
                    bn.bias) for d, bn in mlp.layers()]
@@ -662,6 +700,55 @@ def phase_train_kernels(groups, rows, record=True):
               f"(a_prev and da read once) and cuBLAS h^T.da "
               f"{lib_ms:.4f} ms; the da+dh part {dh_ms:.4f} ms against its "
               f"bound {dh_bound:.4f} ms and cuBLAS da.W^T {dh_lib:.4f} ms")
+
+
+def _scatter_parts(stage, g, idx, n, out, flat, g2d):
+    """One ``group_scatter_add`` call's device ms by part (profiler, 10
+    calls: the inverse index and the sum, at most one launch of each a
+    call) beside the function's byte bound (g and idx read, out written
+    once) and ``index_add_`` into zeros (its memset included), and the
+    mean and longest list of a point (the sum's balance)."""
+    from papc_tpu_torch.ops.kernels import gather
+
+    device = _device_events(lambda: gather.scatter_add(g, idx, n), 10)[0]
+    split = _named_ms(device, 10, SCATTER_PARTS)
+    check(all(launches <= 1 for _, launches in split.values()),
+          f"{stage}: group_scatter_add launched "
+          f"{[v[1] for v in split.values()]} kernels a call by part")
+    bound = _nbytes(g, idx, out) / HBM_BYTES_PER_S * 1e3
+    lib = _device_ms(lambda: torch.zeros(out.shape[0] * n, g.shape[-1],
+                                         device="cuda").index_add_(0, flat,
+                                                                   g2d))
+    offsets, _ = gather.inverse_index_plain(idx, n)
+    lengths = (offsets[:, 1:] - offsets[:, :-1]).float()
+    print(f"    {'':<18} {stage}: device {_scatter_line(split)}, bound "
+          f"{bound:.4f} ms; index_add_ {lib:.4f} ms; plan "
+          f"{tuple(gather.scatter_add_plan(out.shape[0], n, *g.shape[1:]))}; "
+          f"a point's list: mean {float(lengths.mean()):.1f}, max "
+          f"{int(lengths.max())} entries")
+
+
+# the grouping gather's kernels by part: name -> the profiler's kernel names
+GATHER_PARTS = {"gather": ("group_gather_kernel",)}
+SCATTER_PARTS = {"index": ("inverse_index_kernel",),
+                 "sum": ("scatter_sum_kernel",)}
+
+
+def _named_ms(device, calls: int, parts: dict) -> dict:
+    """Device ms and launches a call of each part, summed over the kernel
+    records whose base name the part lists."""
+    out = {}
+    for part, names in parts.items():
+        mine = [e for e in device if _base_name(e) in names]
+        out[part] = (sum(e.time_range.elapsed_us() for e in mine) / calls
+                     / 1e3, len(mine) / calls)
+    return out
+
+
+def _scatter_line(split: dict) -> str:
+    (ims, il), (sms, sl) = split["index"], split["sum"]
+    return (f"index {ims:.4f} ms ({il:g}) + sum {sms:.4f} ms ({sl:g}) = "
+            f"{ims + sms:.4f} ms")
 
 
 def _finalize_seed(rows, tag, h, vec, k, gen, *, record=True, total=None,
@@ -1086,6 +1173,10 @@ def phase_serving(tag, name, mode, smi, rows=None, n_clouds=100):
     print(f"    forward per batch of {B} x {N}: kernels {fwd_ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms ({smi})")
     print("    " + _fps_line(device, 5, model, "forward"))
+    if "group_gather" in SERVE_KERNELS[(name, mode)]:
+        ms, n = _named_ms(device, 5, GATHER_PARTS)["gather"]
+        print(f"    group_gather device ms a forward (profiler): {ms:.4f} "
+              f"({n:g} launches)")
 
 
 def _noise_grad(name: str, names) -> bool:
@@ -1203,7 +1294,10 @@ def _training(tag, name, mode, smi, rows, fused):
     for n, c in idle.items():
         check(c.launches == 0, f"{name} {mode} training in {fused} mode "
               f"launched the {n} kernel {c.launches} times")
-    want = {"scatter_rows_add": ROW_SCATTERS[(name, mode)] * TRAIN_STEPS}
+    # the grouping gather's backward: SSG SA2 once a step (SA1's input is
+    # data)
+    want = {"scatter_rows_add": ROW_SCATTERS[(name, mode)] * TRAIN_STEPS,
+            "group_scatter_add": TRAIN_STEPS}
     if fused != "stream":
         want.update({n: c * TRAIN_STEPS for n, c in per_step.items()})
     for n, count in want.items():
@@ -1957,6 +2051,11 @@ def _device_busy(fn, steps: int = 5, top: int = 0, split: bool = False,
             passes.update(_pass_bounds(fps_model))
         print("    rows 7 and 9 device ms a step (launches a step): "
               + _pass_line(passes))
+        grouping = _named_ms(device, steps, {**GATHER_PARTS, **SCATTER_PARTS})
+        if grouping["gather"][1]:
+            print(f"    group_gather device ms a step: "
+                  f"{grouping['gather'][0]:.4f} ({grouping['gather'][1]:g}); "
+                  f"group_scatter_add: {_scatter_line(grouping)}")
     if top:
         by_name: dict = {}
         for e in device:

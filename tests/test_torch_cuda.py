@@ -167,8 +167,12 @@ def test_ball_query_kernel_empty_balls(device):
     assert bool((got == 299).all())
 
 
-@pytest.mark.parametrize("B,N,D,S,K", [(2, 100, 0, 13, 8), (3, 64, 5, 7, 32),
-                                       (32, 512, 128, 128, 64)])
+@pytest.mark.parametrize("B,N,D,S,K", [
+    (2, 100, 0, 13, 8), (3, 64, 5, 7, 32), (32, 512, 128, 128, 64),
+    (32, 1024, 0, 512, 32), (32, 1024, 3, 512, 32),  # SSG SA1, clas and seg
+    (2, 50, 0, 9, 7), (2, 40, 128, 3, 5),  # K * C off 4: 4-byte stores
+    (1, 20, 3, 1, 5),  # one group of 30 floats, below one block's span
+])
 def test_gather_kernel_equals_plain(device, B, N, D, S, K):
     g = torch.Generator().manual_seed(B * N + D)
     xyz = torch.randn(B, N, 3, generator=g).to(device)
@@ -539,7 +543,8 @@ def test_bwd_layer_takes_an_a_prev_off_16_bytes(device):
 
 
 @pytest.mark.parametrize("B,N,S,K,C", [(2, 50, 7, 8, 5), (32, 1024, 512, 32, 3),
-                                       (32, 512, 128, 64, 131)])
+                                       (32, 512, 128, 64, 131),
+                                       (2, 40, 6, 16, 259)])
 def test_scatter_add_kernel_matches_plain(device, B, N, S, K, C):
     gen = torch.Generator().manual_seed(B * N)
     g = torch.randn(B, S, K, C, generator=gen).to(device)
@@ -549,6 +554,74 @@ def test_scatter_add_kernel_matches_plain(device, B, N, S, K, C):
     got = gather.scatter_add(g, idx, N)
     assert gather.SCATTER_KERNEL.launches == before + 1
     _near(got, gather.scatter_add(g, idx, N, impl="plain"), 1e-5)
+
+
+def _garbage_pool(device, numel):
+    """Leave a block of NaNs in the caching allocator, so that the next
+    ``torch.empty`` of this size holds garbage, not zeros."""
+    junk = torch.full((numel,), float("nan"), device=device)
+    del junk
+
+
+def _scatter_case(kind, B, N, S, K, C, device):
+    gen = torch.Generator().manual_seed(B * N + C)
+    g = torch.randn(B, S, K, C, generator=gen)
+    if kind == "range":
+        idx = torch.randint(-2, N + 2, (B, S, K), generator=gen,
+                            dtype=torch.int32)
+    elif kind == "one point":  # every entry of a cloud on one point
+        idx = torch.full((B, S, K), N // 3, dtype=torch.int32)
+    elif kind == "half":  # the upper half of the points takes nothing
+        idx = torch.randint(0, N // 2, (B, S, K), generator=gen,
+                            dtype=torch.int32)
+    else:  # ball-query indices: sparse balls pad with their first point
+        xyz = _cloud(N, B, N, scale=1.0).to(device)
+        new_xyz = geometry.index_points(
+            xyz, torch.randint(0, N, (B, S), generator=gen).to(device))
+        idx = ball_query.query_ball_point(0.25, K, xyz, new_xyz.contiguous())
+    return g.to(device), idx.to(device)
+
+
+@pytest.mark.parametrize("C", [3, 5, 131, 259])
+@pytest.mark.parametrize("kind,B,N,S,K", [
+    ("range", 3, 97, 11, 16), ("one point", 2, 64, 128, 64),
+    ("half", 4, 512, 128, 64), ("ball", 2, 512, 128, 64)])
+def test_scatter_add_kernel_repeats_its_bits(device, kind, B, N, S, K, C):
+    """The owner-computes backward: one launch a call; the inverse index
+    the kernel built equal to the plain twin's (offsets and order); the
+    sum within 1e-5 of plain and the same bits over two calls; every
+    point that no entry takes exactly 0, though the output is
+    ``torch.empty`` over a pool of NaNs; a point that takes every entry
+    of its cloud sums a list of S x K rows."""
+    g, idx = _scatter_case(kind, B, N, S, K, C, device)
+    before = gather.SCATTER_KERNEL.launches
+    _garbage_pool(device, B * N * C)
+    got, offsets, order = gather.scatter_add_cuda(g, idx, N, with_index=True)
+    assert gather.SCATTER_KERNEL.launches == before + 1
+    want_offsets, want_order = gather.inverse_index_plain(idx, N)
+    assert torch.equal(offsets, want_offsets)
+    assert torch.equal(order, want_order)
+    want = gather.scatter_add(g, idx, N, impl="plain")
+    _near(got, want, 1e-5)
+    _garbage_pool(device, B * N * C)
+    assert torch.equal(gather.scatter_add(g, idx, N), got)
+    empty = (offsets[:, 1:] == offsets[:, :-1])
+    assert bool((got[empty] == 0).all())
+    if kind == "one point":
+        assert bool((offsets[:, N // 3 + 1] - offsets[:, N // 3]
+                     == S * K).all())
+    if kind == "half":
+        assert bool(empty[:, N // 2:].all())
+
+
+def test_scatter_add_kernel_refuses_clouds_above_its_limit(device):
+    n = gather.SCATTER_N_LIMIT + 1
+    g = torch.zeros(1, 2, 4, 3, device=device)
+    idx = torch.zeros(1, 2, 4, dtype=torch.int32, device=device)
+    before = gather.SCATTER_KERNEL.launches
+    with pytest.raises(ValueError, match="at most"):
+        gather.scatter_add(g, idx, n)
+    assert gather.SCATTER_KERNEL.launches == before
 
 
 @pytest.mark.parametrize("B,R,C,n,kind", [

@@ -223,6 +223,223 @@ def test_group_gather_matches_gather_cols_pallas(rng, C, N, S, K):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+# The grouping gathers of the registry's SSG models: [B, S, K, C] at SA1
+# (clas, seg / normal_channel) and SA2, cut to B = 2 where the plan does
+# not change with B; then the edges: K * C off 4 (4-byte stores), D = 5,
+# a span below one block, and K * C = 655 at D = 128.
+GATHER_SHAPES = [(32, 512, 32, 3), (32, 512, 32, 6), (2, 128, 64, 131),
+                 (2, 13, 7, 3), (3, 7, 32, 8), (1, 1, 5, 6), (2, 3, 5, 131)]
+
+
+@pytest.mark.parametrize("b,s,k,c", GATHER_SHAPES)
+def test_gather_plan_covers_every_row_and_channel_once(b, s, k, c):
+    """Mirror of ``group_gather_kernel``'s second phase: each block's
+    threads start at chunk ``vec * t`` of the block's span with one
+    division and step by ``vec * THREADS`` elements as (rows, channels);
+    each chunk's elements, wrapping into the next row, must be the span's
+    consecutive elements, and the blocks must write every (row, channel)
+    of the output once. 16-byte stores start on 16 bytes."""
+    p = gather.gather_plan(b, s, k, c)
+    groups = b * s
+    assert p.vec == (4 if k * c % 4 == 0 else 1)
+    assert p.smem == 16 * p.tile * k <= gather.SMEM_LIMIT
+    assert p.blocks == -(-groups // p.tile)
+    taken = np.zeros((groups * k, c), np.int64)
+    g0 = np.arange(p.blocks)[:, None] * p.tile
+    n_elems = np.minimum(p.tile, groups - g0) * k * c
+    if p.vec == 4:
+        assert (g0 * k * c % 4 == 0).all()
+    step = p.vec * gather.THREADS
+    step_r, step_c = divmod(step, c)
+    e = np.broadcast_to(p.vec * np.arange(gather.THREADS)[None, :],
+                        (p.blocks, gather.THREADS)).copy()
+    r, col = np.divmod(e, c)
+    while (e < n_elems).any():
+        live = e < n_elems
+        rr, cc = r.copy(), col.copy()
+        for i in range(p.vec):
+            wrap = cc == c
+            cc, rr = np.where(wrap, 0, cc), np.where(wrap, rr + 1, rr)
+            assert (rr * c + cc == e + i)[live].all()
+            np.add.at(taken, ((g0 * k + rr)[live], cc[live]), 1)
+            cc = cc + 1
+        e = e + step
+        r, col = r + step_r, col + step_c
+        r, col = np.where(col >= c, r + 1, r), np.where(col >= c, col - c, col)
+    assert (taken == 1).all()
+
+
+def test_gather_plan_refuses_a_group_beyond_shared_memory():
+    limit = gather.SMEM_LIMIT // 16
+    assert gather.gather_plan(1, 1, limit, 3).tile == 1
+    with pytest.raises(ValueError, match=f"at most {limit} rows"):
+        gather.gather_plan(1, 1, limit + 1, 3)
+
+
+def _inverse_index_numpy(idx, n):
+    """The stable sort by point, built directly: each point's entries in
+    ascending flat order, the lists one after the other."""
+    b = idx.shape[0]
+    flat = np.clip(idx.reshape(b, -1), 0, n - 1)
+    offsets = np.zeros((b, n + 1), np.int64)
+    order = np.zeros(flat.shape, np.int64)
+    for i in range(b):
+        pos = 0
+        for j in range(n):
+            mine = [e for e in range(flat.shape[1]) if flat[i, e] == j]
+            order[i, pos:pos + len(mine)] = mine
+            pos += len(mine)
+            offsets[i, j + 1] = pos
+    return offsets, order
+
+
+def _scatter_idx(rng, kind, b, s, k, n):
+    if kind == "range":  # indices outside [0, n) clamp
+        return rng.randint(-3, n + 3, size=(b, s, k)).astype(np.int32)
+    if kind == "one point":  # one list of all s * k entries, the rest empty
+        return np.full((b, s, k), n // 2, np.int32)
+    return rng.randint(0, max(1, n // 3), size=(b, s, k)).astype(np.int32)
+
+
+SCATTER_CASES = [(2, 9, 4, 20, "range"), (3, 5, 8, 7, "one point"),
+                 (2, 6, 16, 40, "part")]
+
+
+@pytest.mark.parametrize("b,s,k,n,kind", SCATTER_CASES)
+def test_inverse_index_plain_matches_numpy(rng, b, s, k, n, kind):
+    idx = _scatter_idx(rng, kind, b, s, k, n)
+    offsets, order = gather.inverse_index_plain(T(idx), n)
+    want_offsets, want_order = _inverse_index_numpy(idx, n)
+    assert offsets.dtype == order.dtype == torch.int32
+    np.testing.assert_array_equal(offsets.numpy(), want_offsets)
+    np.testing.assert_array_equal(order.numpy(), want_order)
+
+
+@pytest.mark.parametrize("c", [3, 5, 131])
+@pytest.mark.parametrize("b,s,k,n,kind", SCATTER_CASES)
+def test_scatter_through_the_inverse_index_matches_plain(rng, b, s, k, n,
+                                                         kind, c):
+    """Both add a point's rows in ascending flat order into zeros: on the
+    CPU, where index_add_ runs in index order, the same bits."""
+    idx = _scatter_idx(rng, kind, b, s, k, n)
+    g = T(rng.randn(b, s, k, c).astype(np.float32))
+    offsets, order = gather.inverse_index_plain(T(idx), n)
+    got = gather.scatter_add_sorted_plain(g, offsets, order, n)
+    np.testing.assert_array_equal(
+        got.numpy(), gather.scatter_add_plain(g, T(idx), n).numpy())
+
+
+# The SSG step's scatter (SA2: 512 points, 128 x 64 entries, C = 131),
+# with the C of each grouped width, and the N edges of the index's warps.
+SCATTER_PLAN_SHAPES = [(32, 512, 128, 64, 131), (2, 512, 128, 64, 3),
+                       (2, 1024, 512, 32, 6), (2, 50, 7, 8, 5),
+                       (2, 33, 3, 5, 259), (1, 1, 1, 1, 17),
+                       (2, 1760, 9, 7, 33), (2, 1761, 9, 7, 16),
+                       (1, gather.SCATTER_N_LIMIT, 40, 64, 8)]
+
+
+@pytest.mark.parametrize("b,n,s,k,c", SCATTER_PLAN_SHAPES)
+def test_scatter_add_plan_takes_every_entry_and_row_once(b, n, s, k, c):
+    """Mirror of the two kernels' indexing. The inverse index: warp w of
+    a cloud's block takes the w-th contiguous chunk of entries, 32 at a
+    time; every entry once. The sum: ``lanes`` threads a row, lane ``sub``
+    channels ``sub + lanes * i`` (i < chans) a walk, the walks stepping
+    by lanes x chans; every (row, channel) once. The index's shared
+    memory stays within a block's."""
+    p = gather.scatter_add_plan(b, n, s, k, c)
+    assert p.smem == gather.index_smem(p.warps, n) <= gather.SMEM_LIMIT
+    assert p.warps == max(w for w in gather.INDEX_WARPS
+                          if gather.index_smem(w, n) <= gather.SMEM_LIMIT)
+    entries = s * k
+    taken = np.zeros(entries, np.int64)
+    chunk = -(-entries // p.warps)
+    for w in range(p.warps):
+        lo = min(w * chunk, entries)
+        hi = min(lo + chunk, entries)
+        for base in range(lo, hi, 32):
+            e = base + np.arange(32)
+            taken[e[e < hi]] += 1
+    assert (taken == 1).all()
+
+    assert p.lanes in (4, 8, 16, 32) and 1 <= p.chans <= gather.MAX_CHANS
+    assert p.lanes == 32 or (p.chans == 1 and c <= p.lanes)
+    per_block = gather.sum_rows(p.lanes)
+    assert p.blocks == b * -(-n // per_block)
+    cells = np.zeros((b, n, c), np.int64)
+    for cloud in range(b):
+        for j0 in range(0, n, per_block):  # blockIdx.x; blockIdx.y = cloud
+            rows = np.arange(j0, min(j0 + per_block, n))
+            for sub in range(p.lanes):  # worker r merges block row r
+                for c0 in range(0, c, p.lanes * p.chans):
+                    ch = c0 + sub + p.lanes * np.arange(p.chans)
+                    ch = ch[ch < c]
+                    cells[cloud, rows[:, None], ch[None, :]] += 1
+    assert (cells == 1).all()
+
+
+@pytest.mark.parametrize("lanes", [4, 32])
+@pytest.mark.parametrize("kind", ["range", "one point", "part", "ball"])
+def test_sum_schedule_takes_every_entry_once_and_merges_in_order(
+        rng, kind, lanes):
+    """``scatter_sum_kernel``'s split of a block's entries over its
+    workers, on lists as skewed as ball-query padding makes them: every
+    entry in one worker's range; a row written once, whole by the worker
+    that walked all of it (a sequential fold: the plain bits) or by the
+    merge from the partials of consecutive workers in order; and that
+    arithmetic, emulated in f32, within 1e-5 of plain's largest (a merged
+    row adds in another order)."""
+    b, s, k, n = 2, 16, 32, 96
+    if kind == "ball":  # a few points take most entries, as padding does
+        idx = np.where(rng.rand(b, s, k) < 0.7, rng.randint(0, 3, (b, s, k)),
+                       rng.randint(0, n, (b, s, k))).astype(np.int32)
+    else:
+        idx = _scatter_idx(rng, kind, b, s, k, n)
+    g = rng.randn(b, s * k).astype(np.float32)
+    offsets, order = gather.inverse_index_plain(T(idx), n)
+    offsets, order = offsets.numpy(), order.numpy()
+    want = gather.scatter_add_plain(T(g.reshape(b, s, k, 1)), T(idx),
+                                    n).numpy()[..., 0]
+    workers = gather.THREADS // lanes
+    scale = 1e-5 * np.abs(want).max()  # as the card's tolerance
+    for cloud in range(b):
+        taken = np.zeros(s * k, np.int64)
+        rows = gather.sum_rows(lanes)
+        for j0 in range(0, n, rows):
+            offs = [int(o) for o in offsets[cloud, j0:min(j0 + rows, n) + 1]]
+            ranges, writers = gather.sum_schedule(offs, workers)
+            for lo, hi in ranges:
+                taken[lo:hi] += 1
+            for r, who in enumerate(writers):
+                lo, hi = offs[r], offs[r + 1]
+                assert all(ranges[w][0] < hi and lo < ranges[w][1]
+                           for w in who)
+                assert (hi == lo) == (len(who) == 0)
+                total = np.float32(0)
+                for w in who:  # each worker's part in order, then merged
+                    part = np.float32(0)
+                    for e in order[cloud, max(lo, ranges[w][0]):
+                                   min(hi, ranges[w][1])]:
+                        part = np.float32(part + g[cloud, e])
+                    total = part if w == who[0] else np.float32(total + part)
+                if len(who) <= 1:
+                    assert total == want[cloud, j0 + r]
+                np.testing.assert_allclose(total, want[cloud, j0 + r],
+                                           rtol=0, atol=scale)
+        assert (taken == 1).all()
+
+
+def test_scatter_add_plan_raises_above_its_n_limit():
+    """Every N up to the limit fits a block's shared memory, at least
+    ``INDEX_WARPS[-1]`` warps; one more raises, naming the limit."""
+    limit = gather.SCATTER_N_LIMIT
+    for n in range(1, limit + 1):
+        assert gather.index_smem(gather.INDEX_WARPS[-1], n) \
+            <= gather.SMEM_LIMIT
+    assert gather.scatter_add_plan(1, limit, 1, 1, 3).warps == 4
+    with pytest.raises(ValueError, match=f"at most {limit} points"):
+        gather.scatter_add_plan(1, limit + 1, 1, 1, 3)
+
+
 def test_index_points_and_square_distance(rng):
     pts = rng.randn(3, 40, 7).astype(np.float32)
     idx = rng.randint(-2, 43, size=(3, 5, 6)).astype(np.int32)
