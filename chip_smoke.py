@@ -28,8 +28,14 @@ convolutions in f32 itself, as a user gets it.
    8 warps a block (exact against plain, device us a round), the round's
    floor (the plan's warps at one point a lane), and at B=4 x 16384
    (npoint 2048) and B=1 x 65536 (npoint 4096), exact against plain, with
-   kernel ms; none of these counts in the row. The gather besides: each
-   stage's device ms (profiler) beside its byte bound and one
+   kernel ms; none of these counts in the row. The ball query besides:
+   each stage's device ms (profiler) beside its bound and their sums over
+   one SSG forward; B=4 x 16384 (S 2048, K 32, r 0.4: bench.py's row) and
+   B=1 x 65536 (S 4096), exact against plain, with device ms; and at each
+   of these four shapes the plan's warps and tile at 1, 2 and 4 queries
+   a warp (exact, device ms); none of these counts in the row. The
+   gather besides: each stage's device ms (profiler) beside its byte
+   bound and one
    ``index_select`` of the concatenated source rows by the flat clamped
    indices (the gather without the centring; row 3's ``library_ms`` by
    CUDA events), and their sums over one SSG forward.
@@ -74,7 +80,7 @@ convolutions in f32 itself, as a user gets it.
    ``LOGIT_RTOL``/``LOGIT_ATOL``, the argmax equal wherever the plain
    top-2 margin exceeds twice that); forward ms per batch for both;
    FPS's device ms a forward (profiler), its launches and us a round,
-   and the gather's device ms a forward.
+   the ball query's and the gather's device ms a forward.
 6. Training slice: ``papc_tpu_torch.train.train`` for 10 steps on one
    repeated synthetic batch and a val pass, from seed-0 weights, with
    every launch count of the nine kernels read around it; the loss must
@@ -87,8 +93,9 @@ convolutions in f32 itself, as a user gets it.
    time a step by part (as in phase 4), ``linear_stats``' device time a
    step and rows 7 and 9's by part beside their byte bounds, FPS's
    device ms a step with its launches and us a round, the gather's and
-   its scatter-add's by part (the scatter-add launched once a step), and
-   peak device memory.
+   its scatter-add's by part (the scatter-add launched once a step), the
+   row scatter-add's by part where the model runs it, and peak device
+   memory.
 7. Detection kernels at the detection shapes (B=2, K=1000): the rotated
    and the matrix NMS sweep against their plain versions, on the
    score-sorted top 1000 boxes of the slice's first batch and on
@@ -110,10 +117,16 @@ convolutions in f32 itself, as a user gets it.
    detections differ.
 9. New shapes: the row scatter-add (#5, the backward of
    ``index_points``) within 1e-5 of its largest against its plain
-   version on MSG segmentation's four index sets a step (SA2's two
-   ball-query branches with their padding runs, FP1's and FP0's 3-NN
-   rows), on MSG classification's SA2 branches and on a set with indices
-   outside the rows; the eval pass on all seven MSG classification
+   version and equal to itself bit for bit over two calls, on MSG
+   segmentation's four index sets a step (SA2's two ball-query branches
+   with their padding runs, FP1's and FP0's 3-NN rows), on MSG
+   classification's three SA2 branches, on a set with indices outside
+   the rows and on a bf16 g; each call's device ms by part (the inverse
+   index and the sum) beside its byte bound and ``index_add_``, the
+   longest list of a row, and their sums over one MSG seg step and one
+   MSG clas step; the ball query on MSG classification's six branches,
+   exact, with device ms over one forward; the eval pass on all seven MSG
+   classification
    stacks (SA1 at K 16/32/128, SA2 at K 32/64/128, SA3 at c0 = 643) as in
    phase 3, with their sum over one forward; ``finalize_max`` and
    ``bwd_seed`` at the last layer of every MSG stack (clas and seg) on a
@@ -390,6 +403,7 @@ def phase_kernels(model, clouds):
     fps_calls = []  # (xyz, npoint, start) of SA1 and SA2
     gather_sum = [0.0, 0.0, 0.0]  # group_gather's device, bound and
     # index_select ms over one forward
+    ball_calls = []  # (tag, radius, K, xyz, new_xyz) of SA1 and SA2
     stages = [(model.SetAbstraction_0, SA1), (model.SetAbstraction_1, SA2)]
     for i, (sa, cfg) in enumerate(stages, start=1):
         npoint, radius, k = cfg["npoint"], cfg["radius"], cfg["nsample"]
@@ -420,6 +434,7 @@ def phase_kernels(model, clouds):
                      radius, k, xyz, new_xyz, impl="plain"),
                  work=(_nbytes(xyz, new_xyz, idx),
                        _ball_scan(idx, xyz.shape[1]) * 9 / F32_OPS_PER_S))
+        ball_calls.append((tag, radius, k, xyz, new_xyz))
         c = 3 + (0 if feats is None else feats.shape[-1])
         tag = f"SA{i} [{B},{npoint},{k},{c}]"
         grouped = gather.group_gather(xyz, feats, idx, new_xyz)
@@ -470,6 +485,9 @@ def phase_kernels(model, clouds):
           f"(idx and the sources read, the groups written once) and "
           f"index_select {gather_sum[2]:.4f} ms")
     _fps_plans(rows["fps"], fps_calls)
+    ball_query_times(ball_calls, "one SSG forward")
+    _ball_large(rows["ball_query"])
+    _ball_plans(ball_calls + list(_large_ball_calls()))
     return rows, groups
 
 
@@ -708,7 +726,7 @@ def _scatter_parts(stage, g, idx, n, out, flat, g2d):
     call) beside the function's byte bound (g and idx read, out written
     once) and ``index_add_`` into zeros (its memset included), and the
     mean and longest list of a point (the sum's balance)."""
-    from papc_tpu_torch.ops.kernels import gather
+    from papc_tpu_torch.ops.kernels import gather, scatter_sorted
 
     device = _device_events(lambda: gather.scatter_add(g, idx, n), 10)[0]
     split = _named_ms(device, 10, SCATTER_PARTS)
@@ -719,7 +737,7 @@ def _scatter_parts(stage, g, idx, n, out, flat, g2d):
     lib = _device_ms(lambda: torch.zeros(out.shape[0] * n, g.shape[-1],
                                          device="cuda").index_add_(0, flat,
                                                                    g2d))
-    offsets, _ = gather.inverse_index_plain(idx, n)
+    offsets, _ = scatter_sorted.inverse_index_plain(idx, n)
     lengths = (offsets[:, 1:] - offsets[:, :-1]).float()
     print(f"    {'':<18} {stage}: device {_scatter_line(split)}, bound "
           f"{bound:.4f} ms; index_add_ {lib:.4f} ms; plan "
@@ -730,19 +748,42 @@ def _scatter_parts(stage, g, idx, n, out, flat, g2d):
 
 # the grouping gather's kernels by part: name -> the profiler's kernel names
 GATHER_PARTS = {"gather": ("group_gather_kernel",)}
+BALL_PARTS = {"ball": ("ball_query_kernel",)}
 SCATTER_PARTS = {"index": ("inverse_index_kernel",),
                  "sum": ("scatter_sum_kernel",)}
 
 
 def _named_ms(device, calls: int, parts: dict) -> dict:
     """Device ms and launches a call of each part, summed over the kernel
-    records whose base name the part lists."""
+    records whose base name the part lists. The profiler now and then
+    drops a record: a part's launches a call then fall short of a whole
+    number, and its ms is short by as much."""
     out = {}
     for part, names in parts.items():
         mine = [e for e in device if _base_name(e) in names]
         out[part] = (sum(e.time_range.elapsed_us() for e in mine) / calls
                      / 1e3, len(mine) / calls)
     return out
+
+
+def _call_ms(device, calls: int) -> float:
+    """Device ms a call: every kernel record, summed, over ``calls``."""
+    return sum(e.time_range.elapsed_us() for e in device) / calls / 1e3
+
+
+def _whole_events(fn, calls: int, names):
+    """The profiler's records of ``calls`` calls of ``fn``, each of whose
+    kernels ``names`` launches a fixed number of times a call: a profile
+    in which one of them shows no record, or a number of records that
+    is not a multiple of ``calls`` (the profiler dropped some), is taken
+    again, up to three times; the last is returned as it is."""
+    for _ in range(3):
+        device = _device_events(fn, calls)[0]
+        counts = [sum(_base_name(e) == name for e in device)
+                  for name in names]
+        if all(n and n % calls == 0 for n in counts):
+            break
+    return device
 
 
 def _scatter_line(split: dict) -> str:
@@ -880,8 +921,7 @@ def _pass_bounds(model) -> dict:
 
 def _device_ms(fn, calls: int = 10) -> float:
     """Device ms a call of ``fn`` (the profiler's kernel records)."""
-    device = _device_events(fn, calls)[0]
-    return sum(e.time_range.elapsed_us() for e in device) / calls / 1e3
+    return _call_ms(_device_events(fn, calls)[0], calls)
 
 
 def _linear_stats_parts(tag, kernel, hb, wb, x, a, total):
@@ -929,6 +969,92 @@ def _bwd_parts(tag, run, hb, dab, wb, a_prev, m, cin, cout, need, gate,
                                         dh_bound))):
         have = split_sum.setdefault(key, (0.0, 0.0, 0.0))
         split_sum[key] = tuple(h + v for h, v in zip(have, vals))
+
+
+BALL_LARGE = ((4, 16384, 2048), (1, 65536, 4096))  # (B, N, S): bench.py's
+# ball_query_large_n row and a cloud of FPS's 64k line, RandomState(0)
+# clouds queried at their first S points
+BALL_LARGE_R, BALL_LARGE_K = 0.4, 32
+
+
+def _large_ball_calls():
+    for b, n, s in BALL_LARGE:
+        xyz = torch.from_numpy(np.random.RandomState(0).randn(b, n, 3).astype(
+            np.float32)).cuda()
+        yield (f"B={b} N={n} S={s} K={BALL_LARGE_K} r={BALL_LARGE_R}",
+               BALL_LARGE_R, BALL_LARGE_K, xyz, xyz[:, :s].contiguous())
+
+
+def _ball_large(row):
+    """#2 at the clouds of ``BALL_LARGE``: exact against plain, with
+    device ms; none of these calls counts in the row."""
+    from papc_tpu_torch.ops.kernels import ball_query
+
+    calls = list(_large_ball_calls())
+    for tag, radius, k, xyz, new_xyz in calls:
+        _compare(row, tag, ball_query.query_ball_point(radius, k, xyz,
+                                                       new_xyz),
+                 ball_query.query_ball_point(radius, k, xyz, new_xyz,
+                                             impl="plain"), exact=True)
+    ball_query_times(calls, "the large clouds")
+
+
+def _ball_plans(calls):
+    """#2 with the plan's warps and tile at 1, 2 and 4 queries a warp
+    (exact against plain, device ms) at each of ``calls``; none counts in
+    the row."""
+    from papc_tpu_torch.ops.kernels import ball_query
+
+    for tag, radius, k, xyz, new_xyz in calls:
+        b, s = xyz.shape[0], new_xyz.shape[1]
+        want = ball_query.query_ball_point(radius, k, xyz, new_xyz,
+                                           impl="plain")
+        plan = ball_query.ball_query_plan(b, xyz.shape[1], s, k)
+        seen = []
+        for queries in ball_query.QUERIES:
+            trial = ball_query.BallQueryPlan(
+                plan.warps, queries, plan.tile, plan.smem,
+                b * -(-s // (plan.warps * queries)))
+            got = ball_query.launch_plan(radius, k, xyz, new_xyz, trial)
+            check(torch.equal(got, want),
+                  f"ball_query plan {tuple(trial)} at {tag} differs from "
+                  f"plain")
+            ms = _device_ms(lambda: ball_query.launch_plan(
+                radius, k, xyz, new_xyz, trial))
+            seen.append(f"Q={queries} {ms:.4f}")
+        print(f"    {'':<18} ball_query {tag}: device ms by queries a warp "
+              f"at W={plan.warps} (all exact): {', '.join(seen)}; the plan "
+              f"{tuple(plan)}")
+
+
+def ball_query_times(calls, what: str) -> tuple[float, float]:
+    """#2's device ms a call (profiler, 10 calls, every kernel record of
+    the calls: ``_call_ms``; a profile that dropped a record is taken
+    again, ``_whole_events``, and the records a call show one still
+    dropped) beside
+    its bound, for each ``(tag, radius, K, xyz, new_xyz)`` of ``calls``,
+    and their sums (over ``what``). The
+    bound: the larger of the inputs read and the output written once
+    over the memory rate, and the distances this run's queries need
+    (``_ball_scan``), 9 f32 operations each, at peak. Uses only the
+    wrapper's public function."""
+    from papc_tpu_torch.ops.kernels import ball_query
+
+    total_ms = total_bound = 0.0
+    for tag, radius, k, xyz, new_xyz in calls:
+        idx = ball_query.query_ball_point(radius, k, xyz, new_xyz)
+        device = _whole_events(lambda: ball_query.query_ball_point(
+            radius, k, xyz, new_xyz), 10, BALL_PARTS["ball"])
+        ms = _call_ms(device, 10)
+        bound = max(_nbytes(xyz, new_xyz, idx) / HBM_BYTES_PER_S,
+                    _ball_scan(idx, xyz.shape[1]) * 9 / F32_OPS_PER_S) * 1e3
+        print(f"    {'':<18} ball_query {tag}: device {ms:.4f} ms "
+              f"({len(device) / 10:g} records a call), bound {bound:.4f} ms")
+        total_ms += ms
+        total_bound += bound
+    print(f"    ball_query over {what} (device, profiler): {total_ms:.4f} ms "
+          f"against its bound {total_bound:.4f} ms")
+    return total_ms, total_bound
 
 
 def _ball_scan(idx, n) -> int:
@@ -1173,6 +1299,9 @@ def phase_serving(tag, name, mode, smi, rows=None, n_clouds=100):
     print(f"    forward per batch of {B} x {N}: kernels {fwd_ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms ({smi})")
     print("    " + _fps_line(device, 5, model, "forward"))
+    ms, n = _named_ms(device, 5, BALL_PARTS)["ball"]
+    print(f"    ball_query device ms a forward (profiler): {ms:.4f} ({n:g} "
+          f"launches)")
     if "group_gather" in SERVE_KERNELS[(name, mode)]:
         ms, n = _named_ms(device, 5, GATHER_PARTS)["gather"]
         print(f"    group_gather device ms a forward (profiler): {ms:.4f} "
@@ -1399,29 +1528,16 @@ MSG_CLAS_STACKS = tuple(  # the eval stacks of one MSG clas forward
     + ["SetAbstraction_0.PointMLP_0"])
 
 
-def phase_new_shapes(rows, t_rows):
-    """The row scatter-add (#5) against its plain version on MSG
-    segmentation's four index sets a step (SA2's two ball-query branches
-    with their padding runs, the two 3-NN interpolations: the recorded
-    row), MSG classification's SA2 branches and a set with indices
-    outside the rows; the eval pass on MSG classification's seven stacks
-    (``MSG_CLAS_STACKS``); the stream passes at K = 16, at K = 128 with
-    width 196 and at c0 = 643, pass by pass. Inputs are the seed-0
-    models' own tensors, captured from one eval forward each."""
+def _msg_capture():
+    """The seed-0 MSG clas and seg models (B clouds of the seg loader's
+    seed 0) and each SA, FP and PointMLP module's inputs and output from
+    one eval forward: ``(got, models)`` keyed by mode."""
     from papc_tpu_torch.models import init_model
-    from papc_tpu_torch.ops.grouping import knn, query_ball_point
-    from papc_tpu_torch.ops.kernels import scatter_rows
 
-    row = _kernel_row("scatter_rows_add",
-                      "papc_tpu_torch/csrc/scatter_rows_add.cu",
-                      "papc_tpu/ops/pallas/scatter.py:124")
-    print("[9 new shapes] kernel vs plain at the MSG and segmentation "
-          f"shapes (B={B}, N={N})")
     loader = _loader(B, "seg", seed=0)
     clouds = torch.from_numpy(loader.data).cuda()
     labels = torch.from_numpy(loader.label).cuda()
-    got = {}
-    models = {}
+    got, models = {}, {}
     for mode in ("clas", "seg"):
         model = init_model("pointnet2_msg", mode, NUM_CLASSES, seed=0,
                            device="cuda").model
@@ -1432,53 +1548,174 @@ def phase_new_shapes(rows, t_rows):
         for h in handles:
             h.remove()
         got[mode], models[mode] = store, model
+    return got, models
 
-    def ball_sets(mode, sa_name):
-        (xyz, points, *_), (new_xyz, _) = got[mode][sa_name]
+
+def _msg_ball_calls(got, models, mode, sa_names):
+    """``(tag, radius, K, xyz, new_xyz)`` of each ball-query branch of the
+    named MSG set abstractions, on their captured inputs."""
+    for sa_name in sa_names:
+        (xyz, *_), (new_xyz, _) = got[mode][sa_name]
         sa = getattr(models[mode], sa_name)
         for j, (r, k) in enumerate(zip(sa.radius_list, sa.nsample_list)):
-            idx = query_ball_point(r, k, xyz, new_xyz).reshape(B, -1)
-            yield (f"MSG {mode} {sa_name[-5:]} branch {j} K={k}", idx,
+            yield (f"MSG {mode} {sa_name[-5:]} branch {j} K={k} r={r}", r, k,
+                   xyz, new_xyz)
+
+
+# #5's kernels by part: name -> the profiler's kernel names
+ROW_SCATTER_PARTS = {"index": ("row_index_kernel",),
+                     "sum": ("row_sum_kernel",)}
+ROW_STEPS = ("MSG seg step", "MSG clas step")
+
+
+def _row_scatter_sets(got, models):
+    """#5's inputs ``(tag, g, idx, n, step)``: MSG segmentation's four
+    index sets a step (SA2's two ball-query branches with their padding
+    runs, FP1's and FP0's 3-NN rows), MSG classification's three SA2
+    branches, a set with a quarter of FP0's indices outside the rows and
+    one with a bf16 g (SA2 branch 1); ``step`` names the training step a
+    set belongs to (``ROW_STEPS``), or is None. g is random, seeded."""
+    from papc_tpu_torch.ops.grouping import knn, query_ball_point
+
+    def ball_sets(mode):
+        for tag, r, k, xyz, new_xyz in _msg_ball_calls(
+                got, models, mode, ["SetAbstractionMsg_1"]):
+            points = got[mode]["SetAbstractionMsg_1"][0][1]
+            yield (tag, query_ball_point(r, k, xyz, new_xyz).reshape(B, -1),
                    xyz.shape[1], points.shape[-1] + 3)
 
-    def knn_set(mode, fp_name):
-        (xyz1, xyz2, _, points2, *_), _ = got[mode][fp_name]
+    def knn_set(fp_name):
+        (xyz1, xyz2, _, points2, *_), _ = got["seg"][fp_name]
         idx = knn(3, xyz2, xyz1)[1].reshape(B, -1)
-        return (f"MSG {mode} {fp_name} 3-NN", idx, xyz2.shape[1],
+        return (f"MSG seg {fp_name} 3-NN", idx, xyz2.shape[1],
                 points2.shape[-1])
 
-    fp0 = knn_set("seg", "FeaturePropagation_2")
+    seg = list(ball_sets("seg"))
+    fp0 = knn_set("FeaturePropagation_2")
     outside = fp0[1].clone()
     outside[:, ::8] = -1
     outside[:, 3::8] = fp0[2] + 5
-    sets = ([(s, True) for s in ball_sets("seg", "SetAbstractionMsg_1")]
-            + [(knn_set("seg", "FeaturePropagation_1"), True), (fp0, True)]
-            + [(s, False) for s in ball_sets("clas", "SetAbstractionMsg_1")]
-            + [(("out of range (FP0 rows, 1/4 outside)", outside, fp0[2],
-                 fp0[3]), False)])
+    sets = ([(*s, ROW_STEPS[0], torch.float32) for s in seg]
+            + [(*knn_set("FeaturePropagation_1"), ROW_STEPS[0],
+                torch.float32), (*fp0, ROW_STEPS[0], torch.float32)]
+            + [(*s, ROW_STEPS[1], torch.float32) for s in ball_sets("clas")]
+            + [("out of range (FP0 rows, 1/4 outside)", outside, fp0[2],
+                fp0[3], None, torch.float32),
+               (f"bf16 g ({seg[1][0]})", *seg[1][1:], None, torch.bfloat16)])
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for (tag, idx, n, c), record in sets:
+    for tag, idx, n, c, step, dtype in sets:
         idx = idx.int().contiguous()
-        g = torch.randn(B, idx.shape[1], c, generator=gen, device="cuda")
+        g = torch.randn(B, idx.shape[1], c, generator=gen,
+                        device="cuda").to(dtype)
+        yield tag, g, idx, n, step
+
+
+def _longest_list(idx, n) -> int:
+    """The most in-range entries of a cloud that name one row."""
+    keep = (idx >= 0) & (idx < n)
+    rows = (idx.long() + n * torch.arange(idx.shape[0],
+                                          device=idx.device)[:, None])[keep]
+    return int(torch.bincount(rows).max()) if rows.numel() else 0
+
+
+def _index_add(g, idx, n):
+    """The library's scatter-add of ``g [B, R, C]`` by in-range ``idx``:
+    ``index_add_`` of the flat rows (f32, widened beforehand) into
+    zeros."""
+    flat = (idx.long() + n * torch.arange(B, device="cuda")[:, None]
+            ).reshape(-1)
+    g2d = g.reshape(-1, g.shape[-1]).float()
+    return lambda: torch.zeros(B * n, g.shape[-1], device="cuda").index_add_(
+        0, flat, g2d)
+
+
+def row_scatter_times(sets) -> None:
+    """#5's device ms a call (profiler, 10 calls) in all (every kernel
+    record of the calls: ``_call_ms``, profiled again where a record was
+    dropped: ``_whole_events``) and by part (``ROW_SCATTER_PARTS``: the
+    inverse index and the sum, with their records a call, which show one
+    still dropped), beside its byte bound (g and idx read,
+    the f32 output written once) and ``index_add_`` into zeros (device,
+    its memset included) where every index is in range, with the longest
+    list of a row; and the sums over one MSG seg step and one MSG clas
+    step (``ROW_STEPS``). Uses only the wrapper's public function."""
+    from papc_tpu_torch.ops.kernels import scatter_rows
+
+    sums = {step: [0.0] * 5 for step in ROW_STEPS}
+    for tag, g, idx, n, step in sets:
+        def call():
+            return scatter_rows.scatter_rows_add(g, idx, n)
+
+        device = _whole_events(call, 10, sum(ROW_SCATTER_PARTS.values(), ()))
+        ms = _call_ms(device, 10)
+        split = _named_ms(device, 10, ROW_SCATTER_PARTS)
+        check(all(launches <= 1 for _, launches in split.values()),
+              f"{tag}: scatter_rows_add launched "
+              f"{[v[1] for v in split.values()]} kernels a call by part")
+        bound = (_nbytes(g, idx) + 4 * B * n * g.shape[-1]) \
+            / HBM_BYTES_PER_S * 1e3
+        in_range = bool(((idx >= 0) & (idx < n)).all())
+        lib = (_call_ms(_device_events(_index_add(g, idx, n), 10)[0], 10)
+               if in_range else 0.0)
+        print(f"    {'':<18} scatter_rows_add {tag} [{B},{idx.shape[1]},"
+              f"{g.shape[-1]}]->{n}: device {ms:.4f} ms ("
+              f"{_scatter_line(split)}), bound {bound:.4f} ms, index_add_ "
+              + (f"{lib:.4f} ms" if in_range else "n/a")
+              + f"; longest list {_longest_list(idx, n)} entries")
+        if step is not None:
+            for i, v in enumerate((ms, split["index"][0], split["sum"][0],
+                                   bound, lib)):
+                sums[step][i] += v
+    for step, (ms, index, total, bound, lib) in sums.items():
+        print(f"    scatter_rows_add over one {step} (device, profiler): "
+              f"{ms:.4f} ms (index {index:.4f} + sum {total:.4f}) against "
+              f"its bound {bound:.4f} ms and index_add_ {lib:.4f} ms")
+
+
+def phase_new_shapes(rows, t_rows):
+    """The row scatter-add (#5) against its plain version on the sets of
+    ``_row_scatter_sets`` (MSG seg's four a step: the recorded row), and
+    equal to itself bit for bit over two calls, with its device ms by
+    part (``row_scatter_times``); #2 on MSG classification's six branches
+    (exact, device ms over one forward); the eval pass on MSG
+    classification's seven stacks (``MSG_CLAS_STACKS``); the stream
+    passes at K = 16, at K = 128 with width 196 and at c0 = 643, pass by
+    pass. Inputs are the seed-0 models' own tensors, captured from one
+    eval forward each."""
+    from papc_tpu_torch.ops.kernels import ball_query, scatter_rows
+
+    row = _kernel_row("scatter_rows_add",
+                      "papc_tpu_torch/csrc/scatter_rows_add.cu",
+                      "papc_tpu/ops/pallas/scatter.py:124")
+    print("[9 new shapes] kernel vs plain at the MSG and segmentation "
+          f"shapes (B={B}, N={N})")
+    got, models = _msg_capture()
+    sets = list(_row_scatter_sets(got, models))
+    for tag, g, idx, n, step in sets:
         out = scatter_rows.scatter_rows_add(g, idx, n)
         want = scatter_rows.scatter_rows_add(g, idx, n, impl="plain")
-        library = None
-        if bool(((idx >= 0) & (idx < n)).all()):
-            flat = (idx.long() + n * torch.arange(B, device="cuda")[:, None]
-                    ).reshape(-1)
-            g2d = g.reshape(-1, c)
-
-            def library():
-                return torch.zeros(B * n, c, device="cuda").index_add_(
-                    0, flat, g2d)
-        _compare(row, f"{tag} [{B},{idx.shape[1]},{c}]->{n}", out, want,
-                 rel=SCATTER_TOL,
+        in_range = bool(((idx >= 0) & (idx < n)).all())
+        _compare(row, f"{tag} [{B},{idx.shape[1]},{g.shape[-1]}]->{n}", out,
+                 want, rel=SCATTER_TOL,
                  fn_kernel=lambda: scatter_rows.scatter_rows_add(g, idx, n),
                  fn_plain=lambda: scatter_rows.scatter_rows_add(
                      g, idx, n, impl="plain"),
                  work=(_nbytes(g, idx, out), g.numel() / F32_OPS_PER_S),
-                 fn_library=library, record=record)
-    del g, out, want
+                 fn_library=_index_add(g, idx, n) if in_range else None,
+                 record=step == ROW_STEPS[0])
+        check(torch.equal(scatter_rows.scatter_rows_add(g, idx, n), out),
+              f"{tag}: scatter_rows_add differs between two calls")
+    del out, want
+    row_scatter_times(sets)
+    del sets
+    calls = list(_msg_ball_calls(
+        got, models, "clas", ["SetAbstractionMsg_0", "SetAbstractionMsg_1"]))
+    for tag, radius, k, xyz, new_xyz in calls:
+        _compare(rows["ball_query"], tag,
+                 ball_query.query_ball_point(radius, k, xyz, new_xyz),
+                 ball_query.query_ball_point(radius, k, xyz, new_xyz,
+                                             impl="plain"), exact=True)
+    ball_query_times(calls, "one MSG clas forward")
 
     sa3 = got["clas"]["SetAbstraction_0.PointMLP_0"][0][0]
     check(sa3.shape[-1] == 643, f"MSG clas SA3 input {tuple(sa3.shape)}")
@@ -2056,6 +2293,10 @@ def _device_busy(fn, steps: int = 5, top: int = 0, split: bool = False,
             print(f"    group_gather device ms a step: "
                   f"{grouping['gather'][0]:.4f} ({grouping['gather'][1]:g}); "
                   f"group_scatter_add: {_scatter_line(grouping)}")
+        rows = _named_ms(device, steps, ROW_SCATTER_PARTS)
+        if rows["index"][1]:
+            print(f"    scatter_rows_add device ms a step: "
+                  f"{_scatter_line(rows)}")
     if top:
         by_name: dict = {}
         for e in device:

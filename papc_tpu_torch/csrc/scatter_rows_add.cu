@@ -1,6 +1,7 @@
 // Row scatter-add, the backward of the flat row gather (index_points):
-//   out[b, idx[b, r], c] += g[b, r, c]      for 0 <= idx[b, r] < n_rows
-// An index outside [0, n_rows) contributes nothing (out zero-filled first).
+//   out[b, j, c] = sum of g[b, r, c] over the rows r with idx[b, r] == j
+//                  (0 where none has j); an index outside [0, n_rows)
+//                  contributes nothing.
 //
 // Replaces: papc_tpu/ops/pallas/scatter.py::scatter_rows_add_pallas
 // (_scatter_kernel). On the TPU the sum is a product of a transposed
@@ -9,68 +10,75 @@
 // nothing" comes from, and this kernel keeps it. (The grouping gather's
 // backward, group_scatter_add.cu, clamps instead, as its forward does.)
 //
-// What bounds it on the H100: bytes and atomic throughput. It reads the
-// gradient once (MSG classification's SA2 branches: 32 x 128 x (32 + 64 +
-// 128) rows of 323 f32, 1.19 GB a step) and adds into [B, n_rows, C] f32
-// (32 x 512 x 323 x 4 B = 21 MB, which stays in L2).
+// What bounds it on the H100: bytes. It reads the gradient once (MSG
+// classification's SA2 branches: 32 x 128 x (32 + 64 + 128) rows of 323
+// f32, 1.19 GB a step) and idx, and writes [B, n_rows, C] f32 once (32 x
+// 512 x 323 x 4 B = 21 MB a call).
 //
-// Design: one thread per gradient element, grid-stride, neighbouring
-// threads on neighbouring channels (coalesced reads), f32 atomicAdd into
-// the output. Ball-query padding repeats a group's first index up to K-1
-// times, so those rows take many adds each; they spread over channels and
-// over the rows of other groups. The adds land in an order that changes
-// from run to run, so the result matches the plain index_add_ to f32
-// rounding of the sums (the TPU kernel too sums in another order than
-// XLA's scatter).
-#include <cuda_bf16.h>
-
-#include "common.cuh"
+// Design: the owners of an output row compute it, in two launches behind
+// the one entry point, on the bodies in scatter_sorted.cuh (the plan is
+// ops/kernels/scatter_sorted.py::sorted_plan): a stable counting sort
+// of each cloud's rows by their index, an index outside [0, n_rows) in no
+// list (row_index_kernel), then a sum that splits each block's rows'
+// lists evenly over its workers and writes every output row once, g read
+// as f32 or bf16 and added in f32 (row_sum_kernel). Ball query's padding
+// repeats a group's first index up to K - 1 times, so a few rows take
+// lists many times the mean (MSG SA2 at K = 128: over 1000 entries); the
+// even split keeps them off one worker. No atomics on the output and no
+// memset: two calls give the same bits, and a row inside one worker's
+// part adds in list order, a sequential index_add_'s.
+#include "scatter_sorted.cuh"
 
 namespace {
 
-__device__ __forceinline__ float as_f32(float v) { return v; }
-__device__ __forceinline__ float as_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+__global__ void __launch_bounds__(1024)
+    row_index_kernel(const int* __restrict__ idx, int n, int entries,
+                     int* __restrict__ offsets, int* __restrict__ order) {
+  sorted::inverse_index<true>(idx, n, entries, offsets, order);
+}
+
+template <int L, int CH, typename T>
+__global__ void __launch_bounds__(sorted::kSumThreads)
+    row_sum_kernel(const T* __restrict__ g, const int* __restrict__ offsets,
+                   const int* __restrict__ order, int n, int entries, int c,
+                   float* __restrict__ out) {
+  sorted::scatter_sum<L, CH>(g, offsets, order, n, entries, c, out);
 }
 
 template <typename T>
-__global__ void scatter_rows_add_kernel(const T* __restrict__ g,
-                                        const int* __restrict__ idx, int r,
-                                        int c, int n_rows, long long total,
-                                        float* __restrict__ out) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       e < total; e += stride) {
-    const long long row = e / c;  // flat (b, r)
-    const int j = idx[row];
-    if (j < 0 || j >= n_rows) continue;
-    const int ch = static_cast<int>(e - row * c);
-    const long long b = row / r;
-    atomicAdd(&out[(b * n_rows + j) * c + ch], as_f32(g[e]));
-  }
-}
+struct RowSum {
+  template <int L, int CH>
+  struct At {
+    static cudaError_t launch(dim3 grid, cudaStream_t stream, const T* g,
+                              const int* offsets, const int* order, int n,
+                              int entries, int c, float* out) {
+      return papc_launch(row_sum_kernel<L, CH, T>, grid,
+                         dim3(sorted::kSumThreads), 0, stream, g, offsets,
+                         order, n, entries, c, out);
+    }
+  };
+};
 
 }  // namespace
 
-// g [B, R, C] f32 (g_bf16 = 0) or bf16 (g_bf16 = 1), idx [B, R] i32, out
-// [B, n_rows, C] f32 zero-filled by the caller -> out += the scatter of g.
+// g [B, R, C] f32 (g_bf16 = 0) or bf16 (g_bf16 = 1), idx [B, R] i32 ->
+// out [B, n_rows, C] f32, every row written. Scratch: offsets [B, n_rows +
+// 1] and order [B, R] i32, both written here (the inverse index; order
+// past offsets[b, n_rows] is left as it was). warps: the index kernel's
+// warps a cloud (shared memory (warps * n_rows + n_rows + 32) * 4 bytes);
+// lanes (4, 8, 16 or 32; 32 with chans > 1) and chans (1-8): the sum
+// kernel's lanes a row and channels a lane.
 PAPC_EXPORT int papc_scatter_rows_add(const void* g, int g_bf16,
                                       const int* idx, int b, int r, int c,
-                                      int n_rows, float* out, void* stream) {
-  if (b <= 0 || r <= 0 || c <= 0 || n_rows <= 0) return cudaErrorInvalidValue;
-  const long long total = static_cast<long long>(b) * r * c;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  if (blocks > 132 * 64) blocks = 132 * 64;  // grid-stride beyond this
+                                      int n_rows, int warps, int lanes,
+                                      int chans, int* offsets, int* order,
+                                      float* out, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (g_bf16)
-    return papc_launch(scatter_rows_add_kernel<__nv_bfloat16>,
-                       dim3(static_cast<int>(blocks)), dim3(threads), 0, s,
-                       static_cast<const __nv_bfloat16*>(g), idx, r, c, n_rows,
-                       total, out);
-  return papc_launch(scatter_rows_add_kernel<float>,
-                     dim3(static_cast<int>(blocks)), dim3(threads), 0, s,
-                     static_cast<const float*>(g), idx, r, c, n_rows, total,
-                     out);
+    return sorted::launch<RowSum<__nv_bfloat16>::At>(
+        row_index_kernel, static_cast<const __nv_bfloat16*>(g), idx, b,
+        n_rows, r, c, warps, lanes, chans, offsets, order, out, s);
+  return sorted::launch<RowSum<float>::At>(
+      row_index_kernel, static_cast<const float*>(g), idx, b, n_rows, r, c,
+      warps, lanes, chans, offsets, order, out, s);
 }

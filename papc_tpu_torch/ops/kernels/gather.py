@@ -12,15 +12,17 @@ in row layout ``[B, S, K, 3 + D]``, xyz channels first, as
   the card a block writes the contiguous span of :func:`gather_plan`'s
   ``tile`` groups, each gathered row's index read and clamped once.
 - The backward adds the row-layout gradient into ``[B, N, 3 + D]`` at the
-  clamped indices. On the card it first sorts each cloud's entries by
-  point, stably (:func:`inverse_index_plain` is that index's plain twin),
-  then sums each point's rows in that order and writes every output row
-  once (:func:`scatter_add_sorted_plain` sums in the same order; a long
-  list is split over consecutive workers whose parts are added in order,
-  :func:`sum_schedule`). No atomics on the output: two calls give the same
-  bits. It matches the plain ``index_add_`` on the card (atomics) to f32
-  rounding of the sums. :func:`scatter_add_plan` sizes both launches and
-  raises above ``SCATTER_N_LIMIT`` points.
+  clamped indices, on the owner-computes scatter-add of
+  ``scatter_sorted`` (``csrc/scatter_sorted.cuh``): on the card it first
+  sorts each cloud's entries by point, stably (:func:`inverse_index_plain`
+  is that index's plain twin), then sums each point's rows in that order
+  and writes every output row once (:func:`scatter_add_sorted_plain` sums
+  in the same order; a long list is split over consecutive workers whose
+  parts are added in order, :func:`sum_schedule`). No atomics on the
+  output: two calls give the same bits. It matches the plain
+  ``index_add_`` on the card (atomics) to f32 rounding of the sums.
+  :func:`scatter_add_plan` sizes both launches and raises above
+  ``SCATTER_N_LIMIT`` points.
 """
 
 from __future__ import annotations
@@ -34,6 +36,12 @@ import torch
 from papc_tpu_torch._build import Kernel, ptr, stream_of
 from papc_tpu_torch.ops.geometry import index_points
 from papc_tpu_torch.ops.kernels import check, use_kernel
+# the inverse index's names stay importable from here, where the grouping
+# gather's tests and callers have always found them
+from papc_tpu_torch.ops.kernels.scatter_sorted import (  # noqa: F401
+    INDEX_WARPS, MAX_CHANS, SCATTER_N_LIMIT, SMEM_LIMIT, THREADS, ScatterPlan,
+    index_smem, inverse_index_plain, scatter_add_sorted_plain, sorted_plan,
+    sum_rows, sum_schedule)
 
 KERNEL = Kernel(
     "papc_group_gather",
@@ -48,13 +56,9 @@ SCATTER_KERNEL = Kernel(
      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_void_p],
 )
-SMEM_LIMIT = 232448  # dynamic shared memory a block may opt into (H100)
-THREADS = 256  # threads of a gather block and of a sum block
 GATHER_SPAN = 4096  # floats a gather block writes, where its groups allow
 GATHER_ROWS = 1024  # gathered rows a block's records hold (16 bytes each)
-SCATTER_N_LIMIT = 8192  # points a cloud the inverse index counts
-INDEX_WARPS = (32, 16, 8, 4)  # the index kernel's warps a cloud, by choice
-MAX_CHANS = 8  # channels a sum lane holds a walk
+# a gather block has THREADS threads, as a sum block does
 
 
 class GatherPlan(NamedTuple):
@@ -85,49 +89,17 @@ def gather_plan(b: int, s: int, k: int, c: int) -> GatherPlan:
                       16 * tile * k)
 
 
-class ScatterPlan(NamedTuple):
-    warps: int  # inverse index: warps a cloud
-    lanes: int  # sum: lanes an output row
-    chans: int  # sum: channels a lane a walk of the row's list
-    smem: int  # inverse index: bytes of counts, offsets and scan totals
-    blocks: int  # sum: blocks of THREADS threads, sum_rows(lanes) rows each
-
-
-def sum_rows(lanes: int) -> int:
-    """Rows a sum block takes: half its workers, so that a long list
-    spreads over at least two workers' parts."""
-    return THREADS // lanes // 2
-
-
-def index_smem(warps: int, n: int) -> int:
-    """The inverse index's shared memory: a row of ``n`` counts a warp,
-    the ``n`` offsets and 32 scan totals, 4 bytes each."""
-    return 4 * (warps * n + n + 32)
-
-
 @functools.lru_cache(maxsize=None)
 def scatter_add_plan(b: int, n: int, s: int, k: int, c: int) -> ScatterPlan:
     """The backward's two launches for ``b`` clouds of ``s * k`` entries
-    into ``n`` points of ``c`` channels. The inverse index: a block a
-    cloud, the most warps of ``INDEX_WARPS`` whose counts fit in shared
-    memory (32 up to 1760 points, 4 at ``SCATTER_N_LIMIT``). The sum: a
-    block of ``THREADS // lanes`` workers takes ``sum_rows(lanes)`` rows
-    of one cloud and splits their entries evenly over its workers (see
-    :func:`sum_schedule`); a worker is ``lanes`` lanes, the power of two
-    at or above ``c`` between 4 and 32, each lane holding ``chans``
-    channels (up to ``MAX_CHANS``; wider rows take more walks). Raises
+    into ``n`` points of ``c`` channels: :func:`sorted_plan` (32 index
+    warps a cloud up to 1760 points, 4 at ``SCATTER_N_LIMIT``; a sum
+    worker of ``lanes`` lanes a row, ``chans`` channels a lane). Raises
     ``ValueError`` above ``SCATTER_N_LIMIT`` points."""
     if min(b, n, s, k, c) < 1:
         raise ValueError(f"scatter_add needs positive shapes, got b={b}, "
                          f"n={n}, s={s}, k={k}, c={c}")
-    if n > SCATTER_N_LIMIT:
-        raise ValueError(f"the scatter-add's inverse index counts at most "
-                         f"{SCATTER_N_LIMIT} points a cloud, got n={n}")
-    warps = next(w for w in INDEX_WARPS if index_smem(w, n) <= SMEM_LIMIT)
-    lanes = max(4, min(32, 1 << (c - 1).bit_length()))
-    chans = 1 if lanes < 32 else min(MAX_CHANS, -(-c // 32))
-    return ScatterPlan(warps, lanes, chans, index_smem(warps, n),
-                       b * -(-n // sum_rows(lanes)))
+    return sorted_plan(b, n, s * k, c)
 
 
 def group_gather_plain(xyz: torch.Tensor, points: torch.Tensor | None,
@@ -170,63 +142,6 @@ def scatter_add_plain(g: torch.Tensor, idx: torch.Tensor,
     rows = (rows + (torch.arange(B, device=g.device) * n)[:, None]).reshape(-1)
     out = torch.zeros((B * n, C), dtype=torch.float32, device=g.device)
     out.index_add_(0, rows, g.reshape(-1, C).float())
-    return out.reshape(B, n, C)
-
-
-def sum_schedule(offsets: list[int], workers: int):
-    """How one sum block of ``workers`` workers shares the rows whose
-    lists start at ``offsets`` (the block's ``rows + 1`` offsets of the
-    inverse index), as ``scatter_sum_kernel`` splits them: worker w walks
-    the entries ``ranges[w]`` in order; a row inside one worker's range
-    is written by that worker, any other (empty, or split over workers
-    ``first..last``) by the merge, which adds the partials of ``first..
-    last`` in order. Returns ``(ranges, writers)``, ``writers[r]`` the
-    workers whose partials make row r (one for a row written whole)."""
-    begin, total = offsets[0], offsets[-1] - offsets[0]
-    per = -(-total // workers)
-    ranges = [(begin + min(w * per, total), begin + min((w + 1) * per, total))
-              for w in range(workers)]
-    writers = []
-    for lo, hi in zip(offsets[:-1], offsets[1:]):
-        if lo == hi:
-            writers.append(range(0))
-            continue
-        writers.append(range((lo - begin) // per, (hi - 1 - begin) // per + 1))
-    return ranges, writers
-
-
-def inverse_index_plain(idx: torch.Tensor,
-                        n: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Each cloud's entries ``idx [B, S, K]`` (clamped to ``[0, n)``)
-    sorted stably by point, as the backward's first kernel builds them:
-    ``offsets [B, n + 1]`` and ``order [B, S * K]`` int32, point j's
-    entries (flat ``s * K + k``, ascending) at ``order[b,
-    offsets[b, j]:offsets[b, j + 1]]``."""
-    B = idx.shape[0]
-    points = idx.reshape(B, -1).long().clamp(0, n - 1)
-    clouds = (torch.arange(B, device=idx.device) * n)[:, None]
-    counts = torch.bincount((points + clouds).reshape(-1),
-                            minlength=B * n).reshape(B, n)
-    offsets = torch.nn.functional.pad(counts.cumsum(1), (1, 0))
-    order = torch.argsort(points, dim=1, stable=True)
-    return offsets.int(), order.int()
-
-
-def scatter_add_sorted_plain(g: torch.Tensor, offsets: torch.Tensor,
-                             order: torch.Tensor, n: int) -> torch.Tensor:
-    """The scatter-add through the inverse index in the order the
-    backward's second kernel walks it: point j's rows of ``g [B, S, K, C]``
-    added in its list's order, into zeros where the list is empty (a list
-    the kernel splits over workers adds their parts' sums instead)."""
-    B, S, K, C = g.shape
-    rows = g.reshape(B, S * K, C).float()
-    taken = torch.gather(rows, 1, order.long()[..., None].expand(-1, -1, C))
-    slots = torch.arange(S * K, device=g.device).expand(B, -1).contiguous()
-    point = torch.searchsorted(offsets[:, 1:].long().contiguous(), slots,
-                               right=True)
-    point = point + (torch.arange(B, device=g.device) * n)[:, None]
-    out = torch.zeros((B * n, C), dtype=torch.float32, device=g.device)
-    out.index_add_(0, point.reshape(-1), taken.reshape(-1, C))
     return out.reshape(B, n, C)
 
 

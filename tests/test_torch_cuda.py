@@ -20,16 +20,19 @@ of the largest (a product summed in another order moves a value that
 cancels to near 0 by many of its own ulps), 1e-3 for dy', whose ``da``
 may round to the other bf16 neighbour; f32 sums, dW, db and dg within
 1e-3 of the largest magnitude (sums over up to 524288 rows in another
-order); the scatter-add within 1e-5 (f32 atomics in run-dependent
-order). A reduced training step's loss within 5e-3 of the plain step's
-(bf16 rounding flips between the two carry through three SA stages).
+order); the scatter-add within 1e-5 (each point's list summed in order,
+against the card's atomic ``index_add_``). A reduced training step's
+loss within 5e-3 of the plain step's (bf16 rounding flips between the
+two carry through three SA stages).
 
 The NMS sweeps must equal their plain versions exactly (keep masks), and
 a reduced detection slice's detections with the kernels must equal the
 plain run's.
 
 The row scatter-add (the backward of ``index_points``) within 1e-5 of its
-largest (f32 atomics), out-of-range indices contributing nothing; the
+largest (each row summed in its list's order, against the card's
+atomics), out-of-range indices contributing nothing, its inverse index
+equal to the plain twin's and the same bits over two calls; the
 eval MLP at MSG classification's SA3 width (c0 = 643, a group split over
 four 32-row blocks) and the training passes at MSG's widths (196, 643)
 and K = 16 under the tolerances above; the MSG classifier and both
@@ -69,7 +72,8 @@ from papc_tpu_torch.nn.layers import init_params
 from papc_tpu_torch.ops import fused_mlp, geometry, sampling
 from papc_tpu_torch.ops.iou import box5_to_corners, iou_2d
 from papc_tpu_torch.ops.kernels import (ball_query, fps, gather, nms, samlp,
-                                        samlp_train, scatter_rows)
+                                        samlp_train, scatter_rows,
+                                        scatter_sorted)
 
 pytestmark = pytest.mark.cuda
 KERNEL_MODULES = (fps, ball_query, gather, samlp)
@@ -165,6 +169,60 @@ def test_ball_query_kernel_empty_balls(device):
     far = torch.full((2, 10, 3), 100.0, device=device)
     got = ball_query.query_ball_point(0.5, 8, xyz, far)
     assert bool((got == 299).all())
+
+
+@pytest.mark.parametrize("B,N,S,K,r,kind", [
+    (2, 1000, 300, 32, 0.3, "points"),  # N off every tile
+    (1, 16385, 700, 32, 0.4, "points"),  # the whole cloud, off 16 bytes
+    (4, 16384, 2048, 32, 0.4, "points"),  # the 16k row: one cloud a block
+    (1, 65536, 1024, 32, 0.4, "points"),  # tiles of TILE_POINTS
+    (1, 131072, 512, 32, 0.4, "points"),  # FPS's limit
+    (2, 300, 40, 300, 0.5, "points"),  # nsample = N
+    (2, 500, 64, 64, 50.0, "points"),  # every point inside the radius
+    (2, 500, 64, 16, 0.5, "far"),  # every ball empty
+    (3, 1024, 4096, 16, 0.2, "random"),  # a cloud's queries over 8 blocks
+])
+def test_ball_query_kernel_edges(device, B, N, S, K, r, kind):
+    """Exact against plain where the staging, the tiles and the early
+    exits have their edges; one launch a call."""
+    xyz = _cloud(N + K, B, N).to(device)
+    if kind == "far":
+        q = torch.full((B, S, 3), 100.0, device=device)
+    elif kind == "random":
+        q = _cloud(S, B, S).to(device)
+    else:
+        q = xyz[:, torch.randperm(N, generator=torch.Generator().manual_seed(
+            S))[:S].to(device)].contiguous()
+    plan = ball_query.ball_query_plan(B, N, S, K)
+    if kind == "random":
+        assert plan.blocks // B >= 8
+    before = ball_query.KERNEL.launches
+    got = ball_query.query_ball_point(r, K, xyz, q)
+    assert ball_query.KERNEL.launches == before + 1
+    want = ball_query.query_ball_point(r, K, xyz, q, impl="plain")
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if kind == "far":
+        assert bool((got == N - 1).all())
+
+
+@pytest.mark.parametrize("queries", [1, 2, 4])
+@pytest.mark.parametrize("tile,warps", [
+    (1000, 4), (1000, 1), (1000, 32),  # the whole cloud
+    (128, 4), (256, 8), (128, 1)])  # double-buffered tiles
+def test_ball_query_kernel_takes_every_plan(device, queries, tile, warps):
+    """Any warps, queries a warp (a block's last queries past S) and tile
+    of points (the whole cloud, or double-buffered tiles down to 128
+    points) give the plain bits, on balls that fill early and balls that
+    never fill."""
+    B, N, S, K = 2, 1000, 77, 24
+    xyz = _cloud(7, B, N).to(device)
+    q = xyz[:, :S].contiguous()
+    q[:, ::5] += 0.5
+    plan = ball_query.BallQueryPlan(warps, queries, tile, 0, 0)
+    for r in (0.1, 0.4):
+        got = ball_query.launch_plan(r, K, xyz, q, plan)
+        want = ball_query.query_ball_point(r, K, xyz, q, impl="plain")
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("B,N,D,S,K", [
@@ -627,34 +685,68 @@ def test_scatter_add_kernel_refuses_clouds_above_its_limit(device):
 @pytest.mark.parametrize("B,R,C,n,kind", [
     (2, 50, 5, 7, "range"), (32, 128 * 128, 323, 512, "padding"),
     (32, 1024 * 3, 128, 512, "range"), (4, 999, 131, 64, "outside"),
-    (3, 77, 20, 9, "bf16")])
+    (3, 77, 20, 9, "bf16"), (32, 128 * 64, 323, 512, "bf16 padding"),
+    (3, 500, 7, 40, "none")])
 def test_scatter_rows_add_kernel_matches_plain(device, B, R, C, n, kind):
     """#5 against its plain version: random rows, ball-query padding
-    (runs of a group's first index), indices outside [0, n) that add
-    nothing, and a bf16 gradient."""
+    (runs of a group's first index; MSG clas SA2 at K = 128, C = 323),
+    indices outside [0, n) that add nothing, a bf16 gradient, and a cloud
+    whose every index is out of range (zeros). One launch a call; the
+    index the kernel built equal to the drop-policy twin's (offsets, and
+    order up to the count kept); the sum within 1e-5 of plain and the
+    same bits over two calls, though the output is ``torch.empty`` over a
+    pool of NaNs; every row no entry takes exactly 0."""
     gen = torch.Generator().manual_seed(R + C)
     g = torch.randn(B, R, C, generator=gen)
-    if kind == "padding":
+    if "padding" in kind:
         idx = torch.randint(0, n, (B, R // 128, 1), generator=gen)
         idx = idx.repeat(1, 1, 128)
         idx[..., :40] = torch.randint(0, n, (B, R // 128, 40), generator=gen)
         idx = idx.reshape(B, R)
     elif kind == "outside":
         idx = torch.randint(-n, 2 * n, (B, R), generator=gen)
+    elif kind == "none":
+        idx = torch.randint(n, 3 * n, (B, R), generator=gen)
+        idx[:, ::2] = -1 - idx[:, ::2]
     else:
         idx = torch.randint(0, n, (B, R), generator=gen)
-    if kind == "bf16":
+    if "bf16" in kind:
         g = g.to(torch.bfloat16)
     g, idx = g.to(device), idx.int().to(device)
     before = scatter_rows.KERNEL.launches
-    got = scatter_rows.scatter_rows_add(g, idx, n)
+    _garbage_pool(device, B * n * C)
+    got, offsets, order = scatter_rows.scatter_rows_add_cuda(
+        g, idx, n, with_index=True)
     assert scatter_rows.KERNEL.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == (B, n, C)
+    want_offsets, want_order = scatter_sorted.inverse_index_plain(idx, n,
+                                                                  drop=True)
+    assert torch.equal(offsets, want_offsets)
+    for b in range(B):
+        kept = int(offsets[b, n])
+        assert torch.equal(order[b, :kept], want_order[b, :kept])
     _near(got, scatter_rows.scatter_rows_add(g, idx, n, impl="plain"), 1e-5)
+    _garbage_pool(device, B * n * C)
+    assert torch.equal(scatter_rows.scatter_rows_add(g, idx, n), got)
+    assert bool((got[offsets[:, 1:] == offsets[:, :-1]] == 0).all())
     if kind == "outside":
         keep = (idx >= 0) & (idx < n)
         assert float(got.sum()) == pytest.approx(
             float(g.float()[keep].sum()), rel=1e-4, abs=1e-2)
+    if kind == "none":
+        assert bool((offsets == 0).all()) and bool((got == 0).all())
+
+
+def test_scatter_rows_add_kernel_refuses_rows_above_its_limit(device):
+    """Above ``SCATTER_N_LIMIT`` output rows a cloud the plan raises
+    ``ValueError`` naming the limit, and nothing launches."""
+    n = scatter_sorted.SCATTER_N_LIMIT + 1
+    g = torch.zeros(1, 8, 3, device=device)
+    idx = torch.zeros(1, 8, dtype=torch.int32, device=device)
+    before = scatter_rows.KERNEL.launches
+    with pytest.raises(ValueError, match="at most"):
+        scatter_rows.scatter_rows_add(g, idx, n)
+    assert scatter_rows.KERNEL.launches == before
 
 
 def test_index_points_backward_launches_the_scatter(device):

@@ -140,7 +140,7 @@ def test_library_path_is_keyed_by_sources_and_flags(monkeypatch):
             "samlp_train.cuh", "nms_greedy.cu", "nms_rotate.cu",
             "scatter_rows_add.cu", "samlp_recompute.cuh", "samlp_rc_fwd.cu",
             "samlp_rc_bwd.cu", "samlp_single.cuh", "samlp_single_fwd.cu",
-            "samlp_single_bwd.cu", "samlp_mma.cuh"} <= {
+            "samlp_single_bwd.cu", "samlp_mma.cuh", "scatter_sorted.cuh"} <= {
                 p.name for p in _build.sources()}
 
 

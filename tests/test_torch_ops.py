@@ -27,7 +27,8 @@ from papc_tpu.ops.pallas.samlp import eval_mlp_max as jeval_mlp_max
 from papc_tpu_torch.models import registry
 from papc_tpu_torch.ops import fused_mlp, geometry, grouping, sampling
 from papc_tpu_torch.ops.kernels import (ball_query, fps, gather, samlp,
-                                        samlp_train, use_kernel)
+                                        samlp_train, scatter_rows,
+                                        scatter_sorted, use_kernel)
 
 from tests import torch_parity as P
 
@@ -183,6 +184,67 @@ def test_ball_query_radius_is_inclusive():
     q = xyz[:, :1]
     got = grouping.query_ball_point(0.5, 4, T(xyz), T(q))
     np.testing.assert_array_equal(got.numpy(), [[[0, 1, 3, 0]]])
+
+
+# Every ball-query shape of the registry's models (SSG SA1 and SA2, MSG
+# clas's six branches), the bench's 16k row, the edges of the whole-cloud
+# staging, FPS's 64k and 131072-point clouds, and small ones.
+BALL_PLAN_SHAPES = [(32, 1024, 512, 32), (32, 512, 128, 64),
+                    (32, 1024, 512, 16), (32, 1024, 512, 128),
+                    (32, 512, 128, 32), (32, 512, 128, 128),
+                    (4, 16384, 2048, 32), (1, 19328, 700, 32),
+                    (1, 19329, 700, 32), (1, 65536, 4096, 32),
+                    (1, 131072, 512, 32), (2, 1000, 77, 16), (1, 50, 9, 48),
+                    (3, 1024, 4096, 16), (1, 3, 1, 3)]
+
+
+@pytest.mark.parametrize("b,n,s,k", BALL_PLAN_SHAPES)
+def test_ball_query_plan_covers_every_query_once(b, n, s, k):
+    """Mirror of the kernel's indexing: block x of ``warps`` warps takes
+    queries ``(x % per_cloud) * warps * Q + w * Q + i`` of cloud ``x //
+    per_cloud``; every query once (past S none). The staged points: the
+    whole cloud padded to ``STEP`` points, or double-buffered tiles of a
+    multiple of ``STEP`` that take every point once, within a block's
+    shared memory, as the C entry sizes it."""
+    p = ball_query.ball_query_plan(b, n, s, k)
+    span = p.warps * p.queries
+    per_cloud = -(-s // span)
+    assert p.blocks == b * per_cloud
+    taken = np.zeros((b, s), np.int64)
+    for x in range(p.blocks):
+        q = (x % per_cloud) * span + np.arange(span)
+        taken[x // per_cloud, q[q < s]] += 1
+    assert (taken == 1).all()
+    tiled = p.tile < n
+    assert p.tile == (ball_query.TILE_POINTS if tiled else n)
+    assert p.smem == 12 * (2 if tiled else 1) * ball_query.pad_step(p.tile)
+    assert p.smem <= ball_query.SMEM_LIMIT
+    if tiled:
+        assert p.tile % ball_query.STEP == 0
+        points = np.zeros(n, np.int64)
+        for t in range(-(-n // p.tile)):
+            points[t * p.tile:(t + 1) * p.tile] += 1
+        assert (points == 1).all()
+
+
+def test_ball_query_plan_stages_whole_clouds_and_fills_the_card():
+    """The SSG cloud (12 KB) and the 16k row's (192 KB) are staged whole,
+    a 64k one in tiles; SA1, SA2 and the 16k row fill the card with 32
+    warps a block, taking 4, 1 and 2 queries a warp; every N up to FPS's
+    131072 points gets a plan."""
+    sa1 = ball_query.ball_query_plan(32, 1024, 512, 32)
+    sa2 = ball_query.ball_query_plan(32, 512, 128, 64)
+    row16k = ball_query.ball_query_plan(4, 16384, 2048, 32)
+    assert sa1.tile == 1024 and row16k.tile == 16384
+    assert row16k.smem == 12 * 16384
+    assert ball_query.ball_query_plan(1, 65536, 4096, 32).tile \
+        == ball_query.TILE_POINTS
+    for plan, q in ((sa1, 4), (sa2, 1), (row16k, 2)):
+        assert plan.blocks >= ball_query.FILL_BLOCKS
+        assert (plan.warps, plan.queries) == (32, q)
+    for n in (1, 127, 128, 129, 1000, 16384, 19328, 19329, 65536, 131072):
+        p = ball_query.ball_query_plan(2, n, 64, min(n, 32))
+        assert p.smem <= ball_query.SMEM_LIMIT
 
 
 # ---------------------------------------------------------- gather
@@ -346,11 +408,14 @@ def test_scatter_add_plan_takes_every_entry_and_row_once(b, n, s, k, c):
     channels ``sub + lanes * i`` (i < chans) a walk, the walks stepping
     by lanes x chans; every (row, channel) once. The index's shared
     memory stays within a block's."""
-    p = gather.scatter_add_plan(b, n, s, k, c)
+    _check_sorted_plan(gather.scatter_add_plan(b, n, s, k, c), b, n, s * k,
+                       c)
+
+
+def _check_sorted_plan(p, b, n, entries, c):
     assert p.smem == gather.index_smem(p.warps, n) <= gather.SMEM_LIMIT
     assert p.warps == max(w for w in gather.INDEX_WARPS
                           if gather.index_smem(w, n) <= gather.SMEM_LIMIT)
-    entries = s * k
     taken = np.zeros(entries, np.int64)
     chunk = -(-entries // p.warps)
     for w in range(p.warps):
@@ -426,6 +491,87 @@ def test_sum_schedule_takes_every_entry_once_and_merges_in_order(
                 np.testing.assert_allclose(total, want[cloud, j0 + r],
                                            rtol=0, atol=scale)
         assert (taken == 1).all()
+
+
+# #5's index sets at every registry shape (B=32): MSG clas SA2's three
+# branches and MSG seg SA2's two (K 32/64/128 rows of 128 centres into
+# 512 points, C = 323), and the two 3-NN interpolations of both
+# segmentation models (FP1: 512 x 3 rows into 128, C = 256; FP0: 1024 x 3
+# into 512, C = 128).
+ROW_PLAN_SHAPES = [(128 * 32, 323, 512), (128 * 64, 323, 512),
+                   (128 * 128, 323, 512), (512 * 3, 256, 128),
+                   (1024 * 3, 128, 512)]
+
+
+@pytest.mark.parametrize("r,c,n", ROW_PLAN_SHAPES)
+def test_scatter_rows_plan_takes_every_entry_and_row_once(r, c, n):
+    """#5's plan at every registry shape, mirrored as #4's: the inverse
+    index takes every one of a cloud's R entries once (R up to 16384, the
+    MSG clas SA2 branch at K = 128), the sum every (row, channel) once
+    (two clouds mirrored; a cloud's plan does not depend on B)."""
+    p32 = scatter_sorted.sorted_plan(32, n, r, c)
+    p = scatter_sorted.sorted_plan(2, n, r, c)
+    assert p32[:4] == p[:4] and p32.blocks == 16 * p.blocks
+    _check_sorted_plan(p, 2, n, r, c)
+
+
+def test_scatter_rows_plan_raises_above_its_row_limit():
+    limit = scatter_sorted.SCATTER_N_LIMIT
+    assert scatter_sorted.sorted_plan(1, limit, 8, 3).warps == 4
+    with pytest.raises(ValueError, match=f"at most {limit} points"):
+        scatter_sorted.sorted_plan(1, limit + 1, 8, 3)
+
+
+def _row_idx(rng, kind, b, r, n):
+    if kind == "outside":  # a third of the indices outside [0, n)
+        return rng.randint(-n // 2, n + n // 2, size=(b, r)).astype(np.int32)
+    if kind == "none":  # no index in range: every list empty
+        return np.where(rng.rand(b, r) < 0.5, -1 - rng.randint(0, 9, (b, r)),
+                        n + rng.randint(0, 9, (b, r))).astype(np.int32)
+    # ball-query padding: runs of a group's first index
+    idx = rng.randint(0, n, size=(b, r // 8, 1)).repeat(8, axis=2)
+    idx[..., 5:] = rng.randint(0, 3, idx[..., 5:].shape)
+    return idx.reshape(b, r).astype(np.int32)
+
+
+@pytest.mark.parametrize("kind", ["outside", "none", "padding"])
+def test_row_inverse_index_drops_out_of_range(rng, kind):
+    """The drop-policy index equals a numpy stable sort of each cloud's
+    in-range entries: ``offsets[:, n]`` the in-range count, ``order`` up
+    to it the in-range entries by index, ascending within an index."""
+    b, r, n = 3, 96, 20
+    idx = _row_idx(rng, kind, b, r, n)
+    offsets, order = scatter_sorted.inverse_index_plain(T(idx), n, drop=True)
+    assert offsets.dtype == order.dtype == torch.int32
+    for i in range(b):
+        keep = np.flatnonzero((idx[i] >= 0) & (idx[i] < n))
+        want = keep[np.argsort(idx[i, keep], kind="stable")]
+        counts = np.bincount(idx[i, keep], minlength=n)
+        np.testing.assert_array_equal(offsets[i].numpy(),
+                                      np.concatenate([[0], counts.cumsum()]))
+        assert int(offsets[i, n]) == len(keep)
+        np.testing.assert_array_equal(order[i, :len(keep)].numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["outside", "none", "padding"])
+def test_row_scatter_through_the_inverse_index_matches_plain(rng, kind,
+                                                             dtype):
+    """#5's list-order sum through the drop-policy index equals
+    ``scatter_rows_add_plain`` within 1e-5 of its largest, for an f32 and
+    a bf16 g (both widened to f32 exactly, summed in f32)."""
+    b, r, n, c = 3, 96, 20, 37
+    idx = T(_row_idx(rng, kind, b, r, n))
+    g = T(rng.randn(b, r, c).astype(np.float32)).to(dtype)
+    offsets, order = scatter_sorted.inverse_index_plain(idx, n, drop=True)
+    got = scatter_sorted.scatter_add_sorted_plain(g, offsets, order, n)
+    want = scatter_rows.scatter_rows_add_plain(g, idx, n)
+    assert got.dtype == torch.float32 and got.shape == (b, n, c)
+    scale = max(float(want.abs().max()), 1.0)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                               atol=1e-5 * scale)
+    if kind == "none":
+        assert not got.any()
 
 
 def test_scatter_add_plan_raises_above_its_n_limit():
