@@ -102,7 +102,11 @@ convolutions in f32 itself, as a user gets it.
    clustered random boxes, at IoU thresholds 0.1 and 0.5; keep masks
    must be equal (on a difference the deciding pair's plain IoU and its
    distance from the threshold are printed). The matrix sweep gets the
-   standup IoU matrix of the same boxes. Times as in phase 3.
+   standup IoU matrix of the same boxes. Times as in phase 3. Besides
+   (``nms_times``), each kernel's device ms a call by stage (the mask,
+   the sweep; a one-launch design as "whole"), the sweep's us a row and
+   the rotated mask's ring-overflow pairs, on both sets at both
+   thresholds.
 8. Detection slice: ``papc_tpu_torch.detect.train.evaluate`` over 8
    synthetic frames in 4 batches of 2, seed-0 weights written as a
    flax-keyed ``.npz`` and loaded through ``convert``; first with the
@@ -112,7 +116,9 @@ convolutions in f32 itself, as a user gets it.
    ``label_preds`` must be equal, boxes and scores within ``DET_TOL``
    (abs + rel). Prints pillars and detections per frame, serving ms per
    batch with kernels and plain, the stage split, the device busy share
-   and peak device memory, and a TF32 A/B: serving ms with the f32
+   and peak device memory, the batch and its NMS stage for both configs
+   (``detect_times``: CUDA events, and the stage's device ms by kernel
+   stage), and a TF32 A/B: serving ms with the f32
    convolutions the step runs against cuDNN's TF32 allowed, and how many
    detections differ.
 9. New shapes: the row scatter-add (#5, the backward of
@@ -214,9 +220,11 @@ REPS = 20
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # dense bf16 tensor cores
-# f32 operations of one quad-by-quad clip in nms_rotate.cu: four
-# halfplanes over 4-8 vertices (cross product 6, intersection 8), the
-# shoelace and the IoU
+# f32 operations of one quad-by-quad clip in nms_rotate.cu's register
+# ring: four halfplanes over 4-8 vertices (a cross product 6, an
+# intersection 8), the shoelace and the IoU. #20's bound counts the
+# pairs the greedy order needs (``_swept_pairs``); its mask kernel clips
+# every valid pair i < j, the decisions the order does not need included.
 CLIP_OPS = 200
 DET_FRAMES, DET_B, DET_K = 8, 2, 1000
 NMS_THRESHOLDS = (0.1, 0.5)
@@ -2040,6 +2048,7 @@ def _detect_setup():
     seeded = builders.build_network(cfg, vg, gen, coder)
     init_params(seeded, torch.Generator().manual_seed(0))
     weights = ROOT / "build" / "chip_smoke" / "pointpillars_seed0.npz"
+    weights.parent.mkdir(parents=True, exist_ok=True)
     np.savez(weights, **state_dict_to_flax(seeded.state_dict()))
     model = load_flax_weights(builders.build_network(cfg, vg, gen, coder),
                               weights).cuda().eval()
@@ -2109,11 +2118,8 @@ def phase_nms_kernels(det):
     versions, on the slice's own top-1000 boxes and on clustered ones.
     The rows keep the times and bounds of the main path's call: the
     slice's boxes at the config's threshold."""
-    from papc_tpu_torch.data.synthetic_kitti import collate_batch
     from papc_tpu_torch.detect import builders
-    from papc_tpu_torch.detect.detector import top_candidates
-    from papc_tpu_torch.detect.train import batch_to_device
-    from papc_tpu_torch.ops.iou import box5_to_corners, iou_2d, rotate_iou
+    from papc_tpu_torch.ops.iou import rotate_iou
     from papc_tpu_torch.ops.kernels import nms
 
     rows = {
@@ -2125,23 +2131,12 @@ def phase_nms_kernels(det):
                                   "papc_tpu/ops/pallas/nms.py:269"),
     }
     print(f"[7 detection kernels] kernel vs plain at B={DET_B}, K={DET_K}")
-    batch = batch_to_device(collate_batch(
-        [det["frames"][i] for i in range(DET_B)]), torch.device("cuda"))
-    pcfg = builders.build_predict_config(det["cfg"], det["coder"])
-    with torch.inference_mode(), _f32_conv():
-        preds = det["model"](*det["pillarize"](batch))
-        b, _, _, _, ok = top_candidates(preds, batch["anchors"],
-                                        det["coder"].decode, pcfg)
-    sets = [(f"slice top-{DET_K}", b[..., [0, 1, 3, 4, 6]].contiguous(), ok),
-            ("clustered", _clustered_boxes(5, DET_B, DET_K),
-             torch.ones(DET_B, DET_K, dtype=torch.bool, device="cuda"))]
-    main_thr = pcfg.nms_iou_threshold
-    for name, boxes, valid in sets:
+    sets = nms_sets(det)
+    main_thr = builders.build_predict_config(
+        det["cfg"], det["coder"]).nms_iou_threshold
+    for name, boxes, valid, iou_s in sets:
         check(boxes.shape == (DET_B, DET_K, 5), f"{name}: {boxes.shape}")
         iou_t = rotate_iou(boxes, boxes).transpose(-1, -2)
-        corners = box5_to_corners(boxes)
-        standup = torch.cat([corners.amin(-2), corners.amax(-2)], dim=-1)
-        iou_s = iou_2d(standup, standup).contiguous()
         for thr in NMS_THRESHOLDS:
             tag = f"{name} thr {thr}"
             main = name.startswith("slice") and thr == main_thr
@@ -2171,8 +2166,87 @@ def phase_nms_kernels(det):
                                                           impl="plain"),
                      work=(4 * pairs + _nbytes(valid, got),
                            pairs / F32_OPS_PER_S), record=main)
-    del iou_t, iou_s
+    del iou_t
+    nms_times(sets)
     return rows
+
+
+def nms_sets(det):
+    """Phase 7's inputs at B=DET_B, K=DET_K: the score-sorted top boxes
+    of the slice's first batch (x, y, w, l, yaw) with their ``ok`` mask,
+    and clustered boxes, all valid; each with the standup IoU matrix of
+    its boxes, the matrix sweep's input. Uses only public functions."""
+    from papc_tpu_torch.data.synthetic_kitti import collate_batch
+    from papc_tpu_torch.detect import builders
+    from papc_tpu_torch.detect.detector import top_candidates
+    from papc_tpu_torch.detect.train import batch_to_device
+    from papc_tpu_torch.ops.iou import box5_to_corners, iou_2d
+
+    batch = batch_to_device(collate_batch(
+        [det["frames"][i] for i in range(DET_B)]), torch.device("cuda"))
+    pcfg = builders.build_predict_config(det["cfg"], det["coder"])
+    with torch.inference_mode(), _f32_conv():
+        preds = det["model"](*det["pillarize"](batch))
+        b, _, _, _, ok = top_candidates(preds, batch["anchors"],
+                                        det["coder"].decode, pcfg)
+    sets = []
+    for name, boxes, valid in [
+            (f"slice top-{DET_K}", b[..., [0, 1, 3, 4, 6]].contiguous(), ok),
+            ("clustered", _clustered_boxes(5, DET_B, DET_K),
+             torch.ones(DET_B, DET_K, dtype=torch.bool, device="cuda"))]:
+        corners = box5_to_corners(boxes)
+        standup = torch.cat([corners.amin(-2), corners.amax(-2)], dim=-1)
+        sets.append((name, boxes, valid,
+                     iou_2d(standup, standup).contiguous()))
+    return sets
+
+
+# the NMS kernels by stage: stage -> the profiler's kernel names. A
+# design of one launch a call shows as "whole".
+NMS_PARTS = {"mask": ("rotate_mask_kernel", "greedy_mask_kernel"),
+             "sweep": ("rotate_sweep_kernel", "greedy_sweep_kernel"),
+             "whole": ("nms_rotate_kernel", "nms_greedy_kernel")}
+
+
+def nms_times(sets) -> None:
+    """Both NMS kernels on each of ``sets`` (``nms_sets``) at each of
+    ``NMS_THRESHOLDS``: device ms a call by stage (profiler, 10 calls,
+    ``NMS_PARTS``), the call's every device record (the rotated wrapper's
+    corners and areas included), the sweep's us a row, and the rotated
+    mask's ring-overflow pairs where the wrapper reports them. Uses only
+    the wrappers' public functions, so it also times a parent tree's
+    package."""
+    from papc_tpu_torch.ops.kernels import nms
+
+    names = sum(NMS_PARTS.values(), ())
+    for name, boxes, valid, iou_s in sets:
+        K = boxes.shape[1]
+        for thr in NMS_THRESHOLDS:
+            for kernel, fn in [
+                    ("nms_rotate", lambda: nms.rotate_nms(boxes, valid, thr)),
+                    ("nms_greedy",
+                     lambda: nms.greedy_suppress(iou_s, valid, thr))]:
+                fn()
+                for _ in range(3):  # again where the profiler dropped one
+                    device = _device_events(fn, 10)[0]
+                    counts = [sum(_base_name(e) == n for e in device)
+                              for n in names]
+                    if any(counts) and all(n % 10 == 0 for n in counts):
+                        break
+                check(any(counts), f"{kernel}: no kernel record")
+                split = _named_ms(device, 10, NMS_PARTS)
+                stages = " + ".join(f"{part} {ms:.4f} ({n:g})"
+                                    for part, (ms, n) in split.items() if n)
+                sweep = split["sweep"][0] or split["whole"][0]
+                extra = ""
+                if kernel == "nms_rotate" and hasattr(nms,
+                                                      "rotate_nms_stages"):
+                    extra = (f"; ring-overflow pairs "
+                             f"{nms.rotate_nms_stages(boxes, valid, thr)[2]}")
+                print(f"    {'':<18} {kernel} {name} thr {thr}: device ms "
+                      f"a call by stage (launches) {stages}; the call's "
+                      f"records {_call_ms(device, 10):.4f}; sweep "
+                      f"{1e3 * sweep / K:.4f} us a row{extra}")
 
 
 def _device_events(fn, steps: int):
@@ -2413,7 +2487,46 @@ def phase_detect_slice(det, rows, smi):
     print("    stage split (ms, predict includes the NMS): " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items()))
     print(f"    device busy share over 5 kernel steps (profiler): {busy}")
+    detect_times(det, batch, smi)
     _tf32_ab(model, pillarize, predict, coder, pcfg, batches, step_k, smi)
+
+
+def detect_times(det, batch, smi) -> None:
+    """The detection batch and its NMS stage for the rotated (default)
+    and the standup config: serving ms of the batch from device tensors
+    (CUDA events, median of 10), the stage ``nms_keep`` on its
+    candidates (CUDA events, median of 20) and that stage's device ms a
+    call by kernel stage and in all (profiler, 10 calls, ``NMS_PARTS``).
+    Uses only public functions, so it also times a parent tree's
+    package; leaves the config on rotated NMS."""
+    from papc_tpu_torch.detect import builders
+    from papc_tpu_torch.detect.config import cfg_from_list
+    from papc_tpu_torch.detect.detector import nms_keep, top_candidates
+    from papc_tpu_torch.detect.train import make_predict_step
+
+    cfg, coder, model = det["cfg"], det["coder"], det["model"]
+    for rotate in (True, False):
+        cfg_from_list(cfg, ["MODEL.POST_PROCESSING.use_rotate_nms",
+                            str(rotate)])
+        pcfg = builders.build_predict_config(cfg, coder)
+        step = make_predict_step(model, pcfg, coder, det["pillarize"], "cuda")
+        serve_ms = cuda_ms(lambda: step(batch), reps=10)
+        with torch.inference_mode(), _f32_conv():
+            preds = model(*det["pillarize"](batch))
+            cand = top_candidates(preds, batch["anchors"], coder.decode,
+                                  pcfg)
+            stage_ms = cuda_ms(lambda: nms_keep(cand[0], cand[4], pcfg))
+            device = _device_events(lambda: nms_keep(cand[0], cand[4], pcfg),
+                                    10)[0]
+        split = _named_ms(device, 10, NMS_PARTS)
+        print(f"    {'rotated' if rotate else 'standup'} NMS: serving "
+              f"{serve_ms:.3f} ms a batch of {DET_B}; NMS stage "
+              f"{stage_ms:.4f} ms (CUDA events), device "
+              f"{_call_ms(device, 10):.4f} ms a call, kernels by stage "
+              + ", ".join(f"{part} {ms:.4f} ({n:g})"
+                          for part, (ms, n) in split.items() if n)
+              + f" ({smi})")
+    cfg_from_list(cfg, ["MODEL.POST_PROCESSING.use_rotate_nms", "True"])
 
 
 def _tf32_ab(model, pillarize, predict, coder, pcfg, batches, step_k, smi):

@@ -70,10 +70,11 @@ from papc_tpu_torch.models.classify import PointNet2MSGClas, PointNet2SSGClas
 from papc_tpu_torch.models.segment import PointNet2MSGSeg, PointNet2SSGSeg
 from papc_tpu_torch.nn.layers import init_params
 from papc_tpu_torch.ops import fused_mlp, geometry, sampling
-from papc_tpu_torch.ops.iou import box5_to_corners, iou_2d
+from papc_tpu_torch.ops.iou import box5_to_corners, iou_2d, rotate_iou
 from papc_tpu_torch.ops.kernels import (ball_query, fps, gather, nms, samlp,
                                         samlp_train, scatter_rows,
                                         scatter_sorted)
+from tests.nms_boxes import clustered_rboxes, near_degenerate_rboxes
 
 pytestmark = pytest.mark.cuda
 KERNEL_MODULES = (fps, ball_query, gather, samlp)
@@ -1193,18 +1194,6 @@ def test_training_step_under_recompute1_runs_its_kernels(device):
 
 # ------------------------------------------------------------ detection
 
-def _rboxes(seed, B, K):
-    """Clustered rotated boxes [B, K, 5], so that suppression happens."""
-    rs = np.random.RandomState(seed)
-    out = []
-    for _ in range(B):
-        centers = rs.uniform(0, 40, size=(max(K // 4, 1), 2))
-        pick = centers[rs.randint(0, len(centers), K)]
-        out.append(np.stack([pick[:, 0] + rs.randn(K) * 0.8,
-                             pick[:, 1] + rs.randn(K) * 0.8,
-                             rs.uniform(1.5, 2.0, K), rs.uniform(3.5, 4.5, K),
-                             rs.uniform(-np.pi, np.pi, K)], axis=1))
-    return torch.from_numpy(np.stack(out).astype(np.float32))
 
 
 def _standup_iou(boxes):
@@ -1213,12 +1202,13 @@ def _standup_iou(boxes):
     return iou_2d(s, s).contiguous()
 
 
-NMS_SHAPES = [(2, 1000), (1, 1), (3, 31), (1, 1025), (3, 1000)]
+NMS_SHAPES = [(2, 1000), (1, 1), (3, 31), (1, 1025), (3, 1000), (2, 63),
+              (1, 64), (2, 65), (1, 2048)]
 
 
 @pytest.mark.parametrize("B,K", NMS_SHAPES)
 def test_rotate_nms_kernel_equals_plain(device, B, K):
-    boxes = _rboxes(K + B, B, K).to(device)
+    boxes = clustered_rboxes(K + B, B, K).to(device)
     valid = torch.rand(B, K, generator=torch.Generator().manual_seed(K)) > 0.1
     valid = valid.to(device)
     for thr in (0.1, 0.5):
@@ -1237,7 +1227,7 @@ def test_rotate_nms_kernel_equals_plain(device, B, K):
 
 @pytest.mark.parametrize("B,K", NMS_SHAPES)
 def test_greedy_nms_kernel_equals_plain(device, B, K):
-    iou = _standup_iou(_rboxes(K * B, B, K).to(device))
+    iou = _standup_iou(clustered_rboxes(K * B, B, K).to(device))
     valid = torch.rand(B, K, generator=torch.Generator().manual_seed(B)) > 0.1
     valid = valid.to(device)
     for thr in (0.1, 0.5):
@@ -1250,6 +1240,82 @@ def test_greedy_nms_kernel_equals_plain(device, B, K):
                                    rtol=0, atol=0)
     none = torch.zeros_like(valid)
     assert not bool(nms.greedy_suppress(iou, none, 0.5).any())
+
+
+# pairs whose plain IoU lies this close to the threshold may take the
+# other bit: kernel and plain sum the intersection's shoelace in another
+# order (a few ulps of areas of up to some 60 m^2)
+NEAR_THRESHOLD = 1e-5
+
+
+@pytest.mark.parametrize("name,B,K", [("clustered", 2, 1000),
+                                      ("clustered", 2, 65),
+                                      ("near-degenerate", 2, 2048)])
+def test_rotate_nms_stages_equal_their_twins(device, name, B, K):
+    """The mask kernel's bits against ``rotate_mask_plain``'s (a pair may
+    differ only within ``NEAR_THRESHOLD`` of the threshold, and is
+    named), the sweep's keep mask against ``sweep_mask_plain`` over the
+    kernel's own bits (exactly), the same bits over two calls; the
+    near-degenerate set clips some pairs again in the 64-slot ring."""
+    make = clustered_rboxes if name == "clustered" else near_degenerate_rboxes
+    boxes = make(K + B, B, K).to(device)
+    valid = torch.rand(B, K, generator=torch.Generator().manual_seed(K)) > 0.1
+    valid = valid.to(device)
+    iou_t = rotate_iou(boxes, boxes).transpose(-1, -2)
+    for thr in (0.1, 0.5):
+        keep, mask, overflow = nms.rotate_nms_stages(boxes, valid, thr)
+        want = nms.rotate_mask_plain(boxes, valid, thr)
+        differ = (nms.unpack_bits(mask, K)
+                  != nms.unpack_bits(want, K)).nonzero().tolist()
+        for b, i, j in differ:
+            gap = float(iou_t[b, i, j]) - thr
+            print(f"{name} thr {thr}: pair ({i}, {j}) of frame {b} takes "
+                  f"the other bit, plain IoU {thr} {gap:+.3e}")
+            assert abs(gap) <= NEAR_THRESHOLD
+        assert torch.equal(keep, nms.sweep_mask_plain(mask, valid))
+        again = nms.rotate_nms_stages(boxes, valid, thr)
+        assert torch.equal(again[0], keep) and torch.equal(again[1], mask)
+        assert again[2] == overflow
+        if name == "near-degenerate":
+            assert overflow > 0
+
+
+@pytest.mark.parametrize("B,K", [(2, 1000), (3, 65), (1, 10000)])
+def test_greedy_nms_stages_equal_their_twins(device, B, K):
+    """The mask kernel's bits equal ``greedy_mask_plain``'s (the same f32
+    compare; NaN sets no bit), the sweep's keep mask equals
+    ``sweep_mask_plain`` over them and the plain loop's; the same bits
+    over two calls. At K = 10000 the sweep reads its row blocks from L2
+    (no ring fits)."""
+    iou = _standup_iou(clustered_rboxes(K * B, B, K).to(device))
+    iou[:, :, ::7] = float("nan")
+    valid = torch.rand(B, K, generator=torch.Generator().manual_seed(B)) > 0.1
+    valid = valid.to(device)
+    assert nms.sweep_plan(K).staged == (K < 10000)
+    for thr in (0.1, 0.5):
+        keep, mask = nms.greedy_suppress_stages(iou, valid, thr)
+        assert torch.equal(mask, nms.greedy_mask_plain(iou, valid, thr))
+        assert torch.equal(keep, nms.sweep_mask_plain(mask, valid))
+        assert torch.equal(keep, nms.greedy_suppress(iou, valid, thr,
+                                                     impl="plain"))
+        again = nms.greedy_suppress_stages(iou, valid, thr)
+        assert torch.equal(again[0], keep) and torch.equal(again[1], mask)
+
+
+@pytest.mark.parametrize("step", [1, 2, 63])
+def test_greedy_nms_kernel_long_chains(device, step):
+    """Each box overlaps only the box ``step`` rows on: chains of
+    suppressions as long as a 64-row block at step 1, so the sweep's
+    fixpoint runs out of rounds and decides each row serially."""
+    K = 1000
+    idx = torch.arange(K, device=device)
+    iou = ((idx[:, None] - idx[None, :]).abs() == step).float()[None]
+    valid = torch.ones(1, K, dtype=torch.bool, device=device)
+    valid[0, 500] = False
+    got = nms.greedy_suppress(iou, valid, 0.5)
+    want = nms.greedy_suppress(iou, valid, 0.5, impl="plain")
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert 0 < int(got.sum()) < K - 1
 
 
 def test_nms_kernels_raise_above_their_limits(device):
