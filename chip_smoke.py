@@ -7,7 +7,7 @@ models at the width the JAX package's bench and CLI use (B=32 clouds x
 MSG classification, and MSG and SSG part segmentation; and the
 PointPillars detection serving path (the KITTI car config at full
 width: B=2 frames of up to 25000 points, 12000 pillars, a 496 x 432 BEV
-grid, 107136 anchors, K=1000 before NMS) on the card, in fourteen phases;
+grid, 107136 anchors, K=1000 before NMS) on the card, in fifteen phases;
 any failure raises and exits non-zero. TF32 is off for matmuls throughout
 (float32 references); the detection serving step runs its cuDNN
 convolutions in f32 itself, as a user gets it.
@@ -171,6 +171,29 @@ convolutions in f32 itself, as a user gets it.
    admits (once per layer or stack a step), the stream passes on the
    demoted ones, #11-14 never; and the three modes' step ms, busy share
    and peak memory side by side.
+15. bf16 training (``precision="bf16"``), after phase 13: ``train`` in
+   bf16 for SSG clas and MSG seg through the entry point (10 steps on one
+   batch and a val pass), every launch count read around it, #3 and #4
+   counted by dtype (bf16 twice and once a step; the val pass gathers in
+   f32), #5 four times a MSG seg step; the loss finite and falling, every
+   float array of the checkpoint it writes f32; the bf16 kernel step
+   against the plain bf16 step for three seeds of weights, batch and
+   masks (``_bf16_gate``: the plain f32-operand step on the bf16-rounded
+   weights and points the reference, the 3-NN distances in f32 for all
+   three, ``BF16_LIMITS``), and two planted faults that must fail the
+   same limits (the grouping backward kernel's output zeroed, #4 on SSG
+   clas and #5 on MSG seg; the f32-operand step as the kernel step),
+   their readings beside the correct runs' worst; the bf16 and f32
+   steps' ms and busy share; on SSG clas #3 and #4 in bf16 at the step's shapes (#3 exact,
+   #4 within one bf16 ulp plus ``SCATTER_TOL`` and the same bits twice),
+   kernel and plain ms, device ms a step beside their byte bounds. Then
+   on the card a checkpoint after three bf16 steps, ``evaluate`` with no
+   weights serving it with the live model's logits, bit for bit, and a
+   restore plus one more step equal bit for bit; and ``train()`` epochs
+   of 20 SSG clas batches in f32 (batches copied inline, then through
+   ``prefetch_to_device``) and in bf16 with steps/s and the busy share
+   (``train_epoch_times``, public calls only, so it times a parent
+   tree's ``train()`` too).
 14. The per-kernel JSON line (each kernel's launches on its path, error
    against plain, ms, plain ms, the bound from this run's inputs and,
    where one PyTorch call computes the same function, its ms), then the
@@ -179,6 +202,7 @@ convolutions in f32 itself, as a user gets it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -213,6 +237,20 @@ TRAIN_STEPS = 10
 # the same flips carry through three SA stages (LOSS_RTOL, as the
 # reduced-model step in tests/test_torch_cuda.py).
 GRAD_RATIO, GRAD_RTOL, NOISE_TOL, LOSS_RTOL = 1.5, 1.0, 0.1, 5e-3
+# The bf16 step (bf16 parameters, points and activations) against the
+# plain bf16 step (``_bf16_gate``): the readings of ``_gate_readings``
+# against the plain f32-operand step on the bf16-rounded weights and
+# points, over GATE_SEEDS. Each limit sits between the worst reading of
+# correct runs and the least reading of a planted fault, both printed
+# each run. On an H100 (700 W), six seeds of SSG clas and MSG seg read
+# at worst a relative L2 kernels vs plain of 0.365, a ratio of 1.199 and
+# a median ratio of 0.990; a grouping backward kernel's output zeroed
+# (#4, #5) reads 1.0 and a ratio of 2.16 and 12.9; the f32-operand step
+# in the kernel step's place (a step that does not round to bf16) a
+# median ratio of 0.
+BF16_LIMITS = {"rel": 0.6, "ratio": GRAD_RATIO, "median_ratio": 0.5,
+               "noise": NOISE_TOL, "loss": LOSS_RTOL}
+GATE_SEEDS = (0, 1, 2)  # weights; the batch and masks from 2 + and 4 +
 REPS = 20
 # The least time of a kernel's work (NVIDIA's H100 SXM data sheet):
 # bytes moved over the memory rate, operations over the peak rate of
@@ -1326,10 +1364,10 @@ def _noise_grad(name: str, names) -> bool:
     return bn in names
 
 
-def _dropout_masks(mode):
+def _dropout_masks(mode, seed: int = 4):
     """Keep masks of the head's dropout sites (clas: [B, 512], [B, 256];
-    seg: [B, N, 128]), drawn once from a seeded generator."""
-    gen = torch.Generator().manual_seed(4)
+    seg: [B, N, 128]), drawn once from a generator seeded with ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
     shapes = [(B, N, 128)] if mode == "seg" else [(B, 512), (B, 256)]
     return [torch.rand(*shape, generator=gen) < 0.6 for shape in shapes]
 
@@ -1473,34 +1511,7 @@ def _training(tag, name, mode, smi, rows, fused):
     print(f"    one step from the same weights and masks: loss kernels "
           f"{loss_k:.6f}, plain {loss_p:.6f}, plain with f32 operands "
           f"{loss_f:.6f}")
-    failures, rels, ratios, noise = [], {}, {}, {}
-    for n, gk in grads_k.items():
-        gp, gf = grads_p[n], grads_f[n]
-        if not bool(torch.isfinite(gk).all()):
-            failures.append(f"{n}: gradient not finite")
-        if _noise_grad(n, grads_k):
-            module = n.rsplit(".", 2)[0]
-            scale = max(float(g.abs().max()) for m, g in grads_p.items()
-                        if m.startswith(module + "."))
-            noise[n] = float((gk - gp).abs().max()) / max(scale, 1e-30)
-            continue
-        rels[n] = float((gk - gp).norm() / gp.norm().clamp_min(1e-30))
-        ratios[n] = float((gk - gf).norm()
-                          / (gp - gf).norm().clamp_min(1e-30))
-    for what, vals, limit in [("relative L2 kernels vs plain", rels,
-                               GRAD_RTOL),
-                              ("distance from the f32 step, kernels over "
-                               "plain", ratios, GRAD_RATIO),
-                              ("Dense biases before a BN, of their module's "
-                               "largest gradient", noise, NOISE_TOL)]:
-        worst = max(vals, key=vals.get)
-        print(f"    {what}: median {statistics.median(vals.values()):.3e}, "
-              f"worst {vals[worst]:.3e} ({worst}), limit {limit}")
-        failures += [f"{n}: {what} {v:.3e} > {limit}"
-                     for n, v in vals.items() if v > limit]
-    if abs(loss_k - loss_p) > LOSS_RTOL * abs(loss_p):
-        failures.append(f"kernel step loss {loss_k} vs plain {loss_p}")
-    check(not failures, "; ".join(failures))
+    _grad_gate(loss_k, grads_k, loss_p, grads_p, grads_f)
 
     def step_k():
         return train_step(model, opt, bdict, dev, dropout_masks=masks)
@@ -1518,6 +1529,82 @@ def _training(tag, name, mode, smi, rows, fused):
           f"device busy over 5 kernel steps (profiler) {busy}; peak device "
           f"memory of the first kernel step {peak_gb:.2f} GB ({smi})")
     return {"step_ms": step_ms, "busy": busy, "peak_gb": peak_gb}
+
+
+def _gate_readings(loss_k, grads_k, loss_p, grads_p, grads_f,
+                   noise_leaves=()) -> dict:
+    """A kernel step's readings against the plain step (``grads_p``) and
+    the exact reference ``grads_f``, per gradient tensor: the relative L2
+    kernels vs plain (``"rel"``); the kernel step's distance from the
+    reference over the plain step's (``"ratio"``); for the Dense biases
+    before a BN and ``noise_leaves`` (true gradient 0), the largest
+    difference over their module's largest gradient (``"noise"``);
+    the tensors not finite (``"finite"``); and the loss (``"loss"``, the
+    relative difference)."""
+    out = {"rel": {}, "ratio": {}, "noise": {}, "finite": [],
+           "loss": abs(loss_k - loss_p) / abs(loss_p)}
+    for n, gk in grads_k.items():
+        gp, gf = grads_p[n], grads_f[n]
+        if not bool(torch.isfinite(gk).all()):
+            out["finite"].append(n)
+        if _noise_grad(n, grads_k) or n in noise_leaves:
+            module = n.rsplit(".", 2)[0]
+            scale = max(float(g.abs().max()) for m, g in grads_p.items()
+                        if m.startswith(module + "."))
+            out["noise"][n] = (float((gk - gp).abs().max())
+                               / max(scale, 1e-30))
+            continue
+        out["rel"][n] = float((gk - gp).norm()
+                              / gp.norm().clamp_min(1e-30))
+        out["ratio"][n] = float((gk - gf).norm()
+                                / (gp - gf).norm().clamp_min(1e-30))
+    return out
+
+
+GATE_MEASURES = (("rel", "relative L2 kernels vs plain"),
+                 ("ratio", "distance from the f32 step, kernels over plain"),
+                 ("noise", "Dense biases before a BN, of their module's "
+                           "largest gradient"))
+
+
+def _gate_failures(r: dict, limits: dict, show: bool = True) -> list:
+    """The failures of readings ``r`` (``_gate_readings``) against
+    ``limits`` (a limit per measure of ``GATE_MEASURES``, ``"loss"``,
+    and optionally ``"median_ratio"``, the least median ratio); with
+    ``show``, one line per measure."""
+    failures = [f"{n}: gradient not finite" for n in r["finite"]]
+    for key, what in GATE_MEASURES:
+        vals, limit = r[key], limits[key]
+        if not vals:
+            continue
+        worst = max(vals, key=vals.get)
+        if show:
+            print(f"    {what}: median {statistics.median(vals.values()):.3e}"
+                  f", worst {vals[worst]:.3e} ({worst}), limit {limit}")
+        failures += [f"{n}: {what} {v:.3e} > {limit}"
+                     for n, v in vals.items() if v > limit]
+    floor = limits.get("median_ratio")
+    if floor is not None and statistics.median(r["ratio"].values()) < floor:
+        failures.append(f"median distance from the f32 step, kernels over "
+                        f"plain, {statistics.median(r['ratio'].values()):.3e}"
+                        f" < {floor}")
+    if r["loss"] > limits["loss"]:
+        failures.append(f"kernel step loss {r['loss']:.3e} from plain's")
+    return failures
+
+
+def _grad_gate(loss_k, grads_k, loss_p, grads_p, grads_f,
+               rtol: float = GRAD_RTOL) -> None:
+    """A kernel step against the plain step (``grads_p``) and the exact
+    reference ``grads_f``: every gradient finite; relative L2 kernels vs
+    plain at most ``rtol``; the kernel step at most ``GRAD_RATIO``
+    times as far from the reference as the plain step; the Dense biases
+    before a BN within ``NOISE_TOL`` of their module's largest gradient;
+    the loss within ``LOSS_RTOL``."""
+    r = _gate_readings(loss_k, grads_k, loss_p, grads_p, grads_f)
+    failures = _gate_failures(r, {"rel": rtol, "ratio": GRAD_RATIO,
+                                  "noise": NOISE_TOL, "loss": LOSS_RTOL})
+    check(not failures, "; ".join(failures))
 
 
 def _capture(model, store: dict):
@@ -2574,6 +2661,456 @@ def _tf32_ab(model, pillarize, predict, coder, pcfg, batches, step_k, smi):
           f"{score_err:.3e} ({smi})")
 
 
+# ------------------------------------------------------- 15 bf16 training
+
+BF16_PATHS = (("pointnet2_ssg", "clas"), ("pointnet2_msg", "seg"))
+EPOCH_BATCHES = 20  # the prefetch epoch's batches
+
+
+class _GroupingCalls:
+    """Wraps the grouping gather's and its backward's CUDA entry points
+    (``gather.group_gather_cuda``, ``gather.scatter_add_cuda``) while
+    active: counts each call by kernel and dtype, and, with ``keep``,
+    keeps each call's inputs for timing them again."""
+
+    def __init__(self, keep: bool = False):
+        self.keep, self.count, self.calls = keep, {}, []
+
+    def __enter__(self):
+        from papc_tpu_torch.ops.kernels import gather
+
+        self._orig = gather.group_gather_cuda, gather.scatter_add_cuda
+        fwd, bwd = self._orig
+
+        def gather_cuda(xyz, points, idx, new_xyz):
+            self._note("group_gather", xyz.dtype, (xyz, points, idx, new_xyz))
+            return fwd(xyz, points, idx, new_xyz)
+
+        def scatter_cuda(g, idx, n, **kw):
+            self._note("group_scatter_add", g.dtype, (g, idx, n))
+            return bwd(g, idx, n, **kw)
+
+        gather.group_gather_cuda, gather.scatter_add_cuda = (gather_cuda,
+                                                             scatter_cuda)
+        return self
+
+    def _note(self, name, dtype, args):
+        key = (name, str(dtype).split(".")[-1])
+        self.count[key] = self.count.get(key, 0) + 1
+        if self.keep:
+            self.calls.append((name, tuple(
+                a.clone() if isinstance(a, torch.Tensor) else a
+                for a in args)))
+
+    def __exit__(self, *exc):
+        from papc_tpu_torch.ops.kernels import gather
+
+        gather.group_gather_cuda, gather.scatter_add_cuda = self._orig
+
+
+def _bf16_grouping_times(calls, device, steps, smi) -> None:
+    """#3 and #4 in bf16 at the bf16 step's shapes (``calls``: one step's
+    kernel calls and inputs): each call's output against the plain version
+    (#3 exact, #4 within one bf16 ulp plus ``SCATTER_TOL`` of the
+    largest), kernel and plain ms (CUDA events), the byte bound (each
+    input read once, the output written once); then both kernels' device
+    ms a step from the profiler's records ``device`` of ``steps`` steps,
+    beside the step's summed bound. Off the kernels line, which holds the
+    f32 variants' rows."""
+    from papc_tpu_torch.ops.kernels import gather
+
+    bound = {"group_gather": 0.0, "group_scatter_add": 0.0}
+    for name, args in calls:
+        if name == "group_gather":
+            got = gather.group_gather_cuda(*args)
+            want = gather.group_gather_plain(*args)
+            ok = torch.equal(got.view(torch.int16), want.view(torch.int16))
+            stage = f"bf16 {list(got.shape)}"
+            fn_k = lambda a=args: gather.group_gather_cuda(*a)  # noqa: E731
+            fn_p = lambda a=args: gather.group_gather_plain(*a)  # noqa: E731
+            nbytes = _nbytes(*args[:2], args[2], args[3], got)
+        else:
+            g, idx, n = args
+            got = gather.scatter_add_cuda(g, idx, n)
+            want = gather.scatter_add_plain(g, idx, n)
+            err = (got.double() - want.double()).abs()
+            ok = bool((err <= SCATTER_TOL * float(want.abs().max())
+                       + _bf16_ulp(want)).all())
+            again = gather.scatter_add_cuda(g, idx, n)
+            ok = ok and torch.equal(again.view(torch.int16),
+                                    got.view(torch.int16))
+            stage = f"bf16 g {list(g.shape)} -> {list(got.shape)}"
+            fn_k = lambda a=args: gather.scatter_add_cuda(*a)  # noqa: E731
+            fn_p = lambda a=args: gather.scatter_add_plain(*a)  # noqa: E731
+            nbytes = _nbytes(g, idx, got)
+        err = float((got.double() - want.double()).abs().max())
+        check(ok and got.dtype == torch.bfloat16,
+              f"{name} {stage}: kernel differs from plain (max abs err "
+              f"{err})")
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound[name] += b_ms
+        print(f"    {name:<18} {stage:<34} max_abs_err {err:.3e}  kernel "
+              f"{cuda_ms(fn_k):.4f} ms  plain {cuda_ms(fn_p):.4f} ms  bound "
+              f"{b_ms:.4f} ms")
+    parts = _named_ms(device, steps, {**GATHER_PARTS, **SCATTER_PARTS})
+    print(f"    bf16 group_gather device ms a step (profiler): "
+          f"{parts['gather'][0]:.4f} ({parts['gather'][1]:g} launches), bound "
+          f"{bound['group_gather']:.4f} ms; group_scatter_add: "
+          f"{_scatter_line(parts)}, bound {bound['group_scatter_add']:.4f} ms "
+          f"({smi})")
+
+
+@contextlib.contextmanager
+def _f32_knn():
+    """The 3-NN interpolation's distances in f32 while active. The bf16
+    step takes JAX's bf16 squared norms there (``ops/geometry.py``), so
+    a query that sits on a source, as every FPS centre does, reads a
+    distance of about ±2^-8 |s|² where the true one is 0, and its
+    weights ``1 / d`` are unbounded: they amplify any rounding of the
+    features, a kernel's or plain's. No kernel computes them."""
+    from papc_tpu_torch.ops import geometry, grouping
+
+    grouping.square_distance = lambda src, dst: geometry.square_distance(
+        src.float(), dst.float())
+    try:
+        yield
+    finally:
+        grouping.square_distance = geometry.square_distance
+
+
+@contextlib.contextmanager
+def _zeroed(module, attr: str):
+    """``module.attr`` (a kernel's CUDA entry point) returns zeros of its
+    output's shape while active: a planted fault."""
+    orig = getattr(module, attr)
+    setattr(module, attr, lambda *a, **kw: torch.zeros_like(orig(*a, **kw)))
+    try:
+        yield
+    finally:
+        setattr(module, attr, orig)
+
+
+def _group_all_biases(model) -> tuple:
+    """The last BatchNorm bias of each ``group_all`` SA stage. Its stage
+    max-pools over every point of a cloud and feeds a Dense and then a
+    BatchNorm over the batch, which takes out a shift common to all
+    clouds, so its true gradient is 0 (as a Dense bias before a BN)."""
+    from papc_tpu_torch.nn import SetAbstraction
+
+    return tuple(f"{n}.PointMLP_0.BatchNorm_{len(m.PointMLP_0.features) - 1}"
+                 ".bias" for n, m in model.named_modules()
+                 if isinstance(m, SetAbstraction) and m.group_all)
+
+
+def _bf16_gate(name, mode, launches):
+    """The bf16 kernel step against the plain bf16 step, both judged
+    against the plain step with f32 operands on the bf16-rounded weights
+    and points (the values the bf16 step computes with), the three with
+    the 3-NN distances in f32 (``_f32_knn``): for each of
+    ``GATE_SEEDS`` (weights, batch and dropout masks), the readings of
+    ``_gate_readings`` within ``BF16_LIMITS``, the ``group_all`` stages'
+    last BN bias held as noise (``_group_all_biases``). Then two planted
+    faults on the first seed must fail the same limits: the step's
+    grouping backward kernel (#4 where it runs, else #5) returning zeros,
+    and the f32-operand step itself in the kernel step's place. Prints
+    the correct runs' worst readings beside each fault's. Returns the
+    first seed's kernel model, optimizer, batch and masks."""
+    from papc_tpu_torch.models import init_model
+    from papc_tpu_torch.ops import fused_mlp
+    from papc_tpu_torch.ops.kernels import gather, scatter_rows
+    from papc_tpu_torch.train import make_optimizer, train_step
+
+    dev = torch.device("cuda")
+    noise = _group_all_biases(init_model(name, mode, NUM_CLASSES,
+                                         device="cpu").model)
+    plant = (("group_scatter_add", gather, "scatter_add_cuda")
+             if "group_scatter_add" in launches else
+             ("scatter_rows_add", scatter_rows, "scatter_rows_add_cuda"))
+
+    def one_step(seed, bdict, masks, impl, precision, round_inputs=False):
+        model = init_model(name, mode, NUM_CLASSES, seed=seed,
+                           device=dev).model
+        if round_inputs:  # the values the bf16 step computes with
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.copy_(p.to(torch.bfloat16))
+            bdict = dict(bdict, points=torch.from_numpy(
+                bdict["points"]).to(torch.bfloat16).float().numpy())
+        opt = make_optimizer(model.parameters(), 1e-3, 1e-3)
+        loss, _ = train_step(model, opt, bdict, dev, impl=impl,
+                             dropout_masks=masks, precision=precision)
+        return float(loss), {n: p.grad.detach().clone()
+                             for n, p in model.named_parameters()}, model, opt
+
+    def summary(r):
+        return {"rel": max(r["rel"].values()),
+                "ratio": max(r["ratio"].values()),
+                "median_ratio": statistics.median(r["ratio"].values()),
+                "noise": max(r["noise"].values()), "loss": r["loss"]}
+
+    print(f"    the bf16 gate, 3-NN distances in f32, {noise} held as noise; "
+          f"limits {BF16_LIMITS}")
+    correct, kept = [], None
+    with _f32_knn():
+        for seed in GATE_SEEDS:
+            bdict = next(iter(_loader(B, mode, seed=2 + seed)()))._asdict()
+            masks = _dropout_masks(mode, 4 + seed)
+            k = one_step(seed, bdict, masks, None, "bf16")
+            p = one_step(seed, bdict, masks, "plain", "bf16")
+            with fused_mlp.override(operand_dtype=torch.float32):
+                f = one_step(seed, bdict, masks, "plain", "fp32",
+                             round_inputs=True)
+            own = {n: float((p[1][n] - f[1][n]).norm()
+                            / f[1][n].norm().clamp_min(1e-30)) for n in p[1]
+                   if not _noise_grad(n, p[1]) and n not in noise}
+            worst = max(own, key=own.get)
+            print(f"    seed {seed}: loss kernels {k[0]:.6f}, plain "
+                  f"{p[0]:.6f}, reference {f[0]:.6f}; the plain step's own "
+                  f"relative L2 from the reference: median "
+                  f"{statistics.median(own.values()):.3e}, worst "
+                  f"{own[worst]:.3e} ({worst})")
+            r = _gate_readings(k[0], k[1], p[0], p[1], f[1], noise)
+            failures = _gate_failures(r, BF16_LIMITS)
+            check(not failures, f"bf16 {name} {mode} seed {seed}: "
+                  + "; ".join(failures))
+            correct.append(summary(r))
+            if kept is None:
+                kept = bdict, masks, k[2], k[3], p, f
+        bdict, masks, model_k, opt_k, p, f = kept
+        with _zeroed(*plant[1:]):
+            z = one_step(GATE_SEEDS[0], bdict, masks, None, "bf16")
+    faults = {f"{plant[0]} zeroed": z, "f32-operand step": f}
+    keys = ("rel", "ratio", "median_ratio", "noise", "loss")
+    worst = {key: (min if key == "median_ratio" else max)(
+        c[key] for c in correct) for key in keys}
+    print("    correct runs' worst: " + ", ".join(
+        f"{key} {worst[key]:.3e}" for key in keys))
+    for what, (loss, grads, *_) in faults.items():
+        r = _gate_readings(loss, grads, p[0], p[1], f[1], noise)
+        failures = _gate_failures(r, BF16_LIMITS, show=False)
+        got = summary(r)
+        print(f"    planted fault, {what}: " + ", ".join(
+            f"{key} {got[key]:.3e}" for key in keys)
+            + f"; {len(failures)} failures")
+        check(bool(failures), f"the bf16 gate passed a planted fault: {what}")
+    return model_k, opt_k, bdict, masks
+
+
+def _bf16_training(name, mode, smi):
+    """``train(precision="bf16")`` through the entry point (10 steps on
+    one batch and a val pass, every launch count read around it, #3 and #4
+    counted by dtype, #5 by its launches a step), the loss falling and
+    every state tensor of its checkpoint f32; the bf16 kernel step against
+    the plain bf16 step over three seeds and two planted faults
+    (``_bf16_gate``); the bf16 and f32 kernel steps' ms and busy share;
+    on SSG clas, #3 and #4 in bf16 at the step's shapes
+    (``_bf16_grouping_times``)."""
+    from papc_tpu_torch.models import init_model
+    from papc_tpu_torch.train import make_optimizer, train, train_step
+    from papc_tpu_torch.train.trainer import read_checkpoint
+
+    key = (name, mode)
+    counters = _counters(TRAIN_KERNELS[key])
+    batch = next(iter(_loader(B, mode, seed=2)()))
+    val = _loader(2 * B, mode, seed=3)
+    loaders = {"train": lambda: iter([batch] * TRAIN_STEPS), "val": val}
+    model_dir = ROOT / "build" / "chip_smoke" / f"bf16_{name}_{mode}"
+    print(f"[15 bf16 training] train: {name} {mode}, precision bf16, from "
+          f"seed-0 weights, {TRAIN_STEPS} steps on one batch of {B} x {N}, "
+          f"then a val pass over {val.num_samples} clouds")
+    for c in counters.values():
+        c.launches = 0
+    with _GroupingCalls() as seen:
+        model, history = train(
+            name, mode, N, NUM_CLASSES, epoch_num=1, batchsize=B,
+            info_iter=3, save_iter=1, model_dir=str(model_dir), seed=0,
+            make_loader=loaders.__getitem__, precision="bf16",
+            device="cuda", log=lambda line: print(f"    {line}"))
+    torch.cuda.synchronize()
+    launches = {n: c.launches for n, c in counters.items()}
+    print("    launches: " + ", ".join(f"{n} {v}" for n, v in launches.items())
+          + "; grouping calls by dtype: " + ", ".join(
+              f"{n} {dt} {v}" for (n, dt), v in sorted(seen.count.items())))
+    for n, count in launches.items():
+        check(count > 0, f"bf16 {name} {mode} training never launched the "
+              f"{n} kernel")
+    if "group_gather" in launches:
+        # two gathers a step (SA1, SA2), SA2's backward; the val pass f32
+        check(seen.count.get(("group_gather", "bfloat16")) == 2 * TRAIN_STEPS
+              and seen.count.get(("group_scatter_add", "bfloat16"))
+              == TRAIN_STEPS == launches["group_scatter_add"],
+              f"#3 and #4 in bf16: {seen.count}, want {2 * TRAIN_STEPS} and "
+              f"{TRAIN_STEPS}")
+    if "scatter_rows_add" in launches:
+        want = ROW_SCATTERS[key] * TRAIN_STEPS
+        check(launches["scatter_rows_add"] == want,
+              f"scatter_rows_add launched {launches['scatter_rows_add']} "
+              f"times in {TRAIN_STEPS} bf16 steps, want {want}")
+    losses = history[0]["train_loss"]
+    check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+          and losses[-1] < losses[0],
+          f"bf16 training losses {losses}: not finite or not falling")
+    saved = read_checkpoint(str(model_dir / f"{name}_0"))
+    floats = {str(v.dtype) for v in saved.values() if v.dtype.kind == "f"}
+    live = {t.dtype for t in (*model.parameters(), *model.buffers())}
+    check(floats == {"float32"} and live == {torch.float32},
+          f"bf16 training state not f32: checkpoint {floats}, model {live}")
+    print(f"    loss step 1 {losses[0]:.6f} -> step {TRAIN_STEPS} "
+          f"{losses[-1]:.6f}; {len(saved)} checkpoint arrays (params, "
+          f"batch_stats, Adam's mu and nu), every float one f32")
+
+    model_k, opt_k, bdict, masks = _bf16_gate(name, mode, launches)
+    dev = torch.device("cuda")
+    model_32 = init_model(name, mode, NUM_CLASSES, seed=0, device=dev).model
+    opt_32 = make_optimizer(model_32.parameters(), 1e-3, 1e-3)
+    steps = {
+        "bf16": lambda: train_step(model_k, opt_k, bdict, dev,
+                                   dropout_masks=masks, precision="bf16"),
+        "fp32": lambda: train_step(model_32, opt_32, bdict, dev,
+                                   dropout_masks=masks)}
+    line = []
+    for precision, fn in steps.items():
+        ms = cuda_ms(fn, reps=10)
+        busy_ms, wall_ms = _device_busy(fn)
+        line.append(f"{precision} {ms:.3f} ms, busy {100 * busy_ms / wall_ms:.1f}"
+                    f" % ({busy_ms:.3f} of {wall_ms:.3f} ms)")
+    print(f"    train step of {B} x {N} with the kernels (CUDA events, "
+          f"median; busy share over 5 steps, profiler): " + "; ".join(line)
+          + f" ({smi})")
+    if "group_gather" in launches:
+        with _GroupingCalls(keep=True) as one:
+            steps["bf16"]()
+        device, _ = _device_events(steps["bf16"], 5)
+        _bf16_grouping_times(one.calls, device, 5, smi)
+
+
+def _bf16_checkpoint(smi):
+    """On the card, SSG clas in bf16: three steps, a checkpoint, then
+    ``evaluate`` with no weights (the latest checkpoint) against the live
+    model's eval forward, logits equal; a restore into a fresh model and
+    optimizer equal to the saved state bit for bit, and one more step
+    from both with the same masks equal bit for bit."""
+    from papc_tpu_torch.models import init_model
+    from papc_tpu_torch.train import (evaluate, make_optimizer,
+                                      restore_checkpoint, save_checkpoint,
+                                      train_step)
+
+    name, mode, dev = "pointnet2_ssg", "clas", torch.device("cuda")
+    model_dir = ROOT / "build" / "chip_smoke" / "bf16_checkpoint"
+    bdict = next(iter(_loader(B, mode, seed=2)()))._asdict()
+    masks = _dropout_masks(mode)
+    model = init_model(name, mode, NUM_CLASSES, seed=0, device=dev).model
+    opt = make_optimizer(model.parameters(), 1e-3, 1e-3)
+    for _ in range(3):
+        train_step(model, opt, bdict, dev, dropout_masks=masks,
+                   precision="bf16")
+    path = save_checkpoint(model, opt, str(model_dir), name, 3, step=3)
+    val = _loader(2 * B, mode, seed=3)
+    logs = []
+    served = evaluate(name, mode, N, NUM_CLASSES, batchsize=B,
+                      make_loader=lambda split: val, split="val",
+                      model_dir=str(model_dir), device="cuda",
+                      log=logs.append)
+    model.eval()
+    live = []
+    with torch.inference_mode():
+        for batch in val():
+            keep = torch.from_numpy(batch.mask)
+            live.append(model(torch.from_numpy(batch.points).cuda()).cpu()[keep])
+    model.train()
+    live = torch.cat(live)
+    check(logs[0] == f"eval: restoring latest checkpoint {model_dir}/{name}_3"
+          and torch.equal(served["logits"], live),
+          f"evaluate from the latest checkpoint: {logs[0]!r}, logits max abs "
+          f"err {float((served['logits'] - live).abs().max())}")
+    fresh = init_model(name, mode, NUM_CLASSES, seed=1, device=dev).model
+    opt2 = make_optimizer(fresh.parameters(), 1e-3, 1e-3)
+    check(restore_checkpoint(fresh, opt2, path) == 3, "restored step")
+
+    def state(m, o):
+        out = dict(m.state_dict())
+        for n, p in m.named_parameters():
+            out.update({f"{n}/{k}": v for k, v in o.state[p].items()})
+        return out
+
+    def same(a, b):
+        return all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a)
+
+    restored = same(state(model, opt), state(fresh, opt2))
+    for m, o in ((model, opt), (fresh, opt2)):
+        train_step(m, o, bdict, dev, dropout_masks=masks, precision="bf16")
+    stepped = same(state(model, opt), state(fresh, opt2))
+    check(restored and stepped,
+          f"checkpoint round trip on the card: restored equal {restored}, "
+          f"next step equal {stepped}")
+    print(f"    checkpoint after 3 bf16 steps -> {Path(path).name}: evaluate "
+          f"with no weights served it ({served['num_samples']} clouds, "
+          f"logits equal to the live model's); restored state and the next "
+          f"step from it equal bit for bit ({smi})")
+
+
+def train_epoch_times(n_batches: int = EPOCH_BATCHES, precision=None,
+                      prefetch: bool = False):
+    """One ``train()`` epoch of ``n_batches`` synthetic SSG clas batches of
+    B x N (no val batches), after one warm-up epoch on the same model:
+    ``(steps/s, device busy share, device ms, epoch ms)``. The steps/s
+    from the epoch's host time (``history``, synchronized); the busy share
+    from a second, profiled call: the card's kernel and copy time over
+    that call's epoch time (its checkpoint's few copies included). With
+    ``prefetch`` the loader's batches come through ``prefetch_to_device``
+    (size 2) onto the card, as JAX's ``train`` feeds them. Uses only the
+    package's public functions, so it times a parent tree's ``train()``
+    too (``precision`` passed only where given)."""
+    from papc_tpu_torch.data import SyntheticLoader
+    from papc_tpu_torch.train import train
+
+    source = SyntheticLoader(n_batches * B, n_points=N,
+                             num_classes=NUM_CLASSES, batchsize=B, seed=5)
+    loaders = {"train": source,
+               "val": SyntheticLoader(0, n_points=N, batchsize=B)}
+    if prefetch:
+        from papc_tpu_torch.data import prefetch_to_device
+        from papc_tpu_torch.train.evaluate import batch_dict
+
+        loaders["train"] = lambda: prefetch_to_device(
+            source(), size=2, transform=batch_dict, device="cuda")
+    extra = {} if precision is None else {"precision": precision}
+    model_dir = str(ROOT / "build" / "chip_smoke" / "epoch")
+
+    def run(epochs):
+        return train("pointnet2_ssg", "clas", N, NUM_CLASSES,
+                     epoch_num=epochs, batchsize=B, info_iter=10 ** 6,
+                     save_iter=10 ** 6, model_dir=model_dir,
+                     make_loader=loaders.__getitem__, device="cuda",
+                     log=lambda line: None, **extra)[1]
+
+    history = run(2)
+    steps_per_s = n_batches / history[1]["epoch_time"]
+    profiled = []
+    device, _ = _device_events(lambda: profiled.extend(run(1)), 1)
+    busy_us = sum(e.time_range.elapsed_us() for e in device)
+    epoch_us = profiled[0]["epoch_time"] * 1e6
+    return steps_per_s, busy_us / epoch_us, busy_us / 1e3, epoch_us / 1e3
+
+
+def phase_bf16(smi):
+    """Phase 15: bf16 training of SSG clas and MSG seg, the checkpoint on
+    the card, and ``train()`` epochs in f32 and bf16, the f32 one also
+    with its batches through the prefetch."""
+    for name, mode in BF16_PATHS:
+        _bf16_training(name, mode, smi)
+    _bf16_checkpoint(smi)
+    for precision, prefetch in (("fp32", False), ("fp32", True),
+                                ("bf16", False)):
+        sps, busy, dev_ms, wall_ms = train_epoch_times(precision=precision,
+                                                       prefetch=prefetch)
+        how = "through the prefetch" if prefetch else "copied inline"
+        print(f"    train() epoch of {EPOCH_BATCHES} SSG clas batches of {B} x "
+              f"{N}, {how}, {precision}: {sps:.2f} steps/s, device busy "
+              f"{100 * busy:.1f} % of the epoch ({dev_ms:.1f} of "
+              f"{wall_ms:.1f} ms, profiled) ({smi})")
+
+
 def main() -> int:
     name, smi = phase_device()
     from papc_tpu_torch.models import init_model
@@ -2613,6 +3150,7 @@ def main() -> int:
     for key, got in steps.items():
         steps[key] = {"stream": stream[key], "recompute": got}
     phase_single(smi, rc_rows, steps)
+    phase_bf16(smi)
     all_rows = (list(rows.values()) + list(t_rows.values()) + [scatter_row]
                 + list(det_rows.values()) + list(rc_rows.values()))
     _finish_bounds(all_rows)

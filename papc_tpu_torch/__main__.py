@@ -1,14 +1,16 @@
 """Command line of the port: ``python -m papc_tpu_torch ...``.
 
 Mirrors the JAX package's ``train.py``: it trains unless ``--evaluate``
-is given, with the same flags, plus an explicit ``--device``. It serves
-and trains ``pointnet2_ssg`` and ``pointnet2_msg`` in ``--mode clas``
-(accuracy) and ``--mode seg`` (part segmentation, mean IoU). Training
-writes flax variables as flat ``.npz`` files
-(``{model_dir}/{name}_{epoch}.npz``, see :mod:`papc_tpu_torch.convert`);
-``--evaluate --weights`` serves such a file in place of ``--checkpoint``.
-``--precision bf16`` and ``--scan_steps`` above 1 are not ported yet and
-exit with an error.
+is given, with the same flags, plus an explicit ``--device`` and
+``--weights``. It serves and trains ``pointnet2_ssg`` and
+``pointnet2_msg`` in ``--mode clas`` (accuracy) and ``--mode seg`` (part
+segmentation, mean IoU), in ``--precision fp32`` or ``bf16``. Training
+writes a checkpoint directory ``{model_dir}/{name}_{epoch}`` every
+``--save_iter`` epochs (weights, Adam's state and the step, see
+:mod:`papc_tpu_torch.train.trainer`). ``--evaluate`` serves
+``--checkpoint``, or flax variables as a flat ``.npz`` (``--weights``),
+or with neither the latest checkpoint under ``--model_dir``.
+``--scan_steps`` above 1 is not ported yet and exits with an error.
 """
 
 from __future__ import annotations
@@ -41,23 +43,25 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--scan_steps", type=int, default=1)
     parser.add_argument("--split", type=str, default="test")
     parser.add_argument("--evaluate", action="store_true",
-                        help="evaluate --weights on --split")
+                        help="evaluate on --split instead of training")
+    parser.add_argument("--checkpoint", type=str, default=None,
+                        help="checkpoint directory to evaluate (default: "
+                        "latest under --model_dir)")
     parser.add_argument("--weights", type=str, default=None,
-                        help="flax variables as a flat .npz")
+                        help="flax variables as a flat .npz to evaluate")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
     if args.evaluate:
-        if args.weights is None:
-            parser.error("--evaluate needs --weights")
+        if args.weights is not None and args.checkpoint is not None:
+            parser.error("--weights and --checkpoint exclude each other")
         from papc_tpu_torch.train import evaluate
 
         evaluate(args.model_name, args.mode, args.max_point,
                  args.num_classes, args.num_parts, args.batchsize, args.path,
-                 weights=args.weights, split=args.split, device=args.device)
+                 weights=args.weights, split=args.split,
+                 checkpoint_path=args.checkpoint,
+                 model_dir=args.model_dir, device=args.device)
         return 0
-    if args.precision != "fp32":
-        parser.error("--precision bf16 is not ported yet (ROADMAP.md, "
-                     "Queue 1 item 4: precision and checkpoints)")
     if args.scan_steps != 1:
         parser.error("--scan_steps > 1 is not ported (ROADMAP.md, Queue 1 "
                      "item 4: a CUDA-graph counterpart is an open question)")
@@ -66,7 +70,8 @@ def main(argv: list[str] | None = None) -> int:
     train(args.model_name, args.mode, args.max_point, args.num_classes,
           args.num_parts, args.learning_rate, args.weight_decay,
           args.epoch_num, args.batchsize, args.info_iter, args.save_iter,
-          args.path, args.model_dir, args.seed, device=args.device)
+          args.path, args.model_dir, args.seed, precision=args.precision,
+          device=args.device)
     return 0
 
 

@@ -136,3 +136,73 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.n
             leaf = "scale" if name == "weight" else name
             flat["/".join(["params", *path, leaf])] = arr
     return flat
+
+
+def _adam_leaves(opt_state) -> tuple[int, Mapping, Mapping]:
+    """``(count, mu, nu)`` of optax's Adam state: a dict with those three
+    keys, or the ``chain(add_decayed_weights, adam)`` state
+    ``(EmptyState(), (ScaleByAdamState(count, mu, nu), EmptyState()))``."""
+    if not isinstance(opt_state, Mapping):
+        found = [s for s in _walk_tuples(opt_state) if hasattr(s, "mu")]
+        if len(found) != 1:
+            raise ValueError("no single ScaleByAdamState in opt_state")
+        opt_state = found[0]._asdict()
+    return (int(np.asarray(opt_state["count"])), opt_state["mu"],
+            opt_state["nu"])
+
+
+def _walk_tuples(tree):
+    yield tree
+    if isinstance(tree, tuple) and not hasattr(tree, "_fields"):
+        for child in tree:
+            yield from _walk_tuples(child)
+
+
+def adam_state_from_optax(model: nn.Module, opt: torch.optim.Optimizer,
+                          opt_state) -> None:
+    """Fill ``opt`` (``torch.optim.Adam`` over ``model.parameters()``, as
+    ``train.make_optimizer`` builds it) with optax's Adam state: ``mu`` →
+    ``exp_avg``, ``nu`` → ``exp_avg_sq`` (Dense kernels transposed, as
+    the weights are), ``count`` → ``step``. ``mu`` and ``nu`` map flat
+    flax param keys (``A/B/kernel``) to numpy leaves. Both packages then
+    continue the same run."""
+    count, mu, nu = _adam_leaves(opt_state)
+    moments = {}
+    for name, tree in (("exp_avg", mu), ("exp_avg_sq", nu)):
+        for flax_key, value in tree.items():
+            key, value = _torch_key(f"params/{flax_key}", np.asarray(value))
+            moments.setdefault(key, {})[name] = value
+    params = dict(model.named_parameters())
+    if set(moments) != set(params):
+        raise KeyError(
+            f"optax → torch Adam: moments without a parameter "
+            f"{sorted(set(moments) - set(params))}, parameters without "
+            f"moments {sorted(set(params) - set(moments))}")
+    for key, p in params.items():
+        state = {"step": torch.tensor(float(count), dtype=torch.float32)}
+        for name, value in moments[key].items():
+            if tuple(value.shape) != tuple(p.shape):
+                raise ValueError(f"{key}: {name} shape {value.shape} does "
+                                 f"not fit {tuple(p.shape)}")
+            state[name] = torch.from_numpy(
+                np.array(value, dtype=np.float32)).to(p.device)
+        opt.state[p] = state
+
+
+def adam_state_to_optax(model: nn.Module,
+                        opt: torch.optim.Optimizer) -> dict:
+    """The inverse of :func:`adam_state_from_optax`: ``{"count", "mu",
+    "nu"}`` with ``mu`` and ``nu`` flat flax param keys (``A/B/kernel``,
+    numpy f32) and ``count`` int32, the fields of optax's
+    ``ScaleByAdamState``. A parameter that has not been stepped has zero
+    moments, as optax's ``init`` gives."""
+    count, mu, nu = 0, {}, {}
+    for key, p in model.named_parameters():
+        state = opt.state.get(p, {})
+        if state:
+            count = int(float(state["step"]))
+        for out, name in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+            value = state.get(name, torch.zeros_like(p))
+            (flax_key, arr), = state_dict_to_flax({key: value}).items()
+            out[flax_key.split("/", 1)[1]] = arr.astype(np.float32)
+    return {"count": np.asarray(count, np.int32), "mu": mu, "nu": nu}

@@ -42,7 +42,8 @@ __global__ void __launch_bounds__(sorted::kSumThreads)
     row_sum_kernel(const T* __restrict__ g, const int* __restrict__ offsets,
                    const int* __restrict__ order, int n, int entries, int c,
                    float* __restrict__ out) {
-  sorted::scatter_sum<L, CH>(g, offsets, order, n, entries, c, out);
+  sorted::scatter_sum<L, CH, T, float>(g, offsets, order, n, entries, c,
+                                       out);
 }
 
 template <typename T>

@@ -36,7 +36,10 @@
 //     leaves each part's sum in shared memory, and the merge adds the
 //     parts in worker order and writes the row, or zeros where no entry
 //     takes it: every row is written once and nothing is zero-filled
-//     beforehand. Channels beyond L x chans take further walks.
+//     beforehand. Channels beyond L x chans take further walks. The row
+//     is written as f32, or rounded once from its f32 sum to bf16 where
+//     the caller's output is bf16 (the grouping gather's backward of a
+//     bf16 source).
 // No atomics on the output: the sum order is fixed by the index and the
 // shapes, so two calls give the same bits. A row inside one worker's part
 // adds in list order, which is a sequential index_add_'s (the plain
@@ -69,6 +72,13 @@ __device__ __forceinline__ unsigned load_bits(const __nv_bfloat16* p) {
 template <typename T>
 __device__ __forceinline__ float widen(unsigned bits) {
   return __uint_as_float(sizeof(T) == 2 ? bits << 16 : bits);
+}
+
+// A finished f32 sum stored in the output's type: as it is, or rounded
+// once to bf16.
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
 }
 
 // The lanes of the warp that are live and hold the same point j: one
@@ -194,25 +204,31 @@ __device__ __forceinline__ void inverse_index(const int* __restrict__ idx,
 // Where a row's partial sum goes when a worker has walked its part of it:
 // a row inside the worker's entry range [a, z) is written out; a row that
 // began before a leaves its partial in head, one that runs past z in tail.
-template <int L, int CH>
+template <int L, int CH, typename O>
 __device__ __forceinline__ void flush(const float (&acc)[CH], int lo, int hi,
                                       int a, int z, int sub, int ch, int c,
-                                      float* row, float* head, float* tail) {
+                                      O* row, float* head, float* tail) {
   if (lo == hi) return;  // no entry: the merge writes its zeros
-  float* dst = lo >= a && hi <= z ? row : lo < a ? head : tail;
-  const int base = dst == row ? ch : sub;
+  if (lo >= a && hi <= z) {
+#pragma unroll
+    for (int i = 0; i < CH; ++i)
+      if (ch + L * i < c) store(row + ch + L * i, acc[i]);
+    return;
+  }
+  float* dst = lo < a ? head : tail;
 #pragma unroll
   for (int i = 0; i < CH; ++i)
-    if (ch + L * i < c) dst[base + L * i] = acc[i];
+    if (ch + L * i < c) dst[sub + L * i] = acc[i];
 }
 
-// Launch: a grid of (ceil(n / (128 / L)), b) blocks of kSumThreads.
-template <int L, int CH, typename T>
+// Launch: a grid of (ceil(n / (128 / L)), b) blocks of kSumThreads. The
+// output is f32 or bf16 (O), the sums f32 in either case.
+template <int L, int CH, typename T, typename O>
 __device__ __forceinline__ void scatter_sum(const T* __restrict__ g,
                                             const int* __restrict__ offsets,
                                             const int* __restrict__ order,
                                             int n, int entries, int c,
-                                            float* __restrict__ out) {
+                                            O* __restrict__ out) {
   constexpr int kWorkers = kSumThreads / L;
   constexpr int kRows = kWorkers / 2;  // rows a block
   constexpr int kSpan = L * CH;        // channels a walk
@@ -235,7 +251,7 @@ __device__ __forceinline__ void scatter_sum(const T* __restrict__ g,
   while (r0 + 1 < rows && offs[r0 + 1] <= a) ++r0;
   const int* list = order + static_cast<long long>(b) * entries;
   const T* cloud = g + static_cast<long long>(b) * entries * c;
-  float* rows_out = out + (static_cast<long long>(b) * n + j0) * c;
+  O* rows_out = out + (static_cast<long long>(b) * n + j0) * c;
 
   for (int c0 = 0; c0 < c; c0 += kSpan) {
     const int ch = c0 + sub;
@@ -296,10 +312,10 @@ __device__ __forceinline__ void scatter_sum(const T* __restrict__ g,
           for (int i = 0; i < CH; ++i)
             s[i] = __fadd_rn(s[i], head[q][sub + L * i]);
         }
-        float* dst = rows_out + static_cast<long long>(w) * c;
+        O* dst = rows_out + static_cast<long long>(w) * c;
 #pragma unroll
         for (int i = 0; i < CH; ++i)
-          if (ch + L * i < c) dst[ch + L * i] = s[i];
+          if (ch + L * i < c) store(dst + ch + L * i, s[i]);
       }
     }
     __syncthreads();
@@ -308,30 +324,29 @@ __device__ __forceinline__ void scatter_sum(const T* __restrict__ g,
 
 // Sum<L, CH>::launch(grid, stream, g, offsets, order, n, entries, c, out)
 // launches the including file's sum kernel for L lanes and CH channels.
-template <template <int, int> class Sum, typename T, int CH = 1>
+template <template <int, int> class Sum, typename T, typename O, int CH = 1>
 cudaError_t launch_sum_32(int chans, dim3 grid, cudaStream_t stream,
                           const T* g, const int* offsets, const int* order,
-                          int n, int entries, int c, float* out) {
+                          int n, int entries, int c, O* out) {
   if (chans == CH)
     return Sum<32, CH>::launch(grid, stream, g, offsets, order, n, entries,
                                c, out);
   if constexpr (CH < 8)
-    return launch_sum_32<Sum, T, CH + 1>(chans, grid, stream, g, offsets,
+    return launch_sum_32<Sum, T, O, CH + 1>(chans, grid, stream, g, offsets,
                                          order, n, entries, c, out);
   return cudaErrorInvalidValue;
 }
 
 // Both launches: index_kernel (the including file's inverse_index) into
 // offsets [b, n + 1] and order [b, entries], then the sum into out [b, n,
-// c] f32, every row written. warps: the index's warps a cloud; lanes (4,
+// c] (f32 or bf16), every row written. warps: the index's warps a cloud; lanes (4,
 // 8, 16 or 32; 32 with chans > 1) and chans (1-8): the sum's lanes a row
 // and channels a lane.
-template <template <int, int> class Sum, typename T>
+template <template <int, int> class Sum, typename T, typename O>
 cudaError_t launch(void (*index_kernel)(const int*, int, int, int*, int*),
                    const T* g, const int* idx, int b, int n,
                    long long entries, int c, int warps, int lanes, int chans,
-                   int* offsets, int* order, float* out,
-                   cudaStream_t stream) {
+                   int* offsets, int* order, O* out, cudaStream_t stream) {
   if (b <= 0 || n <= 0 || entries <= 0 || c <= 0 || warps < 1 ||
       warps > 32 || chans < 1 || chans > 8 || (lanes < 32 && chans != 1) ||
       entries > INT_MAX || b > 65535 ||
@@ -354,8 +369,8 @@ cudaError_t launch(void (*index_kernel)(const int*, int, int, int*, int*),
       return Sum<16, 1>::launch(grid, stream, g, offsets, order, n, e, c,
                                 out);
     case 32:
-      return launch_sum_32<Sum, T>(chans, grid, stream, g, offsets, order, n,
-                                   e, c, out);
+      return launch_sum_32<Sum, T, O>(chans, grid, stream, g, offsets, order,
+                                      n, e, c, out);
     default:
       return cudaErrorInvalidValue;
   }

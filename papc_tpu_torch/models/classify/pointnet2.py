@@ -16,7 +16,7 @@ from torch import nn
 
 from papc_tpu_torch.nn import (BatchNorm, MLPHead, SetAbstraction,
                                SetAbstractionMsg)
-from papc_tpu_torch.nn.layers import dropout, init_params
+from papc_tpu_torch.nn.layers import dense, dropout, init_params
 
 
 class PointNet2SSGClas(nn.Module):
@@ -112,9 +112,9 @@ class PointNet2MSGClas(nn.Module):
         if self.training and masks is not None and len(masks) != 2:
             raise ValueError(f"{len(masks)} dropout masks for 2 sites")
         for i, rate in enumerate(self.DROPOUT_RATES):
-            x = getattr(self, f"Dense_{i}")(x)
+            x = dense(getattr(self, f"Dense_{i}"), x)
             x = torch.relu(getattr(self, f"BatchNorm_{i}")(x))
             if self.training:
                 x = dropout(x, rate, None if masks is None else masks[i],
                             generator)
-        return self.Dense_2(x)
+        return dense(self.Dense_2, x)

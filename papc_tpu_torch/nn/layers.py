@@ -10,6 +10,7 @@ update, and dropout, in training; running statistics in eval.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence
 
@@ -38,6 +39,13 @@ class BatchNorm(nn.Module):
     0.1·batch`` (``BN_MOMENTUM``) with that biased variance. (Not
     ``torch.nn.BatchNorm1d``: it stores the unbiased variance, and its
     ``momentum`` is the weight of the batch, 0.1 for flax's 0.9.)
+
+    A bf16 input or bf16 ``weight`` / ``bias`` (the bf16 training step)
+    follows flax 0.12's ``force_float32_reductions``: the statistics are
+    f32 and the running ones stay f32, the normalisation is computed in
+    f32, and the output is rounded once to the promoted dtype of the
+    input, ``weight`` and ``bias`` (``_normalize``'s
+    ``canonicalize_dtype``).
     """
 
     def __init__(self, features: int, eps: float = BN_EPS):
@@ -60,14 +68,33 @@ class BatchNorm(nn.Module):
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
                 self.running_var.copy_(m * self.running_var + (1 - m) * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean) * mul + self.bias
+        out = (x - mean) * mul + self.bias
+        return out.to(torch.promote_types(
+            torch.promote_types(x.dtype, self.weight.dtype), self.bias.dtype))
+
+
+def dense(linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """flax's ``Dense`` on ``linear``'s parameters: input, kernel and bias
+    promoted to one dtype first (``promote_dtype``), so a bf16 layer on
+    an f32 input computes in f32, as in JAX's bf16 step. In bf16 the
+    product is rounded before the bias is added, as flax adds it."""
+    w, b = linear.weight, linear.bias
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    if b is not None:
+        dtype = torch.promote_types(dtype, b.dtype)
+    x, w = x.to(dtype), w.to(dtype)
+    if dtype == torch.bfloat16 and b is not None:
+        return x @ w.t() + b.to(dtype)
+    return nn.functional.linear(x, w, None if b is None else b.to(dtype))
 
 
 def dropout(x: torch.Tensor, rate: float, mask: torch.Tensor | None,
             generator: torch.Generator | None) -> torch.Tensor:
-    """flax's ``Dropout``: ``where(keep, x / (1 - rate), 0)``. ``keep`` is
-    ``mask`` when given, else drawn as ``uniform < 1 - rate`` from
-    ``generator`` on the generator's device (then moved to ``x``'s)."""
+    """flax's ``Dropout``: ``where(keep, x / (1 - rate), 0)``, the divisor
+    and the quotient rounded to ``x``'s dtype as JAX rounds a Python
+    scalar and the result (bf16 in the bf16 step). ``keep`` is ``mask``
+    when given, else drawn as ``uniform < 1 - rate`` from ``generator``
+    on the generator's device (then moved to ``x``'s)."""
     keep_prob = 1.0 - rate
     if mask is None:
         if generator is None:
@@ -77,7 +104,14 @@ def dropout(x: torch.Tensor, rate: float, mask: torch.Tensor | None,
         mask = torch.rand(x.shape, generator=generator,
                           device=generator.device) < keep_prob
     mask = mask.to(device=x.device, dtype=torch.bool)
-    return torch.where(mask, x / keep_prob, torch.zeros_like(x))
+    return torch.where(mask, x / _rounded(keep_prob, x.dtype),
+                       torch.zeros_like(x))
+
+
+@functools.lru_cache(maxsize=64)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``, as JAX rounds a Python scalar."""
+    return float(torch.tensor(value, dtype=dtype))
 
 
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
@@ -149,8 +183,8 @@ class PointMLP(nn.Module):
                     bn.running_mean.copy_(mean)
                     bn.running_var.copy_(var)
             return out
-        for dense, bn in self.layers():
-            x = torch.relu(bn(dense(x)))
+        for linear, bn in self.layers():
+            x = torch.relu(bn(dense(linear, x)))
         return x
 
 
@@ -198,7 +232,7 @@ class MLPHead(nn.Module):
             return dropout(h, self.dropout_rate, mask, generator)
 
         for i in range(len(self.hidden)):
-            x = getattr(self, f"Dense_{i}")(x)
+            x = dense(getattr(self, f"Dense_{i}"), x)
             if self.bn:
                 x = getattr(self, f"BatchNorm_{i}")(x)
             x = torch.relu(x)
@@ -206,4 +240,4 @@ class MLPHead(nn.Module):
                 x = apply_dropout(x)
         if drop and not self.per_layer_dropout:
             x = apply_dropout(x)
-        return getattr(self, f"Dense_{len(self.hidden)}")(x)
+        return dense(getattr(self, f"Dense_{len(self.hidden)}"), x)

@@ -24,6 +24,13 @@ training modes, ``"stream"`` (the default), ``"recompute"`` and
   stack it does not admit (the ``group_all`` ones) demotes to stream mode
   with a warning, as in JAX (:func:`effective_mode`).
 
+bf16 parameters and a bf16 grouped tensor (the bf16 training step) go in
+as they are: the products round their operands to bf16 anyway, a bias
+is widened exactly, the BN vectors are f32 from the bf16 γ and β
+(``_bn_vectors``), the output is cast to the grouped tensor's dtype
+(``papc_tpu/ops/fused_mlp.py:489``) and autograd casts each parameter's
+f32 gradient to its dtype (JAX's ``core_bwd`` casts, ``:396-407``).
+
 Every training mode has the JAX one's gradient semantics: the analytic
 BatchNorm backward with batch statistics as functions of the input, the
 max's cotangent routed to the FIRST argmax (``torch.amax``'s autograd
@@ -80,13 +87,15 @@ def fold_bn(gamma, beta, mean, var, eps: float):
 
 class _FusedTrain(torch.autograd.Function):
     """Training forward and backward of the stack over ``x [M, C0]`` f32
-    (the grouped rows): ``forward(x, k, eps, impl, operand_dtype, W0, b0,
-    γ0, β0, W1, ...)`` → ``(out [M/k, C_last] f32, mean_0, ..., var_0,
-    ...)``, the batch statistics marked non-differentiable.
+    or bf16 (the grouped rows): ``forward(x, k, eps, impl, operand_dtype,
+    W0, b0, γ0, β0, W1, ...)`` → ``(out [M/k, C_last] f32, mean_0, ...,
+    var_0, ...)``, the batch statistics marked non-differentiable.
 
     ``x`` is cast to the operand dtype inside (``g2``, as
-    ``fused_mlp.py:448`` does), so its gradient comes back in f32 and
-    unrounded. Saved for the backward: ``g2``, every layer's stored
+    ``fused_mlp.py:448`` does), so the gradient of an f32 ``x`` comes back
+    in f32 and unrounded. The gradients are computed in f32; autograd
+    casts each to its input's dtype (bf16 for the bf16 step's ``x`` and
+    parameters, as JAX's ``core_bwd`` casts them). Saved for the backward: ``g2``, every layer's stored
     pre-activation, the ``[4, C]`` BN vectors, the argmax and, on the
     kernel path, the bf16 weights packed once in the forward.
     """
@@ -264,8 +273,8 @@ def fused_mlp_max(grouped: torch.Tensor, params, running, *,
     """Fused Dense→BN→ReLU stack + max over the K axis.
 
     Args:
-      grouped: ``[B, S, K, C0]`` neighbourhoods.
-      params: per layer ``(W [Cin, Cout], b, gamma, beta)``.
+      grouped: ``[B, S, K, C0]`` neighbourhoods, f32 or bf16.
+      params: per layer ``(W [Cin, Cout], b, gamma, beta)``, f32 or bf16.
       running: per layer ``(mean, var)`` running statistics.
       train: batch statistics and a differentiable result (the passes
         of ``mode``), else the running statistics (the fused eval pass).
@@ -280,9 +289,10 @@ def fused_mlp_max(grouped: torch.Tensor, params, running, *,
         :func:`effective_mode` demotes, and logs it once per stack shape.
 
     Returns:
-      eval: ``[B, S, C_last]`` f32. train: ``(out [B, S, C_last] f32,
+      eval: ``[B, S, C_last]``. train: ``(out [B, S, C_last],
       new_running)``, the updated ``(mean, var)`` per layer computed
-      without gradient, for the caller to store.
+      without gradient (f32), for the caller to store. ``out`` is in
+      ``grouped``'s dtype, computed in f32.
     """
     impl = _OVERRIDE["impl"] if impl is None else impl
     if operand_dtype is None:
@@ -295,7 +305,9 @@ def fused_mlp_max(grouped: torch.Tensor, params, running, *,
         if not params:
             raise ValueError("fused_mlp_max needs at least one layer")
         flat = [t for p in params for t in p]
-        x = grouped.reshape(b * s * k, c0).float()
+        x = grouped.reshape(b * s * k, c0)
+        if x.dtype != torch.bfloat16:  # a bf16 x goes in without a copy
+            x = x.float()
         mode = _demote(mode, x.shape[0], k, c0,
                        [p[0].shape[1] for p in params])
         if mode == "stream":
@@ -311,7 +323,7 @@ def fused_mlp_max(grouped: torch.Tensor, params, running, *,
                  momentum * rv + (1.0 - momentum) * var)
                 for (rm, rv), mean, var in zip(running, stats[:n], stats[n:])
             ]
-        return out2.reshape(b, s, -1), new_running
+        return out2.reshape(b, s, -1).to(grouped.dtype), new_running
     ws, bs, scales, shifts = [], [], [], []
     for (w, bias, gamma, beta), (mean, var) in zip(params, running):
         scale, shift = fold_bn(gamma, beta, mean, var, eps)
@@ -323,4 +335,4 @@ def fused_mlp_max(grouped: torch.Tensor, params, running, *,
         grouped.reshape(b * s * k, c0), ws, bs, scales, shifts, k=k,
         impl=impl, operand_dtype=operand_dtype,
     )
-    return out2.reshape(b, s, -1)
+    return out2.reshape(b, s, -1).to(grouped.dtype)

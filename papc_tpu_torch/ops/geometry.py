@@ -24,12 +24,22 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
     reduced-precision cross term flips ball membership near the radius.
     TF32 would do the same on the card, so the cross term is an
     elementwise product and sum, which never goes to TF32.
+
+    bf16 inputs follow JAX's dtypes in its jitted step: the cross term
+    is f32 (exact products), and ``|s|²`` and ``|d|²`` are bf16, each
+    summed in f32 from f32 squares and rounded once (XLA fuses the
+    square into the bf16 sum and keeps it in f32; JAX's eager op-by-op
+    call also rounds each square). So the result is f32 with the norms'
+    rounding in it: a query that sits on a source reads a distance of
+    about ±2^-8 |s|² where the true one is 0.
     """
+    bf16 = src.dtype == dst.dtype == torch.bfloat16
     src, dst = src.float(), dst.float()
+    s2, d2 = (src * src).sum(-1), (dst * dst).sum(-1)
+    if bf16:
+        s2, d2 = s2.bfloat16().float(), d2.bfloat16().float()
     cross = (src[:, :, None, :] * dst[:, None, :, :]).sum(-1)
-    s2 = (src * src).sum(-1)[:, :, None]
-    d2 = (dst * dst).sum(-1)[:, None, :]
-    return s2 - 2.0 * cross + d2
+    return s2[:, :, None] - 2.0 * cross + d2[:, None, :]
 
 
 class _GatherRows(torch.autograd.Function):

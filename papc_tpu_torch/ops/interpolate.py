@@ -15,11 +15,14 @@ def three_nn_interpolate(xyz1: torch.Tensor, xyz2: torch.Tensor,
     """Features ``points2 [B, S, D]`` at ``xyz2 [B, S, 3]`` interpolated
     onto ``xyz1 [B, N, 3]`` → ``[B, N, D]``: the ``k`` nearest sources
     weighted by ``1 / (d² + eps)``, normalised, in JAX's order of
-    operations. The neighbours are gathered with ``index_points``, so
-    their gradient is the row scatter-add (the kernel on the card)."""
+    operations and dtypes: the weights are f32 (a bf16 ``xyz`` through
+    ``square_distance``'s bf16 squares), and bf16 neighbours times f32
+    weights sum in f32, so the result is f32 for bf16 ``points2``, as in
+    JAX. The neighbours are gathered with ``index_points``, so their
+    gradient is the row scatter-add (the kernel on the card)."""
     dists, idx = knn(k, xyz2, xyz1)
     dist_recip = 1.0 / (dists + eps)
     norm = dist_recip.sum(dim=2, keepdim=True)
     weight = dist_recip / norm
     neighbors = index_points(points2, idx, impl=impl)
-    return (neighbors * weight[..., None].to(neighbors.dtype)).sum(dim=2)
+    return (neighbors * weight[..., None]).sum(dim=2)

@@ -4,8 +4,10 @@
 The model runs in eval mode under :func:`torch.inference_mode` on an
 explicit device: running BatchNorm statistics, no dropout, so the logits
 are a deterministic function of the weights and the input. Weights come
-from flax variables (a nested dict or a flat ``.npz``, see
-:mod:`papc_tpu_torch.convert`) in place of an Orbax checkpoint.
+from a checkpoint of the trainer (``checkpoint_path``, or the latest one
+under ``model_dir``, as JAX's ``evaluate`` finds it), or from flax
+variables (a nested dict or a flat ``.npz``, see
+:mod:`papc_tpu_torch.convert`).
 
 Classification takes ``points`` and scores ``label`` by accuracy; part
 segmentation takes ``(points, label)`` and scores the per-point ``pid``
@@ -34,8 +36,12 @@ def batch_dict(raw) -> dict:
 
 def batch_tensor(batch: dict, key: str,
                  device: torch.device) -> torch.Tensor:
-    """``batch[key]`` as a tensor on ``device``."""
-    return torch.as_tensor(np.asarray(batch[key]), device=device)
+    """``batch[key]`` as a tensor on ``device`` (a tensor already there,
+    as the prefetch leaves it, is returned as it is)."""
+    value = batch[key]
+    if isinstance(value, torch.Tensor):
+        return value.to(device)
+    return torch.as_tensor(np.asarray(value), device=device)
 
 
 def model_inputs(mode: str, batch: dict, device: torch.device) -> tuple:
@@ -90,11 +96,16 @@ def evaluate(
     split: str = "test",
     make_loader: Callable | None = None,
     *,
+    checkpoint_path: str | None = None,
+    model_dir: str = "./model",
     device: str | torch.device = "cuda",
     impl: str | None = None,
     log: Callable[[str], None] = print,
 ) -> dict:
-    """Evaluate flax ``weights`` on a ShapeNet split.
+    """Evaluate a model on a ShapeNet split: flax ``weights``, else the
+    checkpoint at ``checkpoint_path``, else the latest
+    ``{model_dir}/{model_name}_<epoch>`` checkpoint (logged; with none
+    there, ``FileNotFoundError``, as in JAX).
 
     ``make_loader(split)`` returns an epoch callable yielding batches
     (default: :class:`~papc_tpu_torch.data.ShapeNetLoader` over ``path``,
@@ -107,10 +118,20 @@ def evaluate(
     the CPU (``[n, classes]``, or ``[n, N, parts]`` for segmentation).
     """
     if weights is None:
-        raise ValueError(
-            "evaluate needs weights: flax variables as a nested dict or a "
-            "flat .npz (papc_tpu_torch.convert)"
-        )
+        from papc_tpu_torch.train.trainer import (checkpoint_variables,
+                                                  latest_checkpoint_path,
+                                                  read_checkpoint)
+
+        if checkpoint_path is None:
+            # the latest trainer checkpoint: scoring a freshly initialised
+            # model would be no evaluation
+            checkpoint_path = latest_checkpoint_path(model_name, model_dir)
+            if checkpoint_path is None:
+                raise FileNotFoundError(
+                    f"no {model_dir}/{model_name}_<epoch> checkpoint found "
+                    "— train first or pass --checkpoint explicitly")
+            log(f"eval: restoring latest checkpoint {checkpoint_path}")
+        weights = checkpoint_variables(read_checkpoint(checkpoint_path))
     device = torch.device(device)
     if make_loader is None:
         from papc_tpu_torch.data import ShapeNetLoader

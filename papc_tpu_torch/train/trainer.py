@@ -1,36 +1,57 @@
 """Training of the port (counterpart of ``papc_tpu/train/trainer.py``).
 
-The same public ``train(...)`` as the JAX package (minus ``precision``
-and ``scan_steps``, see ``ROADMAP.md``), the same Adam with L2 added to
-the gradient before the Adam step, the same masked loss and log lines,
-a val pass per epoch, and a weights file every ``save_iter`` epochs.
+The same public ``train(...)`` as the JAX package (minus ``scan_steps``,
+see ``ROADMAP.md``), the same Adam with L2 added to the gradient before
+the Adam step, the same masked loss and log lines, a val pass per
+epoch, and a checkpoint every ``save_iter`` epochs. Each training batch
+is copied to the device inside its step, where JAX's ``train`` feeds
+them through ``prefetch_to_device``, which costs the port's host-bound
+step (``data/prefetch.py``).
 
 The model trains in place on an explicit device, eagerly: one
 ``train_step`` is the forward in train mode (batch statistics, dropout
 from an explicit ``torch.Generator``, running statistics updated as flax
 does), the backward through the port's kernels on a CUDA device (their
-plain versions on the CPU), and one optimizer step. A weights file is
-the flat flax variables ``{model_dir}/{name}_{epoch}.npz``
-(:func:`papc_tpu_torch.convert.state_dict_to_flax`), which
-``evaluate(weights=...)`` and ``python -m papc_tpu_torch --evaluate``
-serve. Optimizer state and resume are not saved yet.
+plain versions on the CPU), and one optimizer step. ``precision="bf16"``
+is JAX's bf16 step (``make_train_step``): the forward and backward run
+on bf16 copies of the f32 parameters and of the batch's float arrays,
+the loss is taken in f32, and the parameters, Adam's moments and the
+BatchNorm running statistics stay f32.
+
+A checkpoint is JAX's layout without Orbax: one directory
+``{model_dir}/{name}_{epoch}`` a save (so JAX's ``name_(\\d+)`` discovery
+finds it), holding one ``numpy.savez`` file of flat keys: ``params/...``
+and ``batch_stats/...`` (flax variables,
+:func:`papc_tpu_torch.convert.state_dict_to_flax`), ``opt_state/count``,
+``opt_state/mu/...`` and ``opt_state/nu/...`` (optax's
+``ScaleByAdamState`` fields, :func:`~papc_tpu_torch.convert.adam_state_to_optax`)
+and ``step``. ``restore_checkpoint`` loads all four; ``evaluate`` serves
+the latest one. As in JAX, ``train()`` does not resume.
 """
 
 from __future__ import annotations
 
 import os
+import re
+import shutil
 import time
 from collections.abc import Callable, Sequence
 
 import numpy as np
 import torch
 
-from papc_tpu_torch.convert import state_dict_to_flax
+from papc_tpu_torch.convert import (adam_state_from_optax,
+                                    adam_state_to_optax, load_flax_weights,
+                                    state_dict_to_flax)
 from papc_tpu_torch.models import init_model
 from papc_tpu_torch.train import metrics as M
 from papc_tpu_torch.train.evaluate import (batch_dict, batch_tensor,
                                            eval_step, metric_name, metric_of,
                                            model_inputs, targets_of)
+from papc_tpu_torch.train.precision import cast_floating
+
+PRECISIONS = ("fp32", "bf16")
+CHECKPOINT_FILE = "checkpoint.npz"  # the one file of a checkpoint directory
 
 
 def make_optimizer(params, learning_rate: float,
@@ -47,7 +68,8 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
                batch: dict, device: torch.device,
                generator: torch.Generator | None = None,
                impl: str | None = None,
-               dropout_masks: Sequence[torch.Tensor] | None = None):
+               dropout_masks: Sequence[torch.Tensor] | None = None,
+               precision: str = "fp32"):
     """One step on ``batch``: ``(loss, metric)`` as 0-d tensors on
     ``device``, the loss over the rows ``batch["mask"]`` marks valid; the
     metric is the accuracy, or the mean IoU over the parts for a
@@ -55,14 +77,29 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
 
     The gradients stay in the parameters' ``.grad`` after the step.
     Dropout masks come from ``generator``, or from ``dropout_masks``.
+    ``precision="bf16"`` runs the forward and backward on bf16 casts of
+    the parameters and of the batch's float arrays (JAX's ``loss_fn``);
+    the parameters take their gradients in f32, the BatchNorm running
+    statistics update in place in f32, and the loss is taken on the f32
+    logits. Any other precision than ``"fp32"`` or ``"bf16"`` raises
+    ``ValueError``.
     """
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}")
     inputs = model_inputs(model.mode, batch, device)
     targets = targets_of(model.mode, batch, device)
     mask = batch_tensor(batch, "mask", device)
     model.train()
-    logits = model(*inputs, impl=impl, generator=generator,
-                   dropout_masks=dropout_masks)
-    loss = M.softmax_cross_entropy(logits, targets, mask)
+    kwargs = {"impl": impl, "generator": generator,
+              "dropout_masks": dropout_masks}
+    if precision == "bf16":
+        inputs, mask = cast_floating((inputs, mask), torch.bfloat16)
+        params = {name: p.to(torch.bfloat16)
+                  for name, p in model.named_parameters()}
+        logits = torch.func.functional_call(model, params, inputs, kwargs)
+    else:
+        logits = model(*inputs, **kwargs)
+    loss = M.softmax_cross_entropy(logits.float(), targets, mask)
     opt.zero_grad(set_to_none=True)
     loss.backward()
     opt.step()
@@ -71,11 +108,80 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
     return loss.detach(), metric
 
 
-def _save(model: torch.nn.Module, model_dir: str, name: str,
-          epoch: int) -> None:
-    os.makedirs(model_dir, exist_ok=True)
-    np.savez(os.path.join(model_dir, f"{name}_{epoch}.npz"),
-             **state_dict_to_flax(model.state_dict()))
+def save_checkpoint(model: torch.nn.Module, opt: torch.optim.Optimizer,
+                    model_dir: str, name: str, epoch: int,
+                    step: int) -> str:
+    """Write ``{model_dir}/{name}_{epoch}`` (see the module docstring):
+    the model's variables, Adam's state and ``step``. The directory is
+    written under a temporary name and renamed into place, so a
+    checkpoint of the same name is replaced whole, as Orbax's
+    ``force=True`` save replaces it. Returns its absolute path."""
+    path = os.path.abspath(os.path.join(model_dir, f"{name}_{epoch}"))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    adam = adam_state_to_optax(model, opt)
+    arrays = dict(state_dict_to_flax(model.state_dict()))
+    arrays["opt_state/count"] = adam["count"]
+    for part in ("mu", "nu"):
+        arrays.update({f"opt_state/{part}/{k}": v
+                       for k, v in adam[part].items()})
+    arrays["step"] = np.asarray(step, np.int32)
+    tmp = f"{path}.tmp-{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    np.savez(os.path.join(tmp, CHECKPOINT_FILE), **arrays)
+    old = None
+    if os.path.exists(path):
+        old = f"{path}.old-{os.getpid()}"
+        os.replace(path, old)
+    os.replace(tmp, path)
+    if old is not None:
+        shutil.rmtree(old)
+    return path
+
+
+def latest_checkpoint_path(name: str,
+                           model_dir: str = "./model") -> str | None:
+    """The highest-epoch ``{model_dir}/{name}_<epoch>`` entry, or None
+    (JAX's ``latest_checkpoint_path``: other names are ignored)."""
+    best, best_epoch = None, -1
+    if not os.path.isdir(model_dir):
+        return None
+    for entry in os.listdir(model_dir):
+        m = re.fullmatch(re.escape(name) + r"_(\d+)", entry)
+        if m and int(m.group(1)) > best_epoch:
+            best_epoch = int(m.group(1))
+            best = os.path.join(model_dir, entry)
+    return best
+
+
+def read_checkpoint(path: str) -> dict[str, np.ndarray]:
+    """The flat arrays of a checkpoint directory (no pickles)."""
+    with np.load(os.path.join(path, CHECKPOINT_FILE),
+                 allow_pickle=False) as npz:
+        return {k: npz[k] for k in npz.files}
+
+
+def checkpoint_variables(arrays: dict) -> dict[str, np.ndarray]:
+    """The flax variables (``params/...``, ``batch_stats/...``) of a
+    checkpoint's arrays."""
+    return {k: v for k, v in arrays.items()
+            if k.startswith(("params/", "batch_stats/"))}
+
+
+def restore_checkpoint(model: torch.nn.Module, opt: torch.optim.Optimizer,
+                       path: str) -> int:
+    """Load a checkpoint's variables into ``model`` and its Adam state
+    into ``opt`` (``make_optimizer`` over ``model.parameters()``);
+    returns its ``step``."""
+    arrays = read_checkpoint(path)
+    load_flax_weights(model, checkpoint_variables(arrays))
+    adam = {"count": arrays["opt_state/count"]}
+    for part in ("mu", "nu"):
+        prefix = f"opt_state/{part}/"
+        adam[part] = {k[len(prefix):]: v for k, v in arrays.items()
+                      if k.startswith(prefix)}
+    adam_state_from_optax(model, opt, adam)
+    return int(arrays["step"])
 
 
 def train(
@@ -95,6 +201,7 @@ def train(
     seed: int = 0,
     make_loader: Callable | None = None,
     *,
+    precision: str = "fp32",
     device: str | torch.device = "cuda",
     impl: str | None = None,
     log: Callable[[str], None] = print,
@@ -109,8 +216,13 @@ def train(
     ``torch.Generator`` seeded with ``seed``. ``history`` holds one dict
     per epoch: ``epoch``, ``epoch_time`` (s, host clock, synchronized),
     ``train_loss`` (every step's loss), ``val_loss`` and ``val_metric``
-    (the accuracy, or the mean IoU in ``seg`` mode).
+    (the accuracy, or the mean IoU in ``seg`` mode). ``precision``: the
+    step's, ``"fp32"`` or ``"bf16"`` (:func:`train_step`); the val pass
+    runs in f32 either way, as JAX's ``eval_step`` does. Every
+    ``save_iter`` epochs a checkpoint is written (:func:`save_checkpoint`).
     """
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}")
     device = torch.device(device)
     if make_loader is None:
         from papc_tpu_torch.data import ShapeNetLoader
@@ -126,13 +238,15 @@ def train(
     generator = torch.Generator().manual_seed(seed)
     history = []
     name = metric_name(mode)
+    step = 0
     for epoch in range(epoch_num):
         log("=" * 35 + "train" + "=" * 43)
         t0 = time.time()
         losses = []
         for batch_id, raw in enumerate(train_loader()):
             loss, metric = train_step(model, opt, batch_dict(raw), device,
-                                      generator, impl)
+                                      generator, impl, precision=precision)
+            step += 1
             losses.append(loss)
             if batch_id % info_iter == 0:
                 log(f"epoch: {epoch}, batch_id: {batch_id}, "
@@ -143,7 +257,7 @@ def train(
         epoch_time = time.time() - t0
 
         if epoch % save_iter == 0:
-            _save(model, model_dir, model_name, epoch)
+            save_checkpoint(model, opt, model_dir, model_name, epoch, step)
 
         log("=" * 35 + "val" + "=" * 45)
         model.eval()

@@ -245,6 +245,41 @@ def test_gather_kernel_equals_plain(device, B, N, D, S, K):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("B,N,D,S,K", [
+    (2, 100, 0, 13, 8), (3, 64, 5, 7, 32),  # K * C = 24, 256: 16-byte stores
+    (32, 1024, 0, 512, 32), (32, 512, 128, 128, 64),  # SSG SA1, SA2
+    (2, 50, 0, 9, 7), (3, 64, 3, 7, 5), (2, 40, 128, 3, 5),  # K * C off 8
+    (1, 20, 3, 1, 5),  # one group of 30 values, below one block's span
+])
+def test_gather_kernel_bf16_equals_plain(device, B, N, D, S, K):
+    """#3 on a bf16 source (the bf16 training step): the bf16 output of
+    the kernel equals the plain version's bit for bit at D = 0, 3 and
+    128, with 16-byte stores where K * C % 8 == 0 and 2-byte ones
+    elsewhere; the centring is the exact difference rounded once, so
+    centres far from their points (exponents apart) are in the inputs.
+    The f32 variant of the same inputs keeps its own bits."""
+    g = torch.Generator().manual_seed(B * N + D + 1)
+    xyz = torch.randn(B, N, 3, generator=g).to(device, torch.bfloat16)
+    feats = (torch.randn(B, N, D, generator=g).to(device, torch.bfloat16)
+             if D else None)
+    idx = torch.randint(-2, N + 2, (B, S, K), generator=g,
+                        dtype=torch.int32).to(device)
+    new_xyz = torch.randn(B, S, 3, generator=g)
+    new_xyz[:, ::2] *= 1e-4  # far smaller exponents than the points'
+    new_xyz = new_xyz.to(device, torch.bfloat16)
+    before = gather.KERNEL.launches
+    got = gather.group_gather(xyz, feats, idx, new_xyz)
+    assert gather.KERNEL.launches == before + 1
+    want = gather.group_gather(xyz, feats, idx, new_xyz, impl="plain")
+    assert got.dtype == torch.bfloat16 and got.shape == (B, S, K, 3 + D)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    f32 = [None if t is None else t.float() for t in (xyz, feats, new_xyz)]
+    torch.testing.assert_close(
+        gather.group_gather(f32[0], f32[1], idx, f32[2]),
+        gather.group_gather(f32[0], f32[1], idx, f32[2], impl="plain"),
+        rtol=0, atol=0)
+
+
 def _mlp(seed, c0, widths, device):
     g = torch.Generator().manual_seed(seed)
     ws, bs, scales, shifts = [], [], [], []
@@ -671,6 +706,82 @@ def test_scatter_add_kernel_repeats_its_bits(device, kind, B, N, S, K, C):
                      == S * K).all())
     if kind == "half":
         assert bool(empty[:, N // 2:].all())
+
+
+@pytest.mark.parametrize("kind,B,N,S,K,C", [
+    ("range", 3, 97, 11, 16, 5), ("ball", 2, 512, 128, 64, 131),
+    ("ball", 32, 1024, 512, 32, 3), ("one point", 2, 64, 128, 64, 3),
+    ("half", 4, 512, 128, 64, 259)])
+def test_scatter_add_kernel_bf16_within_one_ulp(device, kind, B, N, S, K, C):
+    """#4 on a bf16 g (the bf16 training step), with ball-query padding
+    and indices out of range: one launch a call; the bf16 output within
+    one bf16 ulp of the plain version's (each point's sum in f32, in
+    another order where a list is split, then rounded once) plus 1e-5 of
+    the largest (the f32 test's bound on the two sums); the same bits over
+    two calls though the output is ``torch.empty`` over a pool of NaNs;
+    every point no entry takes exactly 0."""
+    g, idx = _scatter_case(kind, B, N, S, K, C, device)
+    g = g.to(torch.bfloat16)
+    before = gather.SCATTER_KERNEL.launches
+    _garbage_pool(device, B * N * C)
+    got, offsets, _ = gather.scatter_add_cuda(g, idx, N, with_index=True)
+    assert gather.SCATTER_KERNEL.launches == before + 1
+    want = gather.scatter_add(g, idx, N, impl="plain")
+    assert got.dtype == want.dtype == torch.bfloat16
+    _near(got, want, 1e-5, ulp=True)
+    _garbage_pool(device, B * N * C)
+    again = gather.scatter_add(g, idx, N)
+    assert torch.equal(again.view(torch.int16), got.view(torch.int16))
+    assert bool((got[offsets[:, 1:] == offsets[:, :-1]] == 0).all())
+
+
+def test_group_gather_bf16_backward_runs_the_kernels(device):
+    """The differentiable gather on bf16 inputs: the forward launches #3
+    once and the backward #4 once, with no f32 copy in between: the
+    gradient of ``points`` is bf16, within one bf16 ulp plus 1e-5 of the
+    largest of the plain backward's."""
+    gen = torch.Generator().manual_seed(11)
+    xyz = torch.randn(4, 256, 3, generator=gen).to(device, torch.bfloat16)
+    pts = torch.randn(4, 256, 13, generator=gen).to(device, torch.bfloat16)
+    idx = torch.randint(0, 256, (4, 64, 16), generator=gen,
+                        dtype=torch.int32).to(device)
+    new_xyz = xyz[:, :64].contiguous()
+    cot = torch.randn(4, 64, 16, 16, generator=gen).to(device,
+                                                        torch.bfloat16)
+    grads = []
+    for impl in (None, "plain"):
+        p = pts.clone().requires_grad_(True)
+        before = (gather.KERNEL.launches, gather.SCATTER_KERNEL.launches)
+        out = gather.group_gather(xyz, p, idx, new_xyz, impl=impl)
+        assert out.dtype == torch.bfloat16
+        out.backward(cot)
+        after = (gather.KERNEL.launches, gather.SCATTER_KERNEL.launches)
+        assert [a - b for a, b in zip(after, before)] == (
+            [1, 1] if impl is None else [0, 0])
+        assert p.grad.dtype == torch.bfloat16
+        grads.append(p.grad)
+    _near(grads[0], grads[1], 1e-5, ulp=True)
+
+
+def test_prefetch_to_device_on_the_card(device):
+    """``prefetch_to_device`` on the card, two items staged ahead: every
+    item in order, each array a tensor on the card with its source's
+    values as the consumer's stream reads them right after the handover
+    (it waits on the copy's event), tags untouched."""
+    from papc_tpu_torch.data import prefetch_to_device
+
+    rs = np.random.RandomState(0)
+    items = [{"x": rs.randn(32, 1024, 3).astype(np.float32),
+              "i": np.int32(k), "tag": ("batch", k)} for k in range(6)]
+    sums = []
+    for k, b in enumerate(prefetch_to_device(iter(items), size=2,
+                                             device=device)):
+        assert b["x"].device.type == "cuda" and b["tag"] == ("batch", k)
+        sums.append((b["x"].double().sum(), b["i"]))
+    assert [int(i) for _, i in sums] == list(range(6))
+    for (total, _), item in zip(sums, items):
+        assert float(total) == pytest.approx(
+            float(item["x"].astype(np.float64).sum()), rel=1e-12)
 
 
 def test_scatter_add_kernel_refuses_clouds_above_its_limit(device):

@@ -42,7 +42,8 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "tools").glob("*.py")),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_never_imports_jax_flax_or_the_jax_package(path):
     assert not _imported_roots(path) & FORBIDDEN

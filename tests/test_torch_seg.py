@@ -304,8 +304,8 @@ def test_ssg_seg_tree_round_trips(ssg_seg):
 def test_cli_trains_and_serves_seg(tmp_path, capsys):
     """``python -m papc_tpu_torch --mode seg`` trains one tiny epoch of
     the MSG segmentation model on synthetic ``.h5`` shards (the part
-    labels read with the clouds), logs ``miou``, writes flax-keyed
-    weights, and ``--evaluate`` serves them."""
+    labels read with the clouds), logs ``miou``, writes its checkpoint
+    directory, and ``--evaluate --checkpoint`` serves it."""
     from papc_tpu.data.synthetic import write_shapenet_h5
 
     data = write_shapenet_h5(str(tmp_path / "data"), n_train=2, n_test=2,
@@ -319,8 +319,9 @@ def test_cli_trains_and_serves_seg(tmp_path, capsys):
                               str(model_dir)]) == 0
     out = capsys.readouterr().out
     assert "epoch: 0, batch_id: 0, loss is: [" in out and "miou is: [" in out
-    weights = model_dir / "pointnet2_msg_0.npz"
-    assert weights.exists()
-    assert cli.main(common + ["--evaluate", "--weights", str(weights)]) == 0
+    checkpoint = model_dir / "pointnet2_msg_0"
+    assert (checkpoint / "checkpoint.npz").is_file()
+    assert cli.main(common + ["--evaluate", "--checkpoint",
+                              str(checkpoint)]) == 0
     line = capsys.readouterr().out
     assert "eval[test]: loss=" in line and "miou=" in line

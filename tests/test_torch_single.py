@@ -280,7 +280,8 @@ def test_train_shuffles_as_jax_whatever_the_seed(shapenet, monkeypatch,
     only. A loader shuffled with the seed would differ."""
     seen = []
 
-    def step(model, opt, batch, device, generator=None, impl=None):
+    def step(model, opt, batch, device, generator=None, impl=None,
+             precision="fp32"):
         seen.append(np.asarray(batch["label"])[np.asarray(batch["mask"])])
         return torch.zeros(()), torch.zeros(())
 

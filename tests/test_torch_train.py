@@ -598,8 +598,9 @@ def test_adam_with_l2_matches_optax_chain(rng):
 def test_train_entry_point_writes_weights_that_evaluate_serves(tmp_path):
     """``train`` over a synthetic loader (B=4 x 128 points, 2 epochs of 2
     batches): the JAX trainer's log lines, a finite per-step loss in the
-    history, a val pass per epoch, and ``.npz`` weights at epochs 0 and
-    1 that ``evaluate`` serves with the trained model's logits."""
+    history, a val pass per epoch, and checkpoint directories at epochs
+    0 and 1 (JAX's ``{name}_{epoch}`` layout, no ``.npz`` beside them)
+    whose weights ``evaluate`` serves with the trained model's logits."""
     loaders = {"train": SyntheticLoader(8, n_points=128, batchsize=4, seed=1),
                "val": SyntheticLoader(4, n_points=128, batchsize=4, seed=2)}
     logs = []
@@ -617,9 +618,13 @@ def test_train_entry_point_writes_weights_that_evaluate_serves(tmp_path):
     assert logs[1].startswith("epoch: 0, batch_id: 0, loss is: [")
     assert "accuracy is: [" in logs[1]
     assert "=" * 35 + "val" + "=" * 45 in logs
+    assert sorted(os.listdir(tmp_path / "model")) == [
+        "pointnet2_ssg_0", "pointnet2_ssg_1"]
     for epoch in (0, 1):
-        assert (tmp_path / "model" / f"pointnet2_ssg_{epoch}.npz").exists()
-    served = evaluate(weights=tmp_path / "model" / "pointnet2_ssg_1.npz",
+        assert (tmp_path / "model" / f"pointnet2_ssg_{epoch}" /
+                "checkpoint.npz").is_file()
+    served = evaluate(checkpoint_path=str(tmp_path / "model" /
+                                          "pointnet2_ssg_1"),
                       make_loader=loaders.__getitem__, split="val",
                       max_point=128, device="cpu", log=lambda line: None)
     model.eval()
@@ -642,19 +647,25 @@ def test_trained_weights_round_trip_through_flax_keys(rng):
 
 
 def test_cli_trains_and_refuses_unported_modes(tmp_path, capsys):
+    """The CLI trains in fp32 and in bf16, each writing its epoch-0
+    checkpoint directory; ``--scan_steps`` above 1 is still refused, citing
+    the roadmap."""
     from papc_tpu.data.synthetic import write_shapenet_h5
 
     data = write_shapenet_h5(str(tmp_path / "data"), n_train=2, n_test=0,
                              n_val=2, n_points=128, num_classes=16)
-    model_dir = tmp_path / "model"
-    assert cli.main(["--path", data, "--max_point", "128", "--batchsize",
-                     "2", "--epoch_num", "1", "--model_dir", str(model_dir),
-                     "--device", "cpu"]) == 0
-    out = capsys.readouterr().out
-    assert "epoch: 0, batch_id: 0, loss is: [" in out
-    assert os.path.exists(model_dir / "pointnet2_ssg_0.npz")
-    for flags, words in [(["--precision", "bf16"], "Queue 1 item 4"),
-                         (["--scan_steps", "4"], "Queue 1 item 4")]:
+    for precision in ("fp32", "bf16"):
+        model_dir = tmp_path / f"model_{precision}"
+        assert cli.main(["--path", data, "--max_point", "128", "--batchsize",
+                         "2", "--epoch_num", "1", "--model_dir",
+                         str(model_dir), "--precision", precision,
+                         "--device", "cpu"]) == 0
+        out = capsys.readouterr().out
+        assert "epoch: 0, batch_id: 0, loss is: [" in out
+        assert os.path.isfile(model_dir / "pointnet2_ssg_0" /
+                              "checkpoint.npz")
+        assert not os.path.exists(model_dir / "pointnet2_ssg_0.npz")
+    for flags, words in [(["--scan_steps", "4"], "Queue 1 item 4")]:
         with pytest.raises(SystemExit) as exc:
             cli.main(["--path", data, "--device", "cpu", *flags])
         assert exc.value.code == 2
