@@ -158,7 +158,14 @@ convolutions in f32 itself, as a user gets it.
    switches a whole ``dy`` element (a few rows in 10^5): the bwd sums, dg,
    dW and db are held as the step's gradients are, at most ``GRAD_RATIO``
    times as far (L2) from the plain pass with f32 operands as the plain
-   bf16 pass. Kernel, plain and bound ms. Then phase 6
+   bf16 pass. Kernel, plain and bound ms. Then #13 and #14's device ms a
+   call by SSG stack and level (profiler: every kernel of a call, by
+   name) beside the bound, and their sums over one SSG clas step
+   (``recompute_bwd_times``); the recompute ``train_step`` of SSG clas
+   and MSG seg, each after a warm-up step: peak device memory, step ms,
+   busy share and #13 / #14's main kernels' device ms a step
+   (``recompute_steps``). Both use public functions only, so they time a
+   parent tree too. Then phase 6
    under ``fused_mlp.override(mode="recompute")`` for ``pointnet2_ssg``
    clas and ``pointnet2_msg`` seg: #11 and #13 launched once per layer
    of every stack a step, #12 and #14 once per stack, the stream passes
@@ -203,6 +210,8 @@ convolutions in f32 itself, as a user gets it.
 from __future__ import annotations
 
 import contextlib
+import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -2067,6 +2076,148 @@ def _recompute_pass_checks(rows, stacks, single, record=True):
         del got, want, ref, others
 
 
+def _rc_inputs(g2, mlp, k):
+    """The plain chain's BN vectors, argmax and gradient means of a
+    stack's grouped rows (as on the training path), a cotangent of the
+    max from seed 6, the weights as ``(Cin, Cout)`` and packed."""
+    from papc_tpu_torch.nn.layers import BN_EPS
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+    from papc_tpu_torch.ops.kernels import samlp_train as st
+
+    m, n = g2.shape[0], len(mlp.features)
+    layers = [(d.weight.t().contiguous(), d.bias.float(), bn.weight, bn.bias)
+              for d, bn in mlp.layers()]
+    ws, bs = [w for w, *_ in layers], [b for _, b, *_ in layers]
+    vecs = []
+    for upto in range(1, n + 1):
+        sums = rc.rc_stats(g2, vecs, ws, bs, upto=upto, impl="plain")
+        vecs.append(st.bn_vectors(sums, *layers[upto - 1][2:], m, BN_EPS)[0])
+    out, amax = rc.rc_final(g2, vecs, ws, bs, k=k, impl="plain")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dout = torch.randn(out.shape, generator=gen, device="cuda")
+    mus = [None] * n
+    for level in range(n, 0, -1):
+        mus[level - 1] = rc.rc_bwd_stats(g2, dout, amax, vecs, ws, bs, mus,
+                                         level=level, k=k, impl="plain") / m
+    return ws, bs, [st.pack_weight(w) for w in ws], vecs, dout, amax, mus
+
+
+def _by_kernel(device, calls: int) -> str:
+    """Device ms a call by kernel base name (launches a call)."""
+    by: dict = {}
+    for e in device:
+        t, c = by.get(_base_name(e), (0.0, 0))
+        by[_base_name(e)] = (t + e.time_range.elapsed_us(), c + 1)
+    return ", ".join(f"{name} {t / calls / 1e3:.4f} ({c / calls:g})"
+                     for name, (t, c) in by.items())
+
+
+def recompute_bwd_times(calls: int = 10) -> dict:
+    """#13 and #14's device ms a call (profiler, ``calls`` calls: every
+    kernel record of a call, its reduces included, profiled again where a
+    record was dropped) and CUDA-event ms on each SSG clas stack's grouped
+    input at B x N (seed-0 model; the plain chain's vectors, argmax and
+    gradient means; bwd final without dg on SA1, whose input is data),
+    beside the operation bound (``_rc_work``); and their sums over one SSG
+    clas step (#13 at every level of every stack, #14 once a stack). Uses
+    only public functions, so it times a parent tree's package too."""
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+
+    total = {"bwd_stats": [0.0, 0.0, 0.0], "bwd_final": [0.0, 0.0, 0.0]}
+    with torch.no_grad():
+        for tag, mlp, grouped in _grouped_inputs("pointnet2_ssg", "clas",
+                                                 SSG_STACKS):
+            b, s, k, c0 = grouped.shape
+            m, n = b * s * k, len(mlp.features)
+            cs = (c0,) + tuple(mlp.features)
+            g2 = grouped.reshape(m, c0).to(torch.bfloat16)
+            ws, bs, packed, vecs, dout, amax, mus = _rc_inputs(g2, mlp, k)
+            runs = []
+            for level in range(n, 0, -1):
+                runs.append(("bwd_stats", f"level {level}",
+                             functools.partial(
+                                 rc.rc_bwd_stats, g2, dout, amax, vecs, ws,
+                                 bs, mus, level=level, k=k, w_packed=packed),
+                             _rc_work(m, cs, range(1, n + 1),
+                                      range(level + 1, n + 1), ())))
+            need_dg = tag != "SA1"
+            runs.append(("bwd_final", "dg" if need_dg else "no dg",
+                         functools.partial(
+                             rc.rc_bwd_final, g2, dout, amax, vecs, ws, bs,
+                             mus, k=k, w_packed=packed, need_dg=need_dg),
+                         _rc_work(m, cs, range(1, n + 1),
+                                  range(1 if need_dg else 2, n + 1),
+                                  range(1, n + 1))))
+            for kind, what, fn, work in runs:
+                device = _whole_events(fn, calls, ("rc_bwd_kernel",))
+                ms, ev = _call_ms(device, calls), cuda_ms(fn)
+                for i, v in enumerate((ms, ev, work * 1e3)):
+                    total[kind][i] += v
+                print(f"    {kind:<9} {tag} {m}x{c0}->"
+                      + "->".join(map(str, mlp.features))
+                      + f" {what}: device {ms:.4f} ms, events {ev:.4f} ms, "
+                      f"bound {work * 1e3:.4f} ms; by kernel: "
+                      + _by_kernel(device, calls))
+    for kind, (ms, ev, bound) in total.items():
+        print(f"    {kind} over one SSG clas step: device {ms:.4f} ms, "
+              f"events {ev:.4f} ms, bound {bound:.4f} ms "
+              f"({ms / bound:.1f}x)")
+    return total
+
+
+def recompute_steps(steps: int = 5) -> dict:
+    """``train_step`` of SSG clas and MSG seg under
+    ``override(mode="recompute")`` from seed-0 weights on one batch of B
+    x N: the peak device memory of one step after a warm-up step (the
+    previous model collected first), step ms
+    (CUDA events, median of 10), device busy ms a step over ``steps``
+    steps and its share of the synchronized wall, and the device ms a
+    step of #13's and #14's main kernels (``rc_bwd_kernel`` by its
+    kFinal flag) and of their other kernels. Uses only public functions,
+    so it measures a parent tree's package too."""
+    from papc_tpu_torch.models import init_model
+    from papc_tpu_torch.ops import fused_mlp
+    from papc_tpu_torch.train import make_optimizer, train_step
+
+    out = {}
+    dev = torch.device("cuda")
+    for name, mode in (("pointnet2_ssg", "clas"), ("pointnet2_msg", "seg")):
+        gc.collect()  # the previous model's tensors out of the peak
+        with fused_mlp.override(mode="recompute"):
+            model = init_model(name, mode, NUM_CLASSES, seed=0,
+                               device=dev).model
+            opt = make_optimizer(model.parameters(), 1e-3, 1e-3)
+            batch = next(iter(_loader(B, mode, seed=2)()))._asdict()
+            masks = _dropout_masks(mode)
+
+            def step():
+                return train_step(model, opt, batch, dev,
+                                  dropout_masks=masks)
+
+            step()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            step()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            ms = cuda_ms(step, reps=10)
+            device, wall_us = _device_events(step, steps)
+        busy = sum(e.time_range.elapsed_us() for e in device) / steps / 1e3
+        rc_ms = {"#13": 0.0, "#14": 0.0}
+        for e in device:
+            if _base_name(e) == "rc_bwd_kernel":
+                key = "#14" if "true>" in e.name else "#13"
+                rc_ms[key] += e.time_range.elapsed_us() / steps / 1e3
+        share = 100 * busy * 1e3 * steps / wall_us
+        print(f"    {name} {mode} recompute step: {ms:.3f} ms (events), "
+              f"busy {busy:.3f} ms a step ({share:.1f} % of the wall), peak "
+              f"{peak:.3f} GB; rc_bwd_kernel #13 {rc_ms['#13']:.4f} + #14 "
+              f"{rc_ms['#14']:.4f} device ms a step")
+        out[(name, mode)] = {"ms": ms, "busy": busy, "peak": peak, **rc_ms}
+        del model, opt, step, device
+    return out
+
+
 def phase_recompute_kernels(rows):
     """#11-14 on each SSG stack's grouped input (captured from one eval
     forward of the seed-0 model)."""
@@ -2081,6 +2232,10 @@ def phase_recompute(smi, rows):
     for SSG clas and MSG seg; returns their step numbers."""
     with torch.no_grad():
         phase_recompute_kernels(rows)
+    print("[12 recompute bwd times] #13 and #14 by SSG stack, device ms a "
+          f"call (profiler) beside the bound ({smi})")
+    recompute_bwd_times()
+    recompute_steps()
     got = {}
     for key, tag in [(("pointnet2_ssg", "clas"), "[12 recompute SSG clas]"),
                      (("pointnet2_msg", "seg"), "[12 recompute MSG seg]")]:

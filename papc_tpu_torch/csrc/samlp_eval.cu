@@ -114,32 +114,21 @@ __host__ __device__ inline int vec_offset(const MlpParams& prm, int l) {
   return off;
 }
 
-// Position in the flat sequence of weight tiles: layer, column chunk,
-// k slice (slices innermost).
-struct Cursor {
-  int l = 0, c = 0, s = 0;
-  __device__ void advance(const MlpParams& prm, int chunk) {
-    if (++s * kSlice < prm.cin[l]) return;
-    s = 0;
-    if (++c * chunk < prm.cout[l]) return;
-    c = 0;
-    ++l;
-  }
-};
-
+// The ring's slice at `at` (product q = layer q) into a stage.
 template <int TM>
 __device__ __forceinline__ void issue_tile(const MlpParams& prm,
-                                           const Cursor& at,
+                                           const mma::RingCursor& at,
                                            __nv_bfloat16* stage) {
-  using S = Shape<TM>;
-  const int cout = prm.cout[at.l];
-  const int rows = min(kSlice, prm.cin[at.l] - at.s * kSlice);
-  const int cols = min(S::kChunk, cout - at.c * S::kChunk);
-  mma::load_tile_async(
-      stage, S::kLdRing,
-      prm.w[at.l] + static_cast<size_t>(at.s) * kSlice * cout +
-          at.c * S::kChunk,
-      cout, rows, cols);
+  const int cout = prm.cout[at.q];
+  mma::issue_slice<false>(stage, Shape<TM>::kLdRing, prm.w[at.q], cout,
+                          prm.cin[at.q], cout, kSlice, Shape<TM>::kChunk, at);
+}
+
+// The ring's next slice after `at`.
+template <int TM>
+__device__ __forceinline__ void advance(const MlpParams& prm,
+                                        mma::RingCursor& at) {
+  at.advance(prm.cin[at.q], prm.cout[at.q], kSlice, Shape<TM>::kChunk);
 }
 
 // Bias, scale and shift of a column pair, from the block's copy in shared
@@ -256,11 +245,11 @@ __global__ void __launch_bounds__(kThreads, 2)
       mma::cp_async4(vecs + off + 2 * cout + c, prm.shift[l] + at_c, in);
     }
   }
-  Cursor load_at;
+  mma::RingCursor load_at;
   for (int i = 0; i < kStages - 1; ++i) {
     if (i < n_tiles) {
       issue_tile<TM>(prm, load_at, ring + i * kSlice * S::kLdRing);
-      load_at.advance(prm, S::kChunk);
+      advance<TM>(prm, load_at);
     }
     mma::cp_async_commit();
   }
@@ -326,18 +315,18 @@ __global__ void __launch_bounds__(kThreads, 2)
   // never cross a group (the warp's rows start at a multiple of 32)
   const int run = gcd(k, mma::kWarpRows);
   mma::WarpTile tile;
-  Cursor at;
+  mma::RingCursor at;
   for (int t = 0; t < n_tiles; ++t) {
     mma::cp_async_wait<kStages - 2>();
     __syncthreads();  // tile t landed; every warp is done with tile t - 1
     if (t + kStages - 1 < n_tiles) {
       issue_tile<TM>(prm, load_at,
                      ring + ((t + kStages - 1) % kStages) * kSlice * S::kLdRing);
-      load_at.advance(prm, S::kChunk);
+      advance<TM>(prm, load_at);
     }
     mma::cp_async_commit();
 
-    const int l = at.l;
+    const int l = at.q;
     const int cin = prm.cin[l], cout = prm.cout[l];
     const __nv_bfloat16* in = (l & 1) ? buf_y : buf_x;
     const int ld_in = (l & 1) ? ld_y : ld_x;
@@ -357,7 +346,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                      S::kLdRing, ks / 16, pairs);
     }
     const bool chunk_done = (at.s + 1) * kSlice >= cin;
-    at.advance(prm, S::kChunk);
+    advance<TM>(prm, at);
     if (!chunk_done || pairs == 0) continue;
 
     const int cbase = chunk0 + col0;

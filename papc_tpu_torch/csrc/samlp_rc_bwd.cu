@@ -1,167 +1,142 @@
-// The two backward passes of a recompute-mode training set-abstraction MLP.
-// Each re-derives the chain a_1 .. a_n from g2, then walks the cotangent
-// down in f32 from the max:
-//   dy_n = (row == amax and a_n * scale_n + shift_n > 0) ? dout : 0
-//   da_j = scale_j * ((dy_j - mu_j[0]) - xhat_j * mu_j[1]),
-//          xhat_j = (a_j - mean_j) * inv_std_j
-//   dhp  = bf16(da_j) . bf16(W_j)^T
-//   dy_{j-1} = (a_{j-1} * scale_{j-1} + shift_{j-1} > 0) ? dhp : 0
-// where mu_j = (sum dy_j, sum dy_j * xhat_j) / M comes from the stats pass
-// of layer j, run before.
-//   bwd stats (level l): returns s_l = (sum dy_l, sum dy_l * xhat_l).
-//   bwd final: dW_j = bf16(h_{j-1})^T . bf16(da_j), db_j = sum da_j for
-//     every layer, and dg = dhp at j = 1 (f32, no gate), only if asked.
-//
-// Replaces: papc_tpu/ops/pallas/samlp.py::recompute_bwd_stats
-// (_rc_bwd_stats_kernel) and ::recompute_bwd_final (_rc_bwd_final_kernel),
-// the backward of fused_mlp's "recompute" mode. Numeric contract kept from
-// them and their twins (fused_mlp._jnp_rc_bwd_stats, _jnp_rc_bwd_final):
-// only the operands of the products are rounded to bf16 (h, da); a, dy,
-// da, the sums, dW, db and dg are f32.
-//
-// What bounds them on the H100: the tensor-core products, the forward chain
-// again plus the walk down (SSG at B = 32: bwd stats 234.8 GFLOP a step,
-// bwd final 160.7 GFLOP, 0.237 and 0.162 ms at 989 TFLOP/s). Device memory
-// sees g2, dout, amax, the weights and vectors, dg and the dW partials.
-//
-// Design: blocks walk tiles of tm rows; the f32 a_j of every layer but the
-// last stay in shared memory for the gates and x-hats (SSG SA3: 3 KB a row,
-// so tm is 16 there; the plan picks tm from the card's shared memory). The
-// top of the walk is the last forward product's epilogue, so a_n is never
-// stored. Each dhp product's epilogue gates, forms da_{j-1} and writes its
-// bf16 operand over h_{j-1}, once dW_j has used h_{j-1}. All sums are
-// per-block column sums in a fixed warp order, reduced across blocks in
-// order by second kernels. dW is a sum over all M rows and too large for
-// shared memory (SA3's last layer alone is 2 MB in f32): each block owns a
-// dW slot in device memory, adds every tile's h^T . da into it on tensor
-// cores (accumulator fragments loaded from and stored to the slot), and
-// the slots are reduced in order. Rows past M carry da = 0. Repeated runs
-// give the same bits.
-#include "samlp_recompute.cuh"
+// C entries of the two backward passes of a recompute-mode training
+// set-abstraction MLP: #13 (papc_samlp_rc_bwd_stats, replacing
+// papc_tpu/ops/pallas/samlp.py::recompute_bwd_stats) and #14
+// (papc_samlp_rc_bwd_final, replacing ::recompute_bwd_final). The design,
+// the kernels and their tile body are in samlp_rc_bwd.cuh.
+
+#include "samlp_rc_bwd.cuh"
 
 namespace {
 
-using samlp_rc::at;
-using samlp_rc::Chain;
-using samlp_rc::Layout;
+using namespace samlp_rcb;
+using samlp_rc::make_chain;
+using samlp_train::SplitSum;
 
-// kFinal false: the bwd stats pass at `level`, sums [row_blocks][2][p_level]
-// -> partials [blocks][2][p_level]. kFinal true: db sums [row_blocks][p_j]
-// per layer -> db_part (layer j at p_1 + .. + p_{j-1} times blocks, then
-// [blocks][p_j]), dW slots in dw_part (layer j at the sum of p_{i-1} p_i
-// over i < j, times blocks, then [blocks][p_{j-1}][p_j]), dg if not null.
-template <int RF, bool kFinal>
-__global__ void __launch_bounds__(samlp_rc::kWarps * 32)
-    rc_bwd_kernel(Chain ch, Layout l, int level,
-                  const float* __restrict__ dout,
-                  const int* __restrict__ amax, float* __restrict__ dg,
-                  float* __restrict__ dw_part, float* __restrict__ partials) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* sums = at<float>(smem, l.sums);
-  const int n = ch.n, m = ch.m;
-  const int rb = l.row_blocks;
-  float* slot[samlp_rc::kMaxLayers + 1] = {};  // layer j's dW slot
-  int total = 0;
-  size_t dw_off = 0;
-  for (int j = 1; j <= n; ++j) {
-    total += ch.p[j];
-    if (kFinal)
-      slot[j] = dw_part + dw_off * gridDim.x +
-                static_cast<size_t>(blockIdx.x) * ch.p[j - 1] * ch.p[j];
-    dw_off += static_cast<size_t>(ch.p[j - 1]) * ch.p[j];
-  }
-  const int nsums = kFinal ? rb * total : rb * 2 * ch.p[level];
-  for (int e = threadIdx.x; e < nsums; e += blockDim.x) sums[e] = 0.f;
-  const int tiles = (m + l.tm - 1) / l.tm;
-  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int row0 = t * l.tm;
-    samlp_rc::hidden_layers<RF>(ch, l, smem, row0, n, true);
-    samlp_rc::bwd_tile<RF, kFinal>(ch, l, smem, row0, m, level, dout, amax,
-                                   0, dg, slot, t == blockIdx.x);
-  }
-  __syncthreads();
-  if (kFinal)
-    samlp_rc::write_block_db(ch, l, smem, partials);
-  else
-    samlp_train::write_block_sums(sums, rb, ch.p[level], partials);
-}
-
-bool bwd_args_ok(int tm, int blocks, const float* const* mu, int n,
-                 int level) {
-  if (blocks <= 0 || mu == nullptr) return false;
-  for (int j = level + 1; j <= n; ++j)
-    if (mu[j - 1] == nullptr) return false;
-  return tm == 16 || tm == 32 || tm == 64 || tm == 128;
+bool aligned16(const void* p) {
+  return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
-// g2 [M, C0] bf16; per layer j (arrays indexed from 0): width c_j, w packed
-// bf16 [pad16(c_{j-1}), pad16(c_j)], bias f32 [c_j], vec f32 [4, c_j]
-// (scale, shift, mean, inv_std), mu f32 [2, c_j] (sums / M of the stats
-// passes; read above `level` only, may be null below); dout f32 and amax
-// i32 [M/k, c_n]. level: 1-based. tm: rows per tile (16, 32, 64, 128);
-// blocks: the grid, which fixes the order of the sums.
-// -> partials [blocks, 2, pad16(c_level)] (scratch), sums [2, c_level] f32
-//    (sum dy, sum dy * xhat at the level).
+// g2 [M, C0] bf16, 16-byte aligned; per layer j (arrays indexed from 0):
+// width c_j, w packed bf16 [pad16(c_{j-1}), pad16(c_j)], bias f32 [c_j],
+// vec f32 [4, c_j] (scale, shift, mean, inv_std), mu f32 [2, c_j] (sums /
+// M of the stats passes; read above `level` only, may be null below);
+// dout f32 and amax i32 [M/k, c_n]. level: 1-based. The plan
+// (ops/kernels/samlp_recompute.py::bwd_plan): tm rows a tile (32, 64,
+// 128), ring stages (2-4), a_smem (else a_scratch [blocks, tm, p_1 + ..
+// + p_{n-1}] f32), blocks (the grid, which fixes the order of the sums),
+// and the tile's nprod products, (layer, walk, span) each in sched.
+// -> partials [blocks, 2, pad16(c_level)] (scratch), sums [2, c_level]
+//    f32 (sum dy, sum dy * xhat at the level).
 PAPC_EXPORT int papc_samlp_rc_bwd_stats(
     const void* g2, int m, int c0, int k, int n_layers, int level,
     const int* widths, const void* const* w, const float* const* bias,
     const float* const* vec, const float* const* mu, const float* dout,
-    const int* amax, int tm, int blocks, float* partials, float* sums,
-    void* stream) {
-  Chain ch;
-  if (!samlp_rc::make_chain(ch, g2, m, k, c0, n_layers, widths, w, bias, vec,
-                            mu) ||
-      level < 1 || level > n_layers ||
-      !bwd_args_ok(tm, blocks, mu, n_layers, level))
+    const int* amax, int tm, int stages, int a_smem, int blocks,
+    const int* sched, int nprod, float* a_scratch, float* partials,
+    float* sums, void* stream) {
+  Chain st;
+  if (!make_chain(st, g2, m, k, c0, n_layers, widths, w, bias, vec, mu) ||
+      !aligned16(g2) || level < 1 || level > n_layers)
     return cudaErrorInvalidValue;
-  const Layout l =
-      samlp_rc::make_layout(samlp_rc::kBwdStats, ch, tm, n_layers, level);
+  for (int j = level + 1; j <= n_layers; ++j)
+    if (st.mu[j] == nullptr) return cudaErrorInvalidValue;
+  Layout l;
+  if (!make_layout(l, st, tm, stages, 0, a_smem, kDwNone, level, sched,
+                   nprod, false) ||
+      !plan_ok(tm, stages, blocks, l) ||
+      (!a_smem && l.a_row > 0 && a_scratch == nullptr))
+    return cudaErrorInvalidValue;
+  Outs o{dout, amax, nullptr, a_scratch, nullptr, 0, partials, nullptr};
   const auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = samlp_rc::with_row_frags(tm, [&](auto rf) {
-    return papc_launch(rc_bwd_kernel<decltype(rf)::value, false>,
-                       dim3(blocks), dim3(samlp_rc::kWarps * 32), l.bytes, s,
-                       ch, l, level, dout, amax, nullptr, nullptr, partials);
-  });
+  cudaError_t err = papc_launch(rc_bwd_kernel<false>, dim3(blocks),
+                                dim3(kThreads), l.bytes, s, st, l, o);
   if (err != cudaSuccess) return err;
-  return samlp_train::reduce_partials(partials, blocks, 2, ch.c[level], 2,
-                                      ch.p[level], sums, s);
+  const SplitSum job{partials, blocks, 2, st.p[level], 2, st.c[level], sums};
+  return samlp_train::split_reduce(&job, 1, 32, s);
 }
 
-// As papc_samlp_rc_bwd_stats with every mu given. Scratch: db_part
-// [sum of pad16(c_j)] x blocks f32, dw_part [sum of pad16(c_{j-1}) *
-// pad16(c_j)] x blocks f32. -> db[j] [c_j], dw[j] [c_{j-1}, c_j] f32 per
-// layer, and dg [M, C0] f32 when dg is not null.
+// As papc_samlp_rc_bwd_stats with every mu given (sched walking down to
+// layer 1 exactly when dg is asked for), and the plan's dW mode
+// (1 on chip, 2 a slot a block, 3 from the rows) and, for mode 3,
+// dw_splits of the rows. Scratch: db_part [blocks, p_1 + .. + p_n] f32;
+// dw_part: layer j's [parts, p_{j-1}, p_j] f32 one after the other
+// (parts: blocks, or dw_splits in mode 3); rows (mode 3): bf16 [m_pad,
+// p_0 + .. + p_{n-1}] then [m_pad, p_1 + .. + p_n], m_pad = the tiles'
+// rows. -> db[j] [c_j], dw[j] [c_{j-1}, c_j] f32 per layer, and dg [M, C0]
+// f32 when dg is not null.
 PAPC_EXPORT int papc_samlp_rc_bwd_final(
     const void* g2, int m, int c0, int k, int n_layers, const int* widths,
     const void* const* w, const float* const* bias, const float* const* vec,
     const float* const* mu, const float* dout, const int* amax, int tm,
-    int blocks, float* db_part, float* dw_part, float* const* db,
-    float* const* dw, float* dg, void* stream) {
-  Chain ch;
-  if (!samlp_rc::make_chain(ch, g2, m, k, c0, n_layers, widths, w, bias, vec,
-                            mu) ||
-      !bwd_args_ok(tm, blocks, mu, n_layers, 0))
+    int stages, int a_smem, int dw_mode, int blocks, int dw_splits,
+    const int* sched, int nprod, float* a_scratch, void* rows,
+    float* db_part, float* dw_part, float* const* db, float* const* dw,
+    float* dg, void* stream) {
+  Chain st;
+  if (!make_chain(st, g2, m, k, c0, n_layers, widths, w, bias, vec, mu) ||
+      !aligned16(g2) || dw_mode < kDwSmem || dw_mode > kDwRows)
     return cudaErrorInvalidValue;
-  const Layout l =
-      samlp_rc::make_layout(samlp_rc::kBwdFinal, ch, tm, n_layers, 0);
+  for (int j = 1; j <= n_layers; ++j)
+    if (st.mu[j] == nullptr) return cudaErrorInvalidValue;
+  Layout l;
+  const bool walk_to_1 =
+      nprod > 0 && sched != nullptr && sched[3 * (nprod - 1)] == 1 &&
+      sched[3 * (nprod - 1) + 1] == 1;
+  if (walk_to_1 != (dg != nullptr) ||
+      !make_layout(l, st, tm, stages, dw_mode != kDwRows, a_smem, dw_mode,
+                   0, sched, nprod, dg != nullptr))
+    return cudaErrorInvalidValue;
+  const int tiles = (m + tm - 1) / tm;
+  const int m_pad = tiles * tm;
+  const int rows_per_split = dw_splits > 0
+                                 ? (m_pad / kDwChunk + dw_splits - 1) /
+                                       dw_splits * kDwChunk
+                                 : 0;
+  if (!plan_ok(tm, stages, blocks, l) ||
+      (!a_smem && l.a_row > 0 && a_scratch == nullptr) ||
+      (dw_mode == kDwRows &&
+       (rows == nullptr || dw_splits <= 0 ||
+        static_cast<long long>(dw_splits - 1) * rows_per_split >= m_pad)))
+    return cudaErrorInvalidValue;
+  Outs o{dout, amax, dg, a_scratch, static_cast<bf16*>(rows), m_pad,
+         db_part, dw_part};
   const auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = samlp_rc::with_row_frags(tm, [&](auto rf) {
-    return papc_launch(rc_bwd_kernel<decltype(rf)::value, true>, dim3(blocks),
-                       dim3(samlp_rc::kWarps * 32), l.bytes, s, ch, l, 0,
-                       dout, amax, dg, dw_part, db_part);
-  });
-  size_t db_off = 0, dw_off = 0;
-  for (int j = 1; j <= n_layers && err == cudaSuccess; ++j) {
-    err = samlp_train::reduce_partials(dw_part + dw_off * blocks, blocks,
-                                       ch.c[j - 1], ch.c[j], ch.p[j - 1],
-                                       ch.p[j], dw[j - 1], s);
-    if (err == cudaSuccess)
-      err = samlp_train::reduce_partials(db_part + db_off * blocks, blocks, 1,
-                                         ch.c[j], 1, ch.p[j], db[j - 1], s);
-    db_off += ch.p[j];
-    dw_off += static_cast<size_t>(ch.p[j - 1]) * ch.p[j];
+  cudaError_t err = papc_launch(rc_bwd_kernel<true>, dim3(blocks),
+                                dim3(kThreads), l.bytes, s, st, l, o);
+  if (err != cudaSuccess) return err;
+  const int parts = dw_mode == kDwRows ? dw_splits : blocks;
+  if (dw_mode == kDwRows) {
+    DwRows a{};
+    a.n = n_layers;
+    a.rows_per_split = rows_per_split;
+    a.m_pad = m_pad;
+    size_t h_off = 0, d_off = 0;
+    for (int i = 0; i < n_layers; ++i)
+      d_off += static_cast<size_t>(m_pad) * st.p[i];
+    for (int j = 1; j <= n_layers; ++j) {
+      a.h[j - 1] = static_cast<const bf16*>(rows) + h_off;
+      a.da[j - 1] = static_cast<const bf16*>(rows) + d_off;
+      a.part[j - 1] = dw_part + l.dw_off[j] * parts;
+      a.cin_p[j - 1] = st.p[j - 1];
+      a.cout_p[j - 1] = st.p[j];
+      a.first[j] = a.first[j - 1] + ((st.p[j - 1] + kDwTm - 1) / kDwTm) *
+                                        ((st.p[j] + kDwTn - 1) / kDwTn);
+      h_off += static_cast<size_t>(m_pad) * st.p[j - 1];
+      d_off += static_cast<size_t>(m_pad) * st.p[j];
+    }
+    err = papc_launch(rc_dw_rows_kernel, dim3(a.first[n_layers], dw_splits),
+                      dim3(kThreads), kDwStages * kDwStage * 2, s, a);
+    if (err != cudaSuccess) return err;
   }
-  return err;
+  SplitSum jobs[2 * kMaxLayers];
+  for (int j = 1; j <= n_layers; ++j) {
+    jobs[j - 1] = {dw_part + l.dw_off[j] * parts, parts, st.p[j - 1],
+                   st.p[j], st.c[j - 1], st.c[j], dw[j - 1]};
+    jobs[n_layers + j - 1] = {db_part + l.db_off[j], blocks, 1,
+                              l.db_off[n_layers + 1], 1, st.c[j], db[j - 1]};
+  }
+  // 8 lanes a column: the dW jobs have only a few split partials
+  return samlp_train::split_reduce(jobs, 2 * n_layers, 8, s);
 }

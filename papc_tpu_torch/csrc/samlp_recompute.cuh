@@ -1,8 +1,11 @@
-// Shared pieces of the recompute-mode set-abstraction passes
-// (samlp_rc_fwd.cu: #11 stats, #12 final max; samlp_rc_bwd.cu: #13 bwd
-// stats, #14 bwd final; and their single-launch counterparts #15-18 in
-// samlp_single_{fwd,bwd}.cu through samlp_single.cuh): the tile chain and
-// each pass's per-tile body, the same code for both launch structures.
+// Shared pieces of the wmma recompute-mode set-abstraction passes: the
+// tile chain and each pass's per-tile body, used by the grid forward
+// passes (samlp_rc_fwd.cu: #11 stats, #12 final max) and by the four
+// single-launch passes (#15-18, samlp_single_{fwd,bwd}.cu through
+// samlp_single.cuh). The grid backward passes #13 and #14
+// (samlp_rc_bwd.cuh) run their own design on samlp_mma.cuh and take only
+// Chain and make_chain from here; the backward layout, bwd_tile,
+// accumulate_dw and run_hidden here serve #17 and #18.
 //
 // Each pass re-derives the layer chain of a tile of rows from the block
 // input g2 = bf16(grouped) alone: for layer j,
@@ -17,9 +20,10 @@
 // ops/kernels/samlp_recompute.py computes the same bytes):
 //   forward passes: two ping-pong bf16 buffers (h_0, h_2 / h_1, h_3), as
 //     samlp_eval.cu;
-//   backward passes: bf16 h_0 .. h_{n-1} (each later reused for that
-//     layer's da), bf16 da_n, and f32 a_1 .. a_{n-1} for the gates and
-//     x-hats of the walk down (a_n is consumed where it is computed);
+//   backward passes (#17, #18): bf16 h_0 .. h_{n-1} (each later reused
+//     for that layer's da), bf16 da_n, and f32 a_1 .. a_{n-1} for the
+//     gates and x-hats of the walk down (a_n is consumed where it is
+//     computed);
 //   then one 16 x 16 f32 scratch a warp and the pass's sums (or pooled
 //   max keys). Each region starts on a 128-byte boundary.
 #pragma once

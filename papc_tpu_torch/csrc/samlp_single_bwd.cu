@@ -1,8 +1,8 @@
 // The two backward passes of fused_mlp's "recompute1" mode, each ONE
 // cooperative launch (samlp_single.cuh). Each re-derives the chain a_1 ..
-// a_n from g2 and walks the cotangent down in f32 from the max, as the grid
-// passes #13 and #14 do (samlp_rc_bwd.cu, whose per-tile body,
-// samlp_rc::bwd_tile, these kernels run):
+// a_n from g2 and walks the cotangent down in f32 from the max, computing
+// what the grid passes #13 and #14 (samlp_rc_bwd.cuh) compute, with the
+// wmma per-tile body samlp_rc::bwd_tile (samlp_recompute.cuh):
 //   bwd stats (level l): s_l = (sum dy_l, sum dy_l * xhat_l) [2, c_l];
 //   bwd final: dW_j = bf16(h_{j-1})^T . bf16(da_j), db_j = sum da_j for
 //     every layer, and dg = dhp at j = 1 (f32, no gate), only if asked.

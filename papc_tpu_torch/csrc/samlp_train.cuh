@@ -1,9 +1,11 @@
 // Shared pieces of the training-mode set-abstraction kernels
-// (samlp_linear_stats.cu, samlp_finalize_seed.cu, samlp_bwd_layer.cu, and
-// the recompute passes through samlp_recompute.cuh).
+// (samlp_linear_stats.cu, samlp_finalize_seed.cu, samlp_bwd_layer.cu,
+// samlp_rc_bwd.cu, and the wmma recompute passes through
+// samlp_recompute.cuh).
 //
-// rows_times_matrix (the recompute passes' product): a tile of 16 * RF *
-// row_blocks rows (bf16, in shared or device memory) times a bf16 matrix
+// rows_times_matrix (the product of #11, #12 and #15-18, through
+// samlp_recompute.cuh): a tile of 16 * RF * row_blocks rows (bf16, in
+// shared or device memory) times a bf16 matrix
 // held in device memory, on tensor cores (nvcuda::wmma m16n16k16, f32
 // accumulators): each warp takes units of 16 * RF rows x 16 columns (RF =
 // 4 unless the tile is smaller) and loads every weight fragment once for
@@ -14,12 +16,13 @@
 // so every column sum is formed in a fixed order, and repeated runs give
 // the same bits.
 //
-// reduce_partials (the recompute passes): out[r, c] = sum over i < n of
+// reduce_partials (#11, #12, #15-18): out[r, c] = sum over i < n of
 // part[i, r, c], one thread per output, in order of i. split_reduce
-// (samlp_linear_stats.cu, samlp_finalize_seed.cu, samlp_bwd_layer.cu):
-// the same sums, `lanes` lanes a column, each summing every lanes-th
-// part in order, then the lanes' sums in order. Both are fixed-order
-// second stages of a cross-block sum.
+// (samlp_linear_stats.cu, samlp_finalize_seed.cu, samlp_bwd_layer.cu,
+// samlp_rc_bwd.cu): the same sums, `lanes` lanes a column, each summing
+// every lanes-th part in order, then the lanes' sums in order; up to
+// kMaxJobs sums a launch. Both are fixed-order second stages of a
+// cross-block sum.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -166,22 +169,47 @@ struct SplitSum {
   float* out;
 };
 
-// Job blockIdx.z's sums in a fixed order: lane row y of a block (of
-// blockDim.y <= 32) sums splits y, y + blockDim.y, ... of 32 columns in
-// order, then row 0 adds the blockDim.y sums in order. Grid: (column
-// blocks, rows, jobs); a block past its job's rows or columns returns.
-static __global__ void split_reduce_kernel(SplitSum j0, SplitSum j1) {
+// Up to kMaxJobs sums over splits in one launch: block b takes job q
+// (first[q] <= b < first[q + 1]), row (b - first[q]) / column blocks of
+// 32 columns.
+constexpr int kMaxJobs = 8;
+struct SplitJobs {
+  SplitSum j[kMaxJobs];
+  int first[kMaxJobs + 1];
+  int n;
+};
+
+// Each sum in a fixed order: lane row y of a block (of blockDim.y <= 32)
+// sums splits y, y + blockDim.y, ... of its 32 columns in order, then row
+// 0 adds the blockDim.y sums in order. A lane issues eight loads before
+// adding them; with the launch bounds the compiler keeps them in flight
+// (looked up from the list without both, about two were, which took twice
+// the time of a two-job kernel indexed by blockIdx.z).
+static __global__ void __launch_bounds__(1024, 1)
+    split_reduce_kernel(SplitJobs js) {
   __shared__ float sums[32][33];
-  const SplitSum j = blockIdx.z == 0 ? j0 : j1;
+  int q = 0;
+  while (q + 1 < js.n && js.first[q + 1] <= static_cast<int>(blockIdx.x)) ++q;
+  const SplitSum j = js.j[q];
+  const int col_blocks = (j.cols + 31) / 32;
+  const int b = blockIdx.x - js.first[q];
+  const int r = b / col_blocks;
   const int x = threadIdx.x, y = threadIdx.y, lanes = blockDim.y;
-  const int r = blockIdx.y, c = blockIdx.x * 32 + x;
-  if (r >= j.rows || blockIdx.x * 32 >= j.cols) return;
+  const int c = (b - r * col_blocks) * 32 + x;
   float s = 0.f;
   if (c < j.cols) {
     const float* p = j.part + static_cast<size_t>(r) * j.ld + c;
     const size_t step = static_cast<size_t>(j.part_rows) * j.ld;
-#pragma unroll 4
-    for (int i = y; i < j.n; i += lanes) s += p[i * step];
+    int i = y;
+    for (; i + 7 * lanes < j.n; i += 8 * lanes) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        v[u] = p[static_cast<size_t>(i + u * lanes) * step];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) s += v[u];
+    }
+    for (; i < j.n; i += lanes) s += p[static_cast<size_t>(i) * step];
   }
   sums[y][x] = s;
   __syncthreads();
@@ -191,15 +219,29 @@ static __global__ void split_reduce_kernel(SplitSum j0, SplitSum j1) {
   j.out[static_cast<size_t>(r) * j.cols + c] = s;
 }
 
-// The two jobs' sums (j1.rows 0: one job), `lanes` (8 or 32) lanes a
-// column.
+// The n (1 .. kMaxJobs) jobs' sums in one launch, `lanes` (8 or 32) lanes
+// a column; a job of no rows is skipped.
+static inline cudaError_t split_reduce(const SplitSum* jobs, int n, int lanes,
+                                       cudaStream_t s) {
+  if (n < 1 || n > kMaxJobs) return cudaErrorInvalidValue;
+  SplitJobs js{};
+  for (int q = 0; q < n; ++q) {
+    if (jobs[q].rows <= 0) continue;
+    js.j[js.n] = jobs[q];
+    js.first[js.n + 1] =
+        js.first[js.n] + jobs[q].rows * ((jobs[q].cols + 31) / 32);
+    ++js.n;
+  }
+  if (js.n == 0) return cudaSuccess;
+  return papc_launch(split_reduce_kernel, dim3(js.first[js.n]),
+                     dim3(32, lanes), 0, s, js);
+}
+
+// The two jobs' sums (j1.rows 0: one job) in one launch.
 static inline cudaError_t split_reduce(const SplitSum& j0, const SplitSum& j1,
                                        int lanes, cudaStream_t s) {
-  const int col_blocks = (j0.cols > j1.cols ? j0.cols : j1.cols) + 31;
-  const int rows = j0.rows > j1.rows ? j0.rows : j1.rows;
-  return papc_launch(split_reduce_kernel,
-                     dim3(col_blocks / 32, rows, j1.rows > 0 ? 2 : 1),
-                     dim3(32, lanes), 0, s, j0, j1);
+  const SplitSum jobs[2] = {j0, j1};
+  return split_reduce(jobs, 2, lanes, s);
 }
 
 }  // namespace samlp_train

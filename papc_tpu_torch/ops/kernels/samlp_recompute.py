@@ -17,22 +17,27 @@ dtype) and keeps it in f32; only the operands of a product are rounded to
 versions, as the twins' ``sdtype``). No pre-activation is ever stored, so
 the backward saves only ``g2``, the ``[4, C]`` BN vectors and the argmax.
 
-Kernels (``csrc/``): ``samlp_rc_fwd.cu`` (stats, final max) and
-``samlp_rc_bwd.cu`` (bwd stats, bwd final), on ``samlp_recompute.cuh``.
-Each sum is reduced in a fixed order, so repeated runs give the same bits.
+Kernels (``csrc/``): ``samlp_rc_fwd.cu`` (#11 stats, #12 final max) on
+the wmma tile chain of ``samlp_recompute.cuh`` (:func:`plan`), and
+``samlp_rc_bwd.cu`` (#13 bwd stats, #14 bwd final) on the ``mma.sync``
+core of ``samlp_mma.cuh`` (:func:`bwd_plan`: row tiles of 128, 64 or 32
+rows, the weights through a ``cp.async`` ring, epilogues from registers,
+#14's dW on chip, in a slot a block, or from the rows). Each sum is
+reduced in a fixed order, so repeated runs give the same bits.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from papc_tpu_torch._build import Kernel, ptr, stream_of
 from papc_tpu_torch.ops.kernels import check, use_kernel
-from papc_tpu_torch.ops.kernels.samlp_train import (_f32, _kernel_dtype, _op,
-                                                    _pad, _smem_limit,
-                                                    pack_weight)
+from papc_tpu_torch.ops.kernels.samlp_train import (_aligned16, _f32,
+                                                    _kernel_dtype, _op, _pad,
+                                                    _smem_limit, pack_weight)
 
 P, I = ctypes.c_void_p, ctypes.c_int
 RC_STATS = Kernel("papc_samlp_rc_stats",
@@ -40,10 +45,11 @@ RC_STATS = Kernel("papc_samlp_rc_stats",
 RC_FINAL = Kernel("papc_samlp_rc_final",
                   [P, I, I, I, I, P, P, P, P, I, I, P, P, P, P])
 RC_BWD_STATS = Kernel("papc_samlp_rc_bwd_stats",
-                      [P, I, I, I, I, I, P, P, P, P, P, P, P, I, I, P, P, P])
+                      [P, I, I, I, I, I, P, P, P, P, P, P, P, I, I, I, I, P,
+                       I, P, P, P, P])
 RC_BWD_FINAL = Kernel("papc_samlp_rc_bwd_final",
-                      [P, I, I, I, I, P, P, P, P, P, P, P, I, I, P, P, P, P,
-                       P, P])
+                      [P, I, I, I, I, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                       P, I, P, P, P, P, P, P, P, P])
 KERNELS = (RC_STATS, RC_FINAL, RC_BWD_STATS, RC_BWD_FINAL)
 
 MAX_LAYERS = 4
@@ -53,6 +59,9 @@ _SKEW = 8  # bf16 elements of padding per shared-memory row
 _WARPS = 8
 _SM_SMEM = 233472  # shared memory of one H100 SM, for blocks per SM
 _MAX_PER_SM = 4
+_BWD_TILES = (128, 64, 32)  # #13 / #14: rows a tile, largest first
+DW_MODES = ("smem", "slot", "rows")  # #14's dW: the C entry's modes 1-3
+_DW_TM, _DW_TN, _DW_CHUNK = 64, 256, 32  # rc_dw_rows_kernel's tile
 
 
 # ------------------------------------------------------- plain versions
@@ -186,19 +195,19 @@ def smem_bytes(kind: str, tm: int, k: int, c0: int, widths, *,
 
 
 def plan(kind: str, m: int, k: int, c0: int, widths, limit: int, *,
-         upto: int | None = None, level: int | None = None,
-         sms: int = 132) -> dict:
-    """Rows a tile (the largest of 128, 64, 32, 16 whose shared memory
-    fits ``limit``), the grid (up to ``_MAX_PER_SM`` blocks an SM, as
-    shared memory allows; each block walks the tiles ``b, b + blocks,
-    ...``) and the scratch sizes of one pass."""
-    if kind not in PASSES:
-        raise ValueError(f"pass must be one of {PASSES}, got {kind!r}")
+         upto: int | None = None, sms: int = 132) -> dict:
+    """#11 / #12's plan: rows a tile (the largest of 128, 64, 32, 16
+    whose shared memory fits ``limit``) and the grid (up to
+    ``_MAX_PER_SM`` blocks an SM, as shared memory allows; each block
+    walks the tiles ``b, b + blocks, ...``). The backward passes plan with
+    :func:`bwd_plan`."""
+    if kind not in ("stats", "final"):
+        raise ValueError(f"plan takes the forward passes, got {kind!r}")
     if not 1 <= len(widths) <= MAX_LAYERS:
         raise ValueError(f"the kernels take 1..{MAX_LAYERS} layers, "
                          f"got {len(widths)}")
     for tm in _TILES:
-        smem = smem_bytes(kind, tm, k, c0, widths, upto=upto, level=level)
+        smem = smem_bytes(kind, tm, k, c0, widths, upto=upto)
         if smem <= limit:
             break
     else:
@@ -207,11 +216,138 @@ def plan(kind: str, m: int, k: int, c0: int, widths, limit: int, *,
             f"for c0={c0} widths={list(widths)}; the card allows {limit}")
     tiles = -(-m // tm)
     per_sm = max(1, min(_MAX_PER_SM, _SM_SMEM // (smem + 1024)))
-    p = [_pad(c0)] + [_pad(c) for c in widths]
-    blocks = min(tiles, sms * per_sm)
-    return {"tm": tm, "smem": smem, "tiles": tiles, "blocks": blocks,
-            "db_part": blocks * sum(p[1:]),
-            "dw_part": blocks * sum(a * b for a, b in zip(p, p[1:]))}
+    return {"tm": tm, "smem": smem, "tiles": tiles,
+            "blocks": min(tiles, sms * per_sm)}
+
+
+def _bwd_shape(tm: int) -> tuple:
+    """#13 / #14's block at ``tm`` rows: (row warps, chunk columns, k
+    rows a ring slice)."""
+    rw = tm // 32
+    return rw, 64 * (_WARPS // rw), 16 if tm == 32 else 32
+
+
+def bwd_smem_bytes(kind: str, tm: int, k: int, c0: int, widths, *,
+                   level: int | None = None, keep_h: bool = False,
+                   a_smem: bool = True, dw_smem: bool = False,
+                   stages: int = 3) -> int:
+    """Dynamic shared memory of one block of #13 (``"bwd_stats"``) or #14
+    (``"bwd_final"``) at ``tm`` rows a tile (``csrc/samlp_rc_bwd.cu::
+    make_layout``, byte for byte): the bf16 h / da buffers (``keep_h``:
+    h_0 .. h_{n-1} and da_n; else two ping-pong regions), the f32 a_1 ..
+    a_{n-1} when ``a_smem``, the weight ring, the sums, with ``dw_smem``
+    every layer's f32 dW, and the amax and dout rows of the groups a tile
+    can touch."""
+    p = [_pad(c) for c in (c0, *widths)]
+    n = len(widths)
+    if keep_h:
+        total = sum(_r128(tm * (p[i] + _SKEW) * 2) for i in range(n + 1))
+    else:
+        total = sum(_r128(tm * (max(p[r:n + 1:2]) + _SKEW) * 2)
+                    for r in (0, 1))
+    if a_smem:
+        total += sum(_r128(tm * (p[j] + _SKEW) * 4) for j in range(1, n))
+    rw, chunk, ks = _bwd_shape(tm)
+    stage = max(ks * (chunk + _SKEW), chunk * (ks + _SKEW))
+    total += _r128(stages * stage * 2)
+    cols = 2 * p[level] if kind == "bwd_stats" else sum(p[1:])
+    total += _r128(rw * cols * 4)
+    if dw_smem:
+        total += _r128(sum(a * b for a, b in zip(p, p[1:])) * 4)
+    return total + 2 * _r128(((-(-tm // k) + 1) * widths[-1] + 16) * 4)
+
+
+def _dw_splits(p, m_pad: int, sms: int) -> tuple:
+    """rc_dw_rows_kernel's (splits, rows a split): about two blocks an SM
+    over the layers' 64 x 256 dW tiles, every split non-empty."""
+    tiles = sum(-(-a // _DW_TM) * -(-b // _DW_TN) for a, b in zip(p, p[1:]))
+    chunks = m_pad // _DW_CHUNK
+    want = max(1, min(chunks, -(-2 * sms // tiles)))
+    splits = -(-chunks // -(-chunks // want))
+    return splits, -(-chunks // splits) * _DW_CHUNK
+
+
+def _bwd_schedule(p, tm: int, stop: int) -> tuple:
+    """A tile's products in order, ``(layer, walk, span)`` each: the chain
+    forward a_1 .. a_n, then the walk down from layer n to ``stop``. Each
+    product's output columns go in chunks of ``chunk``; column warp ``wc``
+    takes columns ``[wc * 64, wc * 64 + 64)`` of a chunk and ``[wc * span,
+    wc * span + span)`` of the last one (each cut at the chunk's width):
+    the last chunk split evenly in n16 pairs. The kernel runs this table
+    as it is."""
+    n = len(p) - 1
+    rw, chunk, _ = _bwd_shape(tm)
+    cw = _WARPS // rw
+    out = []
+    for j, walk in ([(j, 0) for j in range(1, n + 1)]
+                    + [(j, 1) for j in range(n, stop - 1, -1)]):
+        ndim = p[j - 1] if walk else p[j]
+        width = ndim - (ndim - 1) // chunk * chunk
+        out.append((j, walk, -(-(-(-width // cw)) // 16) * 16))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(kind: str, m: int, k: int, c0: int, widths: tuple, limit: int,
+             *, level: int | None = None, need_dg: bool = True,
+             sms: int = 132) -> dict:
+    """#13 / #14's plan: the first candidate that fits ``limit`` and
+    gives every SM a tile (at least ``min(sms, ceil(m / 32))`` tiles).
+    Candidates, 4 ring stages before 3 and 2, larger tiles first (128, 64,
+    32 rows), at each the f32 a in shared memory, then in device scratch:
+    bwd stats; bwd final with dW on chip, then dW from the rows where
+    their bf16 h and da and their split partials take fewer bytes than a
+    dW slot a block would, then a dW slot a block. One block an SM
+    (``blocks = min(tiles, sms)``). ``prods``: the tile's products
+    (:func:`_bwd_schedule`), walking down to ``level + 1`` (bwd stats) or
+    to layer 1 with dg (``need_dg``), else 2. Raises ``ValueError`` when
+    nothing fits."""
+    if kind not in ("bwd_stats", "bwd_final"):
+        raise ValueError(f"bwd_plan takes the backward passes, got {kind!r}")
+    n = len(widths)
+    if not 1 <= n <= MAX_LAYERS:
+        raise ValueError(f"the kernels take 1..{MAX_LAYERS} layers, got {n}")
+    p = [_pad(c) for c in (c0, *widths)]
+    dw_floats = sum(a * b for a, b in zip(p, p[1:]))
+    cands = []
+    for stages in (4, 3, 2):
+        for dw in ((None,) if kind == "bwd_stats"
+                   else ("smem", "rows", "slot")):
+            cands += [(dw, a, tm, stages) for tm in _BWD_TILES
+                      for a in (True, False)]
+    min_tiles = min(sms, -(-m // 32))
+    smem = None
+    for dw, a_smem, tm, stages in cands:
+        tiles = -(-m // tm)
+        if tiles < min_tiles:
+            continue
+        m_pad = tiles * tm
+        blocks = min(tiles, sms)
+        rows = m_pad * (sum(p[:n]) + sum(p[1:])) if dw == "rows" else 0
+        splits, rows_per_split = (_dw_splits(p, m_pad, sms) if dw == "rows"
+                                  else (0, 0))
+        if dw == "rows" and 2 * rows + 4 * splits * dw_floats >= (
+                4 * blocks * dw_floats):
+            continue
+        smem = bwd_smem_bytes(kind, tm, k, c0, widths, level=level,
+                              keep_h=dw in ("smem", "slot"), a_smem=a_smem,
+                              dw_smem=dw == "smem", stages=stages)
+        if smem > limit:
+            continue
+        parts = splits if dw == "rows" else blocks
+        stop = level + 1 if kind == "bwd_stats" else 1 if need_dg else 2
+        return {"tm": tm, "smem": smem, "tiles": tiles, "blocks": blocks,
+                "stages": stages, "a_smem": a_smem, "dw": dw,
+                "dw_splits": splits, "rows_per_split": rows_per_split,
+                "m_pad": m_pad, "prods": _bwd_schedule(p, tm, stop),
+                "a_scratch": 0 if a_smem else blocks * tm * sum(p[1:n]),
+                "rows": rows,
+                "partials": blocks * 2 * p[level] if level else 0,
+                "db_part": blocks * sum(p[1:]) if dw else 0,
+                "dw_part": parts * dw_floats if dw else 0}
+    raise ValueError(
+        f"recompute {kind} has no plan within {limit} B of shared memory "
+        f"for c0={c0} widths={list(widths)} (last tried: {smem} B)")
 
 
 # ------------------------------------------------------ kernel wrappers
@@ -293,21 +429,37 @@ def _check_cotangent(g2, dout, amax, k, c_last, vecs, mus, above: int):
             check(mu, f"mu[{j}]", torch.float32, (2, vec.shape[1]))
 
 
+def _bwd_plan_for(kind, g2, k, widths, **kw) -> dict:
+    props = torch.cuda.get_device_properties(g2.device)
+    return bwd_plan(kind, g2.shape[0], k, g2.shape[1], tuple(widths),
+                    _smem_limit(g2), sms=props.multi_processor_count, **kw)
+
+
+def _empty(n: int, dtype, device):
+    return torch.empty(n, dtype=dtype, device=device) if n else None
+
+
 def rc_bwd_stats_cuda(g2, dout, amax, vecs, w_packed, bs, mus, *,
                       level: int, k: int):
     m, c0 = g2.shape
     widths = [b.shape[0] for b in bs]
     _check_stack(g2, w_packed, bs, vecs, 4, len(bs))
     _check_cotangent(g2, dout, amax, k, widths[-1], vecs, mus, level)
-    pl = _plan_for("bwd_stats", g2, k, widths, level=level)
+    g2 = _aligned16(g2)
+    pl = _bwd_plan_for("bwd_stats", g2, k, widths, level=level)
+    prods = pl["prods"]
     c = widths[level - 1]
+    dev = g2.device
     partials = torch.empty((pl["blocks"], 2, _pad(c)), dtype=torch.float32,
-                           device=g2.device)
-    sums = torch.empty((2, c), dtype=torch.float32, device=g2.device)
+                           device=dev)
+    a_scr = _empty(pl["a_scratch"], torch.float32, dev)
+    sums = torch.empty((2, c), dtype=torch.float32, device=dev)
     RC_BWD_STATS(ptr(g2), m, c0, k, len(bs), level, _ints(widths),
                  _ptrs(w_packed), _ptrs(bs), _ptrs(vecs), _ptrs(mus),
-                 ptr(dout), ptr(amax), pl["tm"], pl["blocks"], ptr(partials),
-                 ptr(sums), stream_of(g2))
+                 ptr(dout), ptr(amax), pl["tm"], pl["stages"],
+                 int(pl["a_smem"]), pl["blocks"], _ints(sum(prods, ())),
+                 len(prods), ptr(a_scr), ptr(partials), ptr(sums),
+                 stream_of(g2))
     return sums
 
 
@@ -317,7 +469,9 @@ def rc_bwd_final_cuda(g2, dout, amax, vecs, w_packed, bs, mus, *, k: int,
     widths = [b.shape[0] for b in bs]
     _check_stack(g2, w_packed, bs, vecs, 4, len(bs))
     _check_cotangent(g2, dout, amax, k, widths[-1], vecs, mus, 0)
-    pl = _plan_for("bwd_final", g2, k, widths)
+    g2 = _aligned16(g2)
+    pl = _bwd_plan_for("bwd_final", g2, k, widths, need_dg=need_dg)
+    prods = pl["prods"]
     dev = g2.device
 
     def f32(*shape):
@@ -327,10 +481,16 @@ def rc_bwd_final_cuda(g2, dout, amax, vecs, w_packed, bs, mus, *, k: int,
     dws = [f32(ci, co) for ci, co in zip(cins, widths)]
     dbs = [f32(c) for c in widths]
     dg = f32(m, c0) if need_dg else None
+    # scratch, held until the launch is queued
+    a_scr = _empty(pl["a_scratch"], torch.float32, dev)
+    rows = _empty(pl["rows"], torch.bfloat16, dev)
     db_part, dw_part = f32(pl["db_part"]), f32(pl["dw_part"])
     RC_BWD_FINAL(ptr(g2), m, c0, k, len(bs), _ints(widths), _ptrs(w_packed),
                  _ptrs(bs), _ptrs(vecs), _ptrs(mus), ptr(dout), ptr(amax),
-                 pl["tm"], pl["blocks"], ptr(db_part), ptr(dw_part),
+                 pl["tm"], pl["stages"], int(pl["a_smem"]),
+                 DW_MODES.index(pl["dw"]) + 1, pl["blocks"], pl["dw_splits"],
+                 _ints(sum(prods, ())), len(prods), ptr(a_scr), ptr(rows),
+                 ptr(db_part), ptr(dw_part),
                  _ptrs(dbs), _ptrs(dws), ptr(dg), stream_of(g2))
     return dg, dws, dbs
 

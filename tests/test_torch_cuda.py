@@ -962,7 +962,7 @@ RC_STACKS = [  # (groups, k, c0, widths)
     (5, 32, 3, (64, 64, 128)),          # the last 128-row tile ragged
     (16384, 32, 3, (64, 64, 128)),      # SSG SA1 at B=32
     (4096, 64, 131, (128, 128, 256)),   # SSG SA2
-    (32, 128, 259, (256, 512, 1024)),   # SSG SA3: 16-row backward tiles
+    (32, 128, 259, (256, 512, 1024)),   # SSG SA3: 32-row tiles, dW by rows
     (32, 128, 643, (256, 512, 1024)),   # MSG clas SA3: a group over tiles
     (64, 128, 323, (128, 196, 256)),    # MSG seg SA2: width 196
     (96, 16, 3, (32, 32, 64)),          # MSG clas SA1: K = 16
@@ -1017,8 +1017,9 @@ def test_recompute_kernels_match_plain(device, groups, k, c0, widths):
     gate of the walk down opens in one and not the other (measured: 1-4
     rows of dg off in 10^5); the bwd sums, dg, dW and db are each at most
     1.5 times as far (L2) from the plain pass with f32 operands as the
-    plain bf16 pass, as the card's step check holds gradients. Each launch
-    counted once; repeated runs the same bits."""
+    plain bf16 pass, as the card's step check holds gradients. Each call
+    counts one launch of its entry; #11, #13 and #14 repeat bit for bit
+    over two calls (and #14 without dg gives the same dW and db)."""
     from papc_tpu_torch.ops.kernels import samlp_recompute as rc
 
     g2, ws, bs, vecs, dout, amax, mus = _rc_stack(groups, k, c0, widths,
@@ -1035,7 +1036,9 @@ def test_recompute_kernels_match_plain(device, groups, k, c0, widths):
         torch.testing.assert_close(
             rc.rc_stats(g2, vecs, ws, bs, upto=upto, w_packed=packed), got,
             rtol=0, atol=0)
+    before = rc.RC_FINAL.launches
     out, got_amax = rc.rc_final(g2, vecs, ws, bs, k=k, w_packed=packed)
+    assert rc.RC_FINAL.launches == before + 1
     want, want_amax = rc.rc_final(g2, vecs, ws, bs, k=k, impl="plain")
     _near(out, want, 1e-3, ulp=True)
     a_list, _ = rc.chain_plain(g2, vecs, ws, bs, n)
@@ -1045,24 +1048,68 @@ def test_recompute_kernels_match_plain(device, groups, k, c0, widths):
     clear = top2[:, 0] - top2[:, 1] > 2 * bound
     assert bool((got_amax == want_amax)[clear].all())
     f32 = {"impl": "plain", "operand_dtype": torch.float32}
+    args = (g2, dout, amax, vecs, ws, bs, mus)
     for level in range(n, 0, -1):
-        args = (g2, dout, amax, vecs, ws, bs, mus)
+        before = rc.RC_BWD_STATS.launches
         got = rc.rc_bwd_stats(*args, level=level, k=k, w_packed=packed)
+        assert rc.RC_BWD_STATS.launches == before + 1
         _no_farther(got, rc.rc_bwd_stats(*args, level=level, k=k,
                                          impl="plain"),
                     rc.rc_bwd_stats(*args, level=level, k=k, **f32))
-    args = (g2, dout, amax, vecs, ws, bs, mus)
+        torch.testing.assert_close(
+            rc.rc_bwd_stats(*args, level=level, k=k, w_packed=packed), got,
+            rtol=0, atol=0)
+    before = rc.RC_BWD_FINAL.launches
     got = rc.rc_bwd_final(*args, k=k, w_packed=packed)
+    assert rc.RC_BWD_FINAL.launches == before + 1
     want = rc.rc_bwd_final(*args, k=k, impl="plain")
     ref = rc.rc_bwd_final(*args, k=k, **f32)
     _no_farther(got[0], want[0], ref[0])
     for j in range(n):
         _no_farther(got[1][j], want[1][j], ref[1][j])
         _no_farther(got[2][j], want[2][j], ref[2][j])
+    again = rc.rc_bwd_final(*args, k=k, w_packed=packed)
+    for a, b in zip([again[0], *again[1], *again[2]],
+                    [got[0], *got[1], *got[2]]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     skip = rc.rc_bwd_final(*args, k=k, w_packed=packed, need_dg=False)
     assert skip[0] is None
     for a, b in zip(skip[1] + skip[2], got[1] + got[2]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)  # fixed order
+
+
+@pytest.mark.parametrize("groups,k,c0,widths", RC_STACKS)
+def test_recompute_bwd_ring_depth_keeps_bits(device, monkeypatch, groups, k,
+                                             c0, widths):
+    """#13 and #14 with their weight ring at 3 and 2 stages, which the
+    plan takes only where 4 do not fit (SA3's widths at 524 288 rows with
+    a dW slot a block), give the bits of the plan's 4 stages at every
+    case: the depth changes only how far ahead the slices are copied."""
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+
+    g2, ws, bs, vecs, dout, amax, mus = _rc_stack(groups, k, c0, widths,
+                                                  device)
+    n = len(widths)
+    packed = [samlp_train.pack_weight(w) for w in ws]
+    args = (g2, dout, amax, vecs, ws, bs, mus)
+
+    def run():
+        sums = [rc.rc_bwd_stats(*args, level=lv, k=k, w_packed=packed)
+                for lv in range(n, 0, -1)]
+        dg, dws, dbs = rc.rc_bwd_final(*args, k=k, w_packed=packed)
+        _, dws1, dbs1 = rc.rc_bwd_final(*args, k=k, w_packed=packed,
+                                        need_dg=False)
+        return [*sums, dg, *dws, *dbs, *dws1, *dbs1]
+
+    plan_for = rc._bwd_plan_for
+    assert plan_for("bwd_final", g2, k, widths)["stages"] == 4
+    want = run()
+    for stages in (3, 2):
+        monkeypatch.setattr(rc, "_bwd_plan_for",
+                            lambda *a, s=stages, **kw: {**plan_for(*a, **kw),
+                                                        "stages": s})
+        for a, b in zip(run(), want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("mode", ["recompute", "recompute1"])

@@ -486,35 +486,215 @@ def _stacks(model):
     return out
 
 
+def _bwd_smem(kind, pl, k, c0, widths, level=None):
+    """``bwd_smem_bytes`` of a plan, from the plan's own choices."""
+    return rc.bwd_smem_bytes(kind, pl["tm"], k, c0, widths, level=level,
+                             keep_h=pl["dw"] in ("smem", "slot"),
+                             a_smem=pl["a_smem"], dw_smem=pl["dw"] == "smem",
+                             stages=pl["stages"])
+
+
+def _bwd_passes(widths):
+    """``(kind, kwargs)`` of #13 at every level and #14 with and without
+    dg."""
+    return ([("bwd_stats", {"level": lv}) for lv in range(1, len(widths) + 1)]
+            + [("bwd_final", {"need_dg": True}),
+               ("bwd_final", {"need_dg": False})])
+
+
 @pytest.mark.parametrize("combo", registry.registry_combos(),
                          ids=lambda c: "-".join(c))
 def test_every_plan_fits_the_card(combo):
     """Every pass of every SA stack of the registry's models at B=32 x
     1024 (c0 3 to 643, widths up to 1024 with 196, K 16 to 128) fits the
-    H100's 232 448 B of shared memory a block; SSG/MSG SA3's backward
-    passes drop to 16-row tiles (f32 a_1, a_2: 3 KB a row)."""
+    H100's 232 448 B of shared memory a block; #13 and #14 (``bwd_plan``)
+    at tiles of at least 32 rows, SSG/MSG SA3's at 32 (the f32 a_1, a_2
+    of 3 KB a row then live in device scratch; the wmma design fell to
+    16-row tiles there)."""
     spec = registry.init_model(*combo, device="cpu")
     stacks = _stacks(spec.model)
     assert stacks
-    limit, seen = 232448, set()
+    limit, seen, seen_bwd = 232448, set(), set()
     for name, c0, widths, k in stacks:
         m = 32 * 128 * k
-        for kind in rc.PASSES:
-            levels = (range(1, len(widths) + 1)
-                      if kind in ("stats", "bwd_stats") else [None])
-            for lv in levels:
-                kw = ({"upto": lv} if kind == "stats" else
-                      {"level": lv} if kind == "bwd_stats" else {})
+        for kind in ("stats", "final"):
+            for lv in (range(1, len(widths) + 1) if kind == "stats"
+                       else [None]):
+                kw = {"upto": lv} if kind == "stats" else {}
                 pl = rc.plan(kind, m, k, c0, widths, limit, **kw)
                 assert pl["smem"] <= limit and pl["tm"] in (16, 32, 64, 128)
                 assert pl["smem"] == rc.smem_bytes(kind, pl["tm"], k, c0,
                                                    widths, **kw)
                 assert 1 <= pl["blocks"] <= pl["tiles"]
                 seen.add((c0, k, pl["tm"]))
+        for kind, kw in _bwd_passes(widths)[:-1]:
+            lv = kw.get("level")
+            pl = rc.bwd_plan(kind, m, k, c0, tuple(widths), limit, level=lv)
+            assert pl["smem"] <= limit and pl["tm"] in (32, 64, 128)
+            assert pl["smem"] == _bwd_smem(kind, pl, k, c0, widths, lv)
+            assert 1 <= pl["blocks"] <= pl["tiles"]
+            seen_bwd.add((c0, k, pl["tm"]))
     if combo == ("pointnet2_ssg", "clas"):
-        assert (259, 128, 16) in seen  # SA3's backward
+        assert (259, 128, 32) in seen_bwd  # SA3's backward
     with pytest.raises(ValueError, match="shared memory"):
-        rc.plan("bwd_final", 4096, 128, 259, (256, 512, 1024), 100_000)
+        rc.bwd_plan("bwd_final", 4096, 128, 259, (256, 512, 1024), 100_000)
+    with pytest.raises(ValueError, match="backward passes"):
+        rc.bwd_plan("stats", 4096, 128, 259, (256, 512, 1024), limit)
+
+
+def _covers(pieces, n: int) -> bool:
+    """Whether the half-open ranges ``pieces`` cover ``[0, n)`` once."""
+    hit = [0] * n
+    for lo, hi in pieces:
+        for x in range(lo, hi):
+            if x >= n:
+                return False
+            hit[x] += 1
+    return all(h == 1 for h in hit)
+
+
+@pytest.mark.parametrize("combo", registry.registry_combos(),
+                         ids=lambda c: "-".join(c))
+def test_bwd_plan_takes_every_tile_product_and_column_once(combo):
+    """#13 and #14's plan at every stack of the model, at the rows above
+    and, for a ``group_all`` stage, its own 32 x K: the blocks take every
+    row tile once; the plan's schedule (``prods``, which the kernel runs
+    as it is) holds the chain forward 1..n, then the walk down to the
+    pass's last layer, and each product takes every k16 step once through
+    ring slices of at most ``ks`` rows and every output column once in
+    n16 pairs of at most four a warp, so every sum column has one owner;
+    dW's warp units (32 x 64) cover every layer's [p_{j-1}, p_j] once, as
+    do the rows kernel's 64 x 256 tiles and row splits, and the rows are
+    chosen only where they and their partials take fewer bytes than the
+    slots; all within 232 448 B."""
+    spec = registry.init_model(*combo, device="cpu")
+    limit = 232448
+    shapes = {(c0, tuple(w), k, 32 * 128 * k)
+              for _, c0, w, k in _stacks(spec.model)}
+    shapes |= {(c0, tuple(w), k, 32 * k) for name, c0, w, k in
+               _stacks(spec.model) if name.startswith("SetAbstraction_")
+               and getattr(spec.model, name).group_all}
+    for c0, widths, k, m in sorted(shapes):
+        p = [samlp_train._pad(c) for c in (c0, *widths)]
+        n = len(widths)
+        for kind, kw in _bwd_passes(widths):
+            lv = kw.get("level")
+            need_dg = kw.get("need_dg", True)
+            pl = rc.bwd_plan(kind, m, k, c0, widths, limit, level=lv,
+                             need_dg=need_dg)
+            assert pl["tm"] >= 32 and pl["smem"] <= limit
+            tiles = [t for b in range(pl["blocks"])
+                     for t in range(b, pl["tiles"], pl["blocks"])]
+            assert sorted(tiles) == list(range(pl["tiles"]))
+            assert pl["tiles"] * pl["tm"] >= m > (pl["tiles"] - 1) * pl["tm"]
+            rw, chunk, ks = rc._bwd_shape(pl["tm"])
+            stop = lv + 1 if lv else 1 if need_dg else 2
+            assert [(j, w) for j, w, _ in pl["prods"]] == (
+                [(j, 0) for j in range(1, n + 1)]
+                + [(j, 1) for j in range(n, stop - 1, -1)])
+            for j, walk, span in pl["prods"]:
+                assert span % 16 == 0 and 16 <= span <= 64
+                kdim, ndim = (p[j], p[j - 1]) if walk else (p[j - 1], p[j])
+                slices = [(s, min(s + ks, kdim)) for s in range(0, kdim, ks)]
+                assert _covers(slices, kdim)
+                assert all((hi - lo) % 16 == 0 for lo, hi in slices)
+                cols = []
+                for c0_ in range(0, ndim, chunk):
+                    width = min(chunk, ndim - c0_)
+                    sp = span if c0_ + chunk >= ndim else 64
+                    for wc in range(8 // rw):
+                        pairs = max(0, min(sp, width - wc * sp)) // 16
+                        assert pairs <= 4
+                        cols.append((c0_ + wc * sp, c0_ + wc * sp + 16 * pairs))
+                assert _covers(cols, ndim)
+            if kind == "bwd_stats":
+                continue
+            for j in range(1, n + 1):
+                units = [(ci * 32, co * 64) for ci in range(-(-p[j - 1] // 32))
+                         for co in range(-(-p[j] // 64))]
+                cells = [(r, c) for r0, c0_ in units
+                         for r in range(r0, min(r0 + 32, p[j - 1]))
+                         for c in range(c0_, min(c0_ + 64, p[j]))]
+                assert len(cells) == len(set(cells)) == p[j - 1] * p[j]
+            if pl["dw"] == "rows":
+                dw_floats = sum(a * b for a, b in zip(p, p[1:]))
+                assert 2 * pl["rows"] + 4 * pl["dw_part"] < (
+                    4 * pl["blocks"] * dw_floats)
+                for a, b in zip(p, p[1:]):
+                    assert _covers([(t, min(t + 64, a))
+                                    for t in range(0, a, 64)], a)
+                    assert _covers([(t, min(t + 256, b))
+                                    for t in range(0, b, 256)], b)
+                rps = pl["rows_per_split"]
+                assert rps % 32 == 0
+                assert _covers([(s * rps, min((s + 1) * rps, pl["m_pad"]))
+                                for s in range(pl["dw_splits"])], pl["m_pad"])
+
+
+def test_bwd_final_keeps_dw_on_chip_and_sa3_scratch_small():
+    """#14's dW at the SSG clas stacks (B=32 x 1024): SA1's 53 KB on chip
+    (no dW slot), SA2's 270 KB in one slot a block, SA3 (4096 rows, group
+    all) from its bf16 rows: h and da written once (23.2 MB) plus split
+    partials, under 64 MB, against the wmma design's 383 MB of slots."""
+    limit = 232448
+    sa1 = rc.bwd_plan("bwd_final", 524288, 32, 3, (64, 64, 128), limit)
+    assert sa1["dw"] == "smem" and sa1["tm"] == 128
+    assert sa1["dw_part"] == 132 * (16 * 64 + 64 * 64 + 64 * 128)
+    sa2 = rc.bwd_plan("bwd_final", 262144, 64, 131, (128, 128, 256), limit)
+    assert sa2["dw"] == "slot" and sa2["tm"] >= 64
+    sa3 = rc.bwd_plan("bwd_final", 4096, 128, 259, (256, 512, 1024), limit)
+    assert sa3["dw"] == "rows" and sa3["tm"] == 32
+    rows_mb = 2 * sa3["rows"] / 1e6
+    scratch_mb = rows_mb + 4 * sa3["dw_part"] / 1e6
+    assert abs(rows_mb - 23.2) < 0.1 and scratch_mb < 64
+    with pytest.raises(ValueError, match="forward passes"):
+        rc.plan("bwd_final", 4096, 128, 259, (256, 512, 1024), limit)
+
+
+# (c0, widths, k) -> (tm, smem) of samlp_single.plan at m = 32·128·k for
+# stats at each layer, final, bwd stats at each level, bwd final (None:
+# no plan, the stack demotes to stream), as they were before #13 and #14
+# left samlp_recompute.cuh's backward path to #17 and #18 alone.
+SINGLE_PLANS = {
+    (3, (64, 64, 128), 32): [(128, 19200), (128, 46592), (128, 77312), (128, 81408), (128, 198144), (128, 198144), (128, 199168), (64, 174848)],
+    (131, (128, 128, 256), 64): [(128, 153600), (128, 222720), (64, 219904), (64, 224000), (16, 213760), (16, 213760), (16, 214784), (16, 214784)],
+    (259, (256, 512, 1024), 128): [(32, 201728), None, None, None, None, None, None, None],
+    (3, (32, 32, 64), 16): [(128, 17536), (128, 30208), (128, 39424), (128, 43520), (128, 108032), (128, 108032), (128, 108544), (128, 122880)],
+    (3, (64, 96, 128), 128): [(128, 19200), (128, 51328), (128, 98176), (128, 99200), (128, 229760), (128, 230272), (128, 230784), (64, 222976)],
+    (323, (64, 64, 128), 32): [(64, 178688), (64, 196864), (64, 214784), (64, 217856), (32, 185344), (32, 185344), (32, 185856), (32, 185856)],
+    (323, (128, 128, 256), 64): [(64, 222464), (32, 202240), None, None, None, None, None, None],
+    (323, (128, 128, 256), 128): [(64, 222464), (32, 202240), None, None, None, None, None, None],
+    (643, (256, 512, 1024), 128): [None, None, None, None, None, None, None, None],
+    (6, (64, 64, 128), 32): [(128, 20736), (128, 48128), (128, 78848), (128, 82944), (128, 199680), (128, 199680), (128, 200704), (64, 175616)],
+    (6, (32, 32, 64), 32): [(128, 19072), (128, 31744), (128, 40960), (128, 43008), (128, 105472), (128, 105472), (128, 105984), (128, 120320)],
+    (6, (64, 64, 128), 64): [(128, 20736), (128, 48128), (128, 78848), (128, 80896), (128, 195584), (128, 195584), (128, 196608), (64, 173568)],
+    (6, (64, 96, 128), 128): [(128, 20736), (128, 52864), (128, 99712), (128, 100736), (128, 231296), (128, 231808), (128, 232320), (64, 223744)],
+    (323, (128, 196, 256), 128): [(64, 222464), (32, 223744), None, None, None, None, None, None],
+    (515, (256, 512, 1024), 128): [None, None, None, None, None, None, None, None],
+}
+
+
+@pytest.mark.parametrize("stack", list(SINGLE_PLANS),
+                         ids=lambda s: f"{s[0]}-{'-'.join(map(str, s[1]))}-k{s[2]}")
+def test_single_launch_plans_unchanged(stack):
+    """#15-18's plans (``samlp_single.plan``, built on
+    ``samlp_recompute.smem_bytes``' backward layout) at every registry
+    stack: the same tile and bytes as before #13 and #14 moved to their
+    own layout."""
+    c0, widths, k = stack
+    got = []
+    for kind in ("stats", "final", "bwd_stats", "bwd_final"):
+        for lv in (range(1, len(widths) + 1)
+                   if kind in ("stats", "bwd_stats") else [None]):
+            kw = ({"upto": lv} if kind == "stats" else
+                  {"level": lv} if kind == "bwd_stats" else {})
+            try:
+                pl = samlp_single.plan(kind, 32 * 128 * k, k, c0, widths,
+                                       232448, **kw)
+                got.append((pl["tm"], pl["smem"]))
+            except ValueError:
+                got.append(None)
+    assert got == SINGLE_PLANS[stack]
 
 
 # ------------------------------------------------- whole steps, bf16
