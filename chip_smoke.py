@@ -160,19 +160,23 @@ convolutions in f32 itself, as a user gets it.
    times as far (L2) from the plain pass with f32 operands as the plain
    bf16 pass. Kernel, plain and bound ms. Then #13 and #14's device ms a
    call by SSG stack and level (profiler: every kernel of a call, by
-   name) beside the bound, and their sums over one SSG clas step
+   name, each by the mean of its records) beside the bound, and their sums over one SSG clas step
    (``recompute_bwd_times``); the recompute ``train_step`` of SSG clas
    and MSG seg, each after a warm-up step: peak device memory, step ms,
-   busy share and #13 / #14's main kernels' device ms a step
-   (``recompute_steps``). Both use public functions only, so they time a
-   parent tree too. Then phase 6
+   busy share and #11-14's main kernels' device ms a step
+   (``recompute_steps``). Both take the mode and use public functions
+   only, so they time a parent tree too. Then phase 6
    under ``fused_mlp.override(mode="recompute")`` for ``pointnet2_ssg``
    clas and ``pointnet2_msg`` seg: #11 and #13 launched once per layer
    of every stack a step, #12 and #14 once per stack, the stream passes
    (#6, #7, #9, #10) never.
 13. Single-launch recompute mode: #15-18 against their plain versions and
    against #11-14, pass by pass, as in phase 12, on the SSG SA1 and SA2
-   and the MSG seg SA1 stacks' grouped inputs. Then phase 6 under
+   and the MSG seg SA1 stacks' grouped inputs; #17 and #18's device ms
+   by SSG stack (SA1, SA2: the stacks the gate admits) beside the bound
+   and their sums a SSG clas step, and the recompute1 step's numbers with
+   #15-18's device ms a step (``recompute_bwd_times`` and
+   ``recompute_steps`` in mode ``recompute1``). Then phase 6 under
    ``fused_mlp.override(mode="recompute1")`` for ``pointnet2_ssg`` clas
    and ``pointnet2_msg`` seg: #15-18 launched on the stacks their gate
    admits (once per layer or stack a step), the stream passes on the
@@ -824,6 +828,16 @@ def _named_ms(device, calls: int, parts: dict) -> dict:
 def _call_ms(device, calls: int) -> float:
     """Device ms a call: every kernel record, summed, over ``calls``."""
     return sum(e.time_range.elapsed_us() for e in device) / calls / 1e3
+
+
+def _once_ms(device) -> float:
+    """Device ms of one call whose kernels each launch once a call: the
+    mean of each kernel's records, summed over the kernels, so a record
+    the profiler dropped does not count as a call that took no time."""
+    by: dict = {}
+    for e in device:
+        by.setdefault(_base_name(e), []).append(e.time_range.elapsed_us())
+    return sum(sum(v) / len(v) for v in by.values()) / 1e3
 
 
 def _whole_events(fn, calls: int, names):
@@ -2112,17 +2126,51 @@ def _by_kernel(device, calls: int) -> str:
                      for name, (t, c) in by.items())
 
 
-def recompute_bwd_times(calls: int = 10) -> dict:
-    """#13 and #14's device ms a call (profiler, ``calls`` calls: every
-    kernel record of a call, its reduces included, profiled again where a
-    record was dropped) and CUDA-event ms on each SSG clas stack's grouped
-    input at B x N (seed-0 model; the plain chain's vectors, argmax and
-    gradient means; bwd final without dg on SA1, whose input is data),
-    beside the operation bound (``_rc_work``); and their sums over one SSG
-    clas step (#13 at every level of every stack, #14 once a stack). Uses
-    only public functions, so it times a parent tree's package too."""
-    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+# mode -> the recompute kernels a step is read by: (row, base name of the
+# device kernel, None or whether its last template argument is true: the
+# backward kernels' bwd final)
+STEP_KERNELS = {
+    "stream": (),
+    "recompute": (("#11", "rc_stats_kernel", None),
+                  ("#12", "rc_final_kernel", None),
+                  ("#13", "rc_bwd_kernel", False),
+                  ("#14", "rc_bwd_kernel", True)),
+    "recompute1": (("#15", "rc1_stats_kernel", None),
+                   ("#16", "rc1_final_kernel", None),
+                   ("#17", "rc1_bwd_kernel", False),
+                   ("#18", "rc1_bwd_kernel", True)),
+}
 
+
+def _final_flag(e) -> bool:
+    """Whether a device record's last template argument is ``true``."""
+    head = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+    if "<" not in head:
+        return False
+    args = head[head.index("<") + 1:head.rindex(">")]
+    return args.split(",")[-1].strip() == "true"
+
+
+def recompute_bwd_times(calls: int = 10, mode: str = "recompute") -> dict:
+    """The backward passes of a recompute mode (``recompute``: #13 and
+    #14; ``recompute1``: #17 and #18, on the stacks
+    ``samlp_single.fits`` admits): device ms a call (profiler, ``calls``
+    calls: each kernel of a call, its reduces included, by the mean of its
+    records, ``_once_ms``; profiled again where a record of the mode's
+    main kernel was dropped, launches a call printed by kernel) and
+    CUDA-event ms on each SSG clas stack's grouped input at B x N (seed-0
+    model; the plain chain's vectors, argmax and gradient means; bwd final
+    without dg on SA1, whose input is data), beside the operation bound
+    (``_rc_work``); and their sums over one SSG clas step (bwd stats at
+    every level of every stack, bwd final once a stack). Uses only public
+    functions, so it times a parent tree's package too."""
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+    from papc_tpu_torch.ops.kernels import samlp_single as s1
+
+    bwd_stats, bwd_final, kernel = {  # the wrappers, their device kernel
+        "recompute": (rc.rc_bwd_stats, rc.rc_bwd_final, "rc_bwd_kernel"),
+        "recompute1": (s1.rc1_bwd_stats, s1.rc1_bwd_final, "rc1_bwd_kernel"),
+    }[mode]
     total = {"bwd_stats": [0.0, 0.0, 0.0], "bwd_final": [0.0, 0.0, 0.0]}
     with torch.no_grad():
         for tag, mlp, grouped in _grouped_inputs("pointnet2_ssg", "clas",
@@ -2130,27 +2178,30 @@ def recompute_bwd_times(calls: int = 10) -> dict:
             b, s, k, c0 = grouped.shape
             m, n = b * s * k, len(mlp.features)
             cs = (c0,) + tuple(mlp.features)
+            if mode == "recompute1" and not s1.fits(
+                    m, k, c0, tuple(mlp.features)):
+                continue
             g2 = grouped.reshape(m, c0).to(torch.bfloat16)
             ws, bs, packed, vecs, dout, amax, mus = _rc_inputs(g2, mlp, k)
             runs = []
             for level in range(n, 0, -1):
                 runs.append(("bwd_stats", f"level {level}",
                              functools.partial(
-                                 rc.rc_bwd_stats, g2, dout, amax, vecs, ws,
-                                 bs, mus, level=level, k=k, w_packed=packed),
+                                 bwd_stats, g2, dout, amax, vecs, ws, bs,
+                                 mus, level=level, k=k, w_packed=packed),
                              _rc_work(m, cs, range(1, n + 1),
                                       range(level + 1, n + 1), ())))
             need_dg = tag != "SA1"
             runs.append(("bwd_final", "dg" if need_dg else "no dg",
                          functools.partial(
-                             rc.rc_bwd_final, g2, dout, amax, vecs, ws, bs,
-                             mus, k=k, w_packed=packed, need_dg=need_dg),
+                             bwd_final, g2, dout, amax, vecs, ws, bs, mus,
+                             k=k, w_packed=packed, need_dg=need_dg),
                          _rc_work(m, cs, range(1, n + 1),
                                   range(1 if need_dg else 2, n + 1),
                                   range(1, n + 1))))
             for kind, what, fn, work in runs:
-                device = _whole_events(fn, calls, ("rc_bwd_kernel",))
-                ms, ev = _call_ms(device, calls), cuda_ms(fn)
+                device = _whole_events(fn, calls, (kernel,))
+                ms, ev = _once_ms(device), cuda_ms(fn)
                 for i, v in enumerate((ms, ev, work * 1e3)):
                     total[kind][i] += v
                 print(f"    {kind:<9} {tag} {m}x{c0}->"
@@ -2159,36 +2210,36 @@ def recompute_bwd_times(calls: int = 10) -> dict:
                       f"bound {work * 1e3:.4f} ms; by kernel: "
                       + _by_kernel(device, calls))
     for kind, (ms, ev, bound) in total.items():
-        print(f"    {kind} over one SSG clas step: device {ms:.4f} ms, "
-              f"events {ev:.4f} ms, bound {bound:.4f} ms "
+        print(f"    {mode} {kind} over one SSG clas step: device {ms:.4f} "
+              f"ms, events {ev:.4f} ms, bound {bound:.4f} ms "
               f"({ms / bound:.1f}x)")
     return total
 
 
-def recompute_steps(steps: int = 5) -> dict:
+def recompute_steps(steps: int = 5, mode: str = "recompute") -> dict:
     """``train_step`` of SSG clas and MSG seg under
-    ``override(mode="recompute")`` from seed-0 weights on one batch of B
-    x N: the peak device memory of one step after a warm-up step (the
-    previous model collected first), step ms
-    (CUDA events, median of 10), device busy ms a step over ``steps``
-    steps and its share of the synchronized wall, and the device ms a
-    step of #13's and #14's main kernels (``rc_bwd_kernel`` by its
-    kFinal flag) and of their other kernels. Uses only public functions,
-    so it measures a parent tree's package too."""
+    ``override(mode=mode)`` from seed-0 weights on one batch of B x N: the
+    peak device memory of one step after a warm-up step (the previous
+    model collected first), step ms (CUDA events, median of 10), device
+    busy ms a step over ``steps`` steps and its share of the synchronized
+    wall, and the device ms a step of the mode's recompute kernels
+    (``STEP_KERNELS``: the forward passes' main kernels and the backward
+    kernel by its bwd-final flag). Uses only public functions, so it
+    measures a parent tree's package too."""
     from papc_tpu_torch.models import init_model
     from papc_tpu_torch.ops import fused_mlp
     from papc_tpu_torch.train import make_optimizer, train_step
 
     out = {}
     dev = torch.device("cuda")
-    for name, mode in (("pointnet2_ssg", "clas"), ("pointnet2_msg", "seg")):
+    for name, task in (("pointnet2_ssg", "clas"), ("pointnet2_msg", "seg")):
         gc.collect()  # the previous model's tensors out of the peak
-        with fused_mlp.override(mode="recompute"):
-            model = init_model(name, mode, NUM_CLASSES, seed=0,
+        with fused_mlp.override(mode=mode):
+            model = init_model(name, task, NUM_CLASSES, seed=0,
                                device=dev).model
             opt = make_optimizer(model.parameters(), 1e-3, 1e-3)
-            batch = next(iter(_loader(B, mode, seed=2)()))._asdict()
-            masks = _dropout_masks(mode)
+            batch = next(iter(_loader(B, task, seed=2)()))._asdict()
+            masks = _dropout_masks(task)
 
             def step():
                 return train_step(model, opt, batch, dev,
@@ -2203,17 +2254,18 @@ def recompute_steps(steps: int = 5) -> dict:
             ms = cuda_ms(step, reps=10)
             device, wall_us = _device_events(step, steps)
         busy = sum(e.time_range.elapsed_us() for e in device) / steps / 1e3
-        rc_ms = {"#13": 0.0, "#14": 0.0}
-        for e in device:
-            if _base_name(e) == "rc_bwd_kernel":
-                key = "#14" if "true>" in e.name else "#13"
-                rc_ms[key] += e.time_range.elapsed_us() / steps / 1e3
+        rows = {}
+        for row, kname, final in STEP_KERNELS[mode]:
+            rows[row] = sum(
+                e.time_range.elapsed_us() for e in device
+                if _base_name(e) == kname
+                and (final is None or _final_flag(e) == final)) / steps / 1e3
         share = 100 * busy * 1e3 * steps / wall_us
-        print(f"    {name} {mode} recompute step: {ms:.3f} ms (events), "
+        print(f"    {name} {task} {mode} step: {ms:.3f} ms (events), "
               f"busy {busy:.3f} ms a step ({share:.1f} % of the wall), peak "
-              f"{peak:.3f} GB; rc_bwd_kernel #13 {rc_ms['#13']:.4f} + #14 "
-              f"{rc_ms['#14']:.4f} device ms a step")
-        out[(name, mode)] = {"ms": ms, "busy": busy, "peak": peak, **rc_ms}
+              f"{peak:.3f} GB; device ms a step: "
+              + ", ".join(f"{row} {v:.4f}" for row, v in rows.items()))
+        out[(name, task)] = {"ms": ms, "busy": busy, "peak": peak, **rows}
         del model, opt, step, device
     return out
 
@@ -2258,6 +2310,10 @@ def phase_single(smi, rows, steps):
             "pointnet2_ssg", "clas", SSG_STACKS[:2]), single=True)
         _recompute_pass_checks(rows, _grouped_inputs(
             "pointnet2_msg", "seg", MSG_SEG_SA1), single=True, record=False)
+    print("[13 single-launch bwd times] #17 and #18 by SSG stack, device ms "
+          f"a call (profiler) beside the bound ({smi})")
+    recompute_bwd_times(mode="recompute1")
+    recompute_steps(mode="recompute1")
     for key, tag in [(("pointnet2_ssg", "clas"), "[13 recompute1 SSG clas]"),
                      (("pointnet2_msg", "seg"), "[13 recompute1 MSG seg]")]:
         steps[key]["recompute1"] = phase_training(

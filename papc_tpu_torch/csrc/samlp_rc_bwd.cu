@@ -43,7 +43,7 @@ PAPC_EXPORT int papc_samlp_rc_bwd_stats(
   for (int j = level + 1; j <= n_layers; ++j)
     if (st.mu[j] == nullptr) return cudaErrorInvalidValue;
   Layout l;
-  if (!make_layout(l, st, tm, stages, 0, a_smem, kDwNone, level, sched,
+  if (!make_layout(l, st, tm, stages, 0, a_smem, 0, kDwNone, level, sched,
                    nprod, false) ||
       !plan_ok(tm, stages, blocks, l) ||
       (!a_smem && l.a_row > 0 && a_scratch == nullptr))
@@ -85,8 +85,8 @@ PAPC_EXPORT int papc_samlp_rc_bwd_final(
       nprod > 0 && sched != nullptr && sched[3 * (nprod - 1)] == 1 &&
       sched[3 * (nprod - 1) + 1] == 1;
   if (walk_to_1 != (dg != nullptr) ||
-      !make_layout(l, st, tm, stages, dw_mode != kDwRows, a_smem, dw_mode,
-                   0, sched, nprod, dg != nullptr))
+      !make_layout(l, st, tm, stages, dw_mode != kDwRows, a_smem, 0,
+                   dw_mode, 0, sched, nprod, dg != nullptr))
     return cudaErrorInvalidValue;
   const int tiles = (m + tm - 1) / tm;
   const int m_pad = tiles * tm;

@@ -17,9 +17,11 @@
 // Replaces: papc_tpu/ops/pallas/samlp.py::recompute_bwd_stats
 // (_rc_bwd_stats_kernel, #13) and ::recompute_bwd_final
 // (_rc_bwd_final_kernel, #14), the backward of fused_mlp's "recompute"
-// mode. Numeric contract kept from them and their twins
-// (fused_mlp._jnp_chain_bwd, _jnp_rc_bwd_stats, _jnp_rc_bwd_final; here
-// ops/kernels/samlp_recompute.py::chain_bwd_plain): only the operands of
+// mode. Its tile body (bwd_tiles) also runs the single-launch passes #17
+// and #18 (samlp_single_bwd.cu, mode "recompute1"). Numeric contract kept
+// from them and their twins (fused_mlp._jnp_chain_bwd, _jnp_rc_bwd_stats,
+// _jnp_rc_bwd_final; here ops/kernels/samlp_recompute.py::
+// chain_bwd_plain): only the operands of
 // the products are rounded to bf16 (h, da); a, dy, da, the sums, dW, db
 // and dg are f32; every gate, x-hat and da uses the _rn intrinsics op for
 // op as the plain version.
@@ -34,8 +36,9 @@
 // m16n8k16, f32 accumulators in registers on 32 x 64 warp tiles):
 //  - One persistent block of 8 warps an SM walks row tiles of tm = 128,
 //    64 or 32 rows (the plan, ops/kernels/samlp_recompute.py::bwd_plan:
-//    the largest that fits and still gives every SM a tile). Warps tile
-//    tm x chunk outputs as tm / 32 row warps by 8 / (tm / 32) column
+//    the largest that fits and still gives every SM a tile): #13 / #14
+//    take tiles b, b + grid, ...; #17 / #18 one contiguous range of whole
+//    groups a block. Warps tile tm x chunk outputs as tm / 32 row warps by 8 / (tm / 32) column
 //    warps, chunk = 64 columns a column warp. The plan also gives the
 //    tile's products in order (the chain forward, then the walk down) and
 //    how each product's last chunk is split over the column warps; the
@@ -47,8 +50,12 @@
 //    ldmatrix.trans as stored), the walk down dhp = da_j . W_j^T
 //    (mma_slice<true>, W's [Cin][Cout] rows as the [n][k] operand) and
 //    dW_j += h_{j-1}^T . da_j (mma_slice_at, h read transposed from its
-//    rows). The W_j stream through ONE cp.async ring of k-slices (ks = 32
-//    rows, 16 at tm = 32; 4 stages, 3 or 2 where shared memory is short:
+//    rows). Where the plan says so (w_res, #17 / #18 only) the block
+//    stages W_1 .. W_n once in the ring's place, rows skewed as the
+//    ring's, and a product reads its slices there (one barrier a product
+//    instead of one a step). Else the W_j stream through ONE cp.async
+//    ring of k-slices (ks = 32 rows, 16 at tm = 32; 4 stages, 3 or 2
+//    where shared memory is short:
 //    only the slot mode at SA3 widths and 524 288 rows; a card test holds
 //    3 and 2 stages bit for bit against 4 at every tested stack)
 //    whose step sequence runs over all products of a tile and on into the
@@ -92,8 +99,13 @@
 //    split_reduce launch adds them (bwd stats: the level's two sums; bwd
 //    final: every dW and db) in a fixed order, so repeated runs give the
 //    same bits. Launches a call: bwd stats 2, bwd final 2 (3 with kDwRows).
-//    The entries are in samlp_rc_bwd.cu; this header holds the tile body
-//    for the kernels that build on it.
+//    (#17 / #18 add them in the same launch after a grid barrier.)
+//    The entries are in samlp_rc_bwd.cu; this header holds the pieces
+//    the four kernels share (zero_sums, bwd_tiles, write_block_partials).
+//    Moving the tile loop into bwd_tiles kept #13 / #14's code as it was:
+//    a per-tile function with the ring's state in a struct, or the B
+//    operand picked before the product, made them 3-6 % slower on the
+//    card.
 //
 // What a tile's time went to (a clock64 probe of a scratch copy, not
 // kept; NVIDIA H100 80GB HBM3): with one block of 8 warps an SM, every
@@ -145,10 +157,12 @@ struct Layout {
   int level;          // bwd stats' level; 0 in bwd final
   int dw;             // DwMode
   int a_smem;         // f32 a_j in shared memory, else in a_scr
+  int w_res;          // W_j resident in shared memory (no ring)
   int ld[kMaxLayers + 1];      // bf16 row stride of layer i's buffers
   unsigned h[kMaxLayers + 1];  // byte offset of h_i (i < n)
   unsigned d[kMaxLayers + 1];  // byte offset of da_j (j >= 1)
   unsigned a[kMaxLayers + 1];  // byte offset of f32 a_j (j < n), a_smem
+  unsigned w[kMaxLayers + 1];  // byte offset of resident W_j, w_res
   int a_off[kMaxLayers + 1];   // a_j's floats before it in a scratch row
   int a_row;                   // floats of a_1 .. a_{n-1} a row
   int db_off[kMaxLayers + 2];  // db_j's columns before it (p_1 + ..)
@@ -162,11 +176,13 @@ struct Layout {
 // The layout of one block (ops/kernels/samlp_recompute.py::bwd_smem_bytes
 // computes the same bytes) and its products from the plan's schedule
 // (bwd_plan's "prods": layer, walk, span each). Regions start on 128
-// bytes. False on a schedule the kernel cannot run without leaving its
-// buffers: a layer out of range, a walk from layer 1 with no dg to write
-// or below bwd stats' level, a span not in 16..64 by 16.
+// bytes. With w_res, W_1 .. W_n take the ring's place, each [p_{j-1}]
+// rows of p_j + kSkew (stages is then 0). False on a schedule the kernel
+// cannot run without leaving its buffers: a layer out of range, a walk
+// from layer 1 with no dg to write or below bwd stats' level, a span not
+// in 16..64 by 16.
 inline bool make_layout(Layout& l, const Chain& st, int tm, int stages,
-                        int keep_h, int a_smem, int dw, int level,
+                        int keep_h, int a_smem, int w_res, int dw, int level,
                         const int* sched, int nprod, bool dg) {
   l = Layout{};
   const int n = st.n;
@@ -179,6 +195,7 @@ inline bool make_layout(Layout& l, const Chain& st, int tm, int stages,
   l.level = level;
   l.dw = dw;
   l.a_smem = a_smem;
+  l.w_res = w_res;
   unsigned off = 0;
   if (keep_h) {
     for (int i = 0; i <= n; ++i) {
@@ -211,7 +228,15 @@ inline bool make_layout(Layout& l, const Chain& st, int tm, int stages,
   const int walk_stage = l.chunk * (l.ks + kSkew);
   l.stage_elems = fwd_stage > walk_stage ? fwd_stage : walk_stage;
   l.ring = off;
-  off += round128(static_cast<size_t>(stages) * l.stage_elems * 2);
+  if (w_res) {
+    for (int j = 1; j <= n; ++j) {
+      l.w[j] = off;
+      off += round128(static_cast<size_t>(st.p[j - 1]) * (st.p[j] + kSkew) *
+                      2);
+    }
+  } else {
+    off += round128(static_cast<size_t>(stages) * l.stage_elems * 2);
+  }
   l.sums = off;
   for (int j = 1; j <= n; ++j) {
     l.db_off[j + 1] = l.db_off[j] + st.p[j];
@@ -277,14 +302,25 @@ __device__ __forceinline__ void issue(const Chain& st, const Layout& l,
                            p.kdim, p.ndim, l.ks, l.chunk, cur);
 }
 
-// The tile's g2 rows into h_0 (row stride ld): one 16-byte-aligned span
-// (rows start at multiples of 32) read as 16-byte chunks and placed 8
-// elements at a time; zero in the channel padding and below the last
-// row.
-__device__ inline void load_input(const Chain& st, int row0, int tm,
+// w_res: every W_j into its skewed rows, once a block (ends with a block
+// barrier).
+__device__ inline void stage_weights(const Chain& st, const Layout& l,
+                                     unsigned char* smem) {
+  for (int j = 1; j <= st.n; ++j)
+    mma::load_tile_async(at<bf16>(smem, l.w[j]), st.p[j] + kSkew, st.w[j],
+                         st.p[j], st.p[j - 1], st.p[j]);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+}
+
+// The tile's g2 rows [row0, row0 + rows) into h_0 (row stride ld); zero
+// in the channel padding and below the last row. Where the rows start on
+// 16 bytes (row0 a multiple of 8) they are read as 16-byte chunks and
+// placed 8 elements at a time, else element by element.
+__device__ inline void load_input(const Chain& st, int row0, int rows, int tm,
                                   bf16* h0, int ld) {
   const int c0 = st.c[0], p0 = st.p[0];
-  const int rows = min(tm, st.m - row0);
   const bf16 zero = __float2bfloat16_rn(0.f);
   const int padc = p0 - c0;
   for (int e = threadIdx.x; e < tm * padc; e += blockDim.x) {
@@ -381,41 +417,63 @@ __device__ __forceinline__ float da_of(float dy, float xhat, const Cols& c,
                                          __fmul_rn(xhat, c.mu1[e])));
 }
 
-// Grid: persistent blocks. kFinal false: bwd stats at l.level; true: bwd
-// final (dg when outs.dg is not null).
+// The block's per-row-warp sums (kFinal false: bwd stats' level, [rw][2]
+// [p_level]; true: every db, [rw][p_1 + .. + p_n]) set to zero.
 template <bool kFinal>
-static __global__ void __launch_bounds__(kThreads, 1)
-    rc_bwd_kernel(Chain st, Layout l, Outs o) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int n = st.n, m = st.m, k = st.k, tm = l.tm;
+__device__ __forceinline__ void zero_sums(const Chain& st, const Layout& l,
+                                          unsigned char* smem) {
+  float* sums = at<float>(smem, l.sums);
+  const int nsums =
+      kFinal ? l.rw * l.db_off[st.n + 1] : l.rw * 2 * st.p[l.level];
+  for (int e = threadIdx.x; e < nsums; e += blockDim.x) sums[e] = 0.f;
+}
+
+// log2(k) where k is a power of two, else -1.
+__device__ __forceinline__ int group_shift(int k) {
+  return (k & (k - 1)) == 0 ? __ffs(k) - 1 : -1;
+}
+
+// A block's row tiles: tile i covers [first_row + i * row_step, + tm),
+// its rows from row_end on carrying dy = da = 0 (row_end: M for #13 /
+// #14, the end of the block's range for #17 / #18). Each tile: the input
+// rows and its groups' cotangent rows, the chain forward, the max's
+// cotangent, the walk down and, in bwd final, dW by the layout's mode
+// (stored on the block's first tile, added on later ones). kFinal false:
+// bwd stats at l.level (its sums into the shared per-row-warp sums);
+// true: bwd final (db there, dg when o.dg is not null). The weights come
+// from the ring, whose steps run over the tiles, or, kResident, from the
+// block's resident copy (stage_weights). Ends with a block barrier, the
+// ring drained.
+template <bool kFinal, bool kResident>
+__device__ __forceinline__ void bwd_tiles(const Chain& st, const Layout& l,
+                                          const Outs& o, unsigned char* smem,
+                                          int first_row, int row_step,
+                                          int tiles, int row_end) {
+  const int n = st.n, k = st.k, tm = l.tm;
   const int tid = threadIdx.x, warp = tid >> 5;
   const int wr = warp / l.cw, wc = warp % l.cw;
   bf16* ring = at<bf16>(smem, l.ring);
   float* sums = at<float>(smem, l.sums);
-  const int nsums =
-      kFinal ? l.rw * l.db_off[n + 1] : l.rw * 2 * st.p[l.level];
-  for (int e = tid; e < nsums; e += blockDim.x) sums[e] = 0.f;
-  const int tiles = (m + tm - 1) / tm;
-  const int my_tiles = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
-  const int total = my_tiles * l.steps;
+  const int total = kResident ? 0 : tiles * l.steps;
   float* a_blk = o.a_scr + static_cast<size_t>(blockIdx.x) * tm * l.a_row;
   const int* cot_a = at<int>(smem, l.cot);
   const float* cot_d = at<float>(smem, l.cot + l.cot_f);
-  int k_shift = -1;  // log2(k) where k is a power of two
-  if ((k & (k - 1)) == 0) k_shift = __ffs(k) - 1;
+  const int k_shift = group_shift(k);
 
   // the ring: steps t + 1 .. t + stages - 1 in flight while step t runs
   mma::RingCursor load_at;
-  for (int i = 0; i < l.stages - 1; ++i) {
-    if (i < total) {
-      issue(st, l, load_at, ring + i * l.stage_elems);
-      advance(l, load_at);
+  if (!kResident) {
+    for (int i = 0; i < l.stages - 1; ++i) {
+      if (i < total) {
+        issue(st, l, load_at, ring + i * l.stage_elems);
+        advance(l, load_at);
+      }
+      mma::cp_async_commit();
     }
-    mma::cp_async_commit();
   }
   int t = 0;
   // step t's slice, once it landed and every warp is done with step t - 1
-  auto next_stage = [&]() -> const bf16* {
+  auto ring_next = [&]() -> const bf16* {
     if (l.stages == 4)
       mma::cp_async_wait<2>();
     else if (l.stages == 3)
@@ -427,7 +485,7 @@ static __global__ void __launch_bounds__(kThreads, 1)
   };
   // then, after step t's products, step t + stages - 1 into the stage that
   // step t - 1 used (free since the barrier)
-  auto refill = [&]() {
+  auto ring_refill = [&]() {
     if (t + l.stages - 1 < total) {
       issue(st, l, load_at,
             ring + ((t + l.stages - 1) % l.stages) * l.stage_elems);
@@ -513,15 +571,14 @@ static __global__ void __launch_bounds__(kThreads, 1)
   }
 
   mma::WarpTile acc;
-  for (int tile = blockIdx.x, ti = 0; tile < tiles;
-       tile += gridDim.x, ++ti) {
-    const int row0 = tile * tm;
+  for (int ti = 0; ti < tiles; ++ti) {
+    const int row0 = first_row + ti * row_step;
     __syncthreads();  // the previous tile is done with every buffer
     bf16* h0 = at<bf16>(smem, l.h[0]);
     const int g_first = row0 / k;
     {  // the tile's groups' amax and dout rows, one contiguous span each
       const int cn = st.c[n];
-      const int cnt = ((min(row0 + tm, m) - 1) / k - g_first + 1) * cn;
+      const int cnt = ((min(row0 + tm, row_end) - 1) / k - g_first + 1) * cn;
       const size_t src = static_cast<size_t>(g_first) * cn;
       int* am = at<int>(smem, l.cot);
       float* dv = at<float>(smem, l.cot + l.cot_f);
@@ -531,7 +588,7 @@ static __global__ void __launch_bounds__(kThreads, 1)
         dv[e] = __ldg(o.dout + src + e);
       }
     }
-    load_input(st, row0, tm, h0, l.ld[0]);
+    load_input(st, row0, min(tm, row_end - row0), tm, h0, l.ld[0]);
     if (kFinal && l.dw == kDwRows) {
       __syncthreads();
       bf16* dst = o.rows + rows_off[0] + static_cast<size_t>(row0) * st.p[0];
@@ -554,9 +611,14 @@ static __global__ void __launch_bounds__(kThreads, 1)
           dw_tile(j, ti == 0);
         }
       }
+      // with no ring step to wait for, one barrier a product: the previous
+      // product's outputs (and dW_j's reads of h_{j-1}) are complete
+      if (kResident) __syncthreads();
       // A operand: h_{j-1} forward, da_j walking down
       const bf16* a_buf = at<bf16>(smem, p.walk ? l.d[j] : l.h[j - 1]);
       const int lda = l.ld[p.walk ? j : j - 1];
+      const bf16* w_res = kResident ? at<bf16>(smem, l.w[j]) : nullptr;
+      const int ldw = st.p[j] + kSkew;
       const int chunks = (p.ndim + l.chunk - 1) / l.chunk;
       const int slices = (p.kdim + l.ks - 1) / l.ks;
       for (int c = 0; c < chunks; ++c) {
@@ -568,7 +630,23 @@ static __global__ void __launch_bounds__(kThreads, 1)
         const int pairs = max(0, min(span, width - col0)) / 16;
         mma::zero(acc);
         for (int s = 0; s < slices; ++s) {
-          const bf16* stage = next_stage();
+          if (kResident) {
+            if (pairs > 0) {
+              const int ksteps = min(l.ks, p.kdim - s * l.ks) / 16;
+              const bf16* a_ptr = a_buf + wr * 32 * lda + s * l.ks;
+              if (!p.walk)
+                mma::mma_slice(acc, a_ptr, lda,
+                               w_res + s * l.ks * ldw + c * l.chunk + col0,
+                               ldw, ksteps, pairs);
+              else
+                mma::mma_slice<true>(
+                    acc, a_ptr, lda,
+                    w_res + (c * l.chunk + col0) * ldw + s * l.ks, ldw,
+                    ksteps, pairs);
+            }
+            continue;
+          }
+          const bf16* stage = ring_next();
           if (pairs > 0) {
             const int ksteps = min(l.ks, p.kdim - s * l.ks) / 16;
             const bf16* a_ptr = a_buf + wr * 32 * lda + s * l.ks;
@@ -580,7 +658,7 @@ static __global__ void __launch_bounds__(kThreads, 1)
                                    stage + col0 * (l.ks + kSkew),
                                    l.ks + kSkew, ksteps, pairs);
           }
-          refill();
+          ring_refill();
         }
         if (pairs == 0) continue;
         const int cbase = c * l.chunk + col0;  // the warp's first column
@@ -632,7 +710,7 @@ static __global__ void __launch_bounds__(kThreads, 1)
               acc, pairs, [](int) { return 0; },
               [&](int r, int col, int, float v0, float v1) {
                 const int row = row0 + rbase + r, cc = cbase + col;
-                if (row >= m) return;
+                if (row >= row_end) return;
                 float* dst = o.dg + static_cast<size_t>(row) * c0 + cc;
                 if (cc < c0) dst[0] = v0;
                 if (cc + 1 < c0) dst[1] = v1;
@@ -660,7 +738,8 @@ static __global__ void __launch_bounds__(kThreads, 1)
         // the terms of the sums of one element pair: (dy, dy * xhat) at
         // bwd stats' level, else (da, 0) with da written as the next
         // product's operand; straight-line code (loads at padded
-        // addresses, then selects), rows past M and columns past c_i 0
+        // addresses, then selects), rows from row_end on and columns past
+        // c_i 0
         auto terms = [&](auto top, auto level, int r, int col, const Cols& cp,
                          float v0, float v1) {
           constexpr bool kTop = decltype(top)::value;
@@ -685,7 +764,7 @@ static __global__ void __launch_bounds__(kThreads, 1)
           float d[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const bool valid = row < m && cc + e < ci;
+            const bool valid = row < row_end && cc + e < ci;
             const bool open = affine(a[e], cp.scale[e], cp.shift[e]) > 0.f;
             float dy;
             if constexpr (kTop) {
@@ -765,8 +844,20 @@ static __global__ void __launch_bounds__(kThreads, 1)
   }
   mma::cp_async_wait<0>();
   __syncthreads();
+}
 
-  // the block's partials: its row warps' sums in order, and its dW
+// The block's partials, after its last tile and a block barrier: its row
+// warps' sums in order (bwd stats: the level's two sums into part[block]
+// [2][p_level]; bwd final: every db into part[block][p_1 + .. + p_n]) and
+// in bwd final its dW: the on-chip dW into its slot, or zero into the slot
+// of a block that had no rows (any false).
+template <bool kFinal>
+__device__ __forceinline__ void write_block_partials(const Chain& st,
+                                                     const Layout& l,
+                                                     unsigned char* smem,
+                                                     const Outs& o, bool any) {
+  const int tid = threadIdx.x;
+  const float* sums = at<float>(smem, l.sums);
   if (!kFinal) {
     const int pl = st.p[l.level];
     float* dst = o.part + static_cast<size_t>(blockIdx.x) * 2 * pl;
@@ -777,6 +868,7 @@ static __global__ void __launch_bounds__(kThreads, 1)
     }
     return;
   }
+  const int n = st.n;
   const int tot = l.db_off[n + 1];
   float* dst = o.part + static_cast<size_t>(blockIdx.x) * tot;
   for (int e = tid; e < tot; e += blockDim.x) {
@@ -784,16 +876,32 @@ static __global__ void __launch_bounds__(kThreads, 1)
     for (int r = 1; r < l.rw; ++r) s += sums[r * tot + e];
     dst[e] = s;
   }
-  if (l.dw == kDwSmem) {
+  if (l.dw == kDwSmem || (!any && l.dw == kDwSlot)) {
     const float* dws = at<float>(smem, l.dwo);
     for (int j = 1; j <= n; ++j) {
       const size_t cnt = static_cast<size_t>(st.p[j - 1]) * st.p[j];
       const float4* src = reinterpret_cast<const float4*>(dws + l.dw_off[j]);
       float4* out = reinterpret_cast<float4*>(
           o.dw_part + l.dw_off[j] * gridDim.x + blockIdx.x * cnt);
-      for (size_t e = tid; e < cnt / 4; e += blockDim.x) out[e] = src[e];
+      for (size_t e = tid; e < cnt / 4; e += blockDim.x)
+        out[e] = any ? src[e] : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
+}
+
+// #13 / #14. Grid: persistent blocks, block b taking tiles b, b + grid,
+// ... kFinal false: bwd stats at l.level; true: bwd final (dg when o.dg
+// is not null). A split_reduce launch adds the partials.
+template <bool kFinal>
+static __global__ void __launch_bounds__(kThreads, 1)
+    rc_bwd_kernel(Chain st, Layout l, Outs o) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  zero_sums<kFinal>(st, l, smem);
+  const int tiles = (st.m + l.tm - 1) / l.tm;
+  const int my_tiles = (tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  bwd_tiles<kFinal, false>(st, l, o, smem, blockIdx.x * l.tm,
+                           gridDim.x * l.tm, my_tiles, st.m);
+  write_block_partials<kFinal>(st, l, smem, o, true);
 }
 
 // kDwRows: dW_j = h_{j-1}^T . da_j over all m_pad rows from the bf16 rows
@@ -874,10 +982,12 @@ static __global__ void __launch_bounds__(kThreads, 2)
                      });
 }
 
+// A plan the kernels take: a ring of 2-4 stages, or none (stages 0) with
+// the weights resident.
 inline bool plan_ok(int tm, int stages, int blocks, const Layout& l) {
-  return (tm == 32 || tm == 64 || tm == 128) && stages >= 2 &&
-         stages <= 4 && blocks > 0 &&
-         l.bytes <= static_cast<unsigned>(kSmemLimit);
+  return (tm == 32 || tm == 64 || tm == 128) &&
+         (l.w_res ? stages == 0 : stages >= 2 && stages <= 4) &&
+         blocks > 0 && l.bytes <= static_cast<unsigned>(kSmemLimit);
 }
 
 }  // namespace samlp_rcb

@@ -47,7 +47,7 @@ __global__ void __launch_bounds__(samlp_rc::kWarps * 32)
   const int tiles = (ch.m + l.tm - 1) / l.tm;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int row0 = t * l.tm;
-    samlp_rc::hidden_layers<RF>(ch, l, smem, row0, upto, false);
+    samlp_rc::hidden_layers<RF>(ch, l, smem, row0, upto);
     samlp_rc::stats_product<RF>(ch, l, smem, row0, ch.m, upto, colsum);
   }
   __syncthreads();
@@ -67,7 +67,7 @@ __global__ void __launch_bounds__(samlp_rc::kWarps * 32)
   for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
     const int row0 = t * l.tm;
     const int g0 = row0 / k;
-    samlp_rc::hidden_layers<RF>(ch, l, smem, row0, n, false);
+    samlp_rc::hidden_layers<RF>(ch, l, smem, row0, n);
     samlp_rc::final_pool<RF>(ch, l, smem, row0, ch.m, g0, pooled);
     __syncthreads();
     for (int e = threadIdx.x; e < l.gpt * c; e += blockDim.x) {
@@ -113,7 +113,7 @@ PAPC_EXPORT int papc_samlp_rc_stats(const void* g2, int m, int c0,
                             nullptr) ||
       upto < 1 || upto > n_layers || blocks <= 0)
     return cudaErrorInvalidValue;
-  const Layout l = samlp_rc::make_layout(samlp_rc::kStats, ch, tm, upto, 0);
+  const Layout l = samlp_rc::make_layout(samlp_rc::kStats, ch, tm, upto);
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t err = samlp_rc::with_row_frags(tm, [&](auto rf) {
     return papc_launch(rc_stats_kernel<decltype(rf)::value>, dim3(blocks),
@@ -142,7 +142,7 @@ PAPC_EXPORT int papc_samlp_rc_final(const void* g2, int m, int c0, int k,
       blocks <= 0)
     return cudaErrorInvalidValue;
   const Layout l =
-      samlp_rc::make_layout(samlp_rc::kFinal, ch, tm, n_layers, 0);
+      samlp_rc::make_layout(samlp_rc::kFinal, ch, tm, n_layers);
   const auto s = static_cast<cudaStream_t>(stream);
   const long long total = static_cast<long long>(m / k) * ch.c[n_layers];
   auto* key = static_cast<unsigned long long*>(keys);

@@ -1,34 +1,33 @@
-// Shared pieces of the single-launch recompute passes (#15-18:
-// samlp_single_fwd.cu stats and final max, samlp_single_bwd.cu bwd stats
-// and bwd final), the counterparts of papc_tpu/ops/pallas/samlp_single.py.
+// Shared pieces of the single-launch recompute passes (#15-18), the
+// counterparts of papc_tpu/ops/pallas/samlp_single.py: each pass is ONE
+// cooperative launch of persistent 8-warp blocks, as many as the card
+// holds at once (launch_cooperative), each block walking one contiguous
+// range of rows cut at group boundaries (block_rows: at k rows; 8 for the
+// stats pass, which has no groups), and after a grid barrier the same
+// launch adds the blocks' partials, each output element by one thread in
+// block order (grid_sum): the same bits every run. A range never splits a
+// group, so the max pass needs no merge across blocks: a group's key is
+// carried from tile to tile inside the block.
 //
-// They compute what the grid recompute passes (#11-14) compute, with the
-// same per-tile bodies (samlp_recompute.cuh), but each pass is ONE
-// cooperative launch of one persistent 8-warp block per SM slot (as many
-// as the plan's shared memory lets the card hold at once):
+// The forward passes (samlp_single_fwd.cu: stats, final max) run the wmma
+// per-tile bodies of the grid passes #11 and #12 (samlp_recompute.cuh) and
+// use the rest of this header:
 // - the block stages the pass's constants once: bf16 packed weights,
-//   biases, BN vectors and gradient means, so no product reads a weight
+//   biases and BN vectors (stage_constants), so no product reads a weight
 //   fragment from device memory or L2;
-// - it walks one contiguous range of rows, cut at group boundaries (at
-//   k rows; 8 for the stats pass, which has no groups), in tiles of tm
-//   rows; while tile t computes, tile t+1's g2 rows (and in the backward
-//   its groups' dout / amax rows) are in flight with cp.async into the
-//   second of two buffers;
-// - its sums stay in shared memory across its tiles (and dW where the plan
-//   holds it there; else in the block's own slot in device memory) and are
-//   written once;
-// - after a grid barrier the same launch adds the blocks' partials, each
-//   output element by one thread in block order: the same bits every run.
-// A range never splits a group, so the max pass needs no merge across
-// blocks: a group's key is carried from tile to tile inside the block.
+// - it walks its range in tiles of tm rows (walk_tiles); while tile t
+//   computes, tile t+1's g2 rows are in flight with cp.async into the
+//   second of two buffers; its sums stay in shared memory across its
+//   tiles and are written once.
+// The backward passes (samlp_single_bwd.cu) run #13 and #14's tile body
+// (samlp_rc_bwd.cuh) and take block_rows, grid_sum and the launch.
 //
-// Shared memory, after the tile chain's regions (samlp_rc::make_layout),
-// each region on a 128-byte boundary (ops/kernels/samlp_single.py::
-// smem_bytes computes the same bytes): W_1 .. W_n bf16 [p_{j-1}, p_j];
-// bias_j f32 [c_j]; vec_j f32 [rows, c_j] (2 rows forward, 4 backward;
-// the stats pass at level l stages the l-1 known ones); backward: mu_j f32
-// [2, c_j]; two g2 buffers of tm * c_0 bf16; backward: two dout and two
-// amax buffers of gpt * c_n; bwd final with dw_on_chip: dW_1 .. dW_n f32.
+// Shared memory of a forward pass, after the tile chain's regions
+// (samlp_rc::make_layout), each region on a 128-byte boundary
+// (ops/kernels/samlp_single.py::smem_bytes computes the same bytes): W_1
+// .. W_n bf16 [p_{j-1}, p_j]; bias_j f32 [c_j]; vec_j f32 [2, c_j] (the
+// stats pass at level l stages the l-1 known ones); two g2 buffers of tm *
+// c_0 bf16.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -49,24 +48,18 @@ using samlp_rc::round128;
 
 struct Single {
   Layout l;         // the tile chain's regions
-  int nv, vrows;    // vectors staged (layers 1..nv) and their rows
+  int nv;           // vectors staged (layers 1..nv), rows scale and shift
   int unit;         // rows a range is cut at
-  int dw_on_chip;   // bwd final: dW kept in shared memory
-  unsigned w[kMaxLayers + 1], bias[kMaxLayers + 1], vec[kMaxLayers + 1],
-      mu[kMaxLayers + 1];
-  unsigned in[2], dout[2], amax[2], dw, bytes;
+  unsigned w[kMaxLayers + 1], bias[kMaxLayers + 1], vec[kMaxLayers + 1];
+  unsigned in[2], bytes;
 };
 
 // n: the layers the pass runs (upto for the stats pass).
-inline Single make_single(Pass pass, const Chain& ch, int tm, int n,
-                          int level, bool dw_on_chip) {
+inline Single make_single(Pass pass, const Chain& ch, int tm, int n) {
   Single s{};
-  s.l = samlp_rc::make_layout(pass, ch, tm, n, level);
-  const bool bwd = pass == samlp_rc::kBwdStats || pass == samlp_rc::kBwdFinal;
+  s.l = samlp_rc::make_layout(pass, ch, tm, n);
   s.nv = pass == samlp_rc::kStats ? n - 1 : n;
-  s.vrows = bwd ? 4 : 2;
   s.unit = pass == samlp_rc::kStats ? 8 : ch.k;
-  s.dw_on_chip = pass == samlp_rc::kBwdFinal && dw_on_chip;
   unsigned off = round128(s.l.bytes);
   for (int j = 1; j <= n; ++j) {
     s.w[j] = off;
@@ -78,32 +71,12 @@ inline Single make_single(Pass pass, const Chain& ch, int tm, int n,
   }
   for (int j = 1; j <= s.nv; ++j) {
     s.vec[j] = off;
-    off += round128(static_cast<size_t>(s.vrows) * ch.c[j] * 4);
-  }
-  if (bwd) {
-    for (int j = 1; j <= n; ++j) {
-      s.mu[j] = off;
-      off += round128(static_cast<size_t>(2) * ch.c[j] * 4);
-    }
+    off += round128(static_cast<size_t>(2) * ch.c[j] * 4);
   }
   const unsigned in_bytes = round128(static_cast<size_t>(tm) * ch.c[0] * 2);
   for (int b = 0; b < 2; ++b) {
     s.in[b] = off;
     off += in_bytes;
-  }
-  if (bwd) {
-    const unsigned cot = round128(static_cast<size_t>(s.l.gpt) * ch.c[n] * 4);
-    for (int b = 0; b < 2; ++b) {
-      s.dout[b] = off;
-      off += cot;
-      s.amax[b] = off;
-      off += cot;
-    }
-  }
-  if (s.dw_on_chip) {
-    s.dw = off;
-    for (int j = 1; j <= n; ++j)
-      off += static_cast<unsigned>(ch.p[j - 1]) * ch.p[j] * 4;
   }
   s.bytes = off;
   return s;
@@ -124,13 +97,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -141,7 +107,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Copies the pass's constants into shared memory once; sc is ch with its
-// weight, bias, vector and gradient-mean pointers moved there.
+// weight, bias and vector pointers moved there.
 __device__ inline void stage_constants(const Chain& ch, const Single& s,
                                        int n, unsigned char* smem,
                                        Chain& sc) {
@@ -158,15 +124,9 @@ __device__ inline void stage_constants(const Chain& ch, const Single& s,
     sc.bias[j] = bias;
     if (j <= s.nv) {
       float* vec = at<float>(smem, s.vec[j]);
-      for (int e = threadIdx.x; e < s.vrows * ch.c[j]; e += blockDim.x)
+      for (int e = threadIdx.x; e < 2 * ch.c[j]; e += blockDim.x)
         vec[e] = ch.vec[j][e];
       sc.vec[j] = vec;
-    }
-    if (s.mu[j] != 0 && ch.mu[j] != nullptr) {
-      float* mu = at<float>(smem, s.mu[j]);
-      for (int e = threadIdx.x; e < 2 * ch.c[j]; e += blockDim.x)
-        mu[e] = ch.mu[j][e];
-      sc.mu[j] = mu;
     }
   }
 }
@@ -227,29 +187,12 @@ __device__ inline void unpack_input(const Chain& ch, const Single& s,
   }
 }
 
-// dout and amax rows of groups g0 .. g0 + groups - 1 into buffer `buf`.
-__device__ inline void fetch_cotangent(const Single& s, unsigned char* smem,
-                                       int buf, const float* dout,
-                                       const int* amax, int c, int g0,
-                                       int groups) {
-  float* dd = at<float>(smem, s.dout[buf]);
-  int* da = at<int>(smem, s.amax[buf]);
-  const size_t base = static_cast<size_t>(g0) * c;
-  for (int e = threadIdx.x; e < groups * c; e += blockDim.x) {
-    cp_async4(dd + e, dout + base + e);
-    cp_async4(da + e, amax + base + e);
-  }
-}
-
-// Walks the block's range tile by tile with the next tile's copies in
-// flight: body(row0, end, buf) runs with h_0 in place (after a block
-// barrier) and, when dout is given, the tile's cotangent rows in buffer
-// buf (group g at (g - row0 / k) * c_n). Ends with a block barrier.
-// Returns whether the block had any rows.
+// Walks the block's range tile by tile with the next tile's g2 rows in
+// flight: body(row0, end) runs with h_0 in place (after a block barrier).
+// Ends with a block barrier.
 template <typename Body>
-__device__ bool walk_tiles(const Chain& ch, const Single& s,
-                           unsigned char* smem, const float* dout,
-                           const int* amax, Body body) {
+__device__ void walk_tiles(const Chain& ch, const Single& s,
+                           unsigned char* smem, Body body) {
   int begin, end;
   block_rows(ch.m, s.unit, begin, end);
   const int tm = s.l.tm;
@@ -257,11 +200,6 @@ __device__ bool walk_tiles(const Chain& ch, const Single& s,
   auto fetch = [&](int i) {
     const int row0 = begin + i * tm, rows = min(tm, end - row0);
     fetch_input(ch, s, smem, i & 1, row0, rows);
-    if (dout != nullptr) {
-      const int g0 = row0 / ch.k, g1 = (row0 + rows - 1) / ch.k;
-      fetch_cotangent(s, smem, i & 1, dout, amax, ch.c[ch.n], g0,
-                      g1 - g0 + 1);
-    }
   };
   if (tiles > 0) fetch(0);
   cp_async_commit();
@@ -273,25 +211,34 @@ __device__ bool walk_tiles(const Chain& ch, const Single& s,
     const int row0 = begin + i * tm;
     unpack_input(ch, s, smem, i & 1, row0, min(tm, end - row0));
     __syncthreads();
-    body(row0, end, i & 1);
+    body(row0, end);
     __syncthreads();  // buffer i & 1 is free for tile i + 2
   }
   cp_async_wait<0>();
   __syncthreads();  // also orders the caller's set-up before what follows
-  return tiles > 0;
 }
 
 // After the grid barrier: out[r * cols + c] = sum over the blocks i, in
-// order, of part[i * stride + r * ld + c], each element by one thread.
+// order, of part[i * stride + r * ld + c], each element by one thread,
+// eight blocks' loads issued before they are added in order.
 __device__ inline void grid_sum(const float* part, size_t stride, int rows,
                                 int cols, int ld, float* out) {
   const int total = rows * cols;
+  const unsigned blocks = gridDim.x;
   for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += gridDim.x * blockDim.x) {
     const int r = e / cols, c = e - r * cols;
     const float* src = part + static_cast<size_t>(r) * ld + c;
     float acc = 0.f;
-    for (unsigned i = 0; i < gridDim.x; ++i) acc += __ldcg(src + i * stride);
+    unsigned i = 0;
+    for (; i + 8 <= blocks; i += 8) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = __ldcg(src + (i + u) * stride);
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc += v[u];
+    }
+    for (; i < blocks; ++i) acc += __ldcg(src + i * stride);
     out[e] = acc;
   }
 }

@@ -1,8 +1,8 @@
 // The two backward passes of fused_mlp's "recompute1" mode, each ONE
-// cooperative launch (samlp_single.cuh). Each re-derives the chain a_1 ..
-// a_n from g2 and walks the cotangent down in f32 from the max, computing
-// what the grid passes #13 and #14 (samlp_rc_bwd.cuh) compute, with the
-// wmma per-tile body samlp_rc::bwd_tile (samlp_recompute.cuh):
+// cooperative launch. Each re-derives the chain a_1 .. a_n from g2 and
+// walks the cotangent down in f32 from the max, computing what the grid
+// passes #13 and #14 compute, on their tile body (samlp_rc_bwd.cuh:
+// bwd_tiles, on the mma.sync core of samlp_mma.cuh):
 //   bwd stats (level l): s_l = (sum dy_l, sum dy_l * xhat_l) [2, c_l];
 //   bwd final: dW_j = bf16(h_{j-1})^T . bf16(da_j), db_j = sum da_j for
 //     every layer, and dg = dhp at j = 1 (f32, no gate), only if asked.
@@ -10,111 +10,95 @@
 // Replaces: papc_tpu/ops/pallas/samlp_single.py::recompute_bwd_stats (#17)
 // and ::recompute_bwd_final (#18). Numeric contract kept from them: only
 // the operands of the products are rounded to bf16 (h, da); a, dy, da,
-// the sums, dW, db and dg are f32.
+// the sums, dW, db and dg are f32; every gate, x-hat and da uses the _rn
+// intrinsics op for op as the plain version.
 //
 // What bounds them on the H100: the tensor-core products, the forward chain
-// again plus the walk down; device memory sees g2, dout and amax once, the
-// weights once a block, dg, and dW's per-block partials.
+// again plus the walk down (and dW in bwd final), then the f32 epilogues;
+// device memory sees g2, dout and amax once, the weights once a block (or
+// once a tile through the ring), dg, and the per-block partials.
 //
-// Design: one persistent block per SM slot stages the weights, biases, BN
-// vectors and gradient means once and walks its contiguous range of rows
-// (cut at group bounds), with the next tile's g2 rows and its groups' dout
-// and amax rows in flight (cp.async). Column sums stay in shared memory
-// across the block's tiles. dW is a sum over all M rows: where the plan
-// has room (ops/kernels/samlp_single.py::plan, dw_on_chip) the block keeps
-// its f32 dW in shared memory and writes it once; else it accumulates into
-// its own slot in device memory tile by tile (SSG SA2: 270 KB a block).
-// After a grid barrier the launch adds the blocks' partials (sums, db, dW)
-// in block order, so repeated runs give the same bits.
+// Design: one persistent block of 8 warps an SM (the grid the card holds
+// at once, at most the plan's blocks). Each block takes one contiguous
+// range of whole groups (samlp_single::block_rows, cut at the plan's
+// unit: k rows, or a multiple of k where k groups of g2 would not start on
+// 16 bytes) and runs bwd_tiles on it, tile after tile from its start
+// (the plan, ops/kernels/samlp_single.py::bwd_plan: #13 / #14's row tile,
+// a_smem and dW choices; the rows mode is never taken). Where W_1 .. W_n
+// fit beside the tile at that tile size (SSG SA1, the MSG SA1 branches)
+// the block stages them once in the skewed rows the core's ldmatrix
+// loaders read, and the tile's products read them there with one barrier
+// a product; elsewhere they stream through #13 / #14's cp.async ring.
+// dW stays in shared memory where it fits (SSG SA1: 53 KB), else it is
+// added tile by tile into the block's slot in device memory (SSG SA2: 270
+// KB, about 16 tiles of 128 rows a block). After this_grid().sync() the
+// same launch adds the blocks' partials (the level's two sums; every dW
+// and db) element by element in block order: no reduce launch, no memset,
+// and repeated calls give the same bits.
+#include "samlp_rc_bwd.cuh"
 #include "samlp_single.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
-using samlp_rc::at;
-using samlp_rc::Chain;
-using samlp_rc::kMaxLayers;
-using samlp_rc::Layout;
-using samlp_single::Single;
+using namespace samlp_rcb;
 
 struct Grads {  // bwd final's outputs, layer j at index j - 1
   float* db[kMaxLayers];
   float* dw[kMaxLayers];
 };
 
-// kFinal false: the bwd stats pass at `level`: partials [blocks][2][p_level]
-// -> sums [2, c_level]. kFinal true: db partials as write_block_db, dW
-// partials [blocks][sum of p_{j-1} p_j] (layer j after the layers below
-// it) -> grads; dg written when not null.
-template <int RF, bool kFinal>
-__global__ void __launch_bounds__(samlp_rc::kWarps * 32)
-    rc1_bwd_kernel(Chain ch, Single s, int level,
-                   const float* __restrict__ dout,
-                   const int* __restrict__ amax, float* __restrict__ dg,
-                   float* __restrict__ dw_part, float* __restrict__ partials,
-                   float* __restrict__ sums_out, Grads grads) {
+// kFinal false: bwd stats at l.level, partials o.part [blocks][2][p_level]
+// -> sums [2, c_level]. kFinal true: db partials o.part [blocks][p_1 + ..
+// + p_n], dW partials o.dw_part (layer j at dw_off[j] * blocks) -> grads;
+// dg written when o.dg is not null. kResident: the weights staged once.
+// unit: the rows the block ranges are cut at.
+template <bool kResident, bool kFinal>
+__global__ void __launch_bounds__(kThreads, 1)
+    rc1_bwd_kernel(Chain st, Layout l, int unit, Outs o,
+                   float* __restrict__ sums, Grads grads) {
   extern __shared__ __align__(128) unsigned char smem[];
-  Chain sc;
-  samlp_single::stage_constants(ch, s, ch.n, smem, sc);
-  const Layout& l = s.l;
-  const int n = ch.n, rb = l.row_blocks;
-  size_t dw_total = 0;
-  for (int j = 1; j <= n; ++j)
-    dw_total += static_cast<size_t>(ch.p[j - 1]) * ch.p[j];
-  float* dw_block = dw_part + blockIdx.x * dw_total;
-  float* dw_acc = s.dw_on_chip ? at<float>(smem, s.dw) : dw_block;
-  float* slot[kMaxLayers + 1] = {};
-  for (int j = 1, off = 0; j <= n; ++j) {
-    slot[j] = dw_acc + off;
-    off += ch.p[j - 1] * ch.p[j];
-  }
-  int total = 0;
-  for (int j = 1; j <= n; ++j) total += ch.p[j];
-  float* sums = at<float>(smem, l.sums);
-  const int nsums = kFinal ? rb * total : rb * 2 * ch.p[level];
-  for (int e = threadIdx.x; e < nsums; e += blockDim.x) sums[e] = 0.f;
-  bool first = true;
-  const bool any = samlp_single::walk_tiles(
-      sc, s, smem, dout, amax, [&](int row0, int end, int buf) {
-        samlp_rc::run_hidden<RF>(sc, l, smem, n, true);
-        samlp_rc::bwd_tile<RF, kFinal>(
-            sc, l, smem, row0, end, level, at<float>(smem, s.dout[buf]),
-            at<int>(smem, s.amax[buf]), row0 / ch.k, dg, slot, first);
-        first = false;
-      });
+  zero_sums<kFinal>(st, l, smem);
+  if (kResident) stage_weights(st, l, smem);
+  int begin, end;
+  samlp_single::block_rows(st.m, unit, begin, end);
+  const int tiles = end > begin ? (end - begin + l.tm - 1) / l.tm : 0;
+  bwd_tiles<kFinal, kResident>(st, l, o, smem, begin, l.tm, tiles, end);
+  write_block_partials<kFinal>(st, l, smem, o, tiles > 0);
+  cg::this_grid().sync();
+  const int n = st.n;
   if (!kFinal) {
-    samlp_train::write_block_sums(sums, rb, ch.p[level], partials);
-    cg::this_grid().sync();
-    samlp_single::grid_sum(partials, 2 * static_cast<size_t>(ch.p[level]),
-                           2, ch.c[level], ch.p[level], sums_out);
+    const int pl = st.p[l.level];
+    samlp_single::grid_sum(o.part, 2 * static_cast<size_t>(pl), 2,
+                           st.c[l.level], pl, sums);
     return;
   }
-  samlp_rc::write_block_db(ch, l, smem, partials);
-  if (!any) {  // a block without rows adds a zero dW
-    for (size_t e = threadIdx.x; e < dw_total; e += blockDim.x)
-      dw_block[e] = 0.f;
-  } else if (s.dw_on_chip) {
-    for (size_t e = threadIdx.x; e < dw_total; e += blockDim.x)
-      dw_block[e] = dw_acc[e];
-  }
-  cg::this_grid().sync();
-  size_t off = 0, db_off = 0;
   for (int j = 1; j <= n; ++j) {
-    samlp_single::grid_sum(dw_part + off, dw_total, ch.c[j - 1], ch.c[j],
-                           ch.p[j], grads.dw[j - 1]);
-    samlp_single::grid_sum(partials + db_off * gridDim.x, ch.p[j], 1,
-                           ch.c[j], ch.p[j], grads.db[j - 1]);
-    off += static_cast<size_t>(ch.p[j - 1]) * ch.p[j];
-    db_off += ch.p[j];
+    samlp_single::grid_sum(o.dw_part + l.dw_off[j] * gridDim.x,
+                           static_cast<size_t>(st.p[j - 1]) * st.p[j],
+                           st.c[j - 1], st.c[j], st.p[j], grads.dw[j - 1]);
+    samlp_single::grid_sum(o.part + l.db_off[j], l.db_off[n + 1], 1, st.c[j],
+                           st.p[j], grads.db[j - 1]);
   }
 }
 
-bool bwd_args_ok(int tm, int max_blocks, const float* const* mu, int n,
-                 int level) {
-  if (max_blocks <= 0 || mu == nullptr) return false;
-  for (int j = level + 1; j <= n; ++j)
-    if (mu[j - 1] == nullptr) return false;
-  return tm == 16 || tm == 32 || tm == 64 || tm == 128;
+// Whether the plan's unit cuts block ranges at whole groups whose g2 rows
+// start on 16 bytes (bwd_tiles reads the input rows in 16-byte pieces).
+bool unit_ok(const Chain& st, int unit) {
+  return unit > 0 && unit % st.k == 0 &&
+         static_cast<long long>(unit) * st.c[0] % 8 == 0;
+}
+
+template <bool kFinal>
+cudaError_t launch(const Layout& l, int unit, int max_blocks,
+                   cudaStream_t s, const Chain& st, const Outs& o,
+                   float* sums, const Grads& grads) {
+  return l.w_res ? samlp_single::launch_cooperative(
+                       rc1_bwd_kernel<true, kFinal>, max_blocks, l.bytes, s,
+                       st, l, unit, o, sums, grads)
+                 : samlp_single::launch_cooperative(
+                       rc1_bwd_kernel<false, kFinal>, max_blocks, l.bytes, s,
+                       st, l, unit, o, sums, grads);
 }
 
 }  // namespace
@@ -123,63 +107,81 @@ bool bwd_args_ok(int tm, int max_blocks, const float* const* mu, int n,
 // width c_j, w packed bf16 [pad16(c_{j-1}), pad16(c_j)] (16-byte aligned),
 // bias f32 [c_j], vec f32 [4, c_j] (scale, shift, mean, inv_std), mu f32
 // [2, c_j] (sums / M of the stats passes; read above `level` only, may be
-// null below); dout f32 and amax i32 [M/k, c_n]. level: 1-based. tm: rows
-// per tile (16, 32, 64, 128); max_blocks: the most blocks the launch may
-// take. -> partials [max_blocks, 2, pad16(c_level)] (scratch), sums
-// [2, c_level] f32 (sum dy, sum dy * xhat at the level).
+// null below); dout f32 and amax i32 [M/k, c_n]. level: 1-based. The plan
+// (ops/kernels/samlp_single.py::bwd_plan): tm rows a tile (32, 64, 128),
+// ring stages (2-4, or 0 with w_res: the weights resident), a_smem (else
+// a_scratch [max_blocks, tm, p_1 + .. + p_{n-1}] f32), max_blocks (the
+// most blocks the launch may take; it takes as many as the card holds at
+// once), unit (the rows block ranges are cut at: a multiple of k with unit
+// * c0 a multiple of 8) and the tile's nprod products, (layer, walk, span)
+// each in sched.
+// -> partials [max_blocks, 2, pad16(c_level)] (scratch), sums [2, c_level]
+//    f32 (sum dy, sum dy * xhat at the level).
 PAPC_EXPORT int papc_samlp_rc1_bwd_stats(
     const void* g2, int m, int c0, int k, int n_layers, int level,
     const int* widths, const void* const* w, const float* const* bias,
     const float* const* vec, const float* const* mu, const float* dout,
-    const int* amax, int tm, int max_blocks, float* partials, float* sums,
-    void* stream) {
-  Chain ch;
-  if (!samlp_rc::make_chain(ch, g2, m, k, c0, n_layers, widths, w, bias, vec,
+    const int* amax, int tm, int stages, int a_smem, int w_res,
+    int max_blocks, int unit, const int* sched, int nprod,
+    float* a_scratch, float* partials, float* sums, void* stream) {
+  Chain st;
+  if (!samlp_rc::make_chain(st, g2, m, k, c0, n_layers, widths, w, bias, vec,
                             mu) ||
-      level < 1 || level > n_layers ||
-      !bwd_args_ok(tm, max_blocks, mu, n_layers, level))
+      level < 1 || level > n_layers)
     return cudaErrorInvalidValue;
-  if (!samlp_single::aligned16(ch)) return cudaErrorMisalignedAddress;
-  const Single s = samlp_single::make_single(samlp_rc::kBwdStats, ch, tm,
-                                             n_layers, level, false);
-  const auto st = static_cast<cudaStream_t>(stream);
-  return samlp_rc::with_row_frags(tm, [&](auto rf) {
-    return samlp_single::launch_cooperative(
-        rc1_bwd_kernel<decltype(rf)::value, false>, max_blocks, s.bytes, st,
-        ch, s, level, dout, amax, static_cast<float*>(nullptr),
-        static_cast<float*>(nullptr), partials, sums, Grads{});
-  });
+  for (int j = level + 1; j <= n_layers; ++j)
+    if (st.mu[j] == nullptr) return cudaErrorInvalidValue;
+  if (!samlp_single::aligned16(st)) return cudaErrorMisalignedAddress;
+  Layout l;
+  if (!make_layout(l, st, tm, stages, 0, a_smem, w_res, kDwNone, level,
+                   sched, nprod, false) ||
+      !plan_ok(tm, stages, max_blocks, l) || !unit_ok(st, unit) ||
+      (!a_smem && l.a_row > 0 && a_scratch == nullptr))
+    return cudaErrorInvalidValue;
+  const Outs o{dout, amax, nullptr, a_scratch, nullptr, 0, partials, nullptr};
+  return launch<false>(l, unit, max_blocks,
+                       static_cast<cudaStream_t>(stream), st, o, sums,
+                       Grads{});
 }
 
-// As papc_samlp_rc1_bwd_stats with every mu given. dw_on_chip: the plan's
-// choice (1: dW in shared memory). Scratch: db_part [sum of pad16(c_j)] x
-// max_blocks f32, dw_part [sum of pad16(c_{j-1}) * pad16(c_j)] x max_blocks
-// f32. -> db[j] [c_j], dw[j] [c_{j-1}, c_j] f32 per layer, and dg [M, C0]
-// f32 when dg is not null.
+// As papc_samlp_rc1_bwd_stats with every mu given (sched walking down to
+// layer 1 exactly when dg is asked for), and the plan's dW mode (1 in
+// shared memory, 2 a slot a block). Scratch: db_part [max_blocks, p_1 +
+// .. + p_n] f32; dw_part: layer j's [max_blocks, p_{j-1}, p_j] f32 one
+// after the other. -> db[j] [c_j], dw[j] [c_{j-1}, c_j] f32 per layer,
+// and dg [M, C0] f32 when dg is not null.
 PAPC_EXPORT int papc_samlp_rc1_bwd_final(
     const void* g2, int m, int c0, int k, int n_layers, const int* widths,
     const void* const* w, const float* const* bias, const float* const* vec,
     const float* const* mu, const float* dout, const int* amax, int tm,
-    int max_blocks, int dw_on_chip, float* db_part, float* dw_part,
-    float* const* db, float* const* dw, float* dg, void* stream) {
-  Chain ch;
-  if (!samlp_rc::make_chain(ch, g2, m, k, c0, n_layers, widths, w, bias, vec,
+    int stages, int a_smem, int w_res, int dw_mode, int max_blocks,
+    int unit, const int* sched, int nprod, float* a_scratch, float* db_part,
+    float* dw_part, float* const* db, float* const* dw, float* dg,
+    void* stream) {
+  Chain st;
+  if (!samlp_rc::make_chain(st, g2, m, k, c0, n_layers, widths, w, bias, vec,
                             mu) ||
-      !bwd_args_ok(tm, max_blocks, mu, n_layers, 0))
+      (dw_mode != kDwSmem && dw_mode != kDwSlot))
     return cudaErrorInvalidValue;
-  if (!samlp_single::aligned16(ch)) return cudaErrorMisalignedAddress;
-  const Single s = samlp_single::make_single(samlp_rc::kBwdFinal, ch, tm,
-                                             n_layers, 0, dw_on_chip != 0);
+  for (int j = 1; j <= n_layers; ++j)
+    if (st.mu[j] == nullptr) return cudaErrorInvalidValue;
+  if (!samlp_single::aligned16(st)) return cudaErrorMisalignedAddress;
+  Layout l;
+  const bool walk_to_1 =
+      nprod > 0 && sched != nullptr && sched[3 * (nprod - 1)] == 1 &&
+      sched[3 * (nprod - 1) + 1] == 1;
+  if (walk_to_1 != (dg != nullptr) ||
+      !make_layout(l, st, tm, stages, 1, a_smem, w_res, dw_mode, 0, sched,
+                   nprod, dg != nullptr) ||
+      !plan_ok(tm, stages, max_blocks, l) || !unit_ok(st, unit) ||
+      (!a_smem && l.a_row > 0 && a_scratch == nullptr))
+    return cudaErrorInvalidValue;
   Grads grads{};
   for (int j = 0; j < n_layers; ++j) {
     grads.db[j] = db[j];
     grads.dw[j] = dw[j];
   }
-  const auto st = static_cast<cudaStream_t>(stream);
-  return samlp_rc::with_row_frags(tm, [&](auto rf) {
-    return samlp_single::launch_cooperative(
-        rc1_bwd_kernel<decltype(rf)::value, true>, max_blocks, s.bytes, st,
-        ch, s, 0, dout, amax, dg, dw_part, db_part,
-        static_cast<float*>(nullptr), grads);
-  });
+  const Outs o{dout, amax, dg, a_scratch, nullptr, 0, db_part, dw_part};
+  return launch<true>(l, unit, max_blocks, static_cast<cudaStream_t>(stream),
+                      st, o, nullptr, grads);
 }

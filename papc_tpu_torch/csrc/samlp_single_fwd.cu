@@ -47,13 +47,10 @@ __global__ void __launch_bounds__(samlp_rc::kWarps * 32)
   const int p = ch.p[upto];
   for (int e = threadIdx.x; e < l.row_blocks * 2 * p; e += blockDim.x)
     colsum[e] = 0.f;
-  samlp_single::walk_tiles(sc, s, smem, nullptr, nullptr,
-                           [&](int row0, int end, int) {
-                             samlp_rc::run_hidden<RF>(sc, l, smem, upto,
-                                                      false);
-                             samlp_rc::stats_product<RF>(sc, l, smem, row0,
-                                                         end, upto, colsum);
-                           });
+  samlp_single::walk_tiles(sc, s, smem, [&](int row0, int end) {
+    samlp_rc::run_hidden<RF>(sc, l, smem, upto);
+    samlp_rc::stats_product<RF>(sc, l, smem, row0, end, upto, colsum);
+  });
   samlp_train::write_block_sums(colsum, l.row_blocks, p, partials);
   cg::this_grid().sync();
   samlp_single::grid_sum(partials, 2 * static_cast<size_t>(p), 2,
@@ -72,9 +69,9 @@ __global__ void __launch_bounds__(samlp_rc::kWarps * 32)
   const int n = ch.n, k = ch.k, c = ch.c[n], p = ch.p[n];
   for (int e = threadIdx.x; e < l.gpt * p; e += blockDim.x) pooled[e] = 0ull;
   samlp_single::walk_tiles(
-      sc, s, smem, nullptr, nullptr, [&](int row0, int end, int) {
+      sc, s, smem, [&](int row0, int end) {
         const int g0 = row0 / k;
-        samlp_rc::run_hidden<RF>(sc, l, smem, n, false);
+        samlp_rc::run_hidden<RF>(sc, l, smem, n);
         samlp_rc::final_pool<RF>(sc, l, smem, row0, end, g0, pooled);
         __syncthreads();
         const int stop = min(row0 + l.tm, end);
@@ -124,7 +121,7 @@ PAPC_EXPORT int papc_samlp_rc1_stats(const void* g2, int m, int c0,
     return cudaErrorInvalidValue;
   if (!samlp_single::aligned16(ch)) return cudaErrorMisalignedAddress;
   const Single s =
-      samlp_single::make_single(samlp_rc::kStats, ch, tm, upto, 0, false);
+      samlp_single::make_single(samlp_rc::kStats, ch, tm, upto);
   const auto st = static_cast<cudaStream_t>(stream);
   return samlp_rc::with_row_frags(tm, [&](auto rf) {
     return samlp_single::launch_cooperative(
@@ -150,8 +147,8 @@ PAPC_EXPORT int papc_samlp_rc1_final(const void* g2, int m, int c0, int k,
       max_blocks <= 0)
     return cudaErrorInvalidValue;
   if (!samlp_single::aligned16(ch)) return cudaErrorMisalignedAddress;
-  const Single s = samlp_single::make_single(samlp_rc::kFinal, ch, tm,
-                                             n_layers, 0, false);
+  const Single s =
+      samlp_single::make_single(samlp_rc::kFinal, ch, tm, n_layers);
   const auto st = static_cast<cudaStream_t>(stream);
   return samlp_rc::with_row_frags(tm, [&](auto rf) {
     return samlp_single::launch_cooperative(

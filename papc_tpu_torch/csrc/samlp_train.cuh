@@ -3,20 +3,19 @@
 // samlp_rc_bwd.cu, and the wmma recompute passes through
 // samlp_recompute.cuh).
 //
-// rows_times_matrix (the product of #11, #12 and #15-18, through
+// rows_times_matrix (the product of #11, #12, #15 and #16, through
 // samlp_recompute.cuh): a tile of 16 * RF * row_blocks rows (bf16, in
 // shared or device memory) times a bf16 matrix
 // held in device memory, on tensor cores (nvcuda::wmma m16n16k16, f32
 // accumulators): each warp takes units of 16 * RF rows x 16 columns (RF =
 // 4 unless the tile is smaller) and loads every weight fragment once for
 // RF row fragments. The epilogue is called once per element with (row in
-// tile, column, f32 product) and returns two values, the first kSums of
-// which are added to that column's sums, kept per unit row in shared
-// memory. A unit always belongs to the same warp (unit u -> warp u % 8),
+// tile, column, f32 product) and returns two values, which are added to
+// that column's two sums, kept per unit row in shared memory. A unit always belongs to the same warp (unit u -> warp u % 8),
 // so every column sum is formed in a fixed order, and repeated runs give
 // the same bits.
 //
-// reduce_partials (#11, #12, #15-18): out[r, c] = sum over i < n of
+// reduce_partials (#11): out[r, c] = sum over i < n of
 // part[i, r, c], one thread per output, in order of i. split_reduce
 // (samlp_linear_stats.cu, samlp_finalize_seed.cu, samlp_bwd_layer.cu,
 // samlp_rc_bwd.cu): the same sums, `lanes` lanes a column, each summing
@@ -27,8 +26,6 @@
 
 #include <cuda_bf16.h>
 #include <mma.h>
-
-#include <type_traits>
 
 #include "common.cuh"
 
@@ -58,17 +55,13 @@ __device__ __forceinline__ __nv_bfloat16 relu_affine(__nv_bfloat16 x,
   return __float2bfloat16_rn(v > 0.f ? v : 0.f);
 }
 
-// B is row-major [kdim, ldb] (kTransB false) or, for kTransB, the
-// transpose of a row-major [ncols, ldb] matrix. colsum: [row_blocks]
-// [kSums][ncols] f32 in shared memory, or null when the epilogue sums
-// nothing.
-template <bool kTransB, int RF = kRowFrags, int kSums = 2, typename Epilogue>
+// B is row-major [kdim, ldb]. colsum: [row_blocks][2][ncols] f32 in
+// shared memory, or null when the epilogue sums nothing.
+template <int RF = kRowFrags, typename Epilogue>
 __device__ void rows_times_matrix(const __nv_bfloat16* a, int lda, int kdim,
                                   const __nv_bfloat16* b, int ldb, int ncols,
                                   int row_blocks, float* scratch,
                                   float* colsum, Epilogue epi) {
-  using BLayout = typename std::conditional<kTransB, wmma::col_major,
-                                            wmma::row_major>::type;
   constexpr int kRows = 16 * RF;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -82,11 +75,11 @@ __device__ void rows_times_matrix(const __nv_bfloat16* a, int lda, int kdim,
 #pragma unroll
     for (int f = 0; f < RF; ++f) wmma::fill_fragment(acc[f], 0.f);
     for (int kk = 0; kk < kdim; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> bf;
-      const __nv_bfloat16* bp =
-          kTransB ? b + static_cast<size_t>(ct) * 16 * ldb + kk
-                  : b + static_cast<size_t>(kk) * ldb + ct * 16;
-      wmma::load_matrix_sync(bf, bp, ldb);
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major>
+          bf;
+      wmma::load_matrix_sync(bf, b + static_cast<size_t>(kk) * ldb + ct * 16,
+                             ldb);
 #pragma unroll
       for (int f = 0; f < RF; ++f) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
@@ -115,8 +108,8 @@ __device__ void rows_times_matrix(const __nv_bfloat16* a, int lda, int kdim,
       s1 += __shfl_down_sync(0xffffffffu, s1, 16);
       s2 += __shfl_down_sync(0xffffffffu, s2, 16);
       if (lane < 16) {
-        colsum[(rb * kSums) * ncols + ct * 16 + lane] += s1;
-        if (kSums == 2) colsum[(rb * 2 + 1) * ncols + ct * 16 + lane] += s2;
+        colsum[(rb * 2) * ncols + ct * 16 + lane] += s1;
+        colsum[(rb * 2 + 1) * ncols + ct * 16 + lane] += s2;
       }
     }
   }

@@ -53,7 +53,6 @@ RC_BWD_FINAL = Kernel("papc_samlp_rc_bwd_final",
 KERNELS = (RC_STATS, RC_FINAL, RC_BWD_STATS, RC_BWD_FINAL)
 
 MAX_LAYERS = 4
-PASSES = ("stats", "final", "bwd_stats", "bwd_final")
 _TILES = (128, 64, 32, 16)  # rows per tile, largest that fits first
 _SKEW = 8  # bf16 elements of padding per shared-memory row
 _WARPS = 8
@@ -171,27 +170,20 @@ def _r128(nbytes: int) -> int:
 
 
 def smem_bytes(kind: str, tm: int, k: int, c0: int, widths, *,
-               upto: int | None = None, level: int | None = None) -> int:
-    """Dynamic shared memory of one block of a pass at ``tm`` rows a
-    tile (``samlp_recompute.cuh::make_layout``, byte for byte)."""
+               upto: int | None = None) -> int:
+    """Dynamic shared memory of one block of a forward pass (#11, #12) at
+    ``tm`` rows a tile (``samlp_recompute.cuh::make_layout``, byte for
+    byte)."""
     p = [_pad(c0)] + [_pad(c) for c in widths]
     n = upto if kind == "stats" else len(widths)
     rb = max(1, tm // 64)
-    if kind in ("stats", "final"):
-        ld_x = max(p[i] + _SKEW for i in range(0, n, 2))
-        ld_y = max([p[i] + _SKEW for i in range(1, n, 2)], default=0)
-        total = _r128(tm * ld_x * 2) + _r128(tm * ld_y * 2)
-    else:  # h_0 .. h_{n-1}, da_n (bf16); a_1 .. a_{n-1} (f32)
-        total = sum(_r128(tm * (p[i] + _SKEW) * 2) for i in range(n + 1))
-        total += sum(_r128(tm * p[j] * 4) for j in range(1, n))
+    ld_x = max(p[i] + _SKEW for i in range(0, n, 2))
+    ld_y = max([p[i] + _SKEW for i in range(1, n, 2)], default=0)
+    total = _r128(tm * ld_x * 2) + _r128(tm * ld_y * 2)
     total += _WARPS * 256 * 4
     if kind == "stats":
         return total + rb * 2 * p[n] * 4
-    if kind == "final":  # pooled keys of the groups a tile touches
-        return total + (-(-tm // k) + 1) * p[n] * 8
-    if kind == "bwd_stats":
-        return total + rb * 2 * p[level] * 4
-    return total + rb * sum(p[1:]) * 4
+    return total + (-(-tm // k) + 1) * p[n] * 8  # pooled keys of the groups
 
 
 def plan(kind: str, m: int, k: int, c0: int, widths, limit: int, *,
@@ -230,14 +222,15 @@ def _bwd_shape(tm: int) -> tuple:
 def bwd_smem_bytes(kind: str, tm: int, k: int, c0: int, widths, *,
                    level: int | None = None, keep_h: bool = False,
                    a_smem: bool = True, dw_smem: bool = False,
-                   stages: int = 3) -> int:
-    """Dynamic shared memory of one block of #13 (``"bwd_stats"``) or #14
-    (``"bwd_final"``) at ``tm`` rows a tile (``csrc/samlp_rc_bwd.cu::
-    make_layout``, byte for byte): the bf16 h / da buffers (``keep_h``:
-    h_0 .. h_{n-1} and da_n; else two ping-pong regions), the f32 a_1 ..
-    a_{n-1} when ``a_smem``, the weight ring, the sums, with ``dw_smem``
-    every layer's f32 dW, and the amax and dout rows of the groups a tile
-    can touch."""
+                   stages: int = 3, w_res: bool = False) -> int:
+    """Dynamic shared memory of one block of #13 / #17 (``"bwd_stats"``)
+    or #14 / #18 (``"bwd_final"``) at ``tm`` rows a tile
+    (``csrc/samlp_rc_bwd.cuh::make_layout``, byte for byte): the bf16 h /
+    da buffers (``keep_h``: h_0 .. h_{n-1} and da_n; else two ping-pong
+    regions), the f32 a_1 .. a_{n-1} when ``a_smem``, the weight ring of
+    ``stages`` stages or, ``w_res``, every W_j resident in rows of
+    ``p_j + 8``, the sums, with ``dw_smem`` every layer's f32 dW, and the
+    amax and dout rows of the groups a tile can touch."""
     p = [_pad(c) for c in (c0, *widths)]
     n = len(widths)
     if keep_h:
@@ -248,8 +241,11 @@ def bwd_smem_bytes(kind: str, tm: int, k: int, c0: int, widths, *,
     if a_smem:
         total += sum(_r128(tm * (p[j] + _SKEW) * 4) for j in range(1, n))
     rw, chunk, ks = _bwd_shape(tm)
-    stage = max(ks * (chunk + _SKEW), chunk * (ks + _SKEW))
-    total += _r128(stages * stage * 2)
+    if w_res:
+        total += sum(_r128(a * (b + _SKEW) * 2) for a, b in zip(p, p[1:]))
+    else:
+        stage = max(ks * (chunk + _SKEW), chunk * (ks + _SKEW))
+        total += _r128(stages * stage * 2)
     cols = 2 * p[level] if kind == "bwd_stats" else sum(p[1:])
     total += _r128(rw * cols * 4)
     if dw_smem:
@@ -265,6 +261,18 @@ def _dw_splits(p, m_pad: int, sms: int) -> tuple:
     want = max(1, min(chunks, -(-2 * sms // tiles)))
     splits = -(-chunks // -(-chunks // want))
     return splits, -(-chunks // splits) * _DW_CHUNK
+
+
+def _bwd_candidates(kind: str, dw_modes=("smem", "rows", "slot")):
+    """``(dw, a_smem, tm, stages)`` in the order the backward plans try
+    them: 4 ring stages before 3 and 2, then the dW modes in order (none
+    in bwd stats), larger tiles first, the f32 a in shared memory before
+    device scratch."""
+    for stages in (4, 3, 2):
+        for dw in (None,) if kind == "bwd_stats" else dw_modes:
+            for tm in _BWD_TILES:
+                for a_smem in (True, False):
+                    yield dw, a_smem, tm, stages
 
 
 def _bwd_schedule(p, tm: int, stop: int) -> tuple:
@@ -309,15 +317,9 @@ def bwd_plan(kind: str, m: int, k: int, c0: int, widths: tuple, limit: int,
         raise ValueError(f"the kernels take 1..{MAX_LAYERS} layers, got {n}")
     p = [_pad(c) for c in (c0, *widths)]
     dw_floats = sum(a * b for a, b in zip(p, p[1:]))
-    cands = []
-    for stages in (4, 3, 2):
-        for dw in ((None,) if kind == "bwd_stats"
-                   else ("smem", "rows", "slot")):
-            cands += [(dw, a, tm, stages) for tm in _BWD_TILES
-                      for a in (True, False)]
     min_tiles = min(sms, -(-m // 32))
     smem = None
-    for dw, a_smem, tm, stages in cands:
+    for dw, a_smem, tm, stages in _bwd_candidates(kind):
         tiles = -(-m // tm)
         if tiles < min_tiles:
             continue

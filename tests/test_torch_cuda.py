@@ -1315,6 +1315,63 @@ def test_single_launch_is_one_device_kernel(device):
         assert len(kernels) == 1 and "rc1_" in kernels[0], (name, kernels)
 
 
+@pytest.mark.parametrize("groups,k,c0,widths", RC1_STACKS)
+def test_single_bwd_final_dg_is_grid_dg(device, groups, k, c0, widths):
+    """#18's dg equals #14's bit for bit where their plans take the same
+    row tile (every ``RC1_STACKS`` case): both run the one tile function
+    (``bwd_tile``), every dg element the same products in the same order,
+    whether W comes from #14's ring or #18's resident copy and wherever
+    the block ranges cut the tiles."""
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+    from papc_tpu_torch.ops.kernels import samlp_single as s1
+
+    g2, ws, bs, vecs, dout, amax, mus = _rc_stack(groups, k, c0, widths,
+                                                  device)
+    packed = [samlp_train.pack_weight(w) for w in ws]
+    assert (s1._bwd_plan_for("bwd_final", g2, k, widths)["tm"]
+            == rc._bwd_plan_for("bwd_final", g2, k, widths)["tm"])
+    args = (g2, dout, amax, vecs, ws, bs, mus)
+    got = s1.rc1_bwd_final(*args, k=k, w_packed=packed)[0]
+    want = rc.rc_bwd_final(*args, k=k, w_packed=packed)[0]
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("groups,k,c0,widths", [
+    (16384, 32, 3, (64, 64, 128)),      # SSG SA1 at B=32
+    (96, 16, 3, (32, 32, 64)),          # MSG clas SA1: K = 16
+    (9, 8, 20, (16, 16, 16, 32)),       # four layers
+])
+def test_single_bwd_resident_weights_keep_bits(device, monkeypatch, groups,
+                                               k, c0, widths):
+    """#17 and #18 with the weights through #13 / #14's 4-stage ring at
+    stacks whose plan keeps them resident give the resident run's bits
+    (sums, dg, dW, db): residency changes only where a product reads W."""
+    from papc_tpu_torch.ops.kernels import samlp_single as s1
+
+    g2, ws, bs, vecs, dout, amax, mus = _rc_stack(groups, k, c0, widths,
+                                                  device)
+    n = len(widths)
+    packed = [samlp_train.pack_weight(w) for w in ws]
+    args = (g2, dout, amax, vecs, ws, bs, mus)
+
+    def run():
+        sums = [s1.rc1_bwd_stats(*args, level=lv, k=k, w_packed=packed)
+                for lv in range(n, 0, -1)]
+        dg, dws, dbs = s1.rc1_bwd_final(*args, k=k, w_packed=packed)
+        return [*sums, dg, *dws, *dbs]
+
+    plan_for = s1._bwd_plan_for
+    assert all(plan_for("bwd_stats", g2, k, widths, level=lv)["w_res"]
+               for lv in range(1, n + 1))
+    assert plan_for("bwd_final", g2, k, widths)["w_res"]
+    want = run()
+    monkeypatch.setattr(s1, "_bwd_plan_for",
+                        lambda *a, **kw: {**plan_for(*a, **kw),
+                                          "w_res": False, "stages": 4})
+    for a, b in zip(run(), want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
 def test_training_step_under_recompute1_runs_its_kernels(device):
     """A reduced SSG train step under ``override(mode="recompute1")``:
     #15-18 launched 6/2/6/2 (SA1 and SA2, three layers each), the stream

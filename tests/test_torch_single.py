@@ -180,13 +180,26 @@ GATES = {
 }
 
 
+def _bwd_plans(m, k, c0, w):
+    """#17 at every level and #18's plans of a stack: ``(kind, level,
+    plan)``."""
+    w = tuple(w)
+    return ([("bwd_stats", lv, samlp_single.bwd_plan(
+                "bwd_stats", m, k, c0, w, samlp_single.SMEM_LIMIT, level=lv))
+             for lv in range(1, len(w) + 1)]
+            + [("bwd_final", None, samlp_single.bwd_plan(
+                "bwd_final", m, k, c0, w, samlp_single.SMEM_LIMIT))])
+
+
 @pytest.mark.parametrize("combo", registry.registry_combos(),
                          ids=lambda c: "-".join(c))
 def test_recompute1_gate_of_every_stack(combo):
     """Every registry stack's gate decision at B=32 x 1024, the JAX
     package's and the port's, pinned (``GATES``); every admitted stack's
-    plans fit the H100's shared memory, and SSG SA1's bwd final keeps dW
-    on chip where SA2's keeps it in device memory."""
+    backward plans fit the H100's shared memory (the bytes of
+    ``samlp_recompute.bwd_smem_bytes`` for the plan's own choices), and
+    SSG SA1's bwd final keeps dW on chip where SA2's keeps it in a slot a
+    block in device memory."""
     spec = registry.init_model(*combo, device="cpu")
     got = [(jsingle.fits(m, k, c0, list(w)), samlp_single.fits(m, k, c0, w))
            for _, m, k, c0, w in P.stack_shapes(spec.model)]
@@ -196,13 +209,100 @@ def test_recompute1_gate_of_every_stack(combo):
             "recompute1" if port else "stream")
         if not port:
             continue
-        pl = samlp_single.plan("bwd_final", m, k, c0, w,
-                               samlp_single.SMEM_LIMIT)
-        assert pl["smem"] <= samlp_single.SMEM_LIMIT
-        assert pl["smem"] == samlp_single.smem_bytes(
-            "bwd_final", pl["tm"], k, c0, w, dw_on_chip=pl["dw_on_chip"])
+        for kind, lv, pl in _bwd_plans(m, k, c0, w):
+            assert pl["smem"] <= samlp_single.SMEM_LIMIT
+            assert pl["smem"] == rc.bwd_smem_bytes(
+                kind, pl["tm"], k, c0, w, level=lv,
+                keep_h=pl["dw"] is not None, a_smem=pl["a_smem"],
+                dw_smem=pl["dw"] == "smem", stages=pl["stages"],
+                w_res=pl["w_res"])
         if combo == ("pointnet2_ssg", "clas"):
-            assert pl["dw_on_chip"] == (c0 == 3)
+            assert (pl["dw"] == "smem") == (c0 == 3)
+
+
+@pytest.mark.parametrize("combo", registry.registry_combos(),
+                         ids=lambda c: "-".join(c))
+def test_single_bwd_plans_of_every_admitted_stack(combo):
+    """At every stack the gate admits (B=32 x 1024), #17 at every level
+    and #18 have a plan within 232 448 B: #13 / #14's tile or a larger one
+    (residency never costs tile rows), dW on chip or in a slot (never from
+    the rows, a second kernel), a ring of 2-4 stages or the weights
+    resident (stages 0), one block an SM at most and a group at least
+    each, and a product table that walks down to the pass's last layer."""
+    spec = registry.init_model(*combo, device="cpu")
+    for _, m, k, c0, w in P.stack_shapes(spec.model):
+        if not samlp_single.fits(m, k, c0, w):
+            continue
+        for kind, lv, pl in _bwd_plans(m, k, c0, w):
+            grid = rc.bwd_plan(kind, m, k, c0, tuple(w),
+                               samlp_single.SMEM_LIMIT, level=lv)
+            assert pl["smem"] <= samlp_single.SMEM_LIMIT
+            assert pl["tm"] >= grid["tm"]
+            assert pl["dw"] in ((None,) if kind == "bwd_stats"
+                                else ("smem", "slot"))
+            assert (pl["stages"] == 0) == pl["w_res"]
+            assert pl["w_res"] or 2 <= pl["stages"] <= 4
+            assert pl["unit"] == k  # k * c0 a multiple of 8 at each
+            assert pl["blocks"] == min(132, m // k)
+            stop = lv + 1 if lv else 1
+            assert [j for j, walk, _ in pl["prods"] if walk] == list(
+                range(len(w), stop - 1, -1))
+
+
+@pytest.mark.parametrize("m,k,c0,unit", [
+    (524288, 32, 3, 32),     # SSG SA1: 16384 groups
+    (262144, 64, 131, 64),   # SSG SA2: 4096 groups
+    (160, 32, 3, 32),        # fewer groups than SMs: a group a block
+    (1536, 16, 3, 16),       # MSG clas SA1 at K = 16
+    (35, 5, 7, 40),          # rows of 14 B: 8 groups of 5 start on 16 B
+    (72, 8, 20, 8),          # the four layers' card test stack
+])
+def test_single_bwd_block_ranges_cover_every_group_once(m, k, c0, unit):
+    """#17 / #18's block ranges (``samlp_single.block_rows`` at the plan's
+    ``unit``, the mirrors of the C ``block_rows`` and of the unit the C
+    entries accept): the unit is whole groups whose ``g2`` rows start on
+    16 bytes, the ranges cover every row once in block order, each cut at
+    a unit, no block empty where there are units enough and none more
+    than one unit longer than another."""
+    pl = samlp_single.bwd_plan("bwd_final", m, k, c0, (16, 32),
+                               samlp_single.SMEM_LIMIT)
+    assert pl["unit"] == unit == samlp_single.range_unit(k, c0)
+    assert unit % k == 0 and unit * c0 * 2 % 16 == 0
+    blocks = pl["blocks"]
+    assert blocks == min(132, -(-m // unit))
+    ranges = samlp_single.block_rows(m, unit, blocks)
+    assert ranges[0][0] == 0 and ranges[-1][1] == m
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(lo % unit == 0 and (hi % unit == 0 or hi == m)
+               for lo, hi in ranges)
+    sizes = [-(-(hi - lo) // unit) for lo, hi in ranges]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
+def test_single_bwd_plan_keeps_weights_resident_at_sa1():
+    """At the SSG clas stacks (B=32 x 1024) #17 and #18 stage the weights
+    once at SA1 (29 KB: no ring) and stream them through the ring at SA2
+    (138 KB would not fit beside the tile), both at #13 / #14's 128-row
+    tile (the wmma single-launch design fell to 16 rows at SA2); #18's
+    dW on chip at SA1 (53 KB) and in a slot a block at SA2 (270 KB)."""
+    limit = samlp_single.SMEM_LIMIT
+    sa1 = (524288, 32, 3, (64, 64, 128))
+    sa2 = (262144, 64, 131, (128, 128, 256))
+    for lv in (1, 2, 3):
+        for stack, res in ((sa1, True), (sa2, False)):
+            pl = samlp_single.bwd_plan("bwd_stats", *stack, limit, level=lv)
+            assert pl["w_res"] == res and pl["tm"] == 128
+    f1 = samlp_single.bwd_plan("bwd_final", *sa1, limit, need_dg=False)
+    f2 = samlp_single.bwd_plan("bwd_final", *sa2, limit)
+    assert f1["w_res"] and f1["dw"] == "smem" and f1["tm"] == 128
+    assert not f2["w_res"] and f2["dw"] == "slot" and f2["tm"] >= 64
+    assert f1["dw_part"] == 132 * (16 * 64 + 64 * 64 + 64 * 128)
+    assert f2["dw_part"] * 4 // 132 == (144 * 128 + 128 * 128
+                                        + 128 * 256) * 4 == 270336
+    with pytest.raises(ValueError, match="shared memory"):
+        samlp_single.bwd_plan("bwd_final", *sa2, 40_000)
+    with pytest.raises(ValueError, match="backward passes"):
+        samlp_single.bwd_plan("final", *sa2, limit)
 
 
 def test_plan_counts_the_resident_constants():
