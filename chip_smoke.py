@@ -158,14 +158,17 @@ convolutions in f32 itself, as a user gets it.
    switches a whole ``dy`` element (a few rows in 10^5): the bwd sums, dg,
    dW and db are held as the step's gradients are, at most ``GRAD_RATIO``
    times as far (L2) from the plain pass with f32 operands as the plain
-   bf16 pass. Kernel, plain and bound ms. Then #13 and #14's device ms a
-   call by SSG stack and level (profiler: every kernel of a call, by
-   name, each by the mean of its records) beside the bound, and their sums over one SSG clas step
-   (``recompute_bwd_times``); the recompute ``train_step`` of SSG clas
-   and MSG seg, each after a warm-up step: peak device memory, step ms,
-   busy share and #11-14's main kernels' device ms a step
-   (``recompute_steps``). Both take the mode and use public functions
-   only, so they time a parent tree too. Then phase 6
+   bf16 pass. Kernel, plain and bound ms. Then #11 and #12's, and #13
+   and #14's, device ms a call by SSG stack and level (profiler: every
+   device operation of a call, by name, each by the mean of its records)
+   beside the bound, and their sums over one SSG clas step
+   (``recompute_fwd_times``, ``recompute_bwd_times``); the recompute
+   ``train_step`` of SSG clas and MSG seg, each after a warm-up step:
+   peak device memory, step ms, busy share and #11-14's device ms a step
+   (``recompute_steps``: #11 and #12 with their calls' reduce, merge or
+   fill and split, #13 and #14 their main kernel). All three use public
+   functions only (the last two take the mode), so they time a parent
+   tree too. Then phase 6
    under ``fused_mlp.override(mode="recompute")`` for ``pointnet2_ssg``
    clas and ``pointnet2_msg`` seg: #11 and #13 launched once per layer
    of every stack a step, #12 and #14 once per stack, the stream passes
@@ -2126,20 +2129,51 @@ def _by_kernel(device, calls: int) -> str:
                      for name, (t, c) in by.items())
 
 
-# mode -> the recompute kernels a step is read by: (row, base name of the
-# device kernel, None or whether its last template argument is true: the
-# backward kernels' bwd final)
+# mode -> the recompute kernels a step is read by: (row, None or whether
+# the device kernel's last template argument is true (the backward
+# kernels' bwd final), then each device kernel of the row (the redesigned
+# one and the one before it, so a parent tree reads too) as (base name,
+# base names of the record right before it and of the one right after it
+# that belong to the same call: the forward passes' fill, reduce, key
+# split or merge))
 STEP_KERNELS = {
     "stream": (),
-    "recompute": (("#11", "rc_stats_kernel", None),
-                  ("#12", "rc_final_kernel", None),
-                  ("#13", "rc_bwd_kernel", False),
-                  ("#14", "rc_bwd_kernel", True)),
-    "recompute1": (("#15", "rc1_stats_kernel", None),
-                   ("#16", "rc1_final_kernel", None),
-                   ("#17", "rc1_bwd_kernel", False),
-                   ("#18", "rc1_bwd_kernel", True)),
+    "recompute": (
+        ("#11", None, ("rc_fwd_stats_kernel", (), ("split_reduce_kernel",)),
+         ("rc_stats_kernel", (), ("reduce_partials_kernel",))),
+        ("#12", None, ("rc_fwd_final_kernel", (), ("rc_key_merge_kernel",)),
+         ("rc_final_kernel", ("Memset",), ("split_keys_kernel",))),
+        ("#13", False, ("rc_bwd_kernel", (), ())),
+        ("#14", True, ("rc_bwd_kernel", (), ()))),
+    "recompute1": (("#15", None, ("rc1_stats_kernel", (), ())),
+                   ("#16", None, ("rc1_final_kernel", (), ())),
+                   ("#17", False, ("rc1_bwd_kernel", (), ())),
+                   ("#18", True, ("rc1_bwd_kernel", (), ()))),
 }
+# #11 / #12's main device kernels, redesigned and before
+RC_FWD_MAIN = ("rc_fwd_stats_kernel", "rc_stats_kernel", "rc_fwd_final_kernel",
+               "rc_final_kernel")
+
+
+def _step_row_us(device, final, *kernels) -> float:
+    """Device us of the records (in stream order) of each of ``kernels``'
+    (base name, before, after) (unless ``final`` is None, only those whose
+    last template argument is ``final``), with the record right before
+    each whose base name is in its ``before`` and the one right after in
+    its ``after``."""
+    total = 0.0
+    pairs = {name: (before, after) for name, before, after in kernels}
+    for i, e in enumerate(device):
+        if _base_name(e) not in pairs or (final is not None
+                                          and _final_flag(e) != final):
+            continue
+        before, after = pairs[_base_name(e)]
+        total += e.time_range.elapsed_us()
+        if i and _base_name(device[i - 1]) in before:
+            total += device[i - 1].time_range.elapsed_us()
+        if i + 1 < len(device) and _base_name(device[i + 1]) in after:
+            total += device[i + 1].time_range.elapsed_us()
+    return total
 
 
 def _final_flag(e) -> bool:
@@ -2149,6 +2183,58 @@ def _final_flag(e) -> bool:
         return False
     args = head[head.index("<") + 1:head.rindex(">")]
     return args.split(",")[-1].strip() == "true"
+
+
+def recompute_fwd_times(calls: int = 10) -> dict:
+    """#11 and #12 on each SSG clas stack's grouped input at B x N
+    (seed-0 model; the plain chain's vectors): device ms a call
+    (profiler, ``calls`` calls, every device operation of a call counted:
+    the kernel, its reduce, merge, or a parent tree's key fill and split,
+    each by the mean of its records, ``_once_ms``; profiled again where a
+    record of the main kernel was dropped; launches a call printed by
+    kernel), CUDA-event ms and the operation bound (``_rc_work``); and
+    their sums over one SSG clas step (stats at every level of every
+    stack, final once a stack) with their ratio to the bound. Uses only
+    public functions, so it times a parent tree's package too."""
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+
+    total = {"stats": [0.0, 0.0, 0.0], "final": [0.0, 0.0, 0.0]}
+    with torch.no_grad():
+        for tag, mlp, grouped in _grouped_inputs("pointnet2_ssg", "clas",
+                                                 SSG_STACKS):
+            b, s, k, c0 = grouped.shape
+            m, n = b * s * k, len(mlp.features)
+            cs = (c0,) + tuple(mlp.features)
+            g2 = grouped.reshape(m, c0).to(torch.bfloat16)
+            ws, bs, packed, vecs, *_ = _rc_inputs(g2, mlp, k)
+            runs = [("stats", f"level {lv}",
+                     functools.partial(rc.rc_stats, g2, vecs, ws, bs,
+                                       upto=lv, w_packed=packed),
+                     _rc_work(m, cs, range(1, lv + 1), (), ()))
+                    for lv in range(1, n + 1)]
+            runs.append(("final", f"k={k}",
+                         functools.partial(rc.rc_final, g2, vecs, ws, bs,
+                                           k=k, w_packed=packed),
+                         _rc_work(m, cs, range(1, n + 1), (), ())))
+            for kind, what, fn, work in runs:
+                for _ in range(3):
+                    device = _device_events(fn, calls)[0]
+                    mains = sum(_base_name(e) in RC_FWD_MAIN for e in device)
+                    if mains and mains % calls == 0:
+                        break
+                ms, ev = _once_ms(device), cuda_ms(fn)
+                for i, v in enumerate((ms, ev, work * 1e3)):
+                    total[kind][i] += v
+                print(f"    {kind:<5} {tag} {m}x{c0}->"
+                      + "->".join(map(str, mlp.features))
+                      + f" {what}: device {ms:.4f} ms, events {ev:.4f} ms, "
+                      f"bound {work * 1e3:.4f} ms ({ms / work / 1e3:.1f}x); "
+                      "by kernel: " + _by_kernel(device, calls))
+    for kind, (ms, ev, bound) in total.items():
+        print(f"    recompute {kind} over one SSG clas step: device "
+              f"{ms:.4f} ms, events {ev:.4f} ms, bound {bound:.4f} ms "
+              f"({ms / bound:.1f}x)")
+    return total
 
 
 def recompute_bwd_times(calls: int = 10, mode: str = "recompute") -> dict:
@@ -2223,8 +2309,9 @@ def recompute_steps(steps: int = 5, mode: str = "recompute") -> dict:
     model collected first), step ms (CUDA events, median of 10), device
     busy ms a step over ``steps`` steps and its share of the synchronized
     wall, and the device ms a step of the mode's recompute kernels
-    (``STEP_KERNELS``: the forward passes' main kernels and the backward
-    kernel by its bwd-final flag). Uses only public functions, so it
+    (``STEP_KERNELS``: #11 and #12 with every device operation of their
+    calls, #15 and #16 their one kernel, the backward passes' main kernel
+    by its bwd-final flag). Uses only public functions, so it
     measures a parent tree's package too."""
     from papc_tpu_torch.models import init_model
     from papc_tpu_torch.ops import fused_mlp
@@ -2254,12 +2341,8 @@ def recompute_steps(steps: int = 5, mode: str = "recompute") -> dict:
             ms = cuda_ms(step, reps=10)
             device, wall_us = _device_events(step, steps)
         busy = sum(e.time_range.elapsed_us() for e in device) / steps / 1e3
-        rows = {}
-        for row, kname, final in STEP_KERNELS[mode]:
-            rows[row] = sum(
-                e.time_range.elapsed_us() for e in device
-                if _base_name(e) == kname
-                and (final is None or _final_flag(e) == final)) / steps / 1e3
+        rows = {row: _step_row_us(device, final, *kernels) / steps / 1e3
+                for row, final, *kernels in STEP_KERNELS[mode]}
         share = 100 * busy * 1e3 * steps / wall_us
         print(f"    {name} {task} {mode} step: {ms:.3f} ms (events), "
               f"busy {busy:.3f} ms a step ({share:.1f} % of the wall), peak "
@@ -2280,10 +2363,17 @@ def phase_recompute_kernels(rows):
 
 
 def phase_recompute(smi, rows):
-    """Phase 12: #11-14 against plain, then ``train`` in recompute mode
-    for SSG clas and MSG seg; returns their step numbers."""
+    """Phase 12: #11-14 against plain, their device ms a call by SSG
+    stack (``recompute_fwd_times``, ``recompute_bwd_times``) and the
+    recompute steps' numbers (``recompute_steps``), then ``train`` in
+    recompute mode for SSG clas and MSG seg; returns their step
+    numbers."""
     with torch.no_grad():
         phase_recompute_kernels(rows)
+    print("[12 recompute fwd times] #11 and #12 by SSG stack, device ms a "
+          f"call (profiler, every operation of a call) beside the bound "
+          f"({smi})")
+    recompute_fwd_times()
     print("[12 recompute bwd times] #13 and #14 by SSG stack, device ms a "
           f"call (profiler) beside the bound ({smi})")
     recompute_bwd_times()

@@ -61,7 +61,8 @@
 //    whose step sequence runs over all products of a tile and on into the
 //    next tile, so a product's first slices arrive during the previous
 //    one's epilogue. The k16 steps of a product accumulate in ascending
-//    order from zero, as #11 and #12's wmma chain does; with the same
+//    order from zero, as #11 and #12's forward tile loop (samlp_rc_fwd.cu,
+//    on this core) and #15 and #16's wmma chain do; with the same
 //    m16n8k16 instruction underneath, the a re-derived here is expected
 //    to carry their bits (not checked bit for bit: a gate within an ulp
 //    of 0 may flip, as between any two recomputations).

@@ -1,10 +1,10 @@
-// Shared pieces of the wmma recompute-mode set-abstraction passes: the
-// tile chain and each forward pass's per-tile body, used by the grid
-// forward passes (samlp_rc_fwd.cu: #11 stats, #12 final max) and by the
-// single-launch forward passes (#15, #16, samlp_single_fwd.cu through
-// samlp_single.cuh). The backward passes, grid (#13, #14) and single-launch
-// (#17, #18), run their own tile body on samlp_mma.cuh (samlp_rc_bwd.cuh)
-// and take only Chain and make_chain from here.
+// Shared pieces of the recompute-mode set-abstraction passes: the chain of
+// one stack (Chain, make_chain), which every recompute pass takes, and the
+// wmma tile chain with each forward pass's per-tile body, which only the
+// single-launch forward passes #15 and #16 still run (samlp_single_fwd.cu
+// through samlp_single.cuh). The grid passes #11-14 and the single-launch
+// backward passes #17 and #18 run their tile loops on samlp_mma.cuh
+// (samlp_rc_fwd.cu, samlp_rc_bwd.cuh).
 //
 // Each pass re-derives the layer chain of a tile of rows from the block
 // input g2 = bf16(grouped) alone: for layer j,
@@ -157,26 +157,6 @@ __device__ void run_hidden(const Chain& ch, const Layout& l,
         });
     __syncthreads();
   }
-}
-
-// Loads the tile's g2 rows from device memory into h_0 (zero past row m
-// and in the channel padding), then runs layers 1 .. n-1 (run_hidden).
-// Starts and ends with a block barrier.
-template <int RF>
-__device__ void hidden_layers(const Chain& ch, const Layout& l,
-                              unsigned char* smem, int row0, int n) {
-  __syncthreads();  // the previous tile is done with every buffer
-  bf16* x0 = at<bf16>(smem, l.h[0]);
-  const int c0 = ch.c[0], p0 = ch.p[0];
-  for (int e = threadIdx.x; e < l.tm * p0; e += blockDim.x) {
-    const int r = e / p0, c = e - r * p0;
-    const int row = row0 + r;
-    x0[r * l.ld[0] + c] = (row < ch.m && c < c0)
-                              ? ch.g2[static_cast<size_t>(row) * c0 + c]
-                              : __float2bfloat16_rn(0.f);
-  }
-  __syncthreads();
-  run_hidden<RF>(ch, l, smem, n);
 }
 
 // The stats pass's last product (layer upto, after the hidden layers):

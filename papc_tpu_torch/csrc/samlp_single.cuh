@@ -10,8 +10,7 @@
 // carried from tile to tile inside the block.
 //
 // The forward passes (samlp_single_fwd.cu: stats, final max) run the wmma
-// per-tile bodies of the grid passes #11 and #12 (samlp_recompute.cuh) and
-// use the rest of this header:
+// per-tile bodies of samlp_recompute.cuh and use the rest of this header:
 // - the block stages the pass's constants once: bf16 packed weights,
 //   biases and BN vectors (stage_constants), so no product reads a weight
 //   fragment from device memory or L2;

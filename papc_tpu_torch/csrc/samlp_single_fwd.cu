@@ -8,9 +8,9 @@
 //
 // Replaces: papc_tpu/ops/pallas/samlp_single.py::recompute_stats (#15) and
 // ::recompute_final_max (#16). Same arithmetic as the grid passes #11 and
-// #12 (samlp_rc_fwd.cu), whose per-tile bodies these kernels run:
-// bf16 operands, f32 accumulation, f32 bias, affine and ReLU, no
-// pre-activation rounded.
+// #12 (samlp_rc_fwd.cu), on the wmma per-tile bodies of
+// samlp_recompute.cuh: bf16 operands, f32 accumulation, f32 bias, affine
+// and ReLU, no pre-activation rounded.
 //
 // What bounds them on the H100: the tensor-core products, which every pass
 // repeats from layer 1; device memory sees g2 once (6 B a row at SSG SA1),

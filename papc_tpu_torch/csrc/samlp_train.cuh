@@ -1,9 +1,9 @@
 // Shared pieces of the training-mode set-abstraction kernels
 // (samlp_linear_stats.cu, samlp_finalize_seed.cu, samlp_bwd_layer.cu,
-// samlp_rc_bwd.cu, and the wmma recompute passes through
+// samlp_rc_fwd.cu, samlp_rc_bwd.cu, and the wmma recompute passes through
 // samlp_recompute.cuh).
 //
-// rows_times_matrix (the product of #11, #12, #15 and #16, through
+// rows_times_matrix (the product of #15 and #16, through
 // samlp_recompute.cuh): a tile of 16 * RF * row_blocks rows (bf16, in
 // shared or device memory) times a bf16 matrix
 // held in device memory, on tensor cores (nvcuda::wmma m16n16k16, f32
@@ -15,13 +15,12 @@
 // so every column sum is formed in a fixed order, and repeated runs give
 // the same bits.
 //
-// reduce_partials (#11): out[r, c] = sum over i < n of
-// part[i, r, c], one thread per output, in order of i. split_reduce
-// (samlp_linear_stats.cu, samlp_finalize_seed.cu, samlp_bwd_layer.cu,
-// samlp_rc_bwd.cu): the same sums, `lanes` lanes a column, each summing
+// split_reduce (samlp_linear_stats.cu, samlp_finalize_seed.cu,
+// samlp_bwd_layer.cu, samlp_rc_fwd.cu, samlp_rc_bwd.cu): out[r, c] = the
+// sum over i < n of part[i, r, c], `lanes` lanes a column, each summing
 // every lanes-th part in order, then the lanes' sums in order; up to
-// kMaxJobs sums a launch. Both are fixed-order second stages of a
-// cross-block sum.
+// kMaxJobs sums a launch: the fixed-order second stage of a cross-block
+// sum.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -124,34 +123,6 @@ __device__ inline void write_block_sums(const float* colsum, int row_blocks,
     for (int rb = 0; rb < row_blocks; ++rb) s += colsum[rb * 2 * ncols + e];
     part[static_cast<size_t>(blockIdx.x) * 2 * ncols + e] = s;
   }
-}
-
-// out[r * cols + c] = sum_{i < n} part[(i * part_rows + r) * ld + c].
-// static: every source that includes this header keeps its own copy.
-static __global__ void reduce_partials_kernel(const float* __restrict__ part,
-                                              int n, int rows, int cols,
-                                              int part_rows, int ld,
-                                              float* __restrict__ out) {
-  const int total = rows * cols;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += gridDim.x * blockDim.x) {
-    const int r = e / cols, c = e - r * cols;
-    float s = 0.f;
-    for (int i = 0; i < n; ++i)
-      s += part[(static_cast<size_t>(i) * part_rows + r) * ld + c];
-    out[e] = s;
-  }
-}
-
-static inline cudaError_t reduce_partials(const float* part, int n,
-                                          int rows, int cols, int part_rows,
-                                          int ld, float* out,
-                                          cudaStream_t stream) {
-  const int threads = 256;
-  int blocks = (rows * cols + threads - 1) / threads;
-  if (blocks > 1024) blocks = 1024;
-  return papc_launch(reduce_partials_kernel, dim3(blocks), dim3(threads), 0,
-                     stream, part, n, rows, cols, part_rows, ld, out);
 }
 
 // One sum over splits: out[r * cols + c] = the sum over i < n of

@@ -17,13 +17,16 @@ dtype) and keeps it in f32; only the operands of a product are rounded to
 versions, as the twins' ``sdtype``). No pre-activation is ever stored, so
 the backward saves only ``g2``, the ``[4, C]`` BN vectors and the argmax.
 
-Kernels (``csrc/``): ``samlp_rc_fwd.cu`` (#11 stats, #12 final max) on
-the wmma tile chain of ``samlp_recompute.cuh`` (:func:`plan`), and
-``samlp_rc_bwd.cu`` (#13 bwd stats, #14 bwd final) on the ``mma.sync``
-core of ``samlp_mma.cuh`` (:func:`bwd_plan`: row tiles of 128, 64 or 32
-rows, the weights through a ``cp.async`` ring, epilogues from registers,
-#14's dW on chip, in a slot a block, or from the rows). Each sum is
-reduced in a fixed order, so repeated runs give the same bits.
+Kernels (``csrc/``), all on the ``mma.sync`` core of ``samlp_mma.cuh``
+(row tiles of 128, 64 or 32 rows, the weights through a ``cp.async`` ring
+or resident, epilogues from registers): ``samlp_rc_fwd.cu`` (#11 stats,
+#12 final max; :func:`fwd_plan`: #12 pools its max on chip and writes it
+from the tile where tiles hold whole groups) and ``samlp_rc_bwd.cu`` (#13
+bwd stats, #14 bwd final; :func:`bwd_plan`: #14's dW on chip, in a slot a
+block, or from the rows). Each sum is reduced in a fixed order, so
+repeated runs give the same bits. :func:`smem_bytes` is the wmma tile
+chain of ``samlp_recompute.cuh``, which only #15 and #16
+(``samlp_single.py``) still run.
 """
 
 from __future__ import annotations
@@ -41,9 +44,9 @@ from papc_tpu_torch.ops.kernels.samlp_train import (_aligned16, _f32,
 
 P, I = ctypes.c_void_p, ctypes.c_int
 RC_STATS = Kernel("papc_samlp_rc_stats",
-                  [P, I, I, I, I, P, P, P, P, I, I, P, P, P])
+                  [P, I, I, I, I, P, P, P, P, I, I, I, I, P, I, P, P, P])
 RC_FINAL = Kernel("papc_samlp_rc_final",
-                  [P, I, I, I, I, P, P, P, P, I, I, P, P, P, P])
+                  [P, I, I, I, I, P, P, P, P, I, I, I, I, P, I, P, P, P, P])
 RC_BWD_STATS = Kernel("papc_samlp_rc_bwd_stats",
                       [P, I, I, I, I, I, P, P, P, P, P, P, P, I, I, I, I, P,
                        I, P, P, P, P])
@@ -53,12 +56,15 @@ RC_BWD_FINAL = Kernel("papc_samlp_rc_bwd_final",
 KERNELS = (RC_STATS, RC_FINAL, RC_BWD_STATS, RC_BWD_FINAL)
 
 MAX_LAYERS = 4
-_TILES = (128, 64, 32, 16)  # rows per tile, largest that fits first
 _SKEW = 8  # bf16 elements of padding per shared-memory row
 _WARPS = 8
 _SM_SMEM = 233472  # shared memory of one H100 SM, for blocks per SM
-_MAX_PER_SM = 4
-_BWD_TILES = (128, 64, 32)  # #13 / #14: rows a tile, largest first
+_BWD_TILES = (128, 64, 32)  # #11-14: rows a tile, largest first
+# #11 / #12: two blocks an SM (their kernels are compiled for at most 128
+# registers a thread) wherever there are more tiles than SMs and shared
+# memory holds two; the weights resident where blocks walk this many tiles
+_FWD_PER_SM = 2
+_FWD_RES_TILES = 4
 DW_MODES = ("smem", "slot", "rows")  # #14's dW: the C entry's modes 1-3
 _DW_TM, _DW_TN, _DW_CHUNK = 64, 256, 32  # rc_dw_rows_kernel's tile
 
@@ -171,9 +177,9 @@ def _r128(nbytes: int) -> int:
 
 def smem_bytes(kind: str, tm: int, k: int, c0: int, widths, *,
                upto: int | None = None) -> int:
-    """Dynamic shared memory of one block of a forward pass (#11, #12) at
-    ``tm`` rows a tile (``samlp_recompute.cuh::make_layout``, byte for
-    byte)."""
+    """Dynamic shared memory of the wmma tile chain of #15 / #16 at ``tm``
+    rows a tile (``samlp_recompute.cuh::make_layout``, byte for byte;
+    ``samlp_single.smem_bytes`` adds what those passes stage)."""
     p = [_pad(c0)] + [_pad(c) for c in widths]
     n = upto if kind == "stats" else len(widths)
     rb = max(1, tm // 64)
@@ -186,30 +192,88 @@ def smem_bytes(kind: str, tm: int, k: int, c0: int, widths, *,
     return total + (-(-tm // k) + 1) * p[n] * 8  # pooled keys of the groups
 
 
-def plan(kind: str, m: int, k: int, c0: int, widths, limit: int, *,
-         upto: int | None = None, sms: int = 132) -> dict:
-    """#11 / #12's plan: rows a tile (the largest of 128, 64, 32, 16
-    whose shared memory fits ``limit``) and the grid (up to
-    ``_MAX_PER_SM`` blocks an SM, as shared memory allows; each block
-    walks the tiles ``b, b + blocks, ...``). The backward passes plan with
-    :func:`bwd_plan`."""
+def _group_slots(tm: int, k: int) -> int:
+    """#12's pooled key slots a tile of ``tm`` rows (the groups it can
+    touch): ``tm / k`` where k divides tm (whole groups), 1 where tm
+    divides k, else ``ceil(tm / k) + 1``."""
+    if tm % k == 0:
+        return tm // k
+    return 1 if k % tm == 0 else -(-tm // k) + 1
+
+
+def fwd_smem_bytes(kind: str, tm: int, k: int, c0: int, widths, *,
+                   upto: int | None = None, stages: int = 4,
+                   w_res: bool = False) -> int:
+    """Dynamic shared memory of one block of #11 (``"stats"``, layers 1 ..
+    ``upto``) or #12 (``"final"``) at ``tm`` rows a tile
+    (``csrc/samlp_rc_fwd.cu::make_fwd_layout``, byte for byte): h_0 ..
+    h_{n-1} in two ping-pong bf16 regions, the weight ring of ``stages``
+    slices or, ``w_res``, every W_j resident in rows of ``p_j + 8``, then
+    the per-row-warp sums (stats) or the pooled keys (final)."""
+    p = [_pad(c) for c in (c0, *widths)]
+    n = upto if kind == "stats" else len(widths)
+    rw, chunk, ks = _bwd_shape(tm)
+    total = sum(_r128(tm * (max(p[r:n:2]) + _SKEW) * 2)
+                for r in (0, 1) if p[r:n:2])
+    if w_res:
+        total += sum(_r128(a * (b + _SKEW) * 2)
+                     for a, b in zip(p[:n], p[1:n + 1]))
+    else:
+        total += _r128(stages * ks * (chunk + _SKEW) * 2)
+    if kind == "stats":
+        return total + _r128(rw * 2 * p[n] * 4)
+    return total + _r128(_group_slots(tm, k) * p[n] * 8)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(kind: str, m: int, k: int, c0: int, widths: tuple, limit: int,
+             *, upto: int | None = None, sms: int = 132) -> dict:
+    """#11 / #12's plan: rows a tile (128, 64, 32: the largest that gives
+    every SM a tile, at least ``min(sms, ceil(m / 32))`` tiles), at each
+    the first that fits ``limit`` of: ``_FWD_PER_SM`` (2) blocks an SM
+    where there are more tiles than SMs, then one; at each the weights
+    resident (where there are ``_FWD_RES_TILES`` tiles an SM) before a
+    ring of 4, 3 or 2 stages. ``blocks = min(tiles, sms * per_sm)``.
+    ``prods``: the tile's products a_1 .. a_n (``_bwd_schedule``'s
+    forward part). #12 (``"final"``): ``whole`` where k divides tm (each
+    tile writes its groups' out and amax: one launch), else ``keys``, the
+    u64 scratch of every tile's ``gpt`` key slots for the merge launch.
+    Raises ``ValueError`` when nothing fits."""
     if kind not in ("stats", "final"):
-        raise ValueError(f"plan takes the forward passes, got {kind!r}")
+        raise ValueError(f"fwd_plan takes the forward passes, got {kind!r}")
     if not 1 <= len(widths) <= MAX_LAYERS:
         raise ValueError(f"the kernels take 1..{MAX_LAYERS} layers, "
                          f"got {len(widths)}")
-    for tm in _TILES:
-        smem = smem_bytes(kind, tm, k, c0, widths, upto=upto)
-        if smem <= limit:
-            break
-    else:
-        raise ValueError(
-            f"recompute {kind} needs {smem} B of shared memory at 16 rows "
-            f"for c0={c0} widths={list(widths)}; the card allows {limit}")
-    tiles = -(-m // tm)
-    per_sm = max(1, min(_MAX_PER_SM, _SM_SMEM // (smem + 1024)))
-    return {"tm": tm, "smem": smem, "tiles": tiles,
-            "blocks": min(tiles, sms * per_sm)}
+    n = upto if kind == "stats" else len(widths)
+    p = [_pad(c) for c in (c0, *widths)]
+    min_tiles = min(sms, -(-m // 32))
+    smem = None
+    for tm in _BWD_TILES:
+        tiles = -(-m // tm)
+        if tiles < min_tiles:
+            continue
+        # resident weights only where a block walks several tiles: staged
+        # once, they cost a ring's bytes without its overlap
+        resident = ((True, 0),) if tiles >= _FWD_RES_TILES * sms else ()
+        for per_sm, w_res, stages in [
+                (ps, w, st) for ps in ((_FWD_PER_SM, 1) if tiles > sms
+                                       else (1,))
+                for w, st in resident + ((False, 4), (False, 3), (False, 2))]:
+            smem = fwd_smem_bytes(kind, tm, k, c0, widths, upto=upto,
+                                  stages=stages, w_res=w_res)
+            if smem > limit or per_sm * (smem + 1024) > _SM_SMEM:
+                continue
+            whole = kind == "stats" or tm % k == 0
+            gpt = _group_slots(tm, k) if kind == "final" else 0
+            return {"tm": tm, "smem": smem, "tiles": tiles,
+                    "blocks": min(tiles, sms * per_sm), "stages": stages,
+                    "w_res": w_res, "per_sm": per_sm,
+                    "prods": _bwd_schedule(p[:n + 1], tm, n + 1),
+                    "whole": whole, "gpt": gpt,
+                    "keys": 0 if whole else tiles * gpt * widths[-1]}
+    raise ValueError(
+        f"recompute {kind} has no plan within {limit} B of shared memory "
+        f"for c0={c0} widths={list(widths)} (last tried: {smem} B)")
 
 
 def _bwd_shape(tm: int) -> tuple:
@@ -363,10 +427,10 @@ def _ptrs(ts):
         *[None if t is None else t.data_ptr() for t in ts])
 
 
-def _plan_for(kind, g2, k, widths, **kw) -> dict:
+def _fwd_plan_for(kind, g2, k, widths, **kw) -> dict:
     props = torch.cuda.get_device_properties(g2.device)
-    return plan(kind, g2.shape[0], k, g2.shape[1], widths, _smem_limit(g2),
-                sms=props.multi_processor_count, **kw)
+    return fwd_plan(kind, g2.shape[0], k, g2.shape[1], tuple(widths),
+                    _smem_limit(g2), sms=props.multi_processor_count, **kw)
 
 
 def _check_stack(g2, w_packed, bs, vecs, rows: int, layers: int):
@@ -390,14 +454,18 @@ def rc_stats_cuda(g2, vecs, w_packed, bs, *, upto: int):
     widths = [b.shape[0] for b in bs]
     vecs = list(vecs[:upto - 1]) + [None] * (len(bs) - upto + 1)
     _check_stack(g2, w_packed, bs, vecs, None, upto)
-    pl = _plan_for("stats", g2, 1, widths, upto=upto)
+    g2 = _aligned16(g2)
+    pl = _fwd_plan_for("stats", g2, 1, widths, upto=upto)
+    prods = pl["prods"]
     c = widths[upto - 1]
     partials = torch.empty((pl["blocks"], 2, _pad(c)), dtype=torch.float32,
                            device=g2.device)
     sums = torch.empty((2, c), dtype=torch.float32, device=g2.device)
     RC_STATS(ptr(g2), m, c0, len(bs), upto, _ints(widths), _ptrs(w_packed),
-             _ptrs(bs), _ptrs(vecs), pl["tm"], pl["blocks"], ptr(partials),
-             ptr(sums), stream_of(g2))
+             _ptrs(bs), _ptrs(vecs), pl["tm"], pl["stages"],
+             int(pl["w_res"]), pl["blocks"], _ints(sum(prods, ())),
+             len(prods), ptr(partials), ptr(sums),
+             stream_of(g2))
     return sums
 
 
@@ -407,14 +475,17 @@ def rc_final_cuda(g2, vecs, w_packed, bs, *, k: int):
     _check_stack(g2, w_packed, bs, vecs, None, len(bs))
     if m % k:
         raise ValueError(f"{m} rows are not whole groups of k={k}")
-    pl = _plan_for("final", g2, k, widths)
+    g2 = _aligned16(g2)
+    pl = _fwd_plan_for("final", g2, k, widths)
+    prods = pl["prods"]
     shape = (m // k, widths[-1])
-    keys = torch.empty(shape, dtype=torch.int64, device=g2.device)
+    keys = _empty(pl["keys"], torch.int64, g2.device)  # held until queued
     out = torch.empty(shape, dtype=torch.float32, device=g2.device)
     amax = torch.empty(shape, dtype=torch.int32, device=g2.device)
     RC_FINAL(ptr(g2), m, c0, k, len(bs), _ints(widths), _ptrs(w_packed),
-             _ptrs(bs), _ptrs(vecs), pl["tm"], pl["blocks"], ptr(keys),
-             ptr(out), ptr(amax), stream_of(g2))
+             _ptrs(bs), _ptrs(vecs), pl["tm"], pl["stages"],
+             int(pl["w_res"]), pl["blocks"], _ints(sum(prods, ())),
+             len(prods), ptr(keys), ptr(out), ptr(amax), stream_of(g2))
     return out, amax
 
 

@@ -996,6 +996,16 @@ def _rc_stack(groups, k, c0, widths, device):
     return g2, ws, bs, vecs, dout, amax, mus
 
 
+def _clear_of_ties(h, groups, k, want):
+    """The (group, column) pairs of the last ReLU output ``h`` whose top-2
+    margin exceeds twice the max's bound (1e-3 of the largest of the max
+    ``want`` plus one bf16 ulp of the top value): where the argmax of any
+    version within that bound is the plain one's."""
+    top2 = h.reshape(groups, k, -1).topk(2, dim=1).values
+    bound = 1e-3 * float(want.abs().max()) + _bf16_ulp(top2[:, 0])
+    return top2[:, 0] - top2[:, 1] > 2 * bound
+
+
 def _no_farther(got, want, ref, limit=1.5):
     """``got`` at most ``limit`` times as far (L2) from ``ref`` as
     ``want`` is."""
@@ -1043,9 +1053,7 @@ def test_recompute_kernels_match_plain(device, groups, k, c0, widths):
     _near(out, want, 1e-3, ulp=True)
     a_list, _ = rc.chain_plain(g2, vecs, ws, bs, n)
     h = torch.clamp_min(a_list[-1] * vecs[-1][0] + vecs[-1][1], 0.0)
-    top2 = h.reshape(groups, k, -1).topk(2, dim=1).values
-    bound = 1e-3 * float(want.abs().max()) + _bf16_ulp(top2[:, 0])
-    clear = top2[:, 0] - top2[:, 1] > 2 * bound
+    clear = _clear_of_ties(h, groups, k, want)
     assert bool((got_amax == want_amax)[clear].all())
     f32 = {"impl": "plain", "operand_dtype": torch.float32}
     args = (g2, dout, amax, vecs, ws, bs, mus)
@@ -1076,6 +1084,62 @@ def test_recompute_kernels_match_plain(device, groups, k, c0, widths):
     assert skip[0] is None
     for a, b in zip(skip[1] + skip[2], got[1] + got[2]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)  # fixed order
+
+
+@pytest.mark.parametrize("groups,k,c0,widths", RC_STACKS)
+def test_recompute_final_repeats_its_bits(device, groups, k, c0, widths):
+    """#12's max and argmax bit for bit over two calls: a key's max is
+    the same in any merge order (in registers, shuffles, shared-memory
+    atomics or the merge launch over a group's tiles)."""
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+
+    g2, ws, bs, vecs, *_ = _rc_stack(groups, k, c0, widths, device)
+    packed = [samlp_train.pack_weight(w) for w in ws]
+    out, amax = rc.rc_final(g2, vecs, ws, bs, k=k, w_packed=packed)
+    again = rc.rc_final(g2, vecs, ws, bs, k=k, w_packed=packed)
+    assert torch.equal(again[0], out) and torch.equal(again[1], amax)
+
+
+@pytest.mark.parametrize("groups,k,c0,widths", RC_STACKS)
+def test_recompute_forward_device_launches(device, groups, k, c0, widths):
+    """The device operations of one call (``torch.profiler``): #11 its
+    kernel and one ordered reduce; #12 its kernel alone where the plan's
+    tiles hold whole groups (no key buffer, no fill, no split), else its
+    kernel and the merge of each group's keys over its tiles. The
+    profiler now and then drops a record: a call is profiled again, up to
+    three times, until it shows every operation it launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+
+    g2, ws, bs, vecs, *_ = _rc_stack(groups, k, c0, widths, device)
+    packed = [samlp_train.pack_weight(w) for w in ws]
+    n = len(widths)
+    pl = rc._fwd_plan_for("final", g2, k, widths)
+    calls = {
+        "stats": (lambda: rc.rc_stats(g2, vecs, ws, bs, upto=n,
+                                      w_packed=packed),
+                  ["rc_fwd_stats_kernel", "split_reduce_kernel"]),
+        "final": (lambda: rc.rc_final(g2, vecs, ws, bs, k=k,
+                                      w_packed=packed),
+                  ["rc_fwd_final_kernel"]
+                  + ([] if pl["whole"] else ["rc_key_merge_kernel"])),
+    }
+    assert pl["whole"] == (k <= 64)  # SA1 / SA2 stacks: one launch
+    for name, (call, want) in calls.items():
+        call()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            kernels = [e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            if len(kernels) >= len(want):
+                break
+        assert len(kernels) == len(want), (name, kernels)
+        assert all(w in got for w, got in zip(want, kernels)), (name, kernels)
 
 
 @pytest.mark.parametrize("groups,k,c0,widths", RC_STACKS)
@@ -1119,7 +1183,12 @@ def test_fused_recompute_kernels_match_plain(device, mode):
     ulp and statistics within 1e-3, every gradient within 1e-2 of its
     layer's largest (an operand rounded to the other bf16 neighbour moves
     the chain after it); the mode's four kernels launched L, 1, L and 1
-    times."""
+    times. In ``"recompute"`` mode the cotangent is 0 at the (group,
+    column) pairs whose plain top-2 margin is within twice the max's
+    bound (``_clear_of_ties``, as ``test_recompute_kernels_match_plain``
+    holds the argmax): each version takes its BN vectors from its own
+    stats sums, summed in its own order, so the argmax may flip there and
+    move whole elements of dx and dW."""
     from papc_tpu_torch.ops.kernels import samlp_recompute, samlp_single
 
     rc = samlp_single if mode == "recompute1" else samlp_recompute
@@ -1131,6 +1200,20 @@ def test_fused_recompute_kernels_match_plain(device, mode):
     running = [(torch.zeros(c, device=device), torch.ones(c, device=device))
                for c in widths]
     cot = torch.randn(*shape[:2], widths[-1], generator=gen).to(device)
+    if mode == "recompute":
+        groups, k = shape[0] * shape[1], shape[2]
+        g2 = x.reshape(groups * k, shape[3]).to(torch.bfloat16)
+        vecs = []
+        for j, (gamma, beta) in enumerate(zip(gammas, betas), start=1):
+            sums = samlp_recompute.rc_stats(g2, vecs, ws, bs, upto=j,
+                                            impl="plain")
+            vecs.append(samlp_train.bn_vectors(sums, gamma, beta,
+                                               groups * k, 1e-5)[0])
+        want, _ = samlp_recompute.rc_final(g2, vecs, ws, bs, k=k,
+                                           impl="plain")
+        a_list, _ = samlp_recompute.chain_plain(g2, vecs, ws, bs, len(ws))
+        h = torch.clamp_min(a_list[-1] * vecs[-1][0] + vecs[-1][1], 0.0)
+        cot = cot * _clear_of_ties(h, groups, k, want).reshape(cot.shape)
     results = []
     for impl in (None, "plain"):
         xg = x.clone().requires_grad_()
@@ -1242,9 +1325,7 @@ def test_single_launch_kernels_match_plain(device, groups, k, c0, widths):
     _near(out, grid_out, 1e-3, ulp=True)
     a_list, _ = rc.chain_plain(g2, vecs, ws, bs, n)
     h = torch.clamp_min(a_list[-1] * vecs[-1][0] + vecs[-1][1], 0.0)
-    top2 = h.reshape(groups, k, -1).topk(2, dim=1).values
-    bound = 1e-3 * float(want.abs().max()) + _bf16_ulp(top2[:, 0])
-    clear = top2[:, 0] - top2[:, 1] > 2 * bound
+    clear = _clear_of_ties(h, groups, k, want)
     assert bool((got_amax == want_amax)[clear].all())
     assert bool((got_amax == grid_amax)[clear].all())
     again = s1.rc1_final(g2, vecs, ws, bs, k=k, w_packed=packed)
@@ -1280,6 +1361,22 @@ def test_single_launch_kernels_match_plain(device, groups, k, c0, widths):
     assert skip[0] is None
     for a, b in zip(skip[1] + skip[2], got[1] + got[2]):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("groups,k,c0,widths", RC1_STACKS)
+def test_single_launch_final_is_grid_final(device, groups, k, c0, widths):
+    """#16's max and argmax equal #12's bit for bit at every case #16
+    takes: both issue the same m16n8k16 products over ascending k16 steps
+    from zero (#16 through wmma, #12 through ``mma.sync``), the same
+    ``_rn`` bias, affine and bf16 rounding, and a max is order-free."""
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+    from papc_tpu_torch.ops.kernels import samlp_single as s1
+
+    g2, ws, bs, vecs, *_ = _rc_stack(groups, k, c0, widths, device)
+    packed = [samlp_train.pack_weight(w) for w in ws]
+    out, amax = s1.rc1_final(g2, vecs, ws, bs, k=k, w_packed=packed)
+    grid_out, grid_amax = rc.rc_final(g2, vecs, ws, bs, k=k, w_packed=packed)
+    assert torch.equal(out, grid_out) and torch.equal(amax, grid_amax)
 
 
 def test_single_launch_is_one_device_kernel(device):

@@ -507,10 +507,12 @@ def _bwd_passes(widths):
 def test_every_plan_fits_the_card(combo):
     """Every pass of every SA stack of the registry's models at B=32 x
     1024 (c0 3 to 643, widths up to 1024 with 196, K 16 to 128) fits the
-    H100's 232 448 B of shared memory a block; #13 and #14 (``bwd_plan``)
-    at tiles of at least 32 rows, SSG/MSG SA3's at 32 (the f32 a_1, a_2
-    of 3 KB a row then live in device scratch; the wmma design fell to
-    16-row tiles there)."""
+    H100's 232 448 B of shared memory a block, at tiles of 32, 64 or 128
+    rows: #11 and #12 (``fwd_plan``, the bytes of ``fwd_smem_bytes`` at
+    the plan's ring or resident weights), #13 and #14 (``bwd_plan``),
+    SSG/MSG SA3's backward at 32 (the f32 a_1, a_2 of 3 KB a row then
+    live in device scratch; the wmma design fell to 16-row tiles
+    there)."""
     spec = registry.init_model(*combo, device="cpu")
     stacks = _stacks(spec.model)
     assert stacks
@@ -521,10 +523,11 @@ def test_every_plan_fits_the_card(combo):
             for lv in (range(1, len(widths) + 1) if kind == "stats"
                        else [None]):
                 kw = {"upto": lv} if kind == "stats" else {}
-                pl = rc.plan(kind, m, k, c0, widths, limit, **kw)
-                assert pl["smem"] <= limit and pl["tm"] in (16, 32, 64, 128)
-                assert pl["smem"] == rc.smem_bytes(kind, pl["tm"], k, c0,
-                                                   widths, **kw)
+                pl = rc.fwd_plan(kind, m, k, c0, tuple(widths), limit, **kw)
+                assert pl["smem"] <= limit and pl["tm"] in (32, 64, 128)
+                assert pl["smem"] == rc.fwd_smem_bytes(
+                    kind, pl["tm"], k, c0, widths, stages=pl["stages"],
+                    w_res=pl["w_res"], **kw)
                 assert 1 <= pl["blocks"] <= pl["tiles"]
                 seen.add((c0, k, pl["tm"]))
         for kind, kw in _bwd_passes(widths)[:-1]:
@@ -631,6 +634,91 @@ def test_bwd_plan_takes_every_tile_product_and_column_once(combo):
                                 for s in range(pl["dw_splits"])], pl["m_pad"])
 
 
+# (m, k, c0, widths) beside the registry's: ragged groups and last tiles
+# (the card tests' RC_STACKS and RC1_STACKS cases)
+FWD_RAGGED = [(160, 32, 3, (64, 64, 128)), (72, 8, 20, (16, 16, 16, 32)),
+              (35, 5, 7, (16, 24)), (1200, 20, 9, (32, 48))]
+
+
+@pytest.mark.parametrize("combo", registry.registry_combos(),
+                         ids=lambda c: "-".join(c))
+def test_fwd_plan_takes_every_tile_product_column_and_group_once(combo):
+    """#11 and #12's plan at every stack of the model (at the rows above
+    and, for a ``group_all`` stage, its own 32 x K) and at the ragged
+    cases: the blocks take every row tile once; the schedule (``prods``,
+    which the kernel runs as it is) holds a_1 .. a_n in order, each
+    product taking every k16 step once through slices of at most ``ks``
+    rows and every output column once in n16 pairs of at most four a
+    warp; #12 covers every group once: where tiles hold whole groups
+    (``whole``, one launch) the tile that writes a group holds all its
+    rows, and no group is written twice; elsewhere every tile that
+    touches a group keeps its key in one of its ``gpt`` slots, and the
+    merge reads exactly the tiles that hold the group's rows."""
+    spec = registry.init_model(*combo, device="cpu")
+    limit = 232448
+    shapes = {(32 * 128 * k, k, c0, tuple(w))
+              for _, c0, w, k in _stacks(spec.model)}
+    shapes |= {(32 * k, k, c0, tuple(w)) for name, c0, w, k in
+               _stacks(spec.model) if name.startswith("SetAbstraction_")
+               and getattr(spec.model, name).group_all}
+    shapes |= set(FWD_RAGGED)
+    for m, k, c0, widths in sorted(shapes):
+        p = [samlp_train._pad(c) for c in (c0, *widths)]
+        for kind, upto in ([("stats", lv) for lv in range(1, len(widths) + 1)]
+                           + [("final", None)]):
+            n = upto or len(widths)
+            pl = rc.fwd_plan(kind, m, k, c0, widths, limit, upto=upto)
+            tm = pl["tm"]
+            assert tm in (32, 64, 128) and pl["smem"] <= limit
+            tiles = [t for b in range(pl["blocks"])
+                     for t in range(b, pl["tiles"], pl["blocks"])]
+            assert sorted(tiles) == list(range(pl["tiles"]))
+            assert pl["tiles"] * tm >= m > (pl["tiles"] - 1) * tm
+            rw, chunk, ks = rc._bwd_shape(tm)
+            assert [(j, w) for j, w, _ in pl["prods"]] == [
+                (j, 0) for j in range(1, n + 1)]
+            for j, _, span in pl["prods"]:
+                assert span % 16 == 0 and 16 <= span <= 64
+                kdim, ndim = p[j - 1], p[j]
+                slices = [(s, min(s + ks, kdim)) for s in range(0, kdim, ks)]
+                assert _covers(slices, kdim)
+                assert all((hi - lo) % 16 == 0 for lo, hi in slices)
+                cols = []
+                for c0_ in range(0, ndim, chunk):
+                    width = min(chunk, ndim - c0_)
+                    sp = span if c0_ + chunk >= ndim else 64
+                    for wc in range(8 // rw):
+                        pairs = max(0, min(sp, width - wc * sp)) // 16
+                        assert pairs <= 4
+                        cols.append((c0_ + wc * sp, c0_ + wc * sp + 16 * pairs))
+                assert _covers(cols, ndim)
+            if kind == "stats":
+                continue
+            groups, gpt = m // k, pl["gpt"]
+            assert pl["whole"] == (tm % k == 0)
+            if pl["whole"]:
+                assert pl["keys"] == 0 and gpt == tm // k
+                written = [(t * tm // k + gi) for t in range(pl["tiles"])
+                           for gi in range(gpt) if t * tm // k + gi < groups]
+                assert sorted(written) == list(range(groups))
+                for t in range(pl["tiles"]):  # the tile holds its groups
+                    for g in range(t * tm // k,
+                                   min(groups, t * tm // k + gpt)):
+                        assert t * tm <= g * k and (g + 1) * k <= (t + 1) * tm
+                continue
+            assert pl["keys"] == pl["tiles"] * gpt * widths[-1]
+            for t in range(pl["tiles"]):  # each touched group has a slot
+                lo, hi = t * tm, min(m, (t + 1) * tm) - 1
+                assert hi // k - t * tm // k < gpt
+            for g in range(groups):  # the merge's tiles hold the group
+                t0, t1 = g * k // tm, ((g + 1) * k - 1) // tm
+                assert _covers([(max(g * k, t * tm) - g * k,
+                                 min((g + 1) * k, (t + 1) * tm) - g * k)
+                                for t in range(t0, t1 + 1)], k)
+                assert all(0 <= g - t * tm // k < gpt
+                           for t in range(t0, t1 + 1))
+
+
 def test_bwd_final_keeps_dw_on_chip_and_sa3_scratch_small():
     """#14's dW at the SSG clas stacks (B=32 x 1024): SA1's 53 KB on chip
     (no dW slot), SA2's 270 KB in one slot a block, SA3 (4096 rows, group
@@ -648,7 +736,7 @@ def test_bwd_final_keeps_dw_on_chip_and_sa3_scratch_small():
     scratch_mb = rows_mb + 4 * sa3["dw_part"] / 1e6
     assert abs(rows_mb - 23.2) < 0.1 and scratch_mb < 64
     with pytest.raises(ValueError, match="forward passes"):
-        rc.plan("bwd_final", 4096, 128, 259, (256, 512, 1024), limit)
+        rc.fwd_plan("bwd_final", 4096, 128, 259, (256, 512, 1024), limit)
 
 
 # (c0, widths, k) -> (tm, smem) at m = 32·128·k of samlp_single.plan for
