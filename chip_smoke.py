@@ -167,18 +167,18 @@ convolutions in f32 itself, as a user gets it.
    peak device memory, step ms, busy share and #11-14's device ms a step
    (``recompute_steps``: #11 and #12 with their calls' reduce, merge or
    fill and split, #13 and #14 their main kernel). All three use public
-   functions only (the last two take the mode), so they time a parent
-   tree too. Then phase 6
+   functions only and take the mode, so they time a parent tree too. Then phase 6
    under ``fused_mlp.override(mode="recompute")`` for ``pointnet2_ssg``
    clas and ``pointnet2_msg`` seg: #11 and #13 launched once per layer
    of every stack a step, #12 and #14 once per stack, the stream passes
    (#6, #7, #9, #10) never.
 13. Single-launch recompute mode: #15-18 against their plain versions and
    against #11-14, pass by pass, as in phase 12, on the SSG SA1 and SA2
-   and the MSG seg SA1 stacks' grouped inputs; #17 and #18's device ms
-   by SSG stack (SA1, SA2: the stacks the gate admits) beside the bound
-   and their sums a SSG clas step, and the recompute1 step's numbers with
-   #15-18's device ms a step (``recompute_bwd_times`` and
+   and the MSG seg SA1 stacks' grouped inputs; #15 and #16's, and #17
+   and #18's, device ms by SSG stack (SA1, SA2: the stacks the gate
+   admits) beside the bound and their sums a SSG clas step, and the
+   recompute1 step's numbers with #15-18's device ms a step
+   (``recompute_fwd_times``, ``recompute_bwd_times`` and
    ``recompute_steps`` in mode ``recompute1``). Then phase 6 under
    ``fused_mlp.override(mode="recompute1")`` for ``pointnet2_ssg`` clas
    and ``pointnet2_msg`` seg: #15-18 launched on the stacks their gate
@@ -2145,14 +2145,17 @@ STEP_KERNELS = {
          ("rc_final_kernel", ("Memset",), ("split_keys_kernel",))),
         ("#13", False, ("rc_bwd_kernel", (), ())),
         ("#14", True, ("rc_bwd_kernel", (), ()))),
-    "recompute1": (("#15", None, ("rc1_stats_kernel", (), ())),
-                   ("#16", None, ("rc1_final_kernel", (), ())),
+    "recompute1": (("#15", None, ("rc1_fwd_stats_kernel", (), ()),
+                    ("rc1_stats_kernel", (), ())),
+                   ("#16", None, ("rc1_fwd_final_kernel", (), ()),
+                    ("rc1_final_kernel", (), ())),
                    ("#17", False, ("rc1_bwd_kernel", (), ())),
                    ("#18", True, ("rc1_bwd_kernel", (), ()))),
 }
-# #11 / #12's main device kernels, redesigned and before
+# #11 / #12's and #15 / #16's main device kernels, redesigned and before
 RC_FWD_MAIN = ("rc_fwd_stats_kernel", "rc_stats_kernel", "rc_fwd_final_kernel",
-               "rc_final_kernel")
+               "rc_final_kernel", "rc1_fwd_stats_kernel", "rc1_stats_kernel",
+               "rc1_fwd_final_kernel", "rc1_final_kernel")
 
 
 def _step_row_us(device, final, *kernels) -> float:
@@ -2185,19 +2188,24 @@ def _final_flag(e) -> bool:
     return args.split(",")[-1].strip() == "true"
 
 
-def recompute_fwd_times(calls: int = 10) -> dict:
-    """#11 and #12 on each SSG clas stack's grouped input at B x N
-    (seed-0 model; the plain chain's vectors): device ms a call
-    (profiler, ``calls`` calls, every device operation of a call counted:
-    the kernel, its reduce, merge, or a parent tree's key fill and split,
-    each by the mean of its records, ``_once_ms``; profiled again where a
+def recompute_fwd_times(calls: int = 10, mode: str = "recompute") -> dict:
+    """The forward passes of a recompute mode (``recompute``: #11 and
+    #12; ``recompute1``: #15 and #16, on the stacks ``samlp_single.fits``
+    admits) on each SSG clas stack's grouped input at B x N (seed-0
+    model; the plain chain's vectors): device ms a call (profiler,
+    ``calls`` calls, every device operation of a call counted: the
+    kernel, its reduce, merge, or a parent tree's key fill and split, each
+    by the mean of its records, ``_once_ms``; profiled again where a
     record of the main kernel was dropped; launches a call printed by
     kernel), CUDA-event ms and the operation bound (``_rc_work``); and
     their sums over one SSG clas step (stats at every level of every
     stack, final once a stack) with their ratio to the bound. Uses only
     public functions, so it times a parent tree's package too."""
     from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+    from papc_tpu_torch.ops.kernels import samlp_single as s1
 
+    stats, final = {"recompute": (rc.rc_stats, rc.rc_final),
+                    "recompute1": (s1.rc1_stats, s1.rc1_final)}[mode]
     total = {"stats": [0.0, 0.0, 0.0], "final": [0.0, 0.0, 0.0]}
     with torch.no_grad():
         for tag, mlp, grouped in _grouped_inputs("pointnet2_ssg", "clas",
@@ -2205,16 +2213,19 @@ def recompute_fwd_times(calls: int = 10) -> dict:
             b, s, k, c0 = grouped.shape
             m, n = b * s * k, len(mlp.features)
             cs = (c0,) + tuple(mlp.features)
+            if mode == "recompute1" and not s1.fits(
+                    m, k, c0, tuple(mlp.features)):
+                continue
             g2 = grouped.reshape(m, c0).to(torch.bfloat16)
             ws, bs, packed, vecs, *_ = _rc_inputs(g2, mlp, k)
             runs = [("stats", f"level {lv}",
-                     functools.partial(rc.rc_stats, g2, vecs, ws, bs,
-                                       upto=lv, w_packed=packed),
+                     functools.partial(stats, g2, vecs, ws, bs, upto=lv,
+                                       w_packed=packed),
                      _rc_work(m, cs, range(1, lv + 1), (), ()))
                     for lv in range(1, n + 1)]
             runs.append(("final", f"k={k}",
-                         functools.partial(rc.rc_final, g2, vecs, ws, bs,
-                                           k=k, w_packed=packed),
+                         functools.partial(final, g2, vecs, ws, bs, k=k,
+                                           w_packed=packed),
                          _rc_work(m, cs, range(1, n + 1), (), ())))
             for kind, what, fn, work in runs:
                 for _ in range(3):
@@ -2231,7 +2242,7 @@ def recompute_fwd_times(calls: int = 10) -> dict:
                       f"bound {work * 1e3:.4f} ms ({ms / work / 1e3:.1f}x); "
                       "by kernel: " + _by_kernel(device, calls))
     for kind, (ms, ev, bound) in total.items():
-        print(f"    recompute {kind} over one SSG clas step: device "
+        print(f"    {mode} {kind} over one SSG clas step: device "
               f"{ms:.4f} ms, events {ev:.4f} ms, bound {bound:.4f} ms "
               f"({ms / bound:.1f}x)")
     return total
@@ -2400,6 +2411,10 @@ def phase_single(smi, rows, steps):
             "pointnet2_ssg", "clas", SSG_STACKS[:2]), single=True)
         _recompute_pass_checks(rows, _grouped_inputs(
             "pointnet2_msg", "seg", MSG_SEG_SA1), single=True, record=False)
+    print("[13 single-launch fwd times] #15 and #16 by SSG stack, device ms "
+          f"a call (profiler, every operation of a call) beside the bound "
+          f"({smi})")
+    recompute_fwd_times(mode="recompute1")
     print("[13 single-launch bwd times] #17 and #18 by SSG stack, device ms "
           f"a call (profiler) beside the bound ({smi})")
     recompute_bwd_times(mode="recompute1")

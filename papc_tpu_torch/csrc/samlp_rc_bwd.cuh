@@ -61,9 +61,9 @@
 //    whose step sequence runs over all products of a tile and on into the
 //    next tile, so a product's first slices arrive during the previous
 //    one's epilogue. The k16 steps of a product accumulate in ascending
-//    order from zero, as #11 and #12's forward tile loop (samlp_rc_fwd.cu,
-//    on this core) and #15 and #16's wmma chain do; with the same
-//    m16n8k16 instruction underneath, the a re-derived here is expected
+//    order from zero, as the forward tile loop of #11, #12, #15 and #16
+//    (samlp_rc_fwd.cuh, on this core) does; with the same m16n8k16
+//    instruction underneath, the a re-derived here is expected
 //    to carry their bits (not checked bit for bit: a gate within an ulp
 //    of 0 may flip, as between any two recomputations).
 //  - Epilogues work on the accumulators in registers (for_each_pair_loop,
@@ -92,7 +92,7 @@
 //    written a pass); kDwRows writes the bf16 h_{j-1} and da_j of every
 //    row once (SA3: 23.2 MB) and rc_dw_rows_kernel forms dW over all
 //    rows with its accumulators in registers, into 6 split partials (17.4
-//    MB): 40.6 MB of scratch against the wmma design's 383.7 MB of slots.
+//    MB): 40.6 MB of scratch against 383.7 MB of slots.
 //    The plan takes the rows wherever they and their partials need fewer
 //    bytes than the slots would (the group_all SA3 stacks and the small
 //    ones), so neither scratch nor traffic grows where it chooses them.

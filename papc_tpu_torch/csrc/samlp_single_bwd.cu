@@ -61,8 +61,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   zero_sums<kFinal>(st, l, smem);
   if (kResident) stage_weights(st, l, smem);
   int begin, end;
-  samlp_single::block_rows(st.m, unit, begin, end);
-  const int tiles = end > begin ? (end - begin + l.tm - 1) / l.tm : 0;
+  const int tiles = samlp_single::block_tiles(st.m, unit, l.tm, begin, end);
   bwd_tiles<kFinal, kResident>(st, l, o, smem, begin, l.tm, tiles, end);
   write_block_partials<kFinal>(st, l, smem, o, tiles > 0);
   cg::this_grid().sync();
@@ -80,13 +79,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     samlp_single::grid_sum(o.part + l.db_off[j], l.db_off[n + 1], 1, st.c[j],
                            st.p[j], grads.db[j - 1]);
   }
-}
-
-// Whether the plan's unit cuts block ranges at whole groups whose g2 rows
-// start on 16 bytes (bwd_tiles reads the input rows in 16-byte pieces).
-bool unit_ok(const Chain& st, int unit) {
-  return unit > 0 && unit % st.k == 0 &&
-         static_cast<long long>(unit) * st.c[0] % 8 == 0;
 }
 
 template <bool kFinal>
@@ -135,7 +127,8 @@ PAPC_EXPORT int papc_samlp_rc1_bwd_stats(
   Layout l;
   if (!make_layout(l, st, tm, stages, 0, a_smem, w_res, kDwNone, level,
                    sched, nprod, false) ||
-      !plan_ok(tm, stages, max_blocks, l) || !unit_ok(st, unit) ||
+      !plan_ok(tm, stages, max_blocks, l) ||
+      !samlp_single::unit_ok(st, unit) ||
       (!a_smem && l.a_row > 0 && a_scratch == nullptr))
     return cudaErrorInvalidValue;
   const Outs o{dout, amax, nullptr, a_scratch, nullptr, 0, partials, nullptr};
@@ -173,7 +166,8 @@ PAPC_EXPORT int papc_samlp_rc1_bwd_final(
   if (walk_to_1 != (dg != nullptr) ||
       !make_layout(l, st, tm, stages, 1, a_smem, w_res, dw_mode, 0, sched,
                    nprod, dg != nullptr) ||
-      !plan_ok(tm, stages, max_blocks, l) || !unit_ok(st, unit) ||
+      !plan_ok(tm, stages, max_blocks, l) ||
+      !samlp_single::unit_ok(st, unit) ||
       (!a_smem && l.a_row > 0 && a_scratch == nullptr))
     return cudaErrorInvalidValue;
   Grads grads{};

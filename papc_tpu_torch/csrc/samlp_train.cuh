@@ -1,19 +1,8 @@
 // Shared pieces of the training-mode set-abstraction kernels
-// (samlp_linear_stats.cu, samlp_finalize_seed.cu, samlp_bwd_layer.cu,
-// samlp_rc_fwd.cu, samlp_rc_bwd.cu, and the wmma recompute passes through
-// samlp_recompute.cuh).
-//
-// rows_times_matrix (the product of #15 and #16, through
-// samlp_recompute.cuh): a tile of 16 * RF * row_blocks rows (bf16, in
-// shared or device memory) times a bf16 matrix
-// held in device memory, on tensor cores (nvcuda::wmma m16n16k16, f32
-// accumulators): each warp takes units of 16 * RF rows x 16 columns (RF =
-// 4 unless the tile is smaller) and loads every weight fragment once for
-// RF row fragments. The epilogue is called once per element with (row in
-// tile, column, f32 product) and returns two values, which are added to
-// that column's two sums, kept per unit row in shared memory. A unit always belongs to the same warp (unit u -> warp u % 8),
-// so every column sum is formed in a fixed order, and repeated runs give
-// the same bits.
+// (samlp_linear_stats.cu, samlp_finalize_seed.cu, samlp_bwd_layer.cu and
+// the recompute passes through samlp_rc_fwd.cuh and samlp_rc_bwd.cuh): the
+// affine and ReLU the plain versions run op for op, and the cross-split
+// reduce.
 //
 // split_reduce (samlp_linear_stats.cu, samlp_finalize_seed.cu,
 // samlp_bwd_layer.cu, samlp_rc_fwd.cu, samlp_rc_bwd.cu): out[r, c] = the
@@ -24,17 +13,10 @@
 #pragma once
 
 #include <cuda_bf16.h>
-#include <mma.h>
 
 #include "common.cuh"
 
 namespace samlp_train {
-
-using namespace nvcuda;
-
-constexpr int kWarps = 8;
-constexpr int kRowFrags = 4;  // 16-row fragments per warp unit
-constexpr int kUnitRows = 16 * kRowFrags;
 
 __device__ __forceinline__ float bf2f(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -52,77 +34,6 @@ __device__ __forceinline__ __nv_bfloat16 relu_affine(__nv_bfloat16 x,
                                                      float shift) {
   const float v = affine(bf2f(x), scale, shift);
   return __float2bfloat16_rn(v > 0.f ? v : 0.f);
-}
-
-// B is row-major [kdim, ldb]. colsum: [row_blocks][2][ncols] f32 in
-// shared memory, or null when the epilogue sums nothing.
-template <int RF = kRowFrags, typename Epilogue>
-__device__ void rows_times_matrix(const __nv_bfloat16* a, int lda, int kdim,
-                                  const __nv_bfloat16* b, int ldb, int ncols,
-                                  int row_blocks, float* scratch,
-                                  float* colsum, Epilogue epi) {
-  constexpr int kRows = 16 * RF;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int col_tiles = ncols / 16;
-  const int units = col_tiles * row_blocks;
-  float* my = scratch + warp * 256;
-  for (int u = warp; u < units; u += kWarps) {
-    const int ct = u % col_tiles;
-    const int rb = u / col_tiles;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[RF];
-#pragma unroll
-    for (int f = 0; f < RF; ++f) wmma::fill_fragment(acc[f], 0.f);
-    for (int kk = 0; kk < kdim; kk += 16) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          bf;
-      wmma::load_matrix_sync(bf, b + static_cast<size_t>(kk) * ldb + ct * 16,
-                             ldb);
-#pragma unroll
-      for (int f = 0; f < RF; ++f) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            af;
-        wmma::load_matrix_sync(
-            af, a + static_cast<size_t>(rb * kRows + f * 16) * lda + kk, lda);
-        wmma::mma_sync(acc[f], af, bf, acc[f]);
-      }
-    }
-    // lane l always sees column l % 16 of the fragment (rows l / 16 + 2i)
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int f = 0; f < RF; ++f) {
-      wmma::store_matrix_sync(my, acc[f], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const float2 t = epi(rb * kRows + f * 16 + (e >> 4),
-                             ct * 16 + (e & 15), my[e]);
-        s1 += t.x;
-        s2 += t.y;
-      }
-      __syncwarp();
-    }
-    if (colsum != nullptr) {
-      s1 += __shfl_down_sync(0xffffffffu, s1, 16);
-      s2 += __shfl_down_sync(0xffffffffu, s2, 16);
-      if (lane < 16) {
-        colsum[(rb * 2) * ncols + ct * 16 + lane] += s1;
-        colsum[(rb * 2 + 1) * ncols + ct * 16 + lane] += s2;
-      }
-    }
-  }
-}
-
-// The block's column sums over its row units, in order, into
-// part[block][2][ncols].
-__device__ inline void write_block_sums(const float* colsum, int row_blocks,
-                                        int ncols, float* part) {
-  for (int e = threadIdx.x; e < 2 * ncols; e += blockDim.x) {
-    float s = 0.f;
-    for (int rb = 0; rb < row_blocks; ++rb) s += colsum[rb * 2 * ncols + e];
-    part[static_cast<size_t>(blockIdx.x) * 2 * ncols + e] = s;
-  }
 }
 
 // One sum over splits: out[r * cols + c] = the sum over i < n of

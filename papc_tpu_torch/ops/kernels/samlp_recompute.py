@@ -24,9 +24,8 @@ or resident, epilogues from registers): ``samlp_rc_fwd.cu`` (#11 stats,
 from the tile where tiles hold whole groups) and ``samlp_rc_bwd.cu`` (#13
 bwd stats, #14 bwd final; :func:`bwd_plan`: #14's dW on chip, in a slot a
 block, or from the rows). Each sum is reduced in a fixed order, so
-repeated runs give the same bits. :func:`smem_bytes` is the wmma tile
-chain of ``samlp_recompute.cuh``, which only #15 and #16
-(``samlp_single.py``) still run.
+repeated runs give the same bits. The single-launch passes #15-18
+(``samlp_single.py``) run the same tile loops on these layouts.
 """
 
 from __future__ import annotations
@@ -173,23 +172,6 @@ def rc_bwd_final_plain(g2, dout, amax, vecs, ws, bs, mus, *, k: int,
 
 def _r128(nbytes: int) -> int:
     return -(-nbytes // 128) * 128
-
-
-def smem_bytes(kind: str, tm: int, k: int, c0: int, widths, *,
-               upto: int | None = None) -> int:
-    """Dynamic shared memory of the wmma tile chain of #15 / #16 at ``tm``
-    rows a tile (``samlp_recompute.cuh::make_layout``, byte for byte;
-    ``samlp_single.smem_bytes`` adds what those passes stage)."""
-    p = [_pad(c0)] + [_pad(c) for c in widths]
-    n = upto if kind == "stats" else len(widths)
-    rb = max(1, tm // 64)
-    ld_x = max(p[i] + _SKEW for i in range(0, n, 2))
-    ld_y = max([p[i] + _SKEW for i in range(1, n, 2)], default=0)
-    total = _r128(tm * ld_x * 2) + _r128(tm * ld_y * 2)
-    total += _WARPS * 256 * 4
-    if kind == "stats":
-        return total + rb * 2 * p[n] * 4
-    return total + (-(-tm // k) + 1) * p[n] * 8  # pooled keys of the groups
 
 
 def _group_slots(tm: int, k: int) -> int:

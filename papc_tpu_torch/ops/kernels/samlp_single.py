@@ -9,22 +9,23 @@ Counterpart of ``papc_tpu/ops/pallas/samlp_single.py`` (``recompute_stats``,
 ``samlp_recompute.rc_*_plain``, as the JAX package uses the same jnp twins
 for both modes.
 
-What differs is the launch: each pass is ONE cooperative launch of one
-persistent block per SM slot (``csrc/samlp_single.cuh``), each block
-walking one contiguous range of whole groups, and the launch adds the
-blocks' partials after a grid barrier, in block order. The forward passes
-(#15, #16: :func:`plan`) stage the weights, biases and BN vectors in
-shared memory once and run the wmma tile chain of #11 / #12 with the
-next tile's input in flight. The backward passes (#17, #18:
-:func:`bwd_plan`) run #13 / #14's ``mma.sync`` tile body
-(``csrc/samlp_rc_bwd.cuh``) at #13 / #14's tile, with the weights
-resident in shared memory where they fit beside it (else through #13 /
-#14's ring) and bwd final's dW on chip or in a slot a block.
+What differs is the launch: each pass is ONE cooperative launch of
+persistent blocks, as many as the card holds at once (``csrc/
+samlp_single.cuh``), each block walking one contiguous range of rows (of
+whole groups) from its start, and the launch adds the blocks' partials
+after a grid barrier, in block order. Each pass runs its grid twin's tile
+loop on the ``mma.sync`` core: the forward passes (#15, #16:
+:func:`fwd_plan`) #11 / #12's (``csrc/samlp_rc_fwd.cuh``), the backward
+passes (#17, #18: :func:`bwd_plan`) #13 / #14's (``csrc/
+samlp_rc_bwd.cuh``), each with the weights resident in shared memory
+where that pays and fits (else through the twin's ``cp.async`` ring),
+#16 with each group's max pooled on chip and written from its tile, #18
+with dW on chip or in a slot a block.
 
 The gate, :func:`fits`, is a pure function of the shapes (the plain path
-on the CPU and the kernels on the card decide alike): whether every pass
-of the stack has a plan within the H100's 232 448 B of shared memory a
-block. A stack that fails it trains in stream mode
+on the CPU and the kernels on the card decide alike): the admission rule
+the mode has had since its first port (:func:`_admitted`), and a plan for
+every pass. A stack that fails it trains in stream mode
 (``fused_mlp.effective_mode``). It does not carry the TPU's rules (whole
 ``8·k``-row chunks, 128-lane padding of ``g2``): the kernels take any row
 count and copy ``g2`` as it is.
@@ -48,9 +49,9 @@ from papc_tpu_torch.ops.kernels.samlp_train import (_kernel_dtype, _pad,
 
 P, I = ctypes.c_void_p, ctypes.c_int
 RC1_STATS = Kernel("papc_samlp_rc1_stats",
-                   [P, I, I, I, I, P, P, P, P, I, I, P, P, P])
+                   [P, I, I, I, I, P, P, P, P, I, I, I, I, I, P, I, P, P, P])
 RC1_FINAL = Kernel("papc_samlp_rc1_final",
-                   [P, I, I, I, I, P, P, P, P, I, I, P, P, P])
+                   [P, I, I, I, I, P, P, P, P, I, I, I, I, I, P, I, P, P, P])
 RC1_BWD_STATS = Kernel("papc_samlp_rc1_bwd_stats",
                        [P, I, I, I, I, I, P, P, P, P, P, P, P, I, I, I, I, I,
                         I, P, I, P, P, P, P])
@@ -60,54 +61,59 @@ RC1_BWD_FINAL = Kernel("papc_samlp_rc1_bwd_final",
 KERNELS = (RC1_STATS, RC1_FINAL, RC1_BWD_STATS, RC1_BWD_FINAL)
 
 SMEM_LIMIT = 232448  # shared memory a block may opt into on the H100
-_TILES = (128, 64, 32, 16)  # rows per tile, largest that fits first
-_SM_SMEM = 233472  # shared memory of one H100 SM, for blocks per SM
-_MAX_PER_SM = 4
 
 
 # ------------------------------------------------------------ the plans
 
-def smem_bytes(kind: str, tm: int, k: int, c0: int, widths, *,
-               upto: int | None = None) -> int:
-    """Dynamic shared memory of one block of a forward pass at ``tm`` rows
-    a tile (``samlp_single.cuh::make_single``, byte for byte): the tile
-    chain's regions (``samlp_recompute.smem_bytes``), then the staged
-    weights, biases, vectors (scale, shift) and two ``g2`` buffers."""
-    r128 = rc._r128
-    cs = [c0, *widths]
-    p = [_pad(c) for c in cs]
-    n = upto if kind == "stats" else len(widths)
-    nv = n - 1 if kind == "stats" else n
-    total = r128(rc.smem_bytes(kind, tm, k, c0, widths, upto=upto))
-    total += sum(r128(p[j - 1] * p[j] * 2) for j in range(1, n + 1))
-    total += sum(r128(cs[j] * 4) for j in range(1, n + 1))
-    total += sum(r128(2 * cs[j] * 4) for j in range(1, nv + 1))
-    return total + 2 * r128(tm * c0 * 2)
-
-
-def plan(kind: str, m: int, k: int, c0: int, widths, limit: int, *,
-         upto: int | None = None, sms: int = 132) -> dict:
-    """#15 / #16's plan: rows a tile (the largest of 128, 64, 32, 16 that
-    fits ``limit``), the most blocks the launch may take (as many as
-    shared memory lets an SM hold, up to ``_MAX_PER_SM``; the launch takes
-    fewer where registers allow fewer). The backward passes plan with
-    :func:`bwd_plan`. Raises ``ValueError`` when no tile fits."""
+@functools.lru_cache(maxsize=None)
+def fwd_plan(kind: str, m: int, k: int, c0: int, widths: tuple, limit: int,
+             *, upto: int | None = None, sms: int = 132) -> dict:
+    """#15 / #16's plan on #11 / #12's layout and candidates
+    (``samlp_recompute.fwd_plan``, ``fwd_smem_bytes``): rows a tile (128,
+    64, 32: the largest that gives every SM a tile, as #11 / #12's), at
+    each the first that fits ``limit`` of: ``_FWD_PER_SM`` (2) blocks an
+    SM where there are more units than SMs, then one; at each the weights
+    resident where the block's longest range holds ``_FWD_RES_TILES``
+    tiles, before a ring of 4, 3 or 2 stages. ``unit``: the rows the
+    blocks' ranges are cut at (8 for stats, so every tile's ``g2`` rows
+    start on 16 bytes; :func:`range_unit` for final); ``blocks``: the most
+    blocks the launch may take, ``min(units, sms * per_sm)``; ``tiles``:
+    the tiles of the longest range; ``prods``: the tile's products a_1 ..
+    a_n. Raises ``ValueError`` when nothing fits."""
     if kind not in ("stats", "final"):
-        raise ValueError(f"plan takes the forward passes, got {kind!r}")
+        raise ValueError(f"fwd_plan takes the forward passes, got {kind!r}")
     if not 1 <= len(widths) <= rc.MAX_LAYERS:
         raise ValueError(f"the kernels take 1..{rc.MAX_LAYERS} layers, "
                          f"got {len(widths)}")
-    for tm in _TILES:
-        smem = smem_bytes(kind, tm, k, c0, widths, upto=upto)
-        if smem <= limit:
-            unit = 8 if kind == "stats" else k
-            per_sm = max(1, min(_MAX_PER_SM, _SM_SMEM // (smem + 1024)))
-            return {"tm": tm, "smem": smem,
-                    "blocks": min(-(-m // unit), sms * per_sm)}
+    n = upto if kind == "stats" else len(widths)
+    p = [_pad(c) for c in (c0, *widths)]
+    unit = 8 if kind == "stats" else range_unit(k, c0)
+    units = -(-m // unit)
+    min_tiles = min(sms, -(-m // 32))
+    smem = None
+    for tm in rc._BWD_TILES:
+        if -(-m // tm) < min_tiles:
+            continue
+        for per_sm in (rc._FWD_PER_SM, 1) if units > sms else (1,):
+            blocks = min(units, sms * per_sm)
+            tiles = -(-min(m, -(-units // blocks) * unit) // tm)
+            # resident weights only where a block walks several tiles:
+            # staged once, they cost a ring's bytes without its overlap
+            resident = ((True, 0),) if tiles >= rc._FWD_RES_TILES else ()
+            for w_res, stages in resident + ((False, 4), (False, 3),
+                                             (False, 2)):
+                smem = rc.fwd_smem_bytes(kind, tm, k, c0, widths, upto=upto,
+                                         stages=stages, w_res=w_res)
+                if smem > limit or per_sm * (smem + 1024) > rc._SM_SMEM:
+                    continue
+                return {"tm": tm, "smem": smem, "blocks": blocks,
+                        "per_sm": per_sm, "unit": unit, "tiles": tiles,
+                        "stages": stages, "w_res": w_res,
+                        "prods": rc._bwd_schedule(p[:n + 1], tm, n + 1)}
     raise ValueError(
-        f"single-launch recompute {kind} needs {smem} B of shared memory "
-        f"at 16 rows for c0={c0} widths={list(widths)}; the card allows "
-        f"{limit}")
+        f"single-launch recompute {kind} has no plan within {limit} B of "
+        f"shared memory for c0={c0} widths={list(widths)} (last tried: "
+        f"{smem} B)")
 
 
 @functools.lru_cache(maxsize=None)
@@ -181,21 +187,54 @@ def block_rows(m: int, unit: int, blocks: int) -> list:
              min(m, units * (b + 1) // blocks * unit)) for b in range(blocks)]
 
 
+def _admitted(k: int, c0: int, widths) -> bool:
+    """The admission rule ``recompute1`` has had since its first port,
+    kept as it is so that the mode's decisions do not move with a
+    kernel's layout: the shared memory a block of the first forward design
+    took (a wmma tile chain with its f32 scratch and sums or pooled keys,
+    then the staged bf16 weights, biases, the known BN vectors and two
+    ``g2`` buffers) fits :data:`SMEM_LIMIT` at 128, 64, 32 or 16 rows, for
+    stats at each layer and for final. No kernel runs that layout now;
+    admitting more stacks (MSG SA2 at c0 = 323, k = 64, which JAX admits)
+    is a decision of its own."""
+    cs = [c0, *widths]
+    p = [_pad(c) for c in cs]
+    r128 = rc._r128
+
+    def block_bytes(kind, tm, n):
+        ld = [max([p[i] + 8 for i in range(r, n, 2)], default=0)
+              for r in (0, 1)]
+        total = r128(tm * ld[0] * 2) + r128(tm * ld[1] * 2) + 8 * 256 * 4
+        total += (max(1, tm // 64) * 2 * p[n] * 4 if kind == "stats"
+                  else (-(-tm // k) + 1) * p[n] * 8)
+        nv = n - 1 if kind == "stats" else n
+        total = r128(total)
+        total += sum(r128(p[j - 1] * p[j] * 2) for j in range(1, n + 1))
+        total += sum(r128(cs[j] * 4) for j in range(1, n + 1))
+        total += sum(r128(2 * cs[j] * 4) for j in range(1, nv + 1))
+        return total + 2 * r128(tm * c0 * 2)
+
+    passes = [("stats", n) for n in range(1, len(widths) + 1)]
+    return all(any(block_bytes(kind, tm, n) <= SMEM_LIMIT
+                   for tm in (128, 64, 32, 16))
+               for kind, n in passes + [("final", len(widths))])
+
+
 def fits(m: int, k: int, c0: int, widths) -> bool:
-    """The ``recompute1`` gate: whether every pass of the stack (stats at
-    each layer, final, bwd stats at each level, bwd final) has a plan
-    within :data:`SMEM_LIMIT`."""
+    """The ``recompute1`` gate: the admission rule (:func:`_admitted`),
+    and a plan within :data:`SMEM_LIMIT` for every pass of the stack
+    (stats at each layer, final, bwd stats at each level, bwd final)."""
     n = len(widths)
-    if not 1 <= n <= rc.MAX_LAYERS:
+    if not 1 <= n <= rc.MAX_LAYERS or not _admitted(k, c0, widths):
         return False
+    w = tuple(widths)
     try:
         for upto in range(1, n + 1):
-            plan("stats", m, 1, c0, widths, SMEM_LIMIT, upto=upto)
-        plan("final", m, k, c0, widths, SMEM_LIMIT)
+            fwd_plan("stats", m, 1, c0, w, SMEM_LIMIT, upto=upto)
+        fwd_plan("final", m, k, c0, w, SMEM_LIMIT)
         for level in range(1, n + 1):
-            bwd_plan("bwd_stats", m, k, c0, tuple(widths), SMEM_LIMIT,
-                     level=level)
-        bwd_plan("bwd_final", m, k, c0, tuple(widths), SMEM_LIMIT)
+            bwd_plan("bwd_stats", m, k, c0, w, SMEM_LIMIT, level=level)
+        bwd_plan("bwd_final", m, k, c0, w, SMEM_LIMIT)
     except ValueError:
         return False
     return True
@@ -205,8 +244,8 @@ def fits(m: int, k: int, c0: int, widths) -> bool:
 
 def _plan_for(kind, g2, k, widths, **kw) -> dict:
     props = torch.cuda.get_device_properties(g2.device)
-    return plan(kind, g2.shape[0], k, g2.shape[1], widths, _smem_limit(g2),
-                sms=props.multi_processor_count, **kw)
+    return fwd_plan(kind, g2.shape[0], k, g2.shape[1], tuple(widths),
+                    _smem_limit(g2), sms=props.multi_processor_count, **kw)
 
 
 def _check_aligned(g2, w_packed):
@@ -224,13 +263,16 @@ def rc1_stats_cuda(g2, vecs, w_packed, bs, *, upto: int):
     rc._check_stack(g2, w_packed, bs, vecs, None, upto)
     _check_aligned(g2, w_packed[:upto])
     pl = _plan_for("stats", g2, 1, widths, upto=upto)
+    prods = pl["prods"]
     c = widths[upto - 1]
     partials = torch.empty((pl["blocks"], 2, _pad(c)), dtype=torch.float32,
                            device=g2.device)
     sums = torch.empty((2, c), dtype=torch.float32, device=g2.device)
     RC1_STATS(ptr(g2), m, c0, len(bs), upto, rc._ints(widths),
               rc._ptrs(w_packed), rc._ptrs(bs), rc._ptrs(vecs), pl["tm"],
-              pl["blocks"], ptr(partials), ptr(sums), stream_of(g2))
+              pl["stages"], int(pl["w_res"]), pl["blocks"], pl["unit"],
+              rc._ints(sum(prods, ())), len(prods), ptr(partials), ptr(sums),
+              stream_of(g2))
     return sums
 
 
@@ -242,12 +284,15 @@ def rc1_final_cuda(g2, vecs, w_packed, bs, *, k: int):
     if m % k:
         raise ValueError(f"{m} rows are not whole groups of k={k}")
     pl = _plan_for("final", g2, k, widths)
+    prods = pl["prods"]
     shape = (m // k, widths[-1])
     out = torch.empty(shape, dtype=torch.float32, device=g2.device)
     amax = torch.empty(shape, dtype=torch.int32, device=g2.device)
     RC1_FINAL(ptr(g2), m, c0, k, len(bs), rc._ints(widths),
               rc._ptrs(w_packed), rc._ptrs(bs), rc._ptrs(vecs), pl["tm"],
-              pl["blocks"], ptr(out), ptr(amax), stream_of(g2))
+              pl["stages"], int(pl["w_res"]), pl["blocks"], pl["unit"],
+              rc._ints(sum(prods, ())), len(prods), ptr(out), ptr(amax),
+              stream_of(g2))
     return out, amax
 
 

@@ -1183,12 +1183,13 @@ def test_fused_recompute_kernels_match_plain(device, mode):
     ulp and statistics within 1e-3, every gradient within 1e-2 of its
     layer's largest (an operand rounded to the other bf16 neighbour moves
     the chain after it); the mode's four kernels launched L, 1, L and 1
-    times. In ``"recompute"`` mode the cotangent is 0 at the (group,
-    column) pairs whose plain top-2 margin is within twice the max's
-    bound (``_clear_of_ties``, as ``test_recompute_kernels_match_plain``
-    holds the argmax): each version takes its BN vectors from its own
-    stats sums, summed in its own order, so the argmax may flip there and
-    move whole elements of dx and dW."""
+    times. In both modes the cotangent is 0 at the (group, column) pairs
+    whose plain top-2 margin is within twice the max's bound
+    (``_clear_of_ties``, as ``test_recompute_kernels_match_plain`` holds
+    the argmax): each version takes its BN vectors from its own stats
+    sums, summed in its own order, so the argmax may flip there and move
+    whole elements of dx and dW. ``"recompute1"``'s plain passes are
+    ``"recompute"``'s, so the same pairs are cleared."""
     from papc_tpu_torch.ops.kernels import samlp_recompute, samlp_single
 
     rc = samlp_single if mode == "recompute1" else samlp_recompute
@@ -1200,7 +1201,7 @@ def test_fused_recompute_kernels_match_plain(device, mode):
     running = [(torch.zeros(c, device=device), torch.ones(c, device=device))
                for c in widths]
     cot = torch.randn(*shape[:2], widths[-1], generator=gen).to(device)
-    if mode == "recompute":
+    if mode in ("recompute", "recompute1"):
         groups, k = shape[0] * shape[1], shape[2]
         g2 = x.reshape(groups * k, shape[3]).to(torch.bfloat16)
         vecs = []
@@ -1366,9 +1367,9 @@ def test_single_launch_kernels_match_plain(device, groups, k, c0, widths):
 @pytest.mark.parametrize("groups,k,c0,widths", RC1_STACKS)
 def test_single_launch_final_is_grid_final(device, groups, k, c0, widths):
     """#16's max and argmax equal #12's bit for bit at every case #16
-    takes: both issue the same m16n8k16 products over ascending k16 steps
-    from zero (#16 through wmma, #12 through ``mma.sync``), the same
-    ``_rn`` bias, affine and bf16 rounding, and a max is order-free."""
+    takes: both run one tile loop (``samlp_rc_fwd.cuh``), the same
+    m16n8k16 products over ascending k16 steps from zero, the same ``_rn``
+    bias, affine and bf16 rounding, and a max is order-free."""
     from papc_tpu_torch.ops.kernels import samlp_recompute as rc
     from papc_tpu_torch.ops.kernels import samlp_single as s1
 
@@ -1410,6 +1411,158 @@ def test_single_launch_is_one_device_kernel(device):
         kernels = [e.name for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         assert len(kernels) == 1 and "rc1_" in kernels[0], (name, kernels)
+
+
+def _forced_fwd_plan(kind, g2, k, widths, *, upto=None, **force):
+    """#15 / #16's plan for these inputs (``samlp_single.fwd_plan``) with
+    some choices forced (``tm``, ``w_res``, ``stages``, ``blocks``): its
+    product table re-derived for the tile."""
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+    from papc_tpu_torch.ops.kernels import samlp_single as s1
+    from papc_tpu_torch.ops.kernels.samlp_train import _pad
+
+    props = torch.cuda.get_device_properties(g2.device)
+    pl = s1.fwd_plan(kind, g2.shape[0], 1 if kind == "stats" else k,
+                     g2.shape[1], tuple(widths), samlp_train._smem_limit(g2),
+                     upto=upto, sms=props.multi_processor_count)
+    pl = {**pl, **force}
+    n = upto if kind == "stats" else len(widths)
+    p = [_pad(c) for c in (g2.shape[1], *widths)][:n + 1]
+    return {**pl, "prods": rc._bwd_schedule(p, pl["tm"], n + 1)}
+
+
+@pytest.mark.parametrize("groups,k,c0,widths,tm,blocks", [
+    (40, 128, 3, (64, 64, 128), 32, 7),     # a group over 4 tiles
+    (40, 128, 3, (64, 64, 128), 64, 7),     # ... over 2 tiles
+    (96, 48, 3, (32, 32, 64), 32, 5),       # k = 48: 8-row merges, carried
+    (200, 5, 7, (16, 24), 32, 3),           # rows of 14 B, k = 5
+    (7, 5, 7, (16, 24), 32, 1),             # the ragged RC1 stack
+])
+def test_single_final_carries_groups_across_tiles(device, monkeypatch,
+                                                  groups, k, c0, widths, tm,
+                                                  blocks):
+    """#16 where a group runs on into the block's next tile (k does not
+    divide the tile, or k > tm: forced by a monkeypatched plan, as no
+    registry stack the gate admits plans it): the open group's keys are
+    carried in shared memory, and out and amax equal #12's bit for bit
+    (#12 merges the same keys through its key slots) and plain's within
+    #12's tolerances. One launch a call."""
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+    from papc_tpu_torch.ops.kernels import samlp_single as s1
+
+    g2, ws, bs, vecs, *_ = _rc_stack(groups, k, c0, widths, device)
+    packed = [samlp_train.pack_weight(w) for w in ws]
+    pl = _forced_fwd_plan("final", g2, k, widths, tm=tm, blocks=blocks,
+                          w_res=False, stages=4)
+    assert tm % k != 0 and pl["unit"] % k == 0
+    monkeypatch.setattr(s1, "_plan_for", lambda *a, **kw: pl)
+    before = s1.RC1_FINAL.launches
+    out, amax = s1.rc1_final(g2, vecs, ws, bs, k=k, w_packed=packed)
+    assert s1.RC1_FINAL.launches == before + 1
+    grid_out, grid_amax = rc.rc_final(g2, vecs, ws, bs, k=k, w_packed=packed)
+    assert torch.equal(out, grid_out) and torch.equal(amax, grid_amax)
+    want, want_amax = rc.rc_final(g2, vecs, ws, bs, k=k, impl="plain")
+    _near(out, want, 1e-3, ulp=True)
+    a_list, _ = rc.chain_plain(g2, vecs, ws, bs, len(widths))
+    h = torch.clamp_min(a_list[-1] * vecs[-1][0] + vecs[-1][1], 0.0)
+    clear = _clear_of_ties(h, groups, k, want)
+    assert bool((amax == want_amax)[clear].all())
+
+
+@pytest.mark.parametrize("groups,k,c0,widths,blocks", [
+    (625, 8, 20, (16, 16, 16, 32), 7),      # ranges of 712-720 rows
+    (150, 32, 3, (64, 64, 128), 7),         # 21-22 groups a block
+    (1001, 16, 3, (32, 32, 64), 12),        # 83-84 groups a block
+])
+def test_single_forward_masks_rows_past_the_range(device, monkeypatch,
+                                                  groups, k, c0, widths,
+                                                  blocks):
+    """#15 and #16 on block ranges that end inside a tile, with more
+    groups than blocks and ranges of unequal length (the plan's blocks
+    forced lower, its tile to 128 rows): each block sums only its own rows and writes only its
+    own groups, so the sums stay within 1e-3 of plain's and of #11's, and
+    out and amax equal #12's bit for bit. A block that summed rows past
+    its range would count them twice; one that wrote a group past it
+    would race its neighbour."""
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+    from papc_tpu_torch.ops.kernels import samlp_single as s1
+
+    g2, ws, bs, vecs, *_ = _rc_stack(groups, k, c0, widths, device)
+    m = groups * k
+    packed = [samlp_train.pack_weight(w) for w in ws]
+    plans = {}
+
+    def plan_for(kind, g2_, k_, widths_, **kw):
+        pl = _forced_fwd_plan(kind, g2_, k_, widths_, blocks=blocks,
+                              tm=128, **kw)
+        plans[kind] = pl
+        return pl
+
+    monkeypatch.setattr(s1, "_plan_for", plan_for)
+    for upto in range(1, len(widths) + 1):
+        got = s1.rc1_stats(g2, vecs[:upto - 1], ws, bs, upto=upto,
+                           w_packed=packed)
+        ranges = s1.block_rows(m, plans["stats"]["unit"], blocks)
+        assert any((hi - lo) % plans["stats"]["tm"] for lo, hi in ranges)
+        _near(got, rc.rc_stats(g2, vecs, ws, bs, upto=upto, impl="plain"),
+              1e-3)
+        _near(got, rc.rc_stats(g2, vecs, ws, bs, upto=upto,
+                               w_packed=packed), 1e-3)
+    out, amax = s1.rc1_final(g2, vecs, ws, bs, k=k, w_packed=packed)
+    ranges = s1.block_rows(m, plans["final"]["unit"], blocks)
+    assert len({hi - lo for lo, hi in ranges}) > 1
+    assert any((hi - lo) % 128 for lo, hi in ranges)
+    grid_out, grid_amax = rc.rc_final(g2, vecs, ws, bs, k=k, w_packed=packed)
+    assert torch.equal(out, grid_out) and torch.equal(amax, grid_amax)
+
+
+@pytest.mark.parametrize("groups,k,c0,widths", [
+    (16384, 32, 3, (64, 64, 128)),      # SSG SA1: the plan keeps W resident
+    (4096, 64, 131, (128, 128, 256)),   # SSG SA2: the ring at layers 2-3
+    (9, 8, 20, (16, 16, 16, 32)),       # four layers
+    (7, 5, 7, (16, 24)),                # rows of 14 B
+])
+def test_single_forward_weights_keep_bits(device, monkeypatch, groups, k,
+                                          c0, widths):
+    """#15 at every layer and #16 with the weights resident, and through
+    a 4-, 3- and 2-stage ring, on the same grid (one block an SM, so
+    every variant fits): the same bits (sums, out, amax). Residency and
+    the ring's depth change only where and how far ahead a product reads
+    W; the blocks' ranges, and so the order of every sum, stay."""
+    from papc_tpu_torch.ops.kernels import samlp_recompute as rc
+    from papc_tpu_torch.ops.kernels import samlp_single as s1
+
+    g2, ws, bs, vecs, *_ = _rc_stack(groups, k, c0, widths, device)
+    packed = [samlp_train.pack_weight(w) for w in ws]
+    n, m = len(widths), groups * k
+    limit = samlp_train._smem_limit(g2)
+    ran = 0
+    for kind, upto in [("stats", lv) for lv in range(1, n + 1)] + [
+            ("final", None)]:
+        kk = 1 if kind == "stats" else k
+        base = _forced_fwd_plan(kind, g2, k, widths, upto=upto)
+        base["blocks"] = min(-(-m // base["unit"]), 132)
+        results = []
+        for w_res, stages in ((True, 0), (False, 4), (False, 3),
+                              (False, 2)):
+            if rc.fwd_smem_bytes(kind, base["tm"], kk, c0, widths,
+                                 upto=upto, stages=stages,
+                                 w_res=w_res) > limit:
+                continue
+            pl = {**base, "w_res": w_res, "stages": stages}
+            monkeypatch.setattr(s1, "_plan_for", lambda *a, pl=pl, **kw: pl)
+            if kind == "stats":
+                results.append([s1.rc1_stats(g2, vecs[:upto - 1], ws, bs,
+                                             upto=upto, w_packed=packed)])
+            else:
+                results.append(list(s1.rc1_final(g2, vecs, ws, bs, k=k,
+                                                 w_packed=packed)))
+        assert len(results) >= 3
+        ran += len(results)
+        for got in results[1:]:
+            for a, b in zip(got, results[0]):
+                torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert ran >= 3 * (n + 1)
 
 
 @pytest.mark.parametrize("groups,k,c0,widths", RC1_STACKS)

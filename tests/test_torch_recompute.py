@@ -739,28 +739,27 @@ def test_bwd_final_keeps_dw_on_chip_and_sa3_scratch_small():
         rc.fwd_plan("bwd_final", 4096, 128, 259, (256, 512, 1024), limit)
 
 
-# (c0, widths, k) -> (tm, smem) at m = 32·128·k of samlp_single.plan for
-# stats at each layer and final (None: no plan, the stack demotes to
-# stream), as they were before #13 and #14 left samlp_recompute.cuh's
-# backward path to #17 and #18, and of samlp_single.bwd_plan for bwd stats
-# at each level and bwd final (#13 / #14's layout, weights resident where
-# they fit).
+# (c0, widths, k) -> (tm, smem) at m = 32·128·k of samlp_single.fwd_plan
+# for stats at each layer and final (#11 / #12's layout: a plan at every
+# stack, whether the gate admits it or not), and of samlp_single.bwd_plan
+# for bwd stats at each level and bwd final (#13 / #14's layout, weights
+# resident where they fit).
 SINGLE_PLANS = {
-    (3, (64, 64, 128), 32): [(128, 19200), (128, 46592), (128, 77312), (128, 81408), (128, 163328), (128, 163328), (128, 165376), (128, 169472)],
-    (131, (128, 128, 256), 64): [(128, 153600), (128, 222720), (64, 219904), (64, 224000), (128, 157952), (128, 157952), (128, 162048), (128, 231680)],
-    (259, (256, 512, 1024), 128): [(32, 201728), None, None, None, (32, 216320), (32, 218368), (32, 222464), (32, 231680)],
-    (3, (32, 32, 64), 16): [(128, 17536), (128, 30208), (128, 39424), (128, 43520), (128, 83968), (128, 83968), (128, 84992), (128, 115712)],
-    (3, (64, 96, 128), 128): [(128, 19200), (128, 51328), (128, 98176), (128, 99200), (128, 197632), (128, 198656), (128, 199680), (128, 212480)],
-    (323, (64, 64, 128), 32): [(64, 178688), (64, 196864), (64, 214784), (64, 217856), (128, 205312), (128, 205312), (128, 207360), (128, 210176)],
-    (323, (128, 128, 256), 64): [(64, 222464), (32, 202240), None, None, (128, 207104), (128, 207104), (128, 211200), (64, 203008)],
-    (323, (128, 128, 256), 128): [(64, 222464), (32, 202240), None, None, (128, 205056), (128, 205056), (128, 209152), (64, 203008)],
-    (643, (256, 512, 1024), 128): [None, None, None, None, (32, 225536), (32, 227584), (32, 231680), (32, 231680)],
-    (6, (64, 64, 128), 32): [(128, 20736), (128, 48128), (128, 78848), (128, 82944), (128, 163328), (128, 163328), (128, 165376), (128, 169472)],
-    (6, (32, 32, 64), 32): [(128, 19072), (128, 31744), (128, 40960), (128, 43008), (128, 81920), (128, 81920), (128, 82944), (128, 113664)],
-    (6, (64, 64, 128), 64): [(128, 20736), (128, 48128), (128, 78848), (128, 80896), (128, 161280), (128, 161280), (128, 163328), (128, 167424)],
-    (6, (64, 96, 128), 128): [(128, 20736), (128, 52864), (128, 99712), (128, 100736), (128, 197632), (128, 198656), (128, 199680), (128, 212480)],
-    (323, (128, 196, 256), 128): [(64, 222464), (32, 223744), None, None, (128, 205056), (128, 207616), (128, 209152), (64, 213888)],
-    (515, (256, 512, 1024), 128): [None, None, None, None, (32, 217344), (32, 219392), (32, 223488), (32, 223488)],
+    (3, (64, 64, 128), 32): [(128, 10496), (128, 38144), (128, 69888), (128, 69888), (128, 163328), (128, 163328), (128, 165376), (128, 169472)],
+    (131, (128, 128, 256), 64): [(128, 82176), (128, 112640), (128, 108032), (128, 112640), (128, 157952), (128, 157952), (128, 162048), (128, 231680)],
+    (259, (256, 512, 1024), 128): [(128, 114688), (128, 190464), (64, 184320), (128, 226304), (32, 216320), (32, 218368), (32, 222464), (32, 231680)],
+    (3, (32, 32, 64), 16): [(128, 41984), (128, 52224), (128, 57344), (128, 59392), (128, 83968), (128, 83968), (128, 84992), (128, 115712)],
+    (3, (64, 96, 128), 128): [(128, 10496), (128, 43264), (128, 90880), (128, 87808), (128, 197632), (128, 198656), (128, 199680), (128, 212480)],
+    (323, (64, 64, 128), 32): [(128, 107520), (128, 166144), (128, 185600), (128, 185600), (128, 205312), (128, 205312), (128, 207360), (128, 210176)],
+    (323, (128, 128, 256), 64): [(128, 109568), (128, 161792), (128, 165888), (128, 161792), (128, 207104), (128, 207104), (128, 211200), (64, 203008)],
+    (323, (128, 128, 256), 128): [(128, 109568), (128, 161792), (128, 165888), (128, 159744), (128, 205056), (128, 205056), (128, 209152), (64, 203008)],
+    (643, (256, 512, 1024), 128): [(128, 212992), (64, 194560), (64, 202752), (64, 194560), (32, 225536), (32, 227584), (32, 231680), (32, 231680)],
+    (6, (64, 64, 128), 32): [(128, 10496), (128, 38144), (128, 69888), (128, 69888), (128, 163328), (128, 163328), (128, 165376), (128, 169472)],
+    (6, (32, 32, 64), 32): [(128, 8448), (128, 21248), (128, 30976), (128, 30976), (128, 81920), (128, 81920), (128, 82944), (128, 113664)],
+    (6, (64, 64, 128), 64): [(128, 10496), (128, 38144), (128, 69888), (128, 67840), (128, 161280), (128, 161280), (128, 163328), (128, 167424)],
+    (6, (64, 96, 128), 128): [(128, 10496), (128, 43264), (128, 90880), (128, 87808), (128, 197632), (128, 198656), (128, 199680), (128, 212480)],
+    (323, (128, 196, 256), 128): [(128, 109568), (128, 164352), (128, 165888), (128, 159744), (128, 205056), (128, 207616), (128, 209152), (64, 213888)],
+    (515, (256, 512, 1024), 128): [(128, 180224), (64, 178176), (64, 186368), (128, 230400), (32, 217344), (32, 219392), (32, 223488), (32, 223488)],
 }
 
 
@@ -768,10 +767,10 @@ SINGLE_PLANS = {
                          ids=lambda s: f"{s[0]}-{'-'.join(map(str, s[1]))}-k{s[2]}")
 def test_single_launch_plans_unchanged(stack):
     """#15-18's plans at every registry stack: #15 and #16's
-    (``samlp_single.plan``) the same tile and bytes as before #13 and #14
-    moved to their own layout; #17 and #18's (``samlp_single.bwd_plan``)
-    the tile and bytes of #13 / #14's layout with the weights resident
-    where they fit."""
+    (``samlp_single.fwd_plan``) the tile and bytes of #11 / #12's layout
+    with the weights resident where a block's range holds several tiles;
+    #17 and #18's (``samlp_single.bwd_plan``) the tile and bytes of #13 /
+    #14's layout with the weights resident where they fit."""
     c0, widths, k = stack
     got = []
     for kind in ("stats", "final", "bwd_stats", "bwd_final"):
@@ -779,13 +778,10 @@ def test_single_launch_plans_unchanged(stack):
                    if kind in ("stats", "bwd_stats") else [None]):
             kw = ({"upto": lv} if kind == "stats" else
                   {"level": lv} if kind == "bwd_stats" else {})
+            plan = (samlp_single.fwd_plan if kind in ("stats", "final")
+                    else samlp_single.bwd_plan)
             try:
-                if kind in ("stats", "final"):
-                    pl = samlp_single.plan(kind, 32 * 128 * k, k, c0,
-                                           widths, 232448, **kw)
-                else:
-                    pl = samlp_single.bwd_plan(kind, 32 * 128 * k, k, c0,
-                                               widths, 232448, **kw)
+                pl = plan(kind, 32 * 128 * k, k, c0, widths, 232448, **kw)
                 got.append((pl["tm"], pl["smem"]))
             except ValueError:
                 got.append(None)

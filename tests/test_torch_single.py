@@ -306,22 +306,138 @@ def test_single_bwd_plan_keeps_weights_resident_at_sa1():
 
 
 def test_plan_counts_the_resident_constants():
-    """The single-launch plan is the grid plan's chain plus what stays
-    resident: at SSG SA2 the stats pass at layer 3 at 64 rows needs the
-    grid plan's bytes plus 135 168 B of bf16 weights, the biases, the two
-    known BN vectors and two 64-row g2 buffers; a stack whose weights
-    alone exceed the card fails the gate and the plan."""
-    w, tm = (128, 128, 256), 64
-    extra = (samlp_single.smem_bytes("stats", tm, 1, 131, w, upto=3)
-             - rc.smem_bytes("stats", tm, 1, 131, w, upto=3))
-    weights = (144 * 128 + 128 * 128 + 128 * 256) * 2
-    assert weights == 135168
-    assert extra == (weights + 4 * (128 + 128 + 256) + 2 * 4 * (128 + 128)
-                     + 2 * 16768)  # 64 x 131 bf16 = 16768 B, 128-aligned
-    assert not samlp_single.fits(4096, 128, 259, (256, 512, 1024))
+    """The forward plan is #11 / #12's layout with the weights resident
+    in the ring's place where a block's range holds several tiles: at
+    SSG SA1 (524 288 rows, 16 tiles of 128 a range at two blocks an SM)
+    the stats pass at layer 3 needs the ring-free layout's bytes, the
+    three W_j in rows of p_j + 8 (28 928 B) where a 4-stage ring would
+    take 34 816 B. The gate is not the plan: a stack whose weights alone
+    exceed the first design's block fails the admission rule and the
+    gate (SSG SA3), though its forward passes now have a plan."""
+    w, tm = (64, 64, 128), 128
+    pl = samlp_single.fwd_plan("stats", 524288, 1, 3, w,
+                               samlp_single.SMEM_LIMIT, upto=3)
+    assert pl["w_res"] and pl["stages"] == 0 and pl["tm"] == tm
+    resident = pl["smem"] - rc.fwd_smem_bytes("stats", tm, 1, 3, w, upto=3,
+                                              stages=0)
+    ring = (rc.fwd_smem_bytes("stats", tm, 1, 3, w, upto=3, stages=4)
+            - rc.fwd_smem_bytes("stats", tm, 1, 3, w, upto=3, stages=0))
+    assert resident == (16 * 72 + 64 * 72 + 64 * 136) * 2 == 28928
+    assert ring == 4 * 32 * (128 + 8) * 2 == 34816
+    sa3 = (4096, 128, 259, (256, 512, 1024))
+    assert not samlp_single._admitted(*sa3[1:])
+    assert not samlp_single.fits(*sa3)
+    final = samlp_single.fwd_plan("final", *sa3, samlp_single.SMEM_LIMIT)
+    assert final["tm"] == 32 and final["smem"] == 124928
     with pytest.raises(ValueError, match="shared memory"):
-        samlp_single.plan("final", 4096, 128, 259, (256, 512, 1024),
-                          samlp_single.SMEM_LIMIT)
+        samlp_single.fwd_plan("final", *sa3, 40_000)
+    with pytest.raises(ValueError, match="forward passes"):
+        samlp_single.fwd_plan("bwd_final", *sa3, samlp_single.SMEM_LIMIT)
+
+
+def _fwd_plans(m, k, c0, w):
+    """#15 at every layer and #16's plans of a stack: ``(kind, upto,
+    plan)``."""
+    w = tuple(w)
+    return ([("stats", lv, samlp_single.fwd_plan(
+                "stats", m, 1, c0, w, samlp_single.SMEM_LIMIT, upto=lv))
+             for lv in range(1, len(w) + 1)]
+            + [("final", None, samlp_single.fwd_plan(
+                "final", m, k, c0, w, samlp_single.SMEM_LIMIT))])
+
+
+@pytest.mark.parametrize("combo", registry.registry_combos(),
+                         ids=lambda c: "-".join(c))
+def test_single_fwd_plans_of_every_stack(combo):
+    """At every registry stack (B=32 x 1024), admitted or not, #15 at
+    every layer and #16 have a plan whose bytes are #11 / #12's layout for
+    its own choices (``samlp_recompute.fwd_smem_bytes``) within 232 448 B
+    and, at its blocks an SM, within an SM; a tile at least #11 / #12's;
+    the weights resident (no ring) or a ring of 2-4 stages, resident only
+    where the block's longest range holds ``_FWD_RES_TILES`` tiles; unit 8
+    rows for stats and ``range_unit(k, c0)`` for final; block ranges that
+    cover every row once in block order, each cut at a unit; and a
+    product table a_1 .. a_n."""
+    spec = registry.init_model(*combo, device="cpu")
+    for _, m, k, c0, w in P.stack_shapes(spec.model):
+        for kind, lv, pl in _fwd_plans(m, k, c0, w):
+            kk = 1 if kind == "stats" else k
+            assert pl["smem"] == rc.fwd_smem_bytes(
+                kind, pl["tm"], kk, c0, w, upto=lv, stages=pl["stages"],
+                w_res=pl["w_res"])
+            assert pl["smem"] <= samlp_single.SMEM_LIMIT
+            assert pl["per_sm"] * (pl["smem"] + 1024) <= rc._SM_SMEM
+            grid = rc.fwd_plan(kind, m, kk, c0, tuple(w),
+                               samlp_single.SMEM_LIMIT, upto=lv)
+            assert pl["tm"] >= grid["tm"]
+            assert (pl["stages"] == 0) == pl["w_res"]
+            assert pl["w_res"] or 2 <= pl["stages"] <= 4
+            assert not pl["w_res"] or pl["tiles"] >= rc._FWD_RES_TILES
+            unit = 8 if kind == "stats" else samlp_single.range_unit(k, c0)
+            assert pl["unit"] == unit
+            units = -(-m // unit)
+            assert pl["blocks"] == min(units, 132 * pl["per_sm"])
+            ranges = samlp_single.block_rows(m, unit, pl["blocks"])
+            assert ranges[0][0] == 0 and ranges[-1][1] == m
+            assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+            assert all(lo % unit == 0 for lo, _ in ranges)
+            assert max(-(-(hi - lo) // pl["tm"]) for lo, hi in ranges) \
+                == pl["tiles"]
+            n = lv or len(w)
+            assert [(j, walk) for j, walk, _ in pl["prods"]] == [
+                (j, 0) for j in range(1, n + 1)]
+
+
+@pytest.mark.parametrize("m,unit", [
+    (524288, 8),   # SSG SA1 stats: 65 536 units over 264 blocks
+    (262144, 8),   # SSG SA2 stats
+    (4096, 8),     # SSG SA3 stats: more blocks than tiles of 32 rows
+    (35, 40),      # rows of 14 B at k = 5: fewer rows than a unit
+    (4104, 8),     # a ragged last unit is never split
+])
+def test_single_fwd_block_ranges_cover_every_row_once(m, unit):
+    """#15 / #16's block ranges (``block_rows`` at the plan's unit, the
+    mirror of the C ``block_rows``) cover every row once in block order,
+    each range starting on a unit (so its tiles' ``g2`` rows start on 16
+    bytes) and none more than one unit longer than another. A range ends
+    inside a tile wherever it is not a multiple of the tile: the tile
+    loop's row-end mask decides which rows a block sums."""
+    blocks = min(-(-m // unit), 264)
+    ranges = samlp_single.block_rows(m, unit, blocks)
+    assert ranges[0][0] == 0 and ranges[-1][1] == m
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(lo % unit == 0 for lo, _ in ranges)
+    sizes = [-(-(hi - lo) // unit) for lo, hi in ranges]
+    assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+    covered = np.zeros(m, int)
+    for lo, hi in ranges:
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+
+
+def test_single_fwd_plan_at_the_ssg_stacks():
+    """At the SSG clas stacks (B=32 x 1024) #15 and #16 plan #11 / #12's
+    choices, counted from the block ranges: two blocks an SM (264), SA1's
+    ranges 16 tiles of 128 rows and SA2's 8, the weights resident at SA1
+    (every pass) and at SA2's layer 1; a 4- or 3-stage ring at SA2's
+    layers 2-3 and final, where resident weights (151 808-223 488 B) would
+    fit only one block an SM."""
+    limit = samlp_single.SMEM_LIMIT
+    for (m, k, c0, w), res, tiles in (
+            ((524288, 32, 3, (64, 64, 128)), [True] * 4, 16),
+            ((262144, 64, 131, (128, 128, 256)),
+             [True, False, False, False], 8)):
+        plans = _fwd_plans(m, k, c0, w)
+        assert [pl["w_res"] for _, _, pl in plans] == res
+        for kind, lv, pl in plans:
+            assert pl["per_sm"] == 2 and pl["blocks"] == 264
+            assert pl["tm"] == 128 and pl["tiles"] == tiles
+            if not pl["w_res"]:
+                kk = 1 if kind == "stats" else k
+                held = rc.fwd_smem_bytes(kind, 128, kk, c0, w, upto=lv,
+                                         w_res=True)
+                assert 151808 <= held <= 223488
+                assert 2 * (held + 1024) > rc._SM_SMEM
 
 
 # ------------------------------------------------- whole steps, bf16
