@@ -4,10 +4,13 @@
 Drives the serving and training paths of ``papc_tpu_torch``'s PointNet++
 models at the width the JAX package's bench and CLI use (B=32 clouds x
 1024 points, 16 classes, 50 parts, seeded weights): SSG classification,
-MSG classification, and MSG and SSG part segmentation; and the
-PointPillars detection serving path (the KITTI car config at full
-width: B=2 frames of up to 25000 points, 12000 pillars, a 496 x 432 BEV
-grid, 107136 anchors, K=1000 before NMS) on the card, in fifteen phases;
+MSG classification, and MSG and SSG part segmentation; the rest of the
+classification / segmentation zoo (PointNet-Basic, PointNet and its
+Conv2D variant, VFE, VoxNet, KD-Net, KD-UNet, which run no kernel of
+the port); and the PointPillars detection serving path (the KITTI car
+config at full width: B=2 frames of up to 25000 points, 12000 pillars, a
+496 x 432 BEV grid, 107136 anchors, K=1000 before NMS) on the card, in
+sixteen phases;
 any failure raises and exits non-zero. TF32 is off for matmuls throughout
 (float32 references); the detection serving step runs its cuDNN
 convolutions in f32 itself, as a user gets it.
@@ -208,6 +211,17 @@ convolutions in f32 itself, as a user gets it.
    ``prefetch_to_device``) and in bf16 with steps/s and the busy share
    (``train_epoch_times``, public calls only, so it times a parent
    tree's ``train()`` too).
+16. The zoo, after phase 15: each of the ten registry combos outside the
+   PointNet++ family at full width (B=32 clouds x 1024 points from
+   ``make_cloud``, 16 classes, 50 parts; its input as its loader family
+   gives it: the clouds, their kd-trees from ``leaf_order`` with the
+   host's build ms, or their ``rasterize``d 32³ grids; seeded weights),
+   every kernel's count read around it (none may launch: no op of these
+   models has a kernel): the card's eval logits against the same
+   model's on the CPU within ``LOGIT_RTOL`` / ``LOGIT_ATOL``, serving ms
+   (CUDA events, median of 20), ten ``train_step``s on one batch with
+   the loss finite and falling, the median step ms of the last nine and
+   the peak memory, and one bf16 step with a finite loss.
 14. The per-kernel JSON line (each kernel's launches on its path, error
    against plain, ms, plain ms, the bound from this run's inputs and,
    where one PyTorch call computes the same function, its ms), then the
@@ -3427,6 +3441,110 @@ def phase_bf16(smi):
               f"{wall_ms:.1f} ms, profiled) ({smi})")
 
 
+ZOO = (("voxnet", "clas"), ("kdnet", "clas"), ("pointnet_basic", "clas"),
+       ("pointnet", "clas"), ("pointnet_conv2d", "clas"), ("vfe", "clas"),
+       ("kdunet", "seg"), ("pointnet_basic", "seg"), ("pointnet", "seg"),
+       ("vfe", "seg"))
+ZOO_STEPS = 10
+
+
+def _zoo_batch(kind, mode, seed):
+    """One batch of B clouds of N points as the loader of ``kind`` gives
+    it (numpy), and the host ms of its kd-trees (None for the others)."""
+    from papc_tpu_torch.data.kd import leaf_order
+    from papc_tpu_torch.data.voxel import normalized, rasterize
+
+    raw = _loader(B, mode, seed)
+    batch = {"points": raw.data, "label": raw.label,
+             "pid": raw.pid if mode == "seg" else None,
+             "mask": np.ones(B, bool)}
+    build_ms = None
+    if kind == "kd":
+        t0 = time.perf_counter()
+        batch["points"], splits, batch["pid"] = leaf_order(batch["points"],
+                                                          batch["pid"])
+        build_ms = (time.perf_counter() - t0) * 1e3
+        batch["split_dims"] = tuple(splits)
+    elif kind == "voxel":
+        batch["voxels"] = np.stack([rasterize(normalized(p)) for p in
+                                    batch.pop("points")])[..., None]
+    return {k: v for k, v in batch.items() if v is not None}, build_ms
+
+
+def _zoo_combo(name, mode, smi, counters):
+    from papc_tpu_torch.models import init_model
+    from papc_tpu_torch.train import make_optimizer, train_step
+    from papc_tpu_torch.train.evaluate import model_inputs
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    spec = init_model(name, mode, NUM_CLASSES, 50, N, seed=0, device="cpu")
+    batch, build_ms = _zoo_batch(spec.input_kind, mode, seed=6)
+    with torch.inference_mode():
+        want = spec.model(*model_inputs(spec.model, batch, cpu))
+    model = spec.model.to(cuda)
+    args = model_inputs(model, batch, cuda)
+    for c in counters.values():
+        c.launches = 0
+    with torch.inference_mode():
+        got = model(*args).cpu()
+        serve_ms = cuda_ms(lambda: model(*args), reps=REPS)
+    err = float((got - want).abs().max())
+    check(tuple(got.shape) == tuple(want.shape)
+          and bool(torch.isfinite(got).all()),
+          f"{name} {mode}: logits {tuple(got.shape)} not finite or not "
+          f"{tuple(want.shape)}")
+    check(torch.allclose(got, want, rtol=LOGIT_RTOL, atol=LOGIT_ATOL),
+          f"{name} {mode}: card logits differ from the CPU's by {err}")
+    opt = make_optimizer(model.parameters(), 1e-3, 1e-3)
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(ZOO_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, _ = train_step(model, opt, batch, cuda, gen)
+        stop.record()
+        stop.synchronize()
+        losses.append(float(loss))
+        times.append(start.elapsed_time(stop))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{name} {mode}: losses not finite and falling: {losses}")
+    bf16_loss, _ = train_step(model, opt, batch, cuda, gen,
+                              precision="bf16")
+    check(bool(torch.isfinite(bf16_loss)),
+          f"{name} {mode}: bf16 step loss {float(bf16_loss)}")
+    launched = {n: c.launches for n, c in counters.items() if c.launches}
+    check(not launched, f"{name} {mode} launched kernels {launched}")
+    kd = "" if build_ms is None else f", kd-trees {build_ms:.1f} host ms"
+    print(f"    {name} {mode} ({spec.input_kind}{kd}): logits "
+          f"{list(got.shape)}, max abs err card vs CPU {err:.3e}; serving "
+          f"{serve_ms:.3f} ms, step {statistics.median(times[1:]):.3f} ms "
+          f"(median of {ZOO_STEPS - 1}), peak {peak_gb:.3f} GB, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, bf16 step loss "
+          f"{float(bf16_loss):.4f} ({smi})")
+    del model, opt
+    torch.cuda.empty_cache()
+
+
+def phase_zoo(smi):
+    """Phase 16: the rest of the clas/seg zoo at full width (see the
+    module docstring); every kernel's launch count must stay 0."""
+    names = ("fps", "ball_query", "group_gather", "samlp_eval",
+             "group_scatter_add", "scatter_rows_add") + STREAM + RECOMPUTE \
+        + SINGLE
+    counters = _counters(names)
+    print(f"[16 zoo] {len(ZOO)} combos at B={B} x {N}, card vs CPU logits, "
+          f"{ZOO_STEPS} steps, one bf16 step; kernel launches read around "
+          "each (none expected)")
+    t0 = time.perf_counter()
+    for name, mode in ZOO:
+        _zoo_combo(name, mode, smi, counters)
+    print(f"    phase 16 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     name, smi = phase_device()
     from papc_tpu_torch.models import init_model
@@ -3467,6 +3585,7 @@ def main() -> int:
         steps[key] = {"stream": stream[key], "recompute": got}
     phase_single(smi, rc_rows, steps)
     phase_bf16(smi)
+    phase_zoo(smi)
     all_rows = (list(rows.values()) + list(t_rows.values()) + [scatter_row]
                 + list(det_rows.values()) + list(rc_rows.values()))
     _finish_bounds(all_rows)

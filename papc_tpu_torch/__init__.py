@@ -5,8 +5,11 @@ module paths and names (``ops``, ``nn``, ``models``, ``data``, ``train``)
 so each counterpart is easy to find. It imports ``torch`` and numpy and
 never ``jax``, ``flax`` or ``papc_tpu``.
 
-Ported so far: ``pointnet2_ssg`` classification, its training step
-(``train.train``) and its eval-mode inference (``train.evaluate``), and
+Ported so far: the whole classification / part-segmentation zoo of the
+JAX registry (14 model / mode combos: PointNet-Basic, PointNet and its
+Conv2D variant, VFE, VoxNet, KD-Net, KD-UNet and PointNet++ SSG / MSG),
+its training step (``train.train``) and its eval-mode inference
+(``train.evaluate``), with the ShapeNet, kd-tree and voxel loaders, and
 PointPillars detection serving from raw lidar frames
 (``detect.train.make_predict_step``, ``detect.train.evaluate``).
 Every TPU kernel on those paths is a hand-written CUDA kernel under

@@ -2,9 +2,11 @@
 
 Mirrors the JAX package's ``train.py``: it trains unless ``--evaluate``
 is given, with the same flags, plus an explicit ``--device`` and
-``--weights``. It serves and trains ``pointnet2_ssg`` and
-``pointnet2_msg`` in ``--mode clas`` (accuracy) and ``--mode seg`` (part
-segmentation, mean IoU), in ``--precision fp32`` or ``bf16``. Training
+``--weights``. It serves and trains every model of the registry
+(``--model_name``, default ``pointnet_basic``, as in JAX) in ``--mode
+clas`` (accuracy) and ``--mode seg`` (part segmentation, mean IoU), in
+``--precision fp32`` or ``bf16``, from the loader its input kind takes
+(ShapeNet clouds, kd-trees or occupancy grids built from them). Training
 writes a checkpoint directory ``{model_dir}/{name}_{epoch}`` every
 ``--save_iter`` epochs (weights, Adam's state and the step, see
 :mod:`papc_tpu_torch.train.trainer`). ``--evaluate`` serves
@@ -20,7 +22,7 @@ import argparse
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser(description="papc_tpu_torch")
-    parser.add_argument("--model_name", type=str, default="pointnet2_ssg")
+    parser.add_argument("--model_name", type=str, default="pointnet_basic")
     parser.add_argument("--mode", type=str, default="clas",
                         help='"clas" or "seg" (part segmentation)')
     parser.add_argument("--max_point", type=int, default=1024)

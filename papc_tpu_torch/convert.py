@@ -7,10 +7,14 @@ The port's modules carry the flax tree's names, so a flax leaf
 - Dense ``kernel [in, out]`` → Linear ``weight [out, in]``; ``bias`` → ``bias``;
 - Conv ``kernel [kh, kw, in, out]`` (HWIO) → Conv2d ``weight [out, in, kh,
   kw]`` (OIHW);
+- Conv ``kernel [kd, kh, kw, in, out]`` (DHWIO) → Conv3d ``weight [out,
+  in, kd, kh, kw]`` (OIDHW);
 - ConvTranspose ``kernel [s, s, in, out]`` → ConvTranspose2d ``weight [in,
   out, s, s]``, mirrored: ``weight[c, o, p, q] = kernel[s-1-p, s-1-q, c, o]``,
   because ``lax.conv_transpose`` applies the kernel mirrored where
-  ``conv_transpose2d`` does not;
+  ``conv_transpose2d`` does not; and ``kernel [s, in, out]`` →
+  ConvTranspose1d ``weight [in, out, s]``, ``weight[c, o, p] =
+  kernel[s-1-p, c, o]``;
 - BatchNorm ``scale`` / ``bias`` → ``weight`` / ``bias``;
 - ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` / ``running_var``.
 
@@ -49,12 +53,17 @@ def _torch_key(flax_key: str, value: np.ndarray) -> tuple[str, np.ndarray]:
     collection, *path, leaf = flax_key.split("/")
     if collection == "params" and leaf == "kernel":
         name = "weight"
+        transposed = bool(path) and path[-1].startswith("ConvTranspose")
         if value.ndim == 2:
             value = value.T
-        elif value.ndim == 4 and path and path[-1].startswith("ConvTranspose"):
+        elif value.ndim == 3 and transposed:
+            value = value[::-1].transpose(1, 2, 0)
+        elif value.ndim == 4 and transposed:
             value = value[::-1, ::-1].transpose(2, 3, 0, 1)
         elif value.ndim == 4:
             value = value.transpose(3, 2, 0, 1)
+        elif value.ndim == 5 and not transposed:
+            value = value.transpose(4, 3, 0, 1, 2)
         else:
             raise KeyError(f"{flax_key}: a {value.ndim}-D kernel has no "
                            "counterpart in the port")
@@ -85,7 +94,9 @@ def flax_to_state_dict(source, model: nn.Module) -> dict[str, torch.Tensor]:
         except KeyError:
             unused.append(flax_key)
             continue
-        if key not in want:
+        if key not in want or value.ndim != want[key].dim():
+            # a kernel of another rank (a 5-D Conv where the port's is 2-D)
+            # has no counterpart there
             unused.append(flax_key)
             continue
         if tuple(value.shape) != tuple(want[key].shape):
@@ -112,8 +123,12 @@ def load_flax_weights(model: nn.Module, source) -> nn.Module:
 def _flax_kernel(module: str, weight: np.ndarray) -> np.ndarray:
     if weight.ndim == 2:  # Dense
         return weight.T
+    if module.startswith("ConvTranspose") and weight.ndim == 3:
+        return np.ascontiguousarray(weight.transpose(2, 0, 1)[::-1])
     if module.startswith("ConvTranspose"):
         return np.ascontiguousarray(weight.transpose(2, 3, 0, 1)[::-1, ::-1])
+    if weight.ndim == 5:  # Conv3d: OIDHW → DHWIO
+        return weight.transpose(2, 3, 4, 1, 0)
     return weight.transpose(2, 3, 1, 0)  # Conv: OIHW → HWIO
 
 

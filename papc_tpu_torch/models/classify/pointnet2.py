@@ -21,6 +21,7 @@ from papc_tpu_torch.nn.layers import dense, dropout, init_params
 
 class PointNet2SSGClas(nn.Module):
     mode = "clas"
+    input_kind = "points"
 
     def __init__(self, num_classes: int = 16, normal_channel: bool = False,
                  npoints: tuple = (512, 128), nsamples: tuple = (32, 64),
@@ -70,6 +71,7 @@ class PointNet2MSGClas(nn.Module):
     ``Dense_2``."""
 
     mode = "clas"
+    input_kind = "points"
     DROPOUT_RATES = (0.4, 0.5)
 
     def __init__(self, num_classes: int = 16, normal_channel: bool = False,

@@ -1,9 +1,11 @@
 """Model registry (counterpart of ``papc_tpu/models/registry.py``).
 
-The port serves the PointNet++ family so far: ``pointnet2_ssg`` and
-``pointnet2_msg``, each in ``clas`` and ``seg`` mode, built with the JAX
-factories' arguments. Every other model of the JAX registry is still to
-port (``ROADMAP.md``, Queue 1) and raises ``NotImplementedError``.
+The same 14 (model_name, mode) combos as the JAX registry, in its order,
+built with its factories' arguments. ``input_kind`` tells the data layer
+which loader family feeds the model ('points' = ShapeNet clouds, 'kd' =
+kd-tree leaves and split axes, 'voxel' = 32³ occupancy grids); each
+model also carries it as an attribute, with its ``mode``. Unknown names
+and modes raise JAX's ``SystemExit`` messages.
 """
 
 from __future__ import annotations
@@ -13,8 +15,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from papc_tpu_torch.models.classify import PointNet2MSGClas, PointNet2SSGClas
-from papc_tpu_torch.models.segment import PointNet2MSGSeg, PointNet2SSGSeg
+from papc_tpu_torch.models import classify, segment
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,41 +25,73 @@ class ModelSpec:
     mode: str  # 'clas' | 'seg'
 
 
-# (name, mode) → (factory(num_classes, num_parts, max_point, generator),
+# mode → name → (factory(num_classes, num_parts, max_point, generator),
 # input_kind)
-_TABLE = {
-    ("pointnet2_ssg", "clas"): (
-        lambda nc, np_, mp, gen: PointNet2SSGClas(num_classes=nc,
-                                                  generator=gen),
-        "points",
-    ),
-    ("pointnet2_msg", "clas"): (
-        lambda nc, np_, mp, gen: PointNet2MSGClas(num_classes=nc,
-                                                  generator=gen),
-        "points",
-    ),
-    ("pointnet2_ssg", "seg"): (
-        lambda nc, np_, mp, gen: PointNet2SSGSeg(num_classes=nc,
-                                                 num_parts=np_,
-                                                 generator=gen),
-        "points",
-    ),
-    ("pointnet2_msg", "seg"): (
-        lambda nc, np_, mp, gen: PointNet2MSGSeg(num_classes=nc,
-                                                 num_parts=np_,
-                                                 generator=gen),
-        "points",
-    ),
+_TABLES = {
+    "clas": {
+        "voxnet": (lambda nc, np_, mp, gen: classify.VoxNet(
+            num_classes=nc, generator=gen), "voxel"),
+        "kdnet": (lambda nc, np_, mp, gen: classify.KDNet(
+            num_classes=nc, max_point=mp, generator=gen), "kd"),
+        "pointnet_basic": (lambda nc, np_, mp, gen: classify.PointNetBasicClas(
+            num_classes=nc, max_points=mp, generator=gen), "points"),
+        "pointnet": (lambda nc, np_, mp, gen: classify.PointNetClas(
+            num_classes=nc, max_point=mp, generator=gen), "points"),
+        "pointnet_conv2d": (lambda nc, np_, mp, gen:
+                            classify.PointNetConv2DClas(
+                                num_classes=nc, max_point=mp, generator=gen),
+                            "points"),
+        "vfe": (lambda nc, np_, mp, gen: classify.VFEClas(
+            num_classes=nc, max_points=mp, generator=gen), "points"),
+        "pointnet2_ssg": (lambda nc, np_, mp, gen: classify.PointNet2SSGClas(
+            num_classes=nc, generator=gen), "points"),
+        "pointnet2_msg": (lambda nc, np_, mp, gen: classify.PointNet2MSGClas(
+            num_classes=nc, generator=gen), "points"),
+    },
+    "seg": {
+        "kdunet": (lambda nc, np_, mp, gen: segment.KDUNet(
+            num_classes=np_, generator=gen), "kd"),
+        "pointnet_basic": (lambda nc, np_, mp, gen: segment.PointNetBasicSeg(
+            num_classes=np_, max_points=mp, generator=gen), "points"),
+        "pointnet": (lambda nc, np_, mp, gen: segment.PointNetSeg(
+            num_classes=np_, max_point=mp, generator=gen), "points"),
+        "vfe": (lambda nc, np_, mp, gen: segment.VFESeg(
+            num_classes=np_, max_points=mp, generator=gen), "points"),
+        "pointnet2_ssg": (lambda nc, np_, mp, gen: segment.PointNet2SSGSeg(
+            num_classes=nc, num_parts=np_, generator=gen), "points"),
+        "pointnet2_msg": (lambda nc, np_, mp, gen: segment.PointNet2MSGSeg(
+            num_classes=nc, num_parts=np_, generator=gen), "points"),
+    },
 }
 
 
 def registry_combos() -> tuple[tuple[str, str], ...]:
-    """Every (model_name, mode) combo the port can construct."""
-    return tuple(_TABLE)
+    """Every (model_name, mode) combo the registry can construct, in
+    JAX's order."""
+    return tuple((name, mode) for mode, table in _TABLES.items()
+                 for name in table)
+
+
+def _entry(model_name: str, mode: str):
+    if mode == "detect":
+        raise SystemExit(
+            "Error: use papc_tpu.models.detect / the detection CLI for "
+            "detection models")
+    if mode not in _TABLES:
+        raise SystemExit('Error: mode should be "clas", "detect" or "seg"')
+    if model_name not in _TABLES[mode]:
+        raise SystemExit("Error: model is incorrect")
+    return _TABLES[mode][model_name]
+
+
+def input_kind(model_name: str, mode: str) -> str:
+    """The loader family of a combo, without building the model; raises
+    as :func:`init_model` does."""
+    return _entry(model_name, mode)[1]
 
 
 def init_model(
-    model_name: str = "pointnet2_ssg",
+    model_name: str = "pointnet_basic",
     mode: str = "clas",
     num_classes: int = 16,
     num_parts: int = 50,
@@ -70,14 +103,7 @@ def init_model(
     """Build a model in eval mode on ``device`` (the card unless the
     caller asks for the CPU) with flax's initial values drawn from
     ``torch.Generator().manual_seed(seed)``."""
-    if mode not in ("clas", "seg"):
-        raise SystemExit('Error: mode should be "clas", "detect" or "seg"')
-    if (model_name, mode) not in _TABLE:
-        raise NotImplementedError(
-            f"({model_name!r}, {mode!r}) is not ported to PyTorch yet; the "
-            f"port serves {sorted(_TABLE)}. See ROADMAP.md, Queue 1."
-        )
-    factory, kind = _TABLE[(model_name, mode)]
+    factory, kind = _entry(model_name, mode)
     gen = torch.Generator().manual_seed(seed)
     model = factory(num_classes, num_parts, max_point, gen)
     return ModelSpec(model=model.eval().to(device), input_kind=kind,

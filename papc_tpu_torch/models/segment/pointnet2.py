@@ -23,6 +23,7 @@ class _PointNet2Seg(nn.Module):
     ``(xyz, points)``, and calls :meth:`_build_decoder`."""
 
     mode = "seg"
+    input_kind = "points"
 
     def __init__(self, num_classes: int, num_parts: int,
                  normal_channel: bool):

@@ -60,7 +60,8 @@ class BatchNorm(nn.Module):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            x2 = x.reshape(-1, x.shape[-1]).float()
+            x2 = x.reshape(-1, x.shape[-1])
+            x2 = x2.to(torch.promote_types(x2.dtype, torch.float32))
             mean = x2.mean(0)
             var = torch.clamp_min((x2 * x2).mean(0) - mean * mean, 0.0)
             with torch.no_grad():
@@ -86,6 +87,55 @@ def dense(linear: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     if dtype == torch.bfloat16 and b is not None:
         return x @ w.t() + b.to(dtype)
     return nn.functional.linear(x, w, None if b is None else b.to(dtype))
+
+
+def f32_cudnn():
+    """cuDNN in full float32 (PyTorch's own default lets cuDNN use TF32),
+    as a context local to the caller."""
+    return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+
+
+class _F32Cudnn(torch.autograd.Function):
+    """``op(x, w)`` with its forward and its backward both under
+    :func:`f32_cudnn`: a convolution's backward runs at
+    ``loss.backward()``, outside the model's call, and reads the flag
+    then."""
+
+    @staticmethod
+    def forward(ctx, op, x, w):
+        with torch.enable_grad(), f32_cudnn():
+            ins = [t.detach().requires_grad_(t.requires_grad) for t in (x, w)]
+            out = op(*ins)
+        ctx.graph = (ins, out)
+        return out.detach()
+
+    @staticmethod
+    def backward(ctx, grad):
+        ins, out = ctx.graph
+        del ctx.graph
+        need = [t for t in ins if t.requires_grad]
+        with f32_cudnn():
+            got = iter(torch.autograd.grad(out, need, grad))
+        return (None, *(next(got) if t.requires_grad else None
+                        for t in ins))
+
+
+def conv(module: nn.Module, x: torch.Tensor, op) -> torch.Tensor:
+    """flax's ``Conv`` / ``ConvTranspose`` on ``module``'s parameters:
+    ``op(x, weight)`` (channels first), input, kernel and bias promoted
+    to one dtype first and the bias added after the convolution, as flax
+    adds it; cuDNN in float32 forward and backward (:func:`f32_cudnn`)."""
+    w, b = module.weight, module.bias
+    dtype = torch.promote_types(torch.promote_types(x.dtype, w.dtype),
+                                b.dtype)
+    x, w = x.to(dtype), w.to(dtype)
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        y = _F32Cudnn.apply(op, x, w)
+    else:
+        with f32_cudnn():
+            y = op(x, w)
+    shape = (1, -1) + (1,) * (y.dim() - 2)
+    return y + b.to(dtype).reshape(shape)
 
 
 def dropout(x: torch.Tensor, rate: float, mask: torch.Tensor | None,
@@ -114,18 +164,23 @@ def _rounded(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
+_KERNELS = (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose1d,
+            nn.ConvTranspose2d)
+_TRANSPOSED = (nn.ConvTranspose1d, nn.ConvTranspose2d)
+
+
 def init_params(module: nn.Module, generator: torch.Generator) -> None:
     """flax's initial values from a seeded generator: lecun-normal
-    kernels (fan-in: input features, or input channels × kernel area),
+    kernels (fan-in: input features, or input channels × kernel volume),
     zero biases, BatchNorm scale 1 / bias 0, running mean 0 and variance
-    1."""
+    1, and each :class:`TNet`'s last Dense zero with the identity as its
+    bias."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(m, _KERNELS):
                 w = m.weight
                 fan_in = (w.shape[0] * w[0, 0].numel()
-                          if isinstance(m, nn.ConvTranspose2d)
-                          else w[0].numel())
+                          if isinstance(m, _TRANSPOSED) else w[0].numel())
                 std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
                 nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
@@ -136,6 +191,9 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
                 nn.init.zeros_(m.bias)
                 m.running_mean.zero_()
                 m.running_var.fill_(1.0)
+        for m in module.modules():
+            if isinstance(m, TNet):
+                m.reset_transform()
 
 
 class PointMLP(nn.Module):
@@ -241,3 +299,48 @@ class MLPHead(nn.Module):
         if drop and not self.per_layer_dropout:
             x = apply_dropout(x)
         return dense(getattr(self, f"Dense_{len(self.hidden)}"), x)
+
+
+class SegHead(nn.Module):
+    """Per-point segmentation head: a :class:`PointMLP` over ``hidden``,
+    then a Dense to ``out`` classes (no dropout)."""
+
+    def __init__(self, in_features: int, hidden: Sequence[int], out: int):
+        super().__init__()
+        self.PointMLP_0 = PointMLP(in_features, hidden)
+        self.Dense_0 = nn.Linear(tuple(hidden)[-1], out)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(self.Dense_0, self.PointMLP_0(x))
+
+
+def global_max_pool(x: torch.Tensor, axis: int = 1) -> torch.Tensor:
+    """Max over the points axis: the PointNet symmetric function."""
+    return torch.amax(x, dim=axis)
+
+
+class TNet(nn.Module):
+    """Spatial / feature transform net: ``[B, N, k]`` → a ``[B, k, k]``
+    matrix. A 64-128-1024 :class:`PointMLP`, the global max, Dense 512
+    and 256 with ReLU, then a Dense to ``k·k`` whose initial weights are
+    zero and bias the flattened identity (:meth:`reset_transform`), so
+    the initial transform is I."""
+
+    def __init__(self, k: int):
+        super().__init__()
+        self.k = k
+        self.PointMLP_0 = PointMLP(k, (64, 128, 1024))
+        self.Dense_0 = nn.Linear(1024, 512)
+        self.Dense_1 = nn.Linear(512, 256)
+        self.Dense_2 = nn.Linear(256, k * k)
+
+    def reset_transform(self) -> None:
+        with torch.no_grad():
+            self.Dense_2.weight.zero_()
+            self.Dense_2.bias.copy_(torch.eye(self.k).reshape(-1))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = global_max_pool(self.PointMLP_0(x))
+        h = torch.relu(dense(self.Dense_0, h))
+        h = torch.relu(dense(self.Dense_1, h))
+        return dense(self.Dense_2, h).reshape(-1, self.k, self.k)

@@ -9,9 +9,12 @@ under ``model_dir``, as JAX's ``evaluate`` finds it), or from flax
 variables (a nested dict or a flat ``.npz``, see
 :mod:`papc_tpu_torch.convert`).
 
-Classification takes ``points`` and scores ``label`` by accuracy; part
-segmentation takes ``(points, label)`` and scores the per-point ``pid``
-by mean IoU (``model_inputs`` / ``targets_of`` in the JAX trainer).
+The model's inputs follow its ``input_kind`` and ``mode``, as JAX's
+``model_inputs`` gives them: ``(voxels,)``, ``(points, split_dims)`` for
+the kd-tree models, ``(points, label)`` for part segmentation, else
+``(points,)``. Classification scores ``label`` by accuracy, part
+segmentation the per-point ``pid`` by mean IoU. The default loader is
+:func:`~papc_tpu_torch.data.make_dataloader`'s for the model.
 """
 
 from __future__ import annotations
@@ -34,23 +37,34 @@ def batch_dict(raw) -> dict:
     return {k: v for k, v in raw._asdict().items() if v is not None}
 
 
-def batch_tensor(batch: dict, key: str,
-                 device: torch.device) -> torch.Tensor:
-    """``batch[key]`` as a tensor on ``device`` (a tensor already there,
-    as the prefetch leaves it, is returned as it is)."""
-    value = batch[key]
+def _tensor(value, device: torch.device) -> torch.Tensor:
     if isinstance(value, torch.Tensor):
         return value.to(device)
     return torch.as_tensor(np.asarray(value), device=device)
 
 
-def model_inputs(mode: str, batch: dict, device: torch.device) -> tuple:
-    """The model's positional inputs: ``(points,)``, or ``(points,
-    label)`` for segmentation."""
-    if mode == "seg":
-        return (batch_tensor(batch, "points", device),
-                batch_tensor(batch, "label", device))
-    return (batch_tensor(batch, "points", device),)
+def batch_tensor(batch: dict, key: str, device: torch.device):
+    """``batch[key]`` as a tensor on ``device`` (a tensor already there,
+    as the prefetch leaves it, is returned as it is); a tuple or list of
+    arrays, as ``split_dims``, as a tuple of tensors."""
+    value = batch[key]
+    if isinstance(value, (tuple, list)):
+        return tuple(_tensor(v, device) for v in value)
+    return _tensor(value, device)
+
+
+def model_inputs(model, batch: dict, device: torch.device) -> tuple:
+    """The positional inputs of ``model`` (a model or its ``ModelSpec``:
+    anything with ``input_kind`` and ``mode``) for a batch."""
+    if model.input_kind == "voxel":
+        keys = ("voxels",)
+    elif model.input_kind == "kd":
+        keys = ("points", "split_dims")
+    elif model.mode == "seg":
+        keys = ("points", "label")
+    else:
+        keys = ("points",)
+    return tuple(batch_tensor(batch, k, device) for k in keys)
 
 
 def targets_of(mode: str, batch: dict, device: torch.device) -> torch.Tensor:
@@ -74,7 +88,7 @@ def eval_step(model: torch.nn.Module, batch: dict, device: torch.device,
               impl: str | None = None):
     """One batch: ``(logits, loss, metric)`` on ``device``, loss and
     metric over the rows ``batch["mask"]`` marks valid."""
-    inputs = model_inputs(model.mode, batch, device)
+    inputs = model_inputs(model, batch, device)
     targets = targets_of(model.mode, batch, device)
     mask = batch_tensor(batch, "mask", device)
     with torch.inference_mode():
@@ -85,7 +99,7 @@ def eval_step(model: torch.nn.Module, batch: dict, device: torch.device,
 
 
 def evaluate(
-    model_name: str = "pointnet2_ssg",
+    model_name: str = "pointnet_basic",
     mode: str = "clas",
     max_point: int = 1024,
     num_classes: int = 16,
@@ -108,8 +122,9 @@ def evaluate(
     there, ``FileNotFoundError``, as in JAX).
 
     ``make_loader(split)`` returns an epoch callable yielding batches
-    (default: :class:`~papc_tpu_torch.data.ShapeNetLoader` over ``path``,
-    with the part labels in ``seg`` mode). ``impl`` is passed to every op
+    (default: :func:`~papc_tpu_torch.data.make_dataloader`'s loader over
+    ``path`` for the model, with the part labels in ``seg`` mode).
+    ``impl`` is passed to every op
     of the forward: ``None`` runs the CUDA kernels on a CUDA device and
     the plain versions on the CPU.
 
@@ -134,11 +149,11 @@ def evaluate(
         weights = checkpoint_variables(read_checkpoint(checkpoint_path))
     device = torch.device(device)
     if make_loader is None:
-        from papc_tpu_torch.data import ShapeNetLoader
+        from papc_tpu_torch.data import make_dataloader
 
         def make_loader(split_):
-            return ShapeNetLoader(path, split_, max_point, batchsize,
-                                  with_pid=mode == "seg")
+            return make_dataloader(model_name, max_point, batchsize, path,
+                                   mode, split_)
 
     spec = init_model(model_name, mode, num_classes, num_parts, max_point,
                       device=device)

@@ -86,7 +86,7 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
     """
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")
-    inputs = model_inputs(model.mode, batch, device)
+    inputs = model_inputs(model, batch, device)
     targets = targets_of(model.mode, batch, device)
     mask = batch_tensor(batch, "mask", device)
     model.train()
@@ -185,7 +185,7 @@ def restore_checkpoint(model: torch.nn.Module, opt: torch.optim.Optimizer,
 
 
 def train(
-    model_name: str = "pointnet2_ssg",
+    model_name: str = "pointnet_basic",
     mode: str = "clas",
     max_point: int = 1024,
     num_classes: int = 16,
@@ -209,10 +209,10 @@ def train(
     """Train a model of the registry; returns ``(model, history)``.
 
     ``make_loader(split)`` returns an epoch callable yielding batches
-    (default: :class:`~papc_tpu_torch.data.ShapeNetLoader` over ``path``,
-    the train split shuffled by ``RandomState(0)`` whatever ``seed`` is,
-    as the JAX package's ``make_dataloader`` does, with the part labels in
-    ``seg`` mode). Weights start from ``seed``; dropout draws from a CPU
+    (default: :func:`~papc_tpu_torch.data.make_dataloader`'s loader over
+    ``path`` for the model, the train split shuffled by ``RandomState(0)``
+    whatever ``seed`` is, as in JAX, with the part labels in ``seg``
+    mode). Weights start from ``seed``; dropout draws from a CPU
     ``torch.Generator`` seeded with ``seed``. ``history`` holds one dict
     per epoch: ``epoch``, ``epoch_time`` (s, host clock, synchronized),
     ``train_loss`` (every step's loss), ``val_loss`` and ``val_metric``
@@ -225,11 +225,11 @@ def train(
         raise ValueError(f"unknown precision {precision!r}")
     device = torch.device(device)
     if make_loader is None:
-        from papc_tpu_torch.data import ShapeNetLoader
+        from papc_tpu_torch.data import make_dataloader
 
         def make_loader(split):  # shuffled by RandomState(0), as in JAX
-            return ShapeNetLoader(path, split, max_point, batchsize,
-                                  with_pid=mode == "seg")
+            return make_dataloader(model_name, max_point, batchsize, path,
+                                   mode, split)
 
     train_loader, val_loader = make_loader("train"), make_loader("val")
     model = init_model(model_name, mode, num_classes, num_parts, max_point,

@@ -198,12 +198,13 @@ def test_evaluate_without_weights_serves_the_latest_checkpoint(tmp_path,
     loaders = {"train": SyntheticLoader(4, n_points=128, batchsize=4, seed=1),
                "val": SyntheticLoader(4, n_points=128, batchsize=4, seed=2)}
     model_dir = str(tmp_path / "model")
-    model, _ = train(max_point=128, epoch_num=2, batchsize=4, save_iter=1,
-                     model_dir=model_dir, make_loader=loaders.__getitem__,
+    model, _ = train("pointnet2_ssg", max_point=128, epoch_num=2,
+                     batchsize=4, save_iter=1, model_dir=model_dir, make_loader=loaders.__getitem__,
                      device="cpu", log=lambda line: None)
     logs = []
-    served = evaluate(make_loader=loaders.__getitem__, split="val",
-                      max_point=128, model_dir=model_dir, device="cpu",
+    served = evaluate("pointnet2_ssg", make_loader=loaders.__getitem__,
+                      split="val", max_point=128, model_dir=model_dir,
+                      device="cpu",
                       log=logs.append)
     assert logs[0] == ("eval: restoring latest checkpoint "
                        f"{model_dir}/pointnet2_ssg_1")
@@ -214,14 +215,16 @@ def test_evaluate_without_weights_serves_the_latest_checkpoint(tmp_path,
     with pytest.raises(FileNotFoundError,
                        match=r"no .*/empty/pointnet2_ssg_<epoch> checkpoint "
                        "found — train first or pass --checkpoint explicitly"):
-        evaluate(make_loader=loaders.__getitem__, split="val", max_point=128,
+        evaluate("pointnet2_ssg", make_loader=loaders.__getitem__,
+                 split="val", max_point=128,
                  model_dir=str(tmp_path / "empty"), device="cpu")
 
     from papc_tpu.data.synthetic import write_shapenet_h5
 
     data = write_shapenet_h5(str(tmp_path / "data"), n_train=0, n_test=2,
                              n_val=0, n_points=128, num_classes=16)
-    assert cli.main(["--evaluate", "--path", data, "--max_point", "128",
+    assert cli.main(["--model_name", "pointnet2_ssg", "--evaluate", "--path",
+                     data, "--max_point", "128",
                      "--batchsize", "2", "--model_dir", model_dir,
                      "--device", "cpu"]) == 0
     out = capsys.readouterr().out

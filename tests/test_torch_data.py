@@ -84,7 +84,7 @@ def test_metrics_match_jax(rng):
 
 
 def _seeded_weights(tmp_path):
-    spec = init_model(seed=0, device="cpu")
+    spec = init_model("pointnet2_ssg", seed=0, device="cpu")
     path = tmp_path / "ssg_seed0.npz"
     np.savez(path, **state_dict_to_flax(spec.model.state_dict()))
     return spec.model, path
@@ -97,7 +97,8 @@ def test_evaluate_on_the_cpu(tmp_path):
     loader = SyntheticLoader(5, n_points=1024, num_classes=16, batchsize=3,
                              seed=1)
     logs = []
-    result = evaluate(weights=weights, make_loader=lambda split: loader,
+    result = evaluate("pointnet2_ssg", weights=weights,
+                      make_loader=lambda split: loader,
                       device="cpu", log=logs.append)
     assert result["num_samples"] == 5 and logs[0].startswith("eval[test]")
     with torch.inference_mode():
@@ -110,7 +111,8 @@ def test_evaluate_on_the_cpu(tmp_path):
     assert result["loss"] == pytest.approx(
         float(metrics.softmax_cross_entropy(logits, labels)), rel=1e-5)
     with pytest.raises(FileNotFoundError, match="checkpoint found"):
-        evaluate(make_loader=lambda split: loader, device="cpu",
+        evaluate("pointnet2_ssg", make_loader=lambda split: loader,
+                 device="cpu",
                  model_dir=str(tmp_path / "no_model"))
 
 

@@ -55,7 +55,9 @@ def test_package_import_loads_no_jax_and_builds_nothing():
             "papc_tpu_torch.ops.fused_mlp, papc_tpu_torch.detect.train, "
             "papc_tpu_torch.detect.builders, papc_tpu_torch.ops.nms, "
             "papc_tpu_torch.data.synthetic_kitti, "
-            "papc_tpu_torch.models.segment, papc_tpu_torch.ops.interpolate; "
+            "papc_tpu_torch.models.segment, papc_tpu_torch.ops.interpolate, "
+            "papc_tpu_torch.models.classify, papc_tpu_torch.data.kd, "
+            "papc_tpu_torch.data.voxel, papc_tpu_torch.data.dispatch; "
             "from papc_tpu_torch import _build; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'papc_tpu', 'h5py', 'triton')); "

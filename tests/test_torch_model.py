@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from papc_tpu.models import registry as jregistry
 from papc_tpu.models.classify import PointNet2SSGClas as JaxSSG
 from papc_tpu.nn import layers as jlayers
 from papc_tpu.ops import fused_mlp as jfused
@@ -123,9 +124,9 @@ def test_full_width_forward_shape_and_params():
 
 
 def test_seeded_init_follows_flax_families():
-    a = init_model(seed=3, device="cpu").model.state_dict()
-    b = init_model(seed=3, device="cpu").model.state_dict()
-    c = init_model(seed=4, device="cpu").model.state_dict()
+    a = init_model("pointnet2_ssg", seed=3, device="cpu").model.state_dict()
+    b = init_model("pointnet2_ssg", seed=3, device="cpu").model.state_dict()
+    c = init_model("pointnet2_ssg", seed=4, device="cpu").model.state_dict()
     for k in a:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0)
     w = a["SetAbstraction_1.PointMLP_0.Dense_0.weight"]  # fan_in 131
@@ -178,9 +179,10 @@ def test_point_mlp_without_pool_matches_flax(rng):
 
 def test_training_mode_and_other_models_raise():
     """Training mode runs (an nn.Module starts in it) and gives every
-    parameter a gradient; the four ported combos construct (on the CPU
-    when asked; the card is the default), and the models not ported yet
-    still raise."""
+    parameter a gradient; all 14 combos of JAX's registry construct, in
+    its order (on the CPU when asked; the card is the default), each
+    carrying its mode and input kind; unknown names and modes, and
+    ``mode="detect"``, raise JAX's ``SystemExit`` messages."""
     model = PointNet2SSGClas(npoints=(8, 4), nsamples=(4, 4))
     points = torch.from_numpy(_clouds(2, 16))
     logits = model(points, generator=torch.Generator().manual_seed(0))
@@ -189,20 +191,22 @@ def test_training_mode_and_other_models_raise():
     assert all(p.grad is not None for p in model.parameters())
     assert float(model.SetAbstraction_0.PointMLP_0.BatchNorm_0
                  .running_var.sub(1).abs().max()) > 0
-    assert registry_combos() == (("pointnet2_ssg", "clas"),
-                                 ("pointnet2_msg", "clas"),
-                                 ("pointnet2_ssg", "seg"),
-                                 ("pointnet2_msg", "seg"))
+    assert registry_combos() == jregistry.registry_combos()
+    assert len(registry_combos()) == 14
     for name, mode in registry_combos():
         spec = init_model(name, mode, device="cpu")
+        want = jregistry.init_model(name, mode)
         assert spec.mode == spec.model.mode == mode
+        assert spec.input_kind == spec.model.input_kind == want.input_kind
         assert not spec.model.training
         assert next(spec.model.parameters()).device.type == "cpu"
-    for name, mode in [("pointnet", "clas"), ("pointnet", "seg"),
-                       ("pointnet_basic", "clas"), ("pointnet_conv2d", "clas"),
-                       ("vfe", "seg"), ("voxnet", "clas"), ("kdnet", "clas"),
-                       ("kdunet", "seg")]:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for name, mode in [("pointnet3", "clas"), ("kdunet", "clas"),
+                       ("voxnet", "seg"), ("pointnet2_ssg", "detect"),
+                       ("pointnet2_ssg", "cls")]:
+        with pytest.raises(SystemExit) as got:
             init_model(name, mode, device="cpu")
-    with pytest.raises(SystemExit):
-        init_model("pointnet2_ssg", "detect", device="cpu")
+        with pytest.raises(SystemExit) as want:
+            jregistry.init_model(name, mode)
+        assert str(got.value) == str(want.value)
+    assert init_model(device="cpu").model.__class__.__name__ == \
+        "PointNetBasicClas"

@@ -38,6 +38,11 @@ from papc_tpu_torch.ops.kernels import samlp_single, samlp_train
 
 from tests import torch_parity as P
 
+# The registry's models with fused SA stacks: the PointNet++ family (the
+# rest of the zoo runs no SA kernel).
+SA_COMBOS = tuple(c for c in registry.registry_combos()
+                  if c[0].startswith("pointnet2"))
+
 T = torch.from_numpy
 F32, BF16 = torch.float32, torch.bfloat16
 J_DTYPE = {F32: jnp.float32, BF16: jnp.bfloat16}
@@ -502,7 +507,7 @@ def _bwd_passes(widths):
                ("bwd_final", {"need_dg": False})])
 
 
-@pytest.mark.parametrize("combo", registry.registry_combos(),
+@pytest.mark.parametrize("combo", SA_COMBOS,
                          ids=lambda c: "-".join(c))
 def test_every_plan_fits_the_card(combo):
     """Every pass of every SA stack of the registry's models at B=32 x
@@ -556,7 +561,7 @@ def _covers(pieces, n: int) -> bool:
     return all(h == 1 for h in hit)
 
 
-@pytest.mark.parametrize("combo", registry.registry_combos(),
+@pytest.mark.parametrize("combo", SA_COMBOS,
                          ids=lambda c: "-".join(c))
 def test_bwd_plan_takes_every_tile_product_and_column_once(combo):
     """#13 and #14's plan at every stack of the model, at the rows above
@@ -640,7 +645,7 @@ FWD_RAGGED = [(160, 32, 3, (64, 64, 128)), (72, 8, 20, (16, 16, 16, 32)),
               (35, 5, 7, (16, 24)), (1200, 20, 9, (32, 48))]
 
 
-@pytest.mark.parametrize("combo", registry.registry_combos(),
+@pytest.mark.parametrize("combo", SA_COMBOS,
                          ids=lambda c: "-".join(c))
 def test_fwd_plan_takes_every_tile_product_column_and_group_once(combo):
     """#11 and #12's plan at every stack of the model (at the rows above

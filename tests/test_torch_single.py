@@ -40,8 +40,8 @@ from papc_tpu_torch.train import evaluate
 from papc_tpu_torch.train import trainer
 
 from tests import torch_parity as P
-from tests.test_torch_recompute import (J_DTYPE, _compare_fused, _layers,
-                                        _np, _port_fused)
+from tests.test_torch_recompute import (J_DTYPE, SA_COMBOS, _compare_fused,
+                                        _layers, _np, _port_fused)
 
 F32, BF16 = torch.float32, torch.bfloat16
 
@@ -191,7 +191,7 @@ def _bwd_plans(m, k, c0, w):
                 "bwd_final", m, k, c0, w, samlp_single.SMEM_LIMIT))])
 
 
-@pytest.mark.parametrize("combo", registry.registry_combos(),
+@pytest.mark.parametrize("combo", SA_COMBOS,
                          ids=lambda c: "-".join(c))
 def test_recompute1_gate_of_every_stack(combo):
     """Every registry stack's gate decision at B=32 x 1024, the JAX
@@ -220,7 +220,7 @@ def test_recompute1_gate_of_every_stack(combo):
             assert (pl["dw"] == "smem") == (c0 == 3)
 
 
-@pytest.mark.parametrize("combo", registry.registry_combos(),
+@pytest.mark.parametrize("combo", SA_COMBOS,
                          ids=lambda c: "-".join(c))
 def test_single_bwd_plans_of_every_admitted_stack(combo):
     """At every stack the gate admits (B=32 x 1024), #17 at every level
@@ -346,7 +346,7 @@ def _fwd_plans(m, k, c0, w):
                 "final", m, k, c0, w, samlp_single.SMEM_LIMIT))])
 
 
-@pytest.mark.parametrize("combo", registry.registry_combos(),
+@pytest.mark.parametrize("combo", SA_COMBOS,
                          ids=lambda c: "-".join(c))
 def test_single_fwd_plans_of_every_stack(combo):
     """At every registry stack (B=32 x 1024), admitted or not, #15 at
@@ -503,9 +503,9 @@ def test_train_shuffles_as_jax_whatever_the_seed(shapenet, monkeypatch,
 
     monkeypatch.setattr(trainer, "train_step", step)
     monkeypatch.setattr(trainer, "eval_step", lambda *a: (None, 0.0, 0.0))
-    trainer.train(max_point=64, epoch_num=1, batchsize=5, path=shapenet,
-                  model_dir=str(tmp_path), seed=1, device="cpu",
-                  log=lambda line: None)
+    trainer.train("pointnet2_ssg", max_point=64, epoch_num=1, batchsize=5,
+                  path=shapenet, model_dir=str(tmp_path), seed=1,
+                  device="cpu", log=lambda line: None)
     want = [w.label[w.mask] for w in make_dataloader(
         "pointnet2_ssg", 64, 5, shapenet, "clas", "train")()]
     np.testing.assert_array_equal(np.concatenate(seen), np.concatenate(want))

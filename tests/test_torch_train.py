@@ -604,7 +604,8 @@ def test_train_entry_point_writes_weights_that_evaluate_serves(tmp_path):
     loaders = {"train": SyntheticLoader(8, n_points=128, batchsize=4, seed=1),
                "val": SyntheticLoader(4, n_points=128, batchsize=4, seed=2)}
     logs = []
-    model, history = train(max_point=128, epoch_num=2, batchsize=4,
+    model, history = train("pointnet2_ssg", max_point=128, epoch_num=2,
+                           batchsize=4,
                            info_iter=1, save_iter=1,
                            model_dir=str(tmp_path / "model"),
                            make_loader=loaders.__getitem__, device="cpu",
@@ -623,7 +624,8 @@ def test_train_entry_point_writes_weights_that_evaluate_serves(tmp_path):
     for epoch in (0, 1):
         assert (tmp_path / "model" / f"pointnet2_ssg_{epoch}" /
                 "checkpoint.npz").is_file()
-    served = evaluate(checkpoint_path=str(tmp_path / "model" /
+    served = evaluate("pointnet2_ssg",
+                      checkpoint_path=str(tmp_path / "model" /
                                           "pointnet2_ssg_1"),
                       make_loader=loaders.__getitem__, split="val",
                       max_point=128, device="cpu", log=lambda line: None)
@@ -656,7 +658,8 @@ def test_cli_trains_and_refuses_unported_modes(tmp_path, capsys):
                              n_val=2, n_points=128, num_classes=16)
     for precision in ("fp32", "bf16"):
         model_dir = tmp_path / f"model_{precision}"
-        assert cli.main(["--path", data, "--max_point", "128", "--batchsize",
+        assert cli.main(["--model_name", "pointnet2_ssg", "--path", data,
+                         "--max_point", "128", "--batchsize",
                          "2", "--epoch_num", "1", "--model_dir",
                          str(model_dir), "--precision", precision,
                          "--device", "cpu"]) == 0

@@ -1,7 +1,10 @@
 """Helpers shared by the port's model and training-step parity tests
-(``tests/test_torch_msg.py``, ``tests/test_torch_seg.py``): the same
-numpy inputs and flax weights through a JAX model and its port, one
-training step on each side, and the comparisons with their tolerances."""
+(``tests/test_torch_msg.py``, ``tests/test_torch_seg.py``,
+``tests/test_torch_zoo.py``): the same numpy inputs and flax weights
+through a JAX model and its port, one training step on each side, and
+the comparisons with their tolerances. ``kind`` is the model's input
+kind (``"points"``, ``"kd"`` or ``"voxel"``), which picks its inputs as
+the trainers' ``model_inputs`` do."""
 
 import jax
 import jax.numpy as jnp
@@ -22,9 +25,24 @@ from papc_tpu_torch.data import make_cloud
 from papc_tpu_torch.nn import SetAbstraction, SetAbstractionMsg
 from papc_tpu_torch.ops import fused_mlp
 from papc_tpu_torch.train import make_optimizer, train_step
+from papc_tpu_torch.train.evaluate import model_inputs
 
 T = torch.from_numpy
 F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.fixture(scope="module")
+def few_threads():
+    """Two intra-op threads for a module's torch ops, then the count it
+    found. The suite runs in six worker processes on the host's cores,
+    and torch's default of a thread a core in each of them oversubscribes
+    the cores: four such processes of ``tests/test_torch_learning.py``
+    at once had passed 4 of its 6 tests after 900 s, where with two
+    threads each they took 35-38 s (26 s alone with the default)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def close_to_max(got, want, rel, scale=0.0):
@@ -46,18 +64,24 @@ def batch(B, N, num_classes=16, seed=0):
             "mask": np.ones(B, bool)}
 
 
-def inputs(mode, b):
+def inputs(mode, b, kind="points"):
     """The JAX model's positional inputs for a batch."""
-    if mode == "seg":
-        return jnp.asarray(b["points"]), jnp.asarray(b["label"])
-    return (jnp.asarray(b["points"]),)
+    spec = ModelSpec(model=None, input_kind=kind, mode=mode)
+    return jtrainer.model_inputs(spec, jax.tree_util.tree_map(jnp.asarray, b))
 
 
-def perturbed_variables(jmodel, mode, b, seed):
+def cast_floats(b, dtype):
+    """``b`` with its floating arrays (points, voxels) cast to ``dtype``."""
+    return {k: v.astype(dtype) if isinstance(v, np.ndarray)
+            and v.dtype.kind == "f" else v for k, v in b.items()}
+
+
+def perturbed_variables(jmodel, mode, b, seed, kind="points"):
     """flax's initial values with running statistics away from (0, 1),
     as a trained model's are."""
     variables = jax.jit(lambda *x: jmodel.init(jax.random.PRNGKey(seed), *x,
-                                               train=False))(*inputs(mode, b))
+                                               train=False))(
+        *inputs(mode, b, kind))
     return perturb_stats(variables, seed + 1)
 
 
@@ -72,7 +96,7 @@ def perturb_stats(variables, seed):
             for k, v in tree.items()}
 
     return {"params": variables["params"],
-            "batch_stats": walk(variables["batch_stats"])}
+            "batch_stats": walk(variables.get("batch_stats", {}))}
 
 
 def port_model(make, variables):
@@ -81,13 +105,14 @@ def port_model(make, variables):
     return model
 
 
-def jax_eval(jmodel, mode, variables, b):
+def jax_eval(jmodel, mode, variables, b, kind="points"):
     return np.asarray(jax.jit(lambda v, *x: jmodel.apply(v, *x, train=False))(
-        variables, *inputs(mode, b)))
+        variables, *inputs(mode, b, kind)))
 
 
 def port_eval(model, mode, b, operand_dtype=F32):
-    args = [T(b["points"])] + ([T(b["label"])] if mode == "seg" else [])
+    assert model.mode == mode
+    args = model_inputs(model, b, torch.device("cpu"))
     with fused_mlp.override(impl="plain", operand_dtype=operand_dtype):
         with torch.inference_mode():
             return model.eval()(*args).numpy()
@@ -112,18 +137,18 @@ def _capture_grads():
 
 
 def jax_step(jmodel, mode, variables, b, masks, lr, wd, fused,
-             fused_mode="stream"):
-    """One ``make_train_step`` step with the given dropout keep-masks (by
-    the Dropout module's index): (loss, grads, new params, new
-    batch_stats), flax-keyed numpy. ``fused``: under
+             fused_mode="stream", kind="points", precision="fp32"):
+    """One ``make_train_step(precision=precision)`` step with the given
+    dropout keep-masks (by the Dropout module's index): (loss, grads, new
+    params, new batch_stats), flax-keyed numpy. ``fused``: under
     ``override(enable=True, impl="jnp", mode=fused_mode)``, every key in
     the one call (entering an override resets the keys it is not given)."""
-    spec = ModelSpec(model=jmodel, input_kind="points", mode=mode)
-    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    spec = ModelSpec(model=jmodel, input_kind=kind, mode=mode)
+    jb = jax.tree_util.tree_map(jnp.asarray, b)
     fresh = jax.tree_util.tree_map(jnp.array, variables)  # step donates
     state = jtrainer.TrainState.create(
         apply_fn=jmodel.apply, params=fresh["params"],
-        batch_stats=fresh["batch_stats"],
+        batch_stats=fresh.get("batch_stats", {}),
         tx=optax.chain(_capture_grads(), jtrainer.make_optimizer(lr, wd)))
 
     def intercept(next_fun, args, kwargs, context):
@@ -134,7 +159,7 @@ def jax_step(jmodel, mode, variables, b, masks, lr, wd, fused,
             return jnp.where(jnp.asarray(masks[site]), args[0] / keep, 0.0)
         return next_fun(*args, **kwargs)
 
-    step, _ = jtrainer.make_train_step(spec)
+    step, _ = jtrainer.make_train_step(spec, precision=precision)
     with fnn.intercept_methods(intercept):
         if fused:
             with jfused.override(enable=True, impl="jnp", mode=fused_mode):
@@ -147,7 +172,8 @@ def jax_step(jmodel, mode, variables, b, masks, lr, wd, fused,
             jax.tree_util.tree_map(np.asarray, state.batch_stats))
 
 
-def port_step(make, variables, b, masks, lr, wd, dtype, fused_mode="stream"):
+def port_step(make, variables, b, masks, lr, wd, dtype, fused_mode="stream",
+              precision="fp32"):
     """One port step from the same weights; ``dtype`` float64 runs the
     whole model and the plain passes in float64 (the exact reference).
     ``fused_mode`` goes into the same ``override`` call as ``impl`` and
@@ -155,12 +181,13 @@ def port_step(make, variables, b, masks, lr, wd, dtype, fused_mode="stream"):
     model = port_model(make, variables)
     if dtype == torch.float64:
         model = model.double()
-        b = dict(b, points=b["points"].astype(np.float64))
+        b = cast_floats(b, np.float64)
     opt = make_optimizer(model.parameters(), lr, wd)
     with fused_mlp.override(impl="plain", operand_dtype=dtype,
                             mode=fused_mode):
         loss, _ = train_step(model, opt, b, torch.device("cpu"),
-                             dropout_masks=[T(m) for m in masks])
+                             dropout_masks=[T(m) for m in masks],
+                             precision=precision)
     grads = state_dict_to_flax({n: p.grad for n, p in
                                 model.named_parameters()})
     return float(loss), grads, state_dict_to_flax(model.state_dict())
@@ -213,14 +240,14 @@ def compare_step(port, want, variables, lr, wd, rel_loss, rel_stats):
     return grads, w_grads
 
 
-def jax_step_x64(jmodel, mode, variables, b, masks, lr, wd):
+def jax_step_x64(jmodel, mode, variables, b, masks, lr, wd, kind="points"):
     """:func:`jax_step` on JAX's classic path in float64 (weights and
-    points cast up), the JAX side's exact reference."""
+    points or voxels cast up), the JAX side's exact reference."""
     with jax.enable_x64(True):
         v64 = jax.tree_util.tree_map(
             lambda x: jnp.asarray(np.asarray(x), jnp.float64), variables)
-        b64 = dict(b, points=b["points"].astype(np.float64))
-        return jax_step(jmodel, mode, v64, b64, masks, lr, wd, fused=False)
+        return jax_step(jmodel, mode, v64, cast_floats(b, np.float64), masks,
+                        lr, wd, fused=False, kind=kind)
 
 
 def check_f32_step(port, want, exact, want64, variables, lr, wd, tol):
