@@ -9,8 +9,8 @@ classification / segmentation zoo (PointNet-Basic, PointNet and its
 Conv2D variant, VFE, VoxNet, KD-Net, KD-UNet, which run no kernel of
 the port); and the PointPillars detection serving path (the KITTI car
 config at full width: B=2 frames of up to 25000 points, 12000 pillars, a
-496 x 432 BEV grid, 107136 anchors, K=1000 before NMS) on the card, in
-sixteen phases;
+496 x 432 BEV grid, 107136 anchors, K=1000 before NMS) and its training
+step at that width on the card, in seventeen phases;
 any failure raises and exits non-zero. TF32 is off for matmuls throughout
 (float32 references); the detection serving step runs its cuDNN
 convolutions in f32 itself, as a user gets it.
@@ -222,6 +222,25 @@ convolutions in f32 itself, as a user gets it.
    (CUDA events, median of 20), ten ``train_step``s on one batch with
    the loss finite and falling, the median step ms of the last nine and
    the peak memory, and one bf16 step with a finite loss.
+17. Detection training, after phase 16: the car config at full width
+   (B=2 synthetic frames of up to 25000 points with 10 cars each, 12000
+   pillars x 100 points, the 496 x 432 grid, 107136 anchors; targets
+   from the port's assigner, its host ms a frame printed), seed-0
+   weights. One ``make_detection_train_step`` step on the card against
+   the same step on the card's host CPU from the same weights and batch:
+   the loss and every metric (``DT_LOSS_RTOL``, ``DT_METRIC_RTOL``), each
+   parameter's gradient by relative L2 (``DT_GRAD_RL2``) and the
+   BatchNorm running statistics (``DT_STATS_RTOL`` of each tensor's
+   largest). Then twenty steps on one batch: the loss finite and
+   falling, step ms (CUDA events, median of steps 2-20), the busy device
+   ms a step and the top device kernels (profiler, 3 steps; the busy
+   share of the profiled step and of the unprofiled median), peak
+   memory. Every
+   kernel's launch count is read around the steps and must be 0 (no TPU
+   kernel lies on the training path). The trained model is then served
+   by ``make_predict_step`` with kernels and on plain versions, rotated
+   and standup NMS: detections equal within ``DET_TOL``, #20 and #19 one
+   launch a batch.
 14. The per-kernel JSON line (each kernel's launches on its path, error
    against plain, ms, plain ms, the bound from this run's inputs and,
    where one PyTorch call computes the same function, its ms), then the
@@ -231,6 +250,7 @@ convolutions in f32 itself, as a user gets it.
 from __future__ import annotations
 
 import contextlib
+import copy
 import functools
 import gc
 import json
@@ -297,6 +317,15 @@ CLIP_OPS = 200
 DET_FRAMES, DET_B, DET_K = 8, 2, 1000
 NMS_THRESHOLDS = (0.1, 0.5)
 DET_TOL = 1e-5  # detections, kernels vs plain run, abs and rel
+# Phase 17, one detection training step on the card against the same
+# step on its host CPU (f32 both, cuDNN without TF32): sums and
+# convolutions in another order, and the PFN max's gradient goes to a
+# slot that ties within rounding on one device only
+DT_LOSS_RTOL = 1e-4  # the loss, relative
+DT_METRIC_RTOL = 1e-3  # the other metrics (sums over a few positives)
+DT_GRAD_RL2 = 1e-2  # each parameter's gradient, relative L2
+DT_STATS_RTOL = 1e-4  # running statistics, of each tensor's largest
+DT_STEPS = 20
 WORK: dict = {}  # kernel row name -> [bytes, seconds of operations]
 
 
@@ -1237,9 +1266,10 @@ def _call_profile(fn, name: str, steps: int = 10):
 
 def _counters(names) -> dict:
     """The launch counters of the named kernels."""
-    from papc_tpu_torch.ops.kernels import (ball_query, fps, gather, samlp,
-                                            samlp_recompute, samlp_single,
-                                            samlp_train, scatter_rows)
+    from papc_tpu_torch.ops.kernels import (ball_query, fps, gather, nms,
+                                            samlp, samlp_recompute,
+                                            samlp_single, samlp_train,
+                                            scatter_rows)
 
     every = {"fps": fps.KERNEL, "ball_query": ball_query.KERNEL,
              "group_gather": gather.KERNEL, "samlp_eval": samlp.KERNEL,
@@ -1256,7 +1286,8 @@ def _counters(names) -> dict:
              "samlp_rc1_stats": samlp_single.RC1_STATS,
              "samlp_rc1_final": samlp_single.RC1_FINAL,
              "samlp_rc1_bwd_stats": samlp_single.RC1_BWD_STATS,
-             "samlp_rc1_bwd_final": samlp_single.RC1_BWD_FINAL}
+             "samlp_rc1_bwd_final": samlp_single.RC1_BWD_FINAL,
+             "nms_greedy": nms.GREEDY, "nms_rotate": nms.ROTATE}
     return {n: every[n] for n in names}
 
 
@@ -3545,6 +3576,166 @@ def phase_zoo(smi):
     print(f"    phase 16 took {time.perf_counter() - t0:.1f} s")
 
 
+# -------------------------------------------------- 17 detection training
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def phase_detect_train(smi):
+    """Phase 17 (see the module docstring). Any failure raises."""
+    from papc_tpu_torch.convert import state_dict_to_flax
+    from papc_tpu_torch.data.synthetic_kitti import (SyntheticFrames,
+                                                     collate_batch)
+    from papc_tpu_torch.detect import builders
+    from papc_tpu_torch.detect.config import car_config, cfg_from_list
+    from papc_tpu_torch.detect.train import (batch_to_device,
+                                             make_detection_train_step,
+                                             make_pillarizer,
+                                             make_predict_step)
+    from papc_tpu_torch.nn.layers import init_params
+    from papc_tpu_torch.utils.profiling import StepTimer
+
+    t_phase = time.perf_counter()
+    cfg = car_config()
+    vg = builders.build_voxel_generator(cfg.VOXEL_GENERATOR)
+    coder = builders.build_box_coder(cfg.BOX_CODER)
+    ta = builders.build_target_assigner(cfg.TARGET_ASSIGNER, coder)
+    gen = ta.generate_anchors([1, int(vg.grid_size[1]) // 2,
+                               int(vg.grid_size[0]) // 2])
+    anchors = gen["anchors"].reshape(-1, 7)
+    reader = cfg.TRAIN_INPUT_READER
+    frames = SyntheticFrames(
+        DET_B, anchors, max_points=int(reader.MAX_POINTS_PER_FRAME), seed=2,
+        target_assigner=ta, matched_thresholds=gen["matched_thresholds"],
+        unmatched_thresholds=gen["unmatched_thresholds"])
+    batch = collate_batch([frames[i] for i in range(DET_B)])
+    positives = [int((f["labels"] > 0).sum()) for f in frames.frames]
+    print(f"[17 detection training] PointPillars car config: grid "
+          f"{vg.grid_size.tolist()}, {anchors.shape[0]} anchors, B={DET_B} "
+          f"frames of {int(reader.MAX_POINTS_PER_FRAME)} points, "
+          f"{int(reader.MAX_NUMBER_OF_VOXELS)} pillars; targets on the host: "
+          + ", ".join(f"{1e3 * t:.1f}" for t in frames.target_seconds)
+          + f" ms a frame, positives {positives}")
+    check(all(p > 0 for p in positives), "a frame without positive anchors")
+
+    gen0 = builders.build_anchor_generator(
+        cfg.TARGET_ASSIGNER.ANCHOR_GENERATORS[0])
+    seeded = builders.build_network(cfg, vg, gen0, coder)
+    init_params(seeded, torch.Generator().manual_seed(0))
+    loss_cfg = builders.build_loss_config(cfg, coder)
+    pillarize = make_pillarizer(vg, int(reader.MAX_NUMBER_OF_VOXELS))
+    names = ("fps", "ball_query", "group_gather", "samlp_eval",
+             "group_scatter_add", "scatter_rows_add", "nms_greedy",
+             "nms_rotate") + STREAM + RECOMPUTE + SINGLE
+    counters = _counters(names)
+
+    def trainer(device):
+        model = copy.deepcopy(seeded)
+        opt, sched = builders.build_optimizer(cfg.TRAIN_CONFIG.OPTIMIZER,
+                                              model.parameters())
+        step, init_rm = make_detection_train_step(model, loss_cfg, opt, sched,
+                                                  pillarize, device=device)
+        return model, step, init_rm
+
+    # one step on the card against the same step on the host's CPU
+    model, step, init_rm = trainer("cuda")
+    cpu_model, cpu_step, cpu_init = trainer("cpu")
+    for c in counters.values():
+        c.launches = 0
+    got, rm = step(batch, init_rm())
+    t0 = time.perf_counter()
+    want, _ = cpu_step(batch, cpu_init())
+    cpu_s = time.perf_counter() - t0
+    metric_err = {}
+    for k, w in want.items():
+        g, w = float(got[k]), float(w)
+        metric_err[k] = abs(g - w) / max(abs(w), 1e-12)
+        tol = DT_LOSS_RTOL if k == "loss" else DT_METRIC_RTOL
+        check(np.isfinite(g) and metric_err[k] <= tol,
+              f"{k}: card {g} against CPU {w} (limit {tol} relative)")
+    cpu_params = dict(cpu_model.named_parameters())
+    grad_err = {n: _rel_l2(p.grad.cpu(), cpu_params[n].grad)
+                for n, p in model.named_parameters()}
+    worst = max(grad_err, key=grad_err.get)
+    check(grad_err[worst] <= DT_GRAD_RL2,
+          f"gradient of {worst}: relative L2 {grad_err[worst]:.3e} card vs "
+          f"CPU (limit {DT_GRAD_RL2})")
+    mine = state_dict_to_flax(model.state_dict())
+    ref = state_dict_to_flax(cpu_model.state_dict())
+    stats_err = max(float(np.abs(mine[k] - v).max() / np.abs(v).max())
+                    for k, v in ref.items() if k.startswith("batch_stats/"))
+    check(stats_err <= DT_STATS_RTOL,
+          f"running statistics {stats_err:.3e} of their largest from the "
+          f"CPU's (limit {DT_STATS_RTOL})")
+    print(f"    one step, card vs host CPU ({cpu_s:.1f} s on the CPU): loss "
+          f"{float(got['loss']):.5f} (rel err {metric_err['loss']:.2e}, "
+          f"limit {DT_LOSS_RTOL}), other metrics at most "
+          f"{max(v for k, v in metric_err.items() if k != 'loss'):.2e} "
+          f"(limit {DT_METRIC_RTOL}); gradients' relative L2 median "
+          f"{statistics.median(grad_err.values()):.2e}, worst "
+          f"{grad_err[worst]:.2e} ({worst}; limit {DT_GRAD_RL2}); running "
+          f"statistics {stats_err:.2e} of their largest (limit "
+          f"{DT_STATS_RTOL}); num_pos {int(got['num_pos'])}, rpn_acc "
+          f"{float(got['rpn_acc']):.4f}")
+    del cpu_model, cpu_step
+
+    # twenty steps on the card
+    dev_batch = batch_to_device(batch, torch.device("cuda"))
+    timer = StepTimer(device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [float(got["loss"])], []
+    for _ in range(DT_STEPS - 1):
+        timer.start()
+        m, rm = step(dev_batch, rm)
+        times.append(timer.stop() * 1e3)
+        losses.append(float(m["loss"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"losses not finite and falling: {losses}")
+    busy_ms, wall_ms = _device_busy(lambda: step(dev_batch, rm), steps=3,
+                                    top=8)
+    launched = {n: c.launches for n, c in counters.items() if c.launches}
+    check(not launched, f"the training steps launched kernels {launched}")
+    step_ms = statistics.median(times)
+    # the profiler's own cost stretches a profiled step of ~1800 launches,
+    # so the busy device ms are also set against the unprofiled step
+    busy = (f"{100 * busy_ms / wall_ms:.1f} % of the profiled step "
+            f"({busy_ms:.3f} of {wall_ms:.3f} ms), "
+            f"{100 * busy_ms / step_ms:.1f} % of the unprofiled one"
+            if busy_ms > 0 else "not measured")
+    print(f"    {DT_STEPS} steps on one batch: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; step {step_ms:.3f} ms (CUDA events, median of "
+          f"steps 2-{DT_STEPS}; min {min(times):.3f}, max {max(times):.3f}), "
+          f"busy device ms {busy} (profiler, 3 steps), peak {peak_gb:.2f} "
+          f"GB; kernel launches in the steps: none ({smi})")
+
+    # the trained model served with kernels and on plain versions
+    for rotate, kernel in (("True", "nms_rotate"), ("False", "nms_greedy")):
+        cfg_from_list(cfg, ["MODEL.POST_PROCESSING.use_rotate_nms", rotate])
+        pcfg = builders.build_predict_config(cfg, coder)
+        for c in counters.values():
+            c.launches = 0
+        got = make_predict_step(model, pcfg, coder, pillarize, "cuda")(batch)
+        launches = {n: c.launches for n, c in counters.items() if c.launches}
+        check(launches == {kernel: 1},
+              f"serving one batch launched {launches}, not {kernel} once")
+        want = make_predict_step(model, pcfg, coder, pillarize, "cuda",
+                                 impl="plain")(batch)
+        for key in ("valid", "label_preds"):
+            check(torch.equal(got[key], want[key]),
+                  f"trained model, {kernel}: {key} differs from plain")
+        for key in ("box3d_lidar", "scores"):
+            check(torch.allclose(got[key], want[key], rtol=DET_TOL,
+                                 atol=DET_TOL),
+                  f"trained model, {kernel}: {key} outside {DET_TOL}")
+        print(f"    served after training, {kernel} (1 launch): detections "
+              f"per frame {got['valid'].sum(1).tolist()}, equal to the plain "
+              f"run within {DET_TOL}")
+    print(f"    phase 17 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     name, smi = phase_device()
     from papc_tpu_torch.models import init_model
@@ -3586,6 +3777,7 @@ def main() -> int:
     phase_single(smi, rc_rows, steps)
     phase_bf16(smi)
     phase_zoo(smi)
+    phase_detect_train(smi)
     all_rows = (list(rows.values()) + list(t_rows.values()) + [scatter_row]
                 + list(det_rows.values()) + list(rc_rows.values()))
     _finish_bounds(all_rows)

@@ -153,17 +153,29 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict[str, np.n
     return flat
 
 
-def _adam_leaves(opt_state) -> tuple[int, Mapping, Mapping]:
-    """``(count, mu, nu)`` of optax's Adam state: a dict with those three
-    keys, or the ``chain(add_decayed_weights, adam)`` state
-    ``(EmptyState(), (ScaleByAdamState(count, mu, nu), EmptyState()))``."""
-    if not isinstance(opt_state, Mapping):
-        found = [s for s in _walk_tuples(opt_state) if hasattr(s, "mu")]
-        if len(found) != 1:
-            raise ValueError("no single ScaleByAdamState in opt_state")
-        opt_state = found[0]._asdict()
-    return (int(np.asarray(opt_state["count"])), opt_state["mu"],
-            opt_state["nu"])
+# the fields of optax's optimizer state → the state keys of the port's
+# optimizer of the same rule (``detect.builders.build_optimizer``):
+# Adam's ``ScaleByAdamState``, SGD's ``TraceState``, RMSProp's
+# ``ScaleByRmsState`` and ``TraceState``; every chain's ``count``
+OPTAX_FIELDS = {
+    "Adam": {"mu": "exp_avg", "nu": "exp_avg_sq"},
+    "SGD": {"trace": "momentum_buffer"},
+    "RMSProp": {"nu": "nu", "trace": "trace"},
+}
+
+
+def _optax_fields(opt_state) -> dict:
+    """``{"count", <field>: tree}`` of an optax state: a dict with those
+    keys, or the nested state of an optax chain (its NamedTuples' fields;
+    Adam's count and the schedule's are the same)."""
+    if isinstance(opt_state, Mapping):
+        return dict(opt_state)
+    fields = {}
+    for s in _walk_tuples(opt_state):
+        for name in getattr(s, "_fields", ()):
+            if name in ("count", "mu", "nu", "trace"):
+                fields.setdefault(name, getattr(s, name))
+    return fields
 
 
 def _walk_tuples(tree):
@@ -173,28 +185,32 @@ def _walk_tuples(tree):
             yield from _walk_tuples(child)
 
 
-def adam_state_from_optax(model: nn.Module, opt: torch.optim.Optimizer,
-                          opt_state) -> None:
-    """Fill ``opt`` (``torch.optim.Adam`` over ``model.parameters()``, as
-    ``train.make_optimizer`` builds it) with optax's Adam state: ``mu`` →
-    ``exp_avg``, ``nu`` → ``exp_avg_sq`` (Dense kernels transposed, as
-    the weights are), ``count`` → ``step``. ``mu`` and ``nu`` map flat
-    flax param keys (``A/B/kernel``) to numpy leaves. Both packages then
-    continue the same run."""
-    count, mu, nu = _adam_leaves(opt_state)
+def optimizer_state_from_optax(model: nn.Module, opt: torch.optim.Optimizer,
+                               opt_state, scheduler=None) -> None:
+    """Fill ``opt`` (over ``model.parameters()``: Adam, SGD or the port's
+    RMSProp) with optax's state of the same rule: each field's tree (flat
+    flax param keys ``A/B/kernel`` or nested) onto the parameter's state
+    key (``OPTAX_FIELDS``; Dense kernels transposed, as the weights are),
+    ``count`` onto Adam's ``step`` and onto ``scheduler``'s count. Both
+    packages then continue the same run."""
+    fields = _optax_fields(opt_state)
+    count = int(np.asarray(fields["count"]))
+    names = OPTAX_FIELDS[type(opt).__name__]
     moments = {}
-    for name, tree in (("exp_avg", mu), ("exp_avg_sq", nu)):
-        for flax_key, value in tree.items():
+    for field, name in names.items():
+        for flax_key, value in flatten(fields[field]).items():
             key, value = _torch_key(f"params/{flax_key}", np.asarray(value))
             moments.setdefault(key, {})[name] = value
     params = dict(model.named_parameters())
     if set(moments) != set(params):
         raise KeyError(
-            f"optax → torch Adam: moments without a parameter "
+            f"optax → torch: moments without a parameter "
             f"{sorted(set(moments) - set(params))}, parameters without "
             f"moments {sorted(set(params) - set(moments))}")
     for key, p in params.items():
-        state = {"step": torch.tensor(float(count), dtype=torch.float32)}
+        state = {}
+        if type(opt).__name__ == "Adam":
+            state["step"] = torch.tensor(float(count), dtype=torch.float32)
         for name, value in moments[key].items():
             if tuple(value.shape) != tuple(p.shape):
                 raise ValueError(f"{key}: {name} shape {value.shape} does "
@@ -202,22 +218,28 @@ def adam_state_from_optax(model: nn.Module, opt: torch.optim.Optimizer,
             state[name] = torch.from_numpy(
                 np.array(value, dtype=np.float32)).to(p.device)
         opt.state[p] = state
+    if scheduler is not None:
+        scheduler.set_count(count)
 
 
-def adam_state_to_optax(model: nn.Module,
-                        opt: torch.optim.Optimizer) -> dict:
-    """The inverse of :func:`adam_state_from_optax`: ``{"count", "mu",
-    "nu"}`` with ``mu`` and ``nu`` flat flax param keys (``A/B/kernel``,
-    numpy f32) and ``count`` int32, the fields of optax's
-    ``ScaleByAdamState``. A parameter that has not been stepped has zero
-    moments, as optax's ``init`` gives."""
-    count, mu, nu = 0, {}, {}
+def optimizer_state_to_optax(model: nn.Module, opt: torch.optim.Optimizer,
+                             scheduler=None) -> dict:
+    """The inverse of :func:`optimizer_state_from_optax`: ``{"count",
+    <field>: {flat param key: array}}``, numpy f32 leaves and ``count``
+    int32 (``scheduler``'s count where given, else Adam's ``step``). A
+    parameter that has not been stepped has zero moments, as optax's
+    ``init`` gives."""
+    names = OPTAX_FIELDS[type(opt).__name__]
+    count = 0 if scheduler is None else scheduler.last_epoch
+    out = {field: {} for field in names}
     for key, p in model.named_parameters():
         state = opt.state.get(p, {})
-        if state:
+        if scheduler is None and "step" in state:
             count = int(float(state["step"]))
-        for out, name in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
-            value = state.get(name, torch.zeros_like(p))
+        for field, name in names.items():
+            value = state.get(name)
+            value = torch.zeros_like(p) if value is None else value
             (flax_key, arr), = state_dict_to_flax({key: value}).items()
-            out[flax_key.split("/", 1)[1]] = arr.astype(np.float32)
-    return {"count": np.asarray(count, np.int32), "mu": mu, "nu": nu}
+            out[field][flax_key.split("/", 1)[1]] = arr.astype(np.float32)
+    out["count"] = np.asarray(count, np.int32)
+    return out

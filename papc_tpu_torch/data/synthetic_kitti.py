@@ -6,10 +6,15 @@ A scene is a ground plane of uniform points and car-sized boxes filled
 with points. :class:`SyntheticFrames` pads each cloud to the config's
 ``MAX_POINTS_PER_FRAME`` with a points mask and carries the anchors, as
 the JAX prep's device-pillarize examples do, so a batch feeds
-``detect.train.make_predict_step`` directly.
+``detect.train.make_predict_step`` directly. Given a target assigner it
+also carries each frame's training targets, as the target block of the
+JAX prep (``papc_tpu/detect/kitti/preprocess.py``) makes them with no
+anchors mask, so a batch feeds ``make_detection_train_step``.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 
@@ -62,22 +67,48 @@ def pad_frame(points: np.ndarray, max_points: int):
 
 class SyntheticFrames:
     """``n`` synthetic frames made in bulk from ``seed``; ``frames[i]`` is
-    an example ``{"points" [P, 4], "points_mask" [P], "anchors" [A, 7]}``.
-    The defaults (about 23 000 ground points over the 432 × 496 grid and
-    10 cars) occupy more cells than the config's 12 000-pillar cap, as a
-    KITTI frame nearly does, and stay under the 25 000-point frame."""
+    an example ``{"points" [P, 4], "points_mask" [P], "anchors" [A, 7]}``
+    and ``gt_boxes[i]`` its cars ``[M, 7]``. The defaults (about 23 000
+    ground points over the 432 × 496 grid and 10 cars) occupy more cells
+    than the config's 12 000-pillar cap, as a KITTI frame nearly does,
+    and stay under the 25 000-point frame.
+
+    With ``target_assigner`` (and the anchors' ``matched_thresholds`` /
+    ``unmatched_thresholds [A]``, from its ``generate_anchors``) each
+    example also holds ``labels [A]``, ``reg_targets [A, code]`` and
+    ``reg_weights [A]``; the assigner's random draws (with a positive
+    fraction) come from ``RandomState(seed)``. ``target_seconds`` holds
+    each frame's host seconds of assignment."""
 
     def __init__(self, n: int, anchors: np.ndarray, max_points: int = 25000,
                  seed: int = 0, num_cars: int = 10,
-                 n_background: int = 23000):
+                 n_background: int = 23000, target_assigner=None,
+                 matched_thresholds=None, unmatched_thresholds=None):
         rng = np.random.RandomState(seed)
         self.anchors = np.asarray(anchors, np.float32)
-        self.frames = []
+        self.frames, self.gt_boxes, self.target_seconds = [], [], []
+        if target_assigner is not None:
+            target_rng = np.random.RandomState(seed)
+            anchors_bv = box_np.rbbox2d_to_near_bbox(
+                self.anchors[:, [0, 1, 3, 4, 6]])
         for _ in range(n):
-            points, _ = make_scene(rng, num_cars=num_cars,
-                                   n_background=n_background)
+            points, gt_boxes = make_scene(rng, num_cars=num_cars,
+                                          n_background=n_background)
             pts, mask = pad_frame(points, max_points)
-            self.frames.append({"points": pts, "points_mask": mask})
+            frame = {"points": pts, "points_mask": mask}
+            if target_assigner is not None:
+                t0 = time.perf_counter()
+                targets = target_assigner.assign(
+                    self.anchors, gt_boxes,
+                    matched_thresholds=matched_thresholds,
+                    unmatched_thresholds=unmatched_thresholds,
+                    rng=target_rng, anchors_bv=anchors_bv)
+                self.target_seconds.append(time.perf_counter() - t0)
+                frame.update(labels=targets["labels"],
+                             reg_targets=targets["bbox_targets"],
+                             reg_weights=targets["bbox_outside_weights"])
+            self.frames.append(frame)
+            self.gt_boxes.append(gt_boxes)
 
     def __len__(self) -> int:
         return len(self.frames)

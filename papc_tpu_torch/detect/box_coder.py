@@ -1,9 +1,14 @@
-"""The SECOND 7-dof box decoder in torch (counterpart of
-``papc_tpu/detect/box_coder.py::GroundBox3dCoder.decode_jnp``)."""
+"""Box coders (counterpart of ``papc_tpu/detect/box_coder.py``):
+``encode`` in numpy on the host (target assignment), ``decode`` in torch
+on the device (prediction), op for op as JAX's ``encode`` and
+``decode_jnp``."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from papc_tpu_torch.detect import box_np
 
 
 class GroundBox3dCoder:
@@ -17,10 +22,16 @@ class GroundBox3dCoder:
     def code_size(self) -> int:
         return 8 if self.vec_encode else 7
 
+    def encode(self, boxes: np.ndarray, anchors: np.ndarray) -> np.ndarray:
+        """``boxes [..., 7]`` relative to ``anchors [..., 7]`` → codes
+        ``[..., code_size]`` (numpy)."""
+        return box_np.second_box_encode(boxes, anchors, self.vec_encode,
+                                        self.linear_dim)
+
     def decode(self, encodings: torch.Tensor,
                anchors: torch.Tensor) -> torch.Tensor:
         """``encodings [..., code_size]`` relative to ``anchors [..., 7]``
-        → boxes ``[..., 7]``, op for op as ``decode_jnp``."""
+        → boxes ``[..., 7]``."""
         xa, ya, za, wa, la, ha, ra = torch.split(anchors, 1, dim=-1)
         if self.vec_encode:
             xt, yt, zt, wt, lt, ht, rtx, rty = torch.split(encodings, 1, -1)
@@ -43,3 +54,22 @@ class GroundBox3dCoder:
             rg = rt + ra
         zg = zg - hg / 2
         return torch.cat([xg, yg, zg, wg, lg, hg, rg], dim=-1)
+
+
+class BevBoxCoder:
+    """5-dof BEV encoding over (x, y, w, l, yaw); code_size 5 (or 6 with
+    the angle vector). Its ``decode`` is not ported: no config of the
+    port serves BEV-coded boxes."""
+
+    def __init__(self, linear_dim=False, vec_encode=False):
+        self.linear_dim = linear_dim
+        self.vec_encode = vec_encode
+
+    @property
+    def code_size(self) -> int:
+        return 6 if self.vec_encode else 5
+
+    def encode(self, boxes: np.ndarray, anchors: np.ndarray) -> np.ndarray:
+        return box_np.bev_box_encode(boxes[..., [0, 1, 3, 4, 6]],
+                                     anchors[..., [0, 1, 3, 4, 6]],
+                                     self.vec_encode, self.linear_dim)

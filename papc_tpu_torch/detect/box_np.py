@@ -1,7 +1,9 @@
-"""Host-side (numpy) box math the serving slice needs: the anchor grid
-and the point rotation of the synthetic scenes (a subset of
-``papc_tpu/detect/box_np.py``, copied so that the port imports nothing
-of the JAX package).
+"""Host-side (numpy) box math (a subset of ``papc_tpu/detect/box_np.py``,
+copied so that the port imports nothing of the JAX package): the anchor
+grid, the point rotation of the synthetic scenes, and what target
+assignment needs (corners, standup boxes, the box encodings, the
+axis-aligned and rotated BEV IoU), all in numpy: the JAX package's C++
+fast paths (``papc_tpu.cc``) are not carried.
 
 Box convention (lidar): ``[x, y, z, w, l, h, yaw]`` with z at the box
 bottom, yaw about +z.
@@ -52,3 +54,222 @@ def create_anchors_3d_stride(
     ys = np.arange(feature_size[1], dtype=dtype) * anchor_strides[1] + anchor_offsets[1]
     xs = np.arange(feature_size[2], dtype=dtype) * anchor_strides[0] + anchor_offsets[0]
     return _anchor_grid(xs, ys, zs, sizes, rotations, dtype)
+
+
+# ---------------------------------------------------------------- corners
+
+def corners_nd(dims: np.ndarray, origin=0.5) -> np.ndarray:
+    """Relative corners of N boxes of ``dims [N, ndim]`` about ``origin``;
+    2-D clockwise from the minimum corner, 3-D in the reference's order."""
+    ndim = dims.shape[1]
+    unit = np.stack(np.unravel_index(np.arange(2**ndim), [2] * ndim),
+                    axis=1).astype(dims.dtype)
+    if ndim == 2:
+        unit = unit[[0, 1, 3, 2]]
+    elif ndim == 3:
+        unit = unit[[0, 1, 3, 2, 4, 5, 7, 6]]
+    unit = unit - np.asarray(origin, dtype=dims.dtype)
+    return dims[:, None, :] * unit[None, :, :]
+
+
+def rotation_2d(points: np.ndarray, angles: np.ndarray) -> np.ndarray:
+    """Rotate ``[N, P, 2]`` point sets by per-box ``angles`` (row-vector
+    convention ``p @ [[c, -s], [s, c]]``)."""
+    c, s = np.cos(angles), np.sin(angles)
+    rot = np.stack([np.stack([c, -s], -1), np.stack([s, c], -1)], -2)
+    return np.einsum("npi,nij->npj", points, rot)
+
+
+def center_to_corner_box2d(centers, dims, angles=None, origin=0.5):
+    corners = corners_nd(dims, origin)
+    if angles is not None:
+        corners = rotation_2d(corners, angles)
+    return corners + centers[:, None, :]
+
+
+def corner_to_standup_nd(corners: np.ndarray) -> np.ndarray:
+    """``[N, P, d]`` corners → ``[N, 2d]`` axis-aligned (min..., max...)."""
+    return np.concatenate([corners.min(1), corners.max(1)], axis=-1)
+
+
+def center_to_minmax_2d(centers, dims, origin=0.5):
+    if origin == 0.5:
+        return np.concatenate([centers - dims / 2, centers + dims / 2],
+                              axis=-1)
+    corners = center_to_corner_box2d(centers, dims, origin=origin)
+    return corners[:, [0, 2]].reshape(-1, 4)
+
+
+def limit_period(val, offset=0.5, period=np.pi):
+    return val - np.floor(val / period + offset) * period
+
+
+def rbbox2d_to_near_bbox(rbboxes: np.ndarray) -> np.ndarray:
+    """``[N, 5]`` (x, y, w, l, yaw) → the nearest axis-aligned ``[N, 4]``
+    boxes (w and l swapped where the yaw is nearer ±pi/2)."""
+    rots = np.abs(limit_period(rbboxes[..., -1], 0.5, np.pi))
+    cond = (rots > np.pi / 4)[..., None]
+    centered = np.where(cond, rbboxes[:, [0, 1, 3, 2]], rbboxes[:, :4])
+    return center_to_minmax_2d(centered[:, :2], centered[:, 2:])
+
+
+# ------------------------------------------------------------- encoding
+
+def second_box_encode(boxes, anchors, encode_angle_to_vector=False,
+                      smooth_dim=False):
+    """SECOND's 7-dof anchor-relative encoding: z at the box centre, x
+    and y over the anchor's BEV diagonal, log (or linear) dims, the angle
+    as a difference (or a cos / sin vector)."""
+    xa, ya, za, wa, la, ha, ra = np.split(anchors, 7, axis=-1)
+    xg, yg, zg, wg, lg, hg, rg = np.split(boxes, 7, axis=-1)
+    zg = zg + hg / 2
+    za = za + ha / 2
+    diagonal = np.sqrt(la**2 + wa**2)
+    xt = (xg - xa) / diagonal
+    yt = (yg - ya) / diagonal
+    zt = (zg - za) / ha
+    if smooth_dim:
+        lt, wt, ht = lg / la - 1, wg / wa - 1, hg / ha - 1
+    else:
+        lt, wt, ht = np.log(lg / la), np.log(wg / wa), np.log(hg / ha)
+    if encode_angle_to_vector:
+        rtx = np.cos(rg) - np.cos(ra)
+        rty = np.sin(rg) - np.sin(ra)
+        return np.concatenate([xt, yt, zt, wt, lt, ht, rtx, rty], axis=-1)
+    return np.concatenate([xt, yt, zt, wt, lt, ht, rg - ra], axis=-1)
+
+
+def bev_box_encode(boxes, anchors, encode_angle_to_vector=False,
+                   smooth_dim=False):
+    """The 5-dof BEV variant over (x, y, w, l, yaw)."""
+    xa, ya, wa, la, ra = np.split(anchors, 5, axis=-1)
+    xg, yg, wg, lg, rg = np.split(boxes, 5, axis=-1)
+    diagonal = np.sqrt(la**2 + wa**2)
+    xt = (xg - xa) / diagonal
+    yt = (yg - ya) / diagonal
+    if smooth_dim:
+        lt, wt = lg / la - 1, wg / wa - 1
+    else:
+        lt, wt = np.log(lg / la), np.log(wg / wa)
+    if encode_angle_to_vector:
+        rtx = np.cos(rg) - np.cos(ra)
+        rty = np.sin(rg) - np.sin(ra)
+        return np.concatenate([xt, yt, wt, lt, rtx, rty], axis=-1)
+    return np.concatenate([xt, yt, wt, lt, rg - ra], axis=-1)
+
+
+# ------------------------------------------------------------------ IoU
+
+def iou_2d(boxes: np.ndarray, query_boxes: np.ndarray, eps=0.0) -> np.ndarray:
+    """Axis-aligned ``[N, 4] x [K, 4]`` IoU matrix in ``boxes``' dtype."""
+    N, K = len(boxes), len(query_boxes)
+    if N == 0 or K == 0:
+        return np.zeros((N, K), dtype=boxes.dtype if N else np.float32)
+    b = boxes[:, None, :]
+    q = query_boxes[None, :, :]
+    iw = (np.minimum(b[..., 2], q[..., 2]) - np.maximum(b[..., 0], q[..., 0])
+          + eps)
+    ih = (np.minimum(b[..., 3], q[..., 3]) - np.maximum(b[..., 1], q[..., 1])
+          + eps)
+    inter = np.clip(iw, 0, None) * np.clip(ih, 0, None)
+    area_b = (b[..., 2] - b[..., 0] + eps) * (b[..., 3] - b[..., 1] + eps)
+    area_q = (q[..., 2] - q[..., 0] + eps) * (q[..., 3] - q[..., 1] + eps)
+    union = area_b + area_q - inter
+    out = np.where((iw > 0) & (ih > 0), inter / union, 0.0)
+    return out.astype(boxes.dtype)
+
+
+def _fill_invalid_with_left(vx, vy, m, slots: int):
+    """Invalid ring slots take the nearest valid slot to their left
+    (cyclically), by a doubling scan of rolls and selects."""
+    k = 1
+    while k < slots:
+        take = ~m
+        vx = np.where(take, np.roll(vx, k, axis=-1), vx)
+        vy = np.where(take, np.roll(vy, k, axis=-1), vy)
+        m = m | np.roll(m, k, axis=-1)
+        k *= 2
+    return vx, vy, m
+
+
+def batched_intersection_area(ca: np.ndarray, cb: np.ndarray) -> np.ndarray:
+    """Intersection areas of convex-quad pairs ``[M, 4, 2] x [M, 4, 2]`` →
+    ``[M]``, float64: A clipped by B's four halfplanes (Sutherland-Hodgman)
+    over a ring of slots that doubles each clip, then the shoelace."""
+    ca = np.asarray(ca, np.float64)
+    cb = np.asarray(cb, np.float64)
+    bx, by = cb[..., 0], cb[..., 1]
+    nbx = np.roll(bx, -1, axis=-1)
+    nby = np.roll(by, -1, axis=-1)
+    orient = np.sign(np.sum(bx * nby - nbx * by, axis=-1))[..., None]
+
+    vx, vy = ca[..., 0], ca[..., 1]
+    m = np.ones(vx.shape, bool)
+    slots = 4
+    for e in range(4):
+        ax = cb[..., e, 0][..., None]
+        ay = cb[..., e, 1][..., None]
+        dx = cb[..., (e + 1) % 4, 0][..., None] - ax
+        dy = cb[..., (e + 1) % 4, 1][..., None] - ay
+        vx, vy, m = _fill_invalid_with_left(vx, vy, m, slots)
+        any_valid = m[..., :1]
+        # slot 2i keeps vertex i when inside, slot 2i+1 the boundary
+        # intersection when edge (i, i+1) crosses
+        cr = (dx * (vy - ay) - dy * (vx - ax)) * orient
+        inside = cr >= 0
+        nvx = np.roll(vx, -1, axis=-1)
+        nvy = np.roll(vy, -1, axis=-1)
+        ncr = np.roll(cr, -1, axis=-1)
+        ninside = np.roll(inside, -1, axis=-1)
+        denom = cr - ncr
+        t = cr / np.where(denom == 0, 1.0, denom)
+        ix = vx + t * (nvx - vx)
+        iy = vy + t * (nvy - vy)
+        crossing = (inside != ninside) & (denom != 0)
+        vx = np.stack([vx, ix], axis=-1).reshape(*vx.shape[:-1], -1)
+        vy = np.stack([vy, iy], axis=-1).reshape(*vy.shape[:-1], -1)
+        m = np.stack([inside, crossing], axis=-1).reshape(
+            *inside.shape[:-1], -1)
+        m = m & any_valid
+        slots *= 2
+
+    vx, vy, m = _fill_invalid_with_left(vx, vy, m, slots)
+    nvx = np.roll(vx, -1, axis=-1)
+    nvy = np.roll(vy, -1, axis=-1)
+    area2 = np.sum(vx * nvy - nvx * vy, axis=-1)
+    return np.where(m[..., 0], 0.5 * np.abs(area2), 0.0)
+
+
+def rotate_iou_cpu(rbboxes: np.ndarray, qrbboxes: np.ndarray,
+                   standup_thresh: float = 0.0,
+                   criterion: int = -1) -> np.ndarray:
+    """Exact rotated BEV IoU ``[N, K]`` f32 of ``[*, 5]`` (x, y, w, l, yaw)
+    boxes, over the pairs whose standup IoU passes ``standup_thresh``.
+    ``criterion``: -1 IoU, 0 over the first area, 1 over the second,
+    else the intersection area."""
+    N, K = len(rbboxes), len(qrbboxes)
+    out = np.zeros((N, K), dtype=np.float32)
+    if N == 0 or K == 0:
+        return out
+    c1 = center_to_corner_box2d(rbboxes[:, :2], rbboxes[:, 2:4],
+                                rbboxes[:, 4])
+    c2 = center_to_corner_box2d(qrbboxes[:, :2], qrbboxes[:, 2:4],
+                                qrbboxes[:, 4])
+    standup = iou_2d(corner_to_standup_nd(c1).astype(np.float32),
+                     corner_to_standup_nd(c2).astype(np.float32))
+    area1 = rbboxes[:, 2] * rbboxes[:, 3]
+    area2 = qrbboxes[:, 2] * qrbboxes[:, 3]
+    sel_i, sel_j = np.nonzero(standup > standup_thresh)
+    if len(sel_i) == 0:
+        return out
+    inter = batched_intersection_area(c1[sel_i], c2[sel_j])
+    if criterion == -1:
+        denom = area1[sel_i] + area2[sel_j] - inter
+    elif criterion == 0:
+        denom = area1[sel_i]
+    elif criterion == 1:
+        denom = area2[sel_j]
+    else:
+        denom = np.ones_like(inter)
+    out[sel_i, sel_j] = np.where(denom > 0, inter / denom, 0.0)
+    return out

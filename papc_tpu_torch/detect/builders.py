@@ -1,15 +1,25 @@
-"""Config → the serving slice's components (a subset of
-``papc_tpu/detect/builders.py``): the voxel grid, the box coder, the
-anchor generator and its anchors, the network and the predict config."""
+"""Config → components (a subset of ``papc_tpu/detect/builders.py``): the
+voxel grid, the box coder, the anchor generator and its anchors, the
+similarity calculator and the target assigner, the network, the loss and
+predict configs, the learning-rate schedules and the optimizer."""
 
 from __future__ import annotations
 
+import math
+from collections.abc import Callable
+
 import numpy as np
+import torch
 
 from papc_tpu_torch.detect.anchors import AnchorGeneratorStride
-from papc_tpu_torch.detect.box_coder import GroundBox3dCoder
-from papc_tpu_torch.detect.detector import PredictConfig
+from papc_tpu_torch.detect.box_coder import BevBoxCoder, GroundBox3dCoder
+from papc_tpu_torch.detect.detector import LossConfig, PredictConfig
 from papc_tpu_torch.detect.model import PointPillars
+from papc_tpu_torch.detect.similarity import (DistanceSimilarity,
+                                              NearestIouSimilarity,
+                                              RotateIouSimilarity)
+from papc_tpu_torch.detect.target import TargetAssigner
+from papc_tpu_torch.train.optim import RMSProp, ScheduledLR
 
 
 def compute_grid_size(voxel_size, point_cloud_range) -> np.ndarray:
@@ -50,6 +60,16 @@ def build_box_coder(cfg) -> GroundBox3dCoder:
     )
 
 
+def build_similarity_calculator(kind: str):
+    if kind == "rotate_iou_similarity":
+        return RotateIouSimilarity()
+    if kind == "nearest_iou_similarity":
+        return NearestIouSimilarity()
+    if kind == "distance_similarity":
+        return DistanceSimilarity(distance_norm=1.0)
+    raise ValueError(f"unknown similarity {kind}")
+
+
 def build_anchor_generator(cfg) -> AnchorGeneratorStride:
     if "anchor_generator_stride" not in cfg:
         raise NotImplementedError("only anchor_generator_stride is ported")
@@ -62,6 +82,21 @@ def build_anchor_generator(cfg) -> AnchorGeneratorStride:
         match_threshold=float(c.matched_threshold),
         unmatch_threshold=float(c.unmatched_threshold),
         class_id=c.get("class_name"),
+    )
+
+
+def build_target_assigner(cfg, box_coder) -> TargetAssigner:
+    generators = [build_anchor_generator(g) for g in cfg.ANCHOR_GENERATORS]
+    positive_fraction = float(cfg.SAMPLE_POSITIVE_FRACTION)
+    if positive_fraction < 0:
+        positive_fraction = None
+    return TargetAssigner(
+        box_coder=box_coder,
+        anchor_generators=generators,
+        region_similarity_calculator=build_similarity_calculator(
+            cfg.REGION_SIMILARITY_CALCULATOR),
+        positive_fraction=positive_fraction,
+        sample_size=int(cfg.SAMPLE_SIZE),
     )
 
 
@@ -80,7 +115,7 @@ def build_anchors(cfg, voxel_generator: VoxelGenerator) -> np.ndarray:
 
 def build_network(cfg, voxel_generator: VoxelGenerator,
                   anchor_generator: AnchorGeneratorStride,
-                  box_coder: GroundBox3dCoder) -> PointPillars:
+                  box_coder) -> PointPillars:
     grid = voxel_generator.grid_size  # [nx, ny, nz]
     model_cfg = cfg.MODEL
     pfe = model_cfg.PILLAR_FEATURE_EXTRACTOR
@@ -111,7 +146,33 @@ def build_network(cfg, voxel_generator: VoxelGenerator,
     )
 
 
-def build_predict_config(cfg, box_coder: GroundBox3dCoder) -> PredictConfig:
+def build_loss_config(cfg, box_coder) -> LossConfig:
+    loss_cfg = cfg.MODEL.LOSS
+    cls = loss_cfg.classification_loss.weighted_sigmoid_focal
+    loc = loss_cfg.localization_loss.weighted_smooth_l1
+    return LossConfig(
+        num_class=int(cfg.MODEL.NUM_CLASS),
+        encode_background_as_zeros=bool(
+            cfg.MODEL.BACKBONE.get("encode_background_as_zeros", True)),
+        encode_rad_error_by_sin=bool(
+            cfg.MODEL.get("ENCODE_RAD_ERROR_BY_SIN", True)),
+        box_code_size=box_coder.code_size,
+        pos_cls_weight=float(loss_cfg.pos_class_weight),
+        neg_cls_weight=float(loss_cfg.neg_class_weight),
+        loss_norm_type=str(loss_cfg.loss_norm_type),
+        cls_loss_weight=float(loss_cfg.classification_weight),
+        loc_loss_weight=float(loss_cfg.localization_weight),
+        direction_loss_weight=float(loss_cfg.direction_loss_weight),
+        use_direction_classifier=bool(
+            cfg.MODEL.BACKBONE.get("use_direction_classifier", True)),
+        focal_alpha=float(cls.alpha),
+        focal_gamma=float(cls.gamma),
+        smooth_l1_sigma=float(loc.sigma),
+        code_weights=tuple(loc.code_weight),
+    )
+
+
+def build_predict_config(cfg, box_coder) -> PredictConfig:
     pp = cfg.MODEL.POST_PROCESSING
     return PredictConfig(
         num_class=int(cfg.MODEL.NUM_CLASS),
@@ -128,3 +189,98 @@ def build_predict_config(cfg, box_coder: GroundBox3dCoder) -> PredictConfig:
         nms_iou_threshold=float(pp.nms_iou_threshold),
         box_code_size=box_coder.code_size,
     )
+
+
+def build_lr_schedule(opt_cfg, base_lr: float) -> Callable[[int], float]:
+    """``schedule(count)`` → the rate of the step after ``count`` steps,
+    as optax's schedules of the same names compute it (in float64 here,
+    in float32 there)."""
+    lr_cfg = opt_cfg.learning_rate
+    name = lr_cfg.name
+    if name == "constant_learning_rate":
+        return lambda count: base_lr
+    if name == "exponential_decay_learning_rate":
+        steps = int(lr_cfg.decay_steps)
+        rate = float(lr_cfg.decay_factor)
+        staircase = bool(lr_cfg.get("staircase", True))
+        if steps <= 0 or rate == 0:
+            return lambda count: base_lr
+
+        def exponential(count):
+            if count <= 0:
+                return base_lr
+            p = count // steps if staircase else count / steps
+            return base_lr * rate**p
+
+        return exponential
+    if name == "exponential_decay_with_burnin":
+        # the reference's intent (its own code cannot run): burnin_lr for
+        # burnin_steps, then a staircase decay of base_lr
+        steps = int(lr_cfg.decay_steps)
+        rate = float(lr_cfg.decay_factor)
+        burnin_lr = float(lr_cfg.get("burnin_learning_rate", 0.0)) or base_lr
+        burnin_steps = int(lr_cfg.get("burnin_steps", 0))
+        return lambda count: (burnin_lr if count < burnin_steps
+                              else base_lr * rate ** (count // steps))
+    if name == "manual_step_learning_rate":
+        # optax.piecewise_constant_schedule over the ratios of
+        # successive rates, applied from each boundary on
+        boundaries = [int(s.step) for s in lr_cfg.schedule]
+        values = [base_lr] + [float(s.learning_rate) for s in lr_cfg.schedule]
+        scales = sorted((b, values[i + 1] / values[i])
+                        for i, b in enumerate(boundaries))
+
+        def manual(count):
+            v = values[0]
+            for boundary, scale in scales:
+                if count >= boundary:
+                    v = v * scale
+            return v
+
+        return manual
+    if name == "cosine_decay_learning_rate":
+        # optax.warmup_cosine_decay_schedule to an end value of 0
+        init = float(lr_cfg.get("warmup_learning_rate", 0.0))
+        warmup = int(lr_cfg.get("warmup_steps", 0))
+        decay = int(lr_cfg.total_steps) - warmup
+        if decay <= 0:
+            raise ValueError(f"cosine decay needs total_steps > "
+                             f"warmup_steps, got {decay + warmup}")
+
+        def cosine(count):
+            if count < warmup:
+                return (init - base_lr) * (1 - count / warmup) + base_lr
+            t = min(count - warmup, decay)
+            return base_lr * 0.5 * (1 + math.cos(math.pi * t / decay))
+
+        return cosine
+    raise ValueError(f"unknown lr schedule {name}")
+
+
+def build_optimizer(opt_cfg, params) -> tuple[torch.optim.Optimizer,
+                                             ScheduledLR]:
+    """``(optimizer, scheduler)`` for ``params`` as JAX's optax chain:
+    Adam, SGD with momentum (``torch.optim`` computes both as optax does,
+    the L2 term ``weight_decay·p`` added to the gradient first) or optax's
+    RMSProp (:class:`~papc_tpu_torch.train.optim.RMSProp`); the scheduler
+    sets each step's rate. Call ``scheduler.step()`` after each
+    ``optimizer.step()``."""
+    name = opt_cfg.name
+    wd = float(opt_cfg.get("weight_decay", 0.0))
+    base_lr = float(opt_cfg.learning_rate.initial_learning_rate)
+    schedule = build_lr_schedule(opt_cfg, base_lr)
+    if name == "adam_optimizer":
+        opt = torch.optim.Adam(params, lr=base_lr, weight_decay=wd)
+    elif name == "momentum_optimizer":
+        opt = torch.optim.SGD(params, lr=base_lr,
+                              momentum=float(opt_cfg.get("momentum", 0.9)),
+                              weight_decay=wd)
+    elif name == "rms_prop_optimizer":
+        opt = RMSProp(params, lr=base_lr,
+                      decay=float(opt_cfg.get("decay", 0.9)),
+                      momentum=float(opt_cfg.get("momentum", 0.9)),
+                      eps=float(opt_cfg.get("epsilon", 1e-10)),
+                      weight_decay=wd)
+    else:
+        raise ValueError(f"unknown optimizer {name}")
+    return opt, ScheduledLR(opt, schedule)

@@ -2,7 +2,8 @@
 ``papc_tpu/detect/config.py`` and ``configs/pointpillars_kitti_car.yaml``).
 
 The machine with the card has no PyYAML, so the port carries its own copy
-of the keys its serving path reads, with the YAML file's values. The
+of the keys its serving and training steps read, with the YAML file's
+values. The
 ``Config`` class and :func:`cfg_from_list` behave as the JAX package's:
 attribute access, and dotted overrides checked against the existing
 value's type.
@@ -35,7 +36,7 @@ class Config(dict):
         return obj
 
 
-# pointpillars_kitti_car.yaml, the keys the serving slice reads
+# pointpillars_kitti_car.yaml, the keys the serving and training steps read
 _CAR = {
     "VOXEL_GENERATOR": {
         "POINT_CLOUD_RANGE": [0, -39.68, -3, 69.12, 39.68, 1],
@@ -59,10 +60,14 @@ _CAR = {
                 "class_name": "Car",
             },
         }],
+        "SAMPLE_POSITIVE_FRACTION": -1,
+        "SAMPLE_SIZE": 512,
+        "REGION_SIMILARITY_CALCULATOR": "nearest_iou_similarity",
     },
     "MODEL": {
         "NUM_CLASS": 1,
         "NUM_POINT_FEATURES": 4,
+        "ENCODE_RAD_ERROR_BY_SIN": True,
         "PILLAR_FEATURE_EXTRACTOR": {
             "num_filters": [64],
             "with_distance": False,
@@ -86,6 +91,41 @@ _CAR = {
             "nms_score_threshold": 0.15,
             "nms_iou_threshold": 0.5,
         },
+        "LOSS": {
+            "pos_class_weight": 1.0,
+            "neg_class_weight": 1.0,
+            "direction_loss_weight": 2.0,
+            "loss_norm_type": "NormByNumPositives",
+            "classification_loss": {
+                "weighted_sigmoid_focal": {"alpha": 0.25, "gamma": 2.0},
+            },
+            "localization_loss": {
+                "weighted_smooth_l1": {
+                    "sigma": 3.0,
+                    "code_weight": [1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0],
+                },
+            },
+            "classification_weight": 1.0,
+            "localization_weight": 2.0,
+        },
+    },
+    "TRAIN_CONFIG": {
+        "OPTIMIZER": {
+            "name": "adam_optimizer",
+            "learning_rate": {
+                "name": "exponential_decay_learning_rate",
+                "initial_learning_rate": 0.0002,
+                "decay_steps": 27840,
+                "decay_factor": 0.8,
+                "staircase": True,
+            },
+            "weight_decay": 0.0001,
+        },
+    },
+    "TRAIN_INPUT_READER": {
+        "BATCH_SIZE": 2,
+        "MAX_NUMBER_OF_VOXELS": 12000,
+        "MAX_POINTS_PER_FRAME": 25000,
     },
     "EVAL_INPUT_READER": {
         "BATCH_SIZE": 2,

@@ -1,7 +1,14 @@
-"""Detection post-processing (counterpart of ``PredictConfig``,
-``decode_raw``, ``apply_direction_flip`` and ``predict`` in
-``papc_tpu/detect/detector.py``), batched over the frames where JAX
-``vmap``s.
+"""Detection loss assembly and post-processing (counterpart of
+``papc_tpu/detect/detector.py``).
+
+The loss half (``prepare_loss_weights``, ``add_sin_difference``,
+``get_direction_target``, ``get_pos_neg_loss``, ``LossConfig``,
+``compute_loss``) runs in the reference layout ``[B, A, C]``, as JAX's
+``compute_loss_bac`` writes it; JAX's production ``compute_loss`` is the
+same arithmetic in a ``[B, C, A]`` layout for TPU tiling, which the port
+does not carry. The post-processing (``PredictConfig``, ``decode_raw``,
+``apply_direction_flip``, ``predict``) is batched over the frames where
+JAX ``vmap``s.
 
 Ties: with untrained weights, empty BEV cells give exactly equal scores
 over large regions. ``jax.lax.top_k`` returns tied entries lower index
@@ -18,8 +25,160 @@ from typing import Callable
 
 import torch
 
+import torch.nn.functional as F
+
+from papc_tpu_torch.detect import losses as L
 from papc_tpu_torch.ops.iou import box5_to_corners, iou_2d
 from papc_tpu_torch.ops.nms import greedy_suppress, rotate_nms
+
+
+# ------------------------------------------------------------------ loss
+
+def prepare_loss_weights(labels: torch.Tensor, pos_cls_weight: float = 1.0,
+                         neg_cls_weight: float = 1.0,
+                         loss_norm_type: str = "NormByNumPositives"):
+    """``labels [B, A]`` (-1 ignore, 0 background, > 0 class) →
+    ``(cls_weights [B, A], reg_weights [B, A], cared [B, A] bool)``."""
+    cared = labels >= 0
+    positives = (labels > 0).float()
+    negatives = (labels == 0).float()
+    cls_weights = neg_cls_weight + pos_cls_weight * positives
+    reg_weights = positives
+    if loss_norm_type == "NormByNumExamples":
+        num_examples = torch.clamp_min(
+            cared.float().sum(1, keepdim=True), 1.0)
+        cls_weights = cls_weights / num_examples
+        bbox_norm = torch.clamp_min(positives.sum(1, keepdim=True), 1.0)
+        reg_weights = reg_weights / bbox_norm
+    elif loss_norm_type == "NormByNumPositives":
+        pos_norm = torch.clamp_min(positives.sum(1, keepdim=True), 1.0)
+        reg_weights = reg_weights / pos_norm
+        cls_weights = cls_weights / pos_norm
+    elif loss_norm_type == "NormByNumPosNeg":
+        pos_neg = torch.stack([positives, negatives], -1)
+        normalizer = pos_neg.sum(1, keepdim=True)  # [B, 1, 2]
+        cls_normalizer = torch.clamp_min((pos_neg * normalizer).sum(-1), 1.0)
+        normalizer = torch.clamp_min(normalizer, 1.0)
+        reg_weights = reg_weights / normalizer[:, 0:1, 0]
+        cls_weights = cls_weights / cls_normalizer
+    else:
+        raise ValueError(f"unknown loss norm type {loss_norm_type}")
+    return cls_weights, reg_weights, cared
+
+
+def add_sin_difference(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    """The angle dims replaced by ``sin(a)·cos(b)`` and ``cos(a)·sin(b)``,
+    so that the loss of their difference sees ``sin(a - b)``."""
+    rad_pred = torch.sin(boxes1[..., -1:]) * torch.cos(boxes2[..., -1:])
+    rad_tg = torch.cos(boxes1[..., -1:]) * torch.sin(boxes2[..., -1:])
+    return (torch.cat([boxes1[..., :-1], rad_pred], dim=-1),
+            torch.cat([boxes2[..., :-1], rad_tg], dim=-1))
+
+
+def get_direction_target(anchors: torch.Tensor, reg_targets: torch.Tensor,
+                         one_hot: bool = True) -> torch.Tensor:
+    """The direction classifier's target: 1 where the ground truth's yaw
+    (target plus anchor) is positive; ``anchors [B, A, 7]``,
+    ``reg_targets [B, A, C]``."""
+    t = (reg_targets[..., -1] + anchors[..., -1] > 0).long()
+    if one_hot:
+        return F.one_hot(t, 2).to(reg_targets.dtype)
+    return t
+
+
+def get_pos_neg_loss(cls_loss: torch.Tensor, labels: torch.Tensor):
+    """The weighted classification loss split into its positive and
+    negative sums over the batch, each over ``B``."""
+    B = cls_loss.shape[0]
+    if cls_loss.dim() == 2 or cls_loss.shape[-1] == 1:
+        flat = cls_loss.reshape(B, -1)
+        pos = ((labels > 0) * flat).sum() / B
+        neg = ((labels == 0) * flat).sum() / B
+    else:
+        pos = cls_loss[..., 1:].sum() / B
+        neg = cls_loss[..., 0].sum() / B
+    return pos, neg
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    num_class: int = 1
+    encode_background_as_zeros: bool = True
+    encode_rad_error_by_sin: bool = True
+    box_code_size: int = 7
+    pos_cls_weight: float = 1.0
+    neg_cls_weight: float = 1.0
+    loss_norm_type: str = "NormByNumPositives"
+    cls_loss_weight: float = 1.0
+    loc_loss_weight: float = 2.0
+    direction_loss_weight: float = 2.0
+    use_direction_classifier: bool = True
+    focal_alpha: float = 0.25
+    focal_gamma: float = 2.0
+    smooth_l1_sigma: float = 3.0
+    code_weights: tuple = (1.0,) * 7
+
+
+def compute_loss(preds: dict, labels: torch.Tensor,
+                 reg_targets: torch.Tensor, anchors: torch.Tensor,
+                 cfg: LossConfig):
+    """The total detection loss from the RPN's head maps (``[B, H, W,
+    na·c]``, anchors in (h, w, a) order), ``labels [B, A]``,
+    ``reg_targets [B, A, code]`` and ``anchors [B, A, 7]`` → ``(loss,
+    metrics)``: smooth-L1 on the box codes (the angle by its sine), sigmoid
+    focal on the classes, softmax on the direction, with JAX's metrics
+    (``loc_loss``, ``cls_loss``, ``cls_pos_loss``, ``cls_neg_loss``,
+    ``num_pos``, ``num_neg``, ``dir_loss``, ``loss``)."""
+    B = labels.shape[0]
+    box_preds = preds["box_preds"].reshape(B, -1, cfg.box_code_size)
+    ncls = (cfg.num_class if cfg.encode_background_as_zeros
+            else cfg.num_class + 1)
+    cls_preds = preds["cls_preds"].reshape(B, -1, ncls)
+
+    cls_weights, reg_weights, cared = prepare_loss_weights(
+        labels, cfg.pos_cls_weight, cfg.neg_cls_weight, cfg.loss_norm_type)
+    cls_targets = (labels * cared).long()
+    one_hot = F.one_hot(cls_targets, cfg.num_class + 1).to(box_preds.dtype)
+    if cfg.encode_background_as_zeros:
+        one_hot = one_hot[..., 1:]
+
+    bp, rt = box_preds, reg_targets
+    if cfg.encode_rad_error_by_sin:
+        bp, rt = add_sin_difference(bp, rt)
+    loc_loss = L.weighted_smooth_l1_localization_loss(
+        bp, rt, weights=reg_weights, sigma=cfg.smooth_l1_sigma,
+        code_weights=list(cfg.code_weights))
+    cls_loss = L.sigmoid_focal_classification_loss(
+        cls_preds, one_hot, weights=cls_weights, gamma=cfg.focal_gamma,
+        alpha=cfg.focal_alpha)
+    loc_loss_reduced = loc_loss.sum() / B * cfg.loc_loss_weight
+    cls_loss_reduced = cls_loss.sum() / B * cfg.cls_loss_weight
+    loss = loc_loss_reduced + cls_loss_reduced
+
+    cls_pos, cls_neg = get_pos_neg_loss(cls_loss, labels)
+    metrics = {
+        "loc_loss": loc_loss_reduced,
+        "cls_loss": cls_loss_reduced,
+        "cls_pos_loss": cls_pos / cfg.pos_cls_weight,
+        "cls_neg_loss": cls_neg / cfg.neg_cls_weight,
+        "num_pos": (labels > 0).sum(),
+        "num_neg": (labels == 0).sum(),
+    }
+    if cfg.use_direction_classifier and "dir_cls_preds" in preds:
+        dir_targets = get_direction_target(anchors, reg_targets)
+        dir_logits = preds["dir_cls_preds"].reshape(B, -1, 2)
+        weights = (labels > 0).to(dir_logits.dtype)
+        weights = weights / torch.clamp_min(weights.sum(-1, keepdim=True),
+                                            1.0)
+        dir_loss = L.weighted_softmax_classification_loss(
+            dir_logits, dir_targets, weights).sum() / B
+        loss = loss + dir_loss * cfg.direction_loss_weight
+        metrics["dir_loss"] = dir_loss
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+# -------------------------------------------------------- post-processing
 
 
 @dataclasses.dataclass(frozen=True)

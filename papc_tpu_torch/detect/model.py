@@ -1,5 +1,4 @@
-"""PointPillars network, eval mode (counterpart of
-``papc_tpu/detect/model.py``).
+"""PointPillars network (counterpart of ``papc_tpu/detect/model.py``).
 
 The port runs the reference form of the network: the classic
 ``PillarFeatureNet`` over the padded pillar grid, the flat-row BEV
@@ -13,9 +12,16 @@ Module names follow the flax tree (``pfn.PFNLayer_0.Dense_0``,
 ``rpn._ConvBlock_0.Conv_0``, ``rpn.ConvTranspose_0``, ``rpn.BatchNorm_0``,
 ``rpn.Conv_0`` ...), so :mod:`papc_tpu_torch.convert` maps each flax leaf
 onto one tensor. The public layout is channel-last, as in JAX; the
-convolutions run in PyTorch's NCHW. Every BatchNorm uses its running
-statistics with the detector's epsilon 1e-3; the network has no training
-mode yet; ``nn.layers.init_params`` gives it seeded weights.
+convolutions run in PyTorch's NCHW. ``train()`` / ``eval()`` select the
+mode, as flax's ``train`` argument does. Every BatchNorm has the
+detector's epsilon 1e-3 and flax momentum 0.01 (``PFN_BN``): in training
+it takes batch statistics, the PFN's over every ``[B, V, P]`` slot,
+padded points and pillars included, as JAX's does, and updates the
+running ones; in eval it uses the running ones. In training each
+convolution runs in float32 forward and backward
+(:func:`papc_tpu_torch.nn.layers.f32_cudnn`); in eval it runs under the
+caller's cuDNN flags (``make_predict_step`` sets float32).
+``nn.layers.init_params`` gives the network seeded weights.
 """
 
 from __future__ import annotations
@@ -23,24 +29,30 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from papc_tpu_torch.nn.layers import BatchNorm
+from papc_tpu_torch.nn.layers import BatchNorm, conv
 from papc_tpu_torch.ops.voxelize import scatter_to_bev_batched
 
-PFN_BN_EPS = 1e-3  # model.py PFN_BN: every BatchNorm of the detector
-_TRAIN_TODO = ("detection training is not ported yet (ROADMAP.md, Queue 1 "
-               "item 6: losses, target assignment, PFN/RPN backward)")
+# model.py PFN_BN: every BatchNorm of the detector, momentum in flax's
+# sense (running = 0.01·running + 0.99·batch)
+PFN_BN_EPS = 1e-3
+PFN_BN_MOMENTUM = 0.01
 
 
-def _bn(bn: BatchNorm, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Eval BatchNorm over axis ``dim`` with flax's arithmetic
-    ``(x - mean) · (rsqrt(var + eps) · scale) + bias``."""
-    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-    shape = [1] * x.dim()
-    shape[dim] = -1
-    return ((x - bn.running_mean.view(shape)) * mul.view(shape)
-            + bn.bias.view(shape))
+def _norm(features: int) -> BatchNorm:
+    return BatchNorm(features, eps=PFN_BN_EPS, momentum=PFN_BN_MOMENTUM)
+
+
+def _conv(module: nn.Module, x: torch.Tensor, op) -> torch.Tensor:
+    """``module``'s convolution of NCHW ``x``: with a gradient to take,
+    :func:`~papc_tpu_torch.nn.layers.conv` (float32 forward and backward);
+    without, the module's own call under the caller's cuDNN flags."""
+    if torch.is_grad_enabled() and (x.requires_grad
+                                    or module.weight.requires_grad):
+        return conv(module, x, op)
+    return module(x)
 
 
 class PFNLayer(nn.Module):
@@ -55,13 +67,14 @@ class PFNLayer(nn.Module):
         units = units if last_layer else units // 2
         self.Dense_0 = nn.Linear(in_features, units, bias=not use_norm)
         if use_norm:
-            self.BatchNorm_0 = BatchNorm(units, eps=PFN_BN_EPS)
+            self.BatchNorm_0 = _norm(units)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.Dense_0(x)  # [B, V, P, units]
         if self.use_norm:
-            x = _bn(self.BatchNorm_0, x)
+            x = self.BatchNorm_0(x)
         x = torch.relu(x)
+        # the max sends its gradient evenly to tied slots, as jnp.max does;
         # padded slots hold relu(beta - mean·scale/sigma) and stay in the max
         x_max = torch.amax(x, dim=2, keepdim=True)
         if self.last_layer:
@@ -149,14 +162,15 @@ class _ConvBlock(nn.Module):
                 cin, filters, 3, stride=stride if i == 0 else 1, padding=1,
                 bias=not use_norm))
             if use_norm:
-                self.add_module(f"BatchNorm_{i}",
-                                BatchNorm(filters, eps=PFN_BN_EPS))
+                self.add_module(f"BatchNorm_{i}", _norm(filters))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_layers + 1):
-            x = getattr(self, f"Conv_{i}")(x)
+            layer = getattr(self, f"Conv_{i}")
+            x = _conv(layer, x, lambda h, w, c=layer: F.conv2d(
+                h, w, None, c.stride, c.padding))
             if self.use_norm:
-                x = _bn(getattr(self, f"BatchNorm_{i}"), x, dim=1)
+                x = getattr(self, f"BatchNorm_{i}")(x, dim=1)
             x = torch.relu(x)
         return x
 
@@ -189,8 +203,7 @@ class RPN(nn.Module):
             self.add_module(f"ConvTranspose_{i}", nn.ConvTranspose2d(
                 num_filters[i], f_up, s, stride=s, bias=not use_norm))
             if use_norm:
-                self.add_module(f"BatchNorm_{i}",
-                                BatchNorm(f_up, eps=PFN_BN_EPS))
+                self.add_module(f"BatchNorm_{i}", _norm(f_up))
             cin = num_filters[i]
         num_cls = num_anchor_per_loc * (
             num_class if encode_background_as_zeros else num_class + 1)
@@ -207,9 +220,11 @@ class RPN(nn.Module):
         ups = []
         for i in range(3):
             x = getattr(self, f"_ConvBlock_{i}")(x)
-            up = getattr(self, f"ConvTranspose_{i}")(x)
+            deconv = getattr(self, f"ConvTranspose_{i}")
+            up = _conv(deconv, x, lambda h, w, c=deconv: F.conv_transpose2d(
+                h, w, None, c.stride))
             if self.use_norm:
-                up = _bn(getattr(self, f"BatchNorm_{i}"), up, dim=1)
+                up = getattr(self, f"BatchNorm_{i}")(up, dim=1)
             ups.append(torch.relu(up))
         x = torch.cat(ups, dim=1).permute(0, 2, 3, 1)  # [B, H, W, 384]
         heads = [self.Conv_0, self.Conv_1]
@@ -227,7 +242,8 @@ class RPN(nn.Module):
 
 class PointPillars(nn.Module):
     """PFN → scatter → RPN. ``forward`` returns the raw head maps; the
-    post-processing is :func:`papc_tpu_torch.detect.detector.predict`."""
+    loss is :func:`papc_tpu_torch.detect.detector.compute_loss`, the
+    post-processing :func:`papc_tpu_torch.detect.detector.predict`."""
 
     def __init__(self, ny: int, nx: int, num_class: int = 1,
                  num_input_features: int = 4,
@@ -257,9 +273,7 @@ class PointPillars(nn.Module):
                        use_direction_classifier, use_norm, box_code_size)
 
     def forward(self, voxels: torch.Tensor, num_points: torch.Tensor,
-                coords: torch.Tensor, train: bool = False) -> dict:
-        if train:
-            raise NotImplementedError(_TRAIN_TODO)
+                coords: torch.Tensor) -> dict:
         features = self.pfn(voxels, num_points, coords)
         return self.rpn(self.scatter(features, coords))
 

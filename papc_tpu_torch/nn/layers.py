@@ -35,10 +35,13 @@ class BatchNorm(nn.Module):
 
     Training takes ``mean`` and ``var`` over every other axis in f32,
     with flax's fast biased variance ``E[x²] - E[x]²`` clipped at 0, and
-    updates the running statistics in flax's form ``0.9·running +
-    0.1·batch`` (``BN_MOMENTUM``) with that biased variance. (Not
+    updates the running statistics in flax's form ``m·running +
+    (1 - m)·batch`` with that biased variance; ``momentum`` m is flax's,
+    0.9 by default (``BN_MOMENTUM``), 0.01 in the detector. (Not
     ``torch.nn.BatchNorm1d``: it stores the unbiased variance, and its
     ``momentum`` is the weight of the batch, 0.1 for flax's 0.9.)
+    ``forward(x, dim)`` normalises channel axis ``dim``, the last by
+    default (``dim=1`` for an NCHW map).
 
     A bf16 input or bf16 ``weight`` / ``bias`` (the bf16 training step)
     follows flax 0.12's ``force_float32_reductions``: the statistics are
@@ -48,28 +51,36 @@ class BatchNorm(nn.Module):
     ``canonicalize_dtype``).
     """
 
-    def __init__(self, features: int, eps: float = BN_EPS):
+    def __init__(self, features: int, eps: float = BN_EPS,
+                 momentum: float = BN_MOMENTUM):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        dim = dim % x.dim()
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            x2 = x.reshape(-1, x.shape[-1])
-            x2 = x2.to(torch.promote_types(x2.dtype, torch.float32))
-            mean = x2.mean(0)
-            var = torch.clamp_min((x2 * x2).mean(0) - mean * mean, 0.0)
+            x2 = x.to(torch.promote_types(x.dtype, torch.float32))
+            if dim == x.dim() - 1:
+                x2, axes = x2.reshape(-1, x.shape[-1]), 0
+            else:
+                axes = [d for d in range(x.dim()) if d != dim]
+            mean = x2.mean(axes)
+            var = torch.clamp_min((x2 * x2).mean(axes) - mean * mean, 0.0)
             with torch.no_grad():
-                m = BN_MOMENTUM
+                m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
                 self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        shape = [1] * x.dim()
+        shape[dim] = -1
         mul = torch.rsqrt(var + self.eps) * self.weight
-        out = (x - mean) * mul + self.bias
+        out = (x - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return out.to(torch.promote_types(
             torch.promote_types(x.dtype, self.weight.dtype), self.bias.dtype))
 
@@ -122,18 +133,22 @@ class _F32Cudnn(torch.autograd.Function):
 
 def conv(module: nn.Module, x: torch.Tensor, op) -> torch.Tensor:
     """flax's ``Conv`` / ``ConvTranspose`` on ``module``'s parameters:
-    ``op(x, weight)`` (channels first), input, kernel and bias promoted
-    to one dtype first and the bias added after the convolution, as flax
-    adds it; cuDNN in float32 forward and backward (:func:`f32_cudnn`)."""
+    ``op(x, weight)`` (channels first), input, kernel and bias (if any)
+    promoted to one dtype first and the bias added after the convolution,
+    as flax adds it; cuDNN in float32 forward and backward
+    (:func:`f32_cudnn`)."""
     w, b = module.weight, module.bias
-    dtype = torch.promote_types(torch.promote_types(x.dtype, w.dtype),
-                                b.dtype)
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    if b is not None:
+        dtype = torch.promote_types(dtype, b.dtype)
     x, w = x.to(dtype), w.to(dtype)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         y = _F32Cudnn.apply(op, x, w)
     else:
         with f32_cudnn():
             y = op(x, w)
+    if b is None:
+        return y
     shape = (1, -1) + (1,) * (y.dim() - 2)
     return y + b.to(dtype).reshape(shape)
 

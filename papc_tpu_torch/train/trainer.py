@@ -24,7 +24,7 @@ finds it), holding one ``numpy.savez`` file of flat keys: ``params/...``
 and ``batch_stats/...`` (flax variables,
 :func:`papc_tpu_torch.convert.state_dict_to_flax`), ``opt_state/count``,
 ``opt_state/mu/...`` and ``opt_state/nu/...`` (optax's
-``ScaleByAdamState`` fields, :func:`~papc_tpu_torch.convert.adam_state_to_optax`)
+``ScaleByAdamState`` fields, :func:`~papc_tpu_torch.convert.optimizer_state_to_optax`)
 and ``step``. ``restore_checkpoint`` loads all four; ``evaluate`` serves
 the latest one. As in JAX, ``train()`` does not resume.
 """
@@ -40,8 +40,9 @@ from collections.abc import Callable, Sequence
 import numpy as np
 import torch
 
-from papc_tpu_torch.convert import (adam_state_from_optax,
-                                    adam_state_to_optax, load_flax_weights,
+from papc_tpu_torch.convert import (load_flax_weights,
+                                    optimizer_state_from_optax,
+                                    optimizer_state_to_optax,
                                     state_dict_to_flax)
 from papc_tpu_torch.models import init_model
 from papc_tpu_torch.train import metrics as M
@@ -118,7 +119,7 @@ def save_checkpoint(model: torch.nn.Module, opt: torch.optim.Optimizer,
     ``force=True`` save replaces it. Returns its absolute path."""
     path = os.path.abspath(os.path.join(model_dir, f"{name}_{epoch}"))
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    adam = adam_state_to_optax(model, opt)
+    adam = optimizer_state_to_optax(model, opt)
     arrays = dict(state_dict_to_flax(model.state_dict()))
     arrays["opt_state/count"] = adam["count"]
     for part in ("mu", "nu"):
@@ -180,7 +181,7 @@ def restore_checkpoint(model: torch.nn.Module, opt: torch.optim.Optimizer,
         prefix = f"opt_state/{part}/"
         adam[part] = {k[len(prefix):]: v for k, v in arrays.items()
                       if k.startswith(prefix)}
-    adam_state_from_optax(model, opt, adam)
+    optimizer_state_from_optax(model, opt, adam)
     return int(arrays["step"])
 
 

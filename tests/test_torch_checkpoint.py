@@ -22,9 +22,10 @@ from papc_tpu.data import prefetch as jprefetch
 from papc_tpu.train import trainer as jtrainer
 
 from papc_tpu_torch import __main__ as cli
-from papc_tpu_torch.convert import (adam_state_from_optax,
-                                    adam_state_to_optax, flatten,
-                                    load_flax_weights, state_dict_to_flax)
+from papc_tpu_torch.convert import (flatten, load_flax_weights,
+                                    optimizer_state_from_optax,
+                                    optimizer_state_to_optax,
+                                    state_dict_to_flax)
 from papc_tpu_torch.data import SyntheticLoader, prefetch_to_device
 from papc_tpu_torch.models.classify import PointNet2SSGClas
 from papc_tpu_torch.train import (evaluate, latest_checkpoint_path,
@@ -119,11 +120,11 @@ def test_checkpoint_layout_and_replacement(tmp_path):
 def test_adam_state_from_optax_continues_jax_run(rng):
     """Two steps of optax's ``chain(add_decayed_weights, adam)`` on a
     model's flax-keyed parameters in JAX; their parameters and Adam state
-    carried into the port (``adam_state_from_optax``: mu → exp_avg, nu →
+    carried into the port (``optimizer_state_from_optax``: mu → exp_avg, nu →
     exp_avg_sq, count → step, kernels transposed); step 3 on the same
     gradients on both sides: the parameters within 1e-6, as
     ``test_adam_with_l2_matches_optax_chain`` holds torch's Adam to
-    optax's. ``adam_state_to_optax`` gives back JAX's state after step 3
+    optax's. ``optimizer_state_to_optax`` gives back JAX's state after step 3
     within the same tolerance, its count exact."""
     lr, wd = 1e-2, 1e-1
     model = _small_model()
@@ -144,8 +145,8 @@ def test_adam_state_from_optax_continues_jax_run(rng):
         k: v for k, v in state_dict_to_flax(model.state_dict()).items()
         if k.startswith("batch_stats/")})
     opt = make_optimizer(model.parameters(), lr, wd)
-    adam_state_from_optax(model, opt, jax.tree_util.tree_map(np.asarray,
-                                                             state))
+    optimizer_state_from_optax(model, opt, jax.tree_util.tree_map(
+        np.asarray, state))
     upd, state = update(grads[2], state, params)
     params = optax.apply_updates(params, upd)
     g3 = {k: torch.from_numpy(np.array(v)) for k, v in grads[2].items()}
@@ -158,7 +159,7 @@ def test_adam_state_from_optax_continues_jax_run(rng):
     for k, v in params.items():
         np.testing.assert_allclose(got["params/" + k], np.asarray(v),
                                    rtol=1e-6, atol=1e-6)
-    back = adam_state_to_optax(model, opt)
+    back = optimizer_state_to_optax(model, opt)
     adam = state[1][0]
     assert int(back["count"]) == int(adam.count) == 3
     for part in ("mu", "nu"):

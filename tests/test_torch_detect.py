@@ -10,6 +10,7 @@ exact because no pair of these inputs has an IoU within ulps of the
 threshold.
 """
 
+import copy
 import importlib
 
 import jax
@@ -38,12 +39,17 @@ from papc_tpu_torch.detect import builders, detector
 from papc_tpu_torch.detect.box_coder import GroundBox3dCoder
 from papc_tpu_torch.detect.config import car_config, cfg_from_list
 from papc_tpu_torch.detect.model import PillarFeatureNet, PointPillars
-from papc_tpu_torch.detect.train import (evaluate, make_pillarizer,
-                                         make_predict_step)
+from papc_tpu_torch.detect.train import (evaluate,
+                                         make_detection_train_step,
+                                         make_pillarizer, make_predict_step)
 from papc_tpu_torch.ops import iou, nms, voxelize
 from papc_tpu_torch.ops.kernels import nms as knms
 
 # papc_tpu.ops re-exports functions under these modules' names
+from tests.torch_parity import few_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("few_threads")
+
 jiou = importlib.import_module("papc_tpu.ops.iou")
 jnms = importlib.import_module("papc_tpu.ops.nms")
 jvox = importlib.import_module("papc_tpu.ops.voxelize")
@@ -101,7 +107,7 @@ def _lookup(cfg, key):
 def test_config_equals_the_yaml_on_every_key_it_carries():
     mine, yaml_cfg = car_config(), cfg_from_yaml_file(DEFAULT_CONFIG_PATH)
     keys = list(_leaves(mine))
-    assert len(keys) == 35
+    assert len(keys) == 59
     for key, value in keys:
         assert _lookup(yaml_cfg, key) == value, key
     overrides = ["EVAL_INPUT_READER.MAX_NUMBER_OF_VOXELS", "64",
@@ -228,7 +234,7 @@ def test_pillar_feature_net_matches_flax(rng):
     m = PillarFeatureNet(4, **kw)
     convert.load_flax_weights(m, _np(variables))
     with torch.inference_mode():
-        got = m(T(vox), T(num), T(coords)).numpy()
+        got = m.eval()(T(vox), T(num), T(coords)).numpy()
     assert got.shape == (2, 24, 64)
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
@@ -260,12 +266,16 @@ def net_pair():
 def test_pointpillars_forward_matches_flax(net_pair, flags):
     """The reference-form port against the JAX model built with the four
     TPU rewrites on (build_network's default) and off; up-strides 1, 2
-    and 4 exercise the ConvTranspose mapping."""
+    and 4 exercise the ConvTranspose mapping. In training mode (a copy of
+    the model) the outputs on batch statistics and the updated running
+    statistics (flax's ``mutable=["batch_stats"]``, momentum 0.01) too,
+    within 1e-4 of the largest of each."""
     variables, model = net_pair
     vox, num, coords = _pillars(np.random.RandomState(4))
     jm = JaxPointPillars(**NET, **({} if flags == "off" else FLAGS))
+    args = (jnp.asarray(vox), jnp.asarray(num), jnp.asarray(coords))
     want = jax.jit(lambda v, *a: jm.apply(v, *a, train=False))(
-        variables, jnp.asarray(vox), jnp.asarray(num), jnp.asarray(coords))
+        variables, *args)
     with torch.inference_mode():
         got = model(T(vox), T(num), T(coords))
     assert set(got) == set(want)
@@ -273,8 +283,24 @@ def test_pointpillars_forward_matches_flax(net_pair, flags):
         assert got[k].shape == (2, 8, 8, want[k].shape[-1])
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=1e-4, atol=1e-4, err_msg=k)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(T(vox), T(num), T(coords), train=True)
+
+    want, mutated = jax.jit(lambda v, *a: jm.apply(
+        v, *a, train=True, mutable=["batch_stats"]))(variables, *args)
+    trained = copy.deepcopy(model).train()
+    with torch.no_grad():
+        got = trained(T(vox), T(num), T(coords))
+    for k in want:
+        w = np.asarray(want[k])
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=k)
+    stats = convert.flatten({"batch_stats": _np(mutated["batch_stats"])})
+    old = convert.flatten({"batch_stats": _np(variables["batch_stats"])})
+    mine = convert.state_dict_to_flax(trained.state_dict())
+    assert set(stats) <= set(mine) and len(stats) == 2 * 11
+    for k, w in stats.items():
+        assert not np.allclose(w, old[k]), k  # the statistics moved
+        np.testing.assert_allclose(mine[k], w, rtol=0,
+                                   atol=1e-4 * np.abs(w).max(), err_msg=k)
 
 
 def test_rpn_matches_flax_on_a_bev_canvas(net_pair):
@@ -597,6 +623,9 @@ def test_serving_options_not_ported_raise():
     model = torch.nn.Linear(1, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_predict_step(model, pcfg, coder, None, "cpu", precision="bf16")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*6.4"):
+        make_detection_train_step(model, builders.build_loss_config(
+            cfg, coder), None, None, None, "cpu", precision="bf16")
     cfg_from_list(cfg, ["MODEL.POST_PROCESSING.multiclass_nms", "True"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_predict_step(model, builders.build_predict_config(cfg, coder),

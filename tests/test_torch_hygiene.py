@@ -57,7 +57,11 @@ def test_package_import_loads_no_jax_and_builds_nothing():
             "papc_tpu_torch.data.synthetic_kitti, "
             "papc_tpu_torch.models.segment, papc_tpu_torch.ops.interpolate, "
             "papc_tpu_torch.models.classify, papc_tpu_torch.data.kd, "
-            "papc_tpu_torch.data.voxel, papc_tpu_torch.data.dispatch; "
+            "papc_tpu_torch.data.voxel, papc_tpu_torch.data.dispatch, "
+            "papc_tpu_torch.detect.losses, papc_tpu_torch.detect.target, "
+            "papc_tpu_torch.detect.similarity, papc_tpu_torch.train.optim, "
+            "papc_tpu_torch.train.running_metrics, "
+            "papc_tpu_torch.utils.profiling; "
             "from papc_tpu_torch import _build; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'papc_tpu', 'h5py', 'triton')); "

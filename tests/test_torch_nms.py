@@ -25,12 +25,20 @@ from papc_tpu_torch.ops.iou import box5_to_corners
 from papc_tpu_torch.ops.kernels import nms as knms
 from tests.nms_boxes import (DEGENERATE_GROUP, clip_vertices,
                              clustered_rboxes, near_degenerate_rboxes)
+from tests.torch_parity import few_threads  # noqa: F401
+
+# Two torch threads: the suite runs six worker processes on the host's
+# cores, and with a thread a core each the plain masks' small ops took
+# 150 times their time alone (the rotated cases' plain pieces: 5 s alone,
+# 760 s in six concurrent processes, 32-40 s with two threads each).
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 jiou = importlib.import_module("papc_tpu.ops.iou")
 jnms = importlib.import_module("papc_tpu.ops.nms")
 
+# the threshold traced, not static: one compile a K for both thresholds
 _matrix_path = jax.jit(lambda b, v, thr: jnms.greedy_suppress(
-    jiou.rotate_iou(b, b), v, thr), static_argnums=2)
+    jiou.rotate_iou(b, b), v, thr))
 
 
 def _random_iou(rs, B, K):
