@@ -9,8 +9,10 @@ classification / segmentation zoo (PointNet-Basic, PointNet and its
 Conv2D variant, VFE, VoxNet, KD-Net, KD-UNet, which run no kernel of
 the port); and the PointPillars detection serving path (the KITTI car
 config at full width: B=2 frames of up to 25000 points, 12000 pillars, a
-496 x 432 BEV grid, 107136 anchors, K=1000 before NMS) and its training
-step at that width on the card, in seventeen phases;
+496 x 432 BEV grid, 107136 anchors, K=1000 before NMS), its training
+step at that width on the card, and its KITTI training loop
+(``detect.train.train`` over a ``write_kitti`` tree) with evaluation and
+the learning floor, in eighteen phases;
 any failure raises and exits non-zero. TF32 is off for matmuls throughout
 (float32 references); the detection serving step runs its cuDNN
 convolutions in f32 itself, as a user gets it.
@@ -110,7 +112,7 @@ convolutions in f32 itself, as a user gets it.
    the sweep; a one-launch design as "whole"), the sweep's us a row and
    the rotated mask's ring-overflow pairs, on both sets at both
    thresholds.
-8. Detection slice: ``papc_tpu_torch.detect.train.evaluate`` over 8
+8. Detection slice: ``papc_tpu_torch.detect.train.predict_frames`` over 8
    synthetic frames in 4 batches of 2, seed-0 weights written as a
    flax-keyed ``.npz`` and loaded through ``convert``; first with the
    kernels, then with every op on its plain version, for the default
@@ -241,6 +243,28 @@ convolutions in f32 itself, as a user gets it.
    by ``make_predict_step`` with kernels and on plain versions, rotated
    and standup NMS: detections equal within ``DET_TOL``, #20 and #19 one
    launch a batch.
+18. The KITTI loop, after phase 17 (``phase_detect_loop``). Part 1: a
+   ``write_kitti`` tree (8 train and 4 val frames, 3 cars each) through
+   the three ``create_data`` steps; the host prep of the car config's
+   training frames timed by part (the database sampler and the
+   augmentation, the anchors mask, the targets; ms a frame); the pool's
+   first batches (4 workers) against the per-item-seeded inline ones,
+   bit for bit; ``detect.train.train`` at the car config's full width
+   (the database sampler and every augmentation, B=2, 12000 pillars,
+   107136 anchors) for ``DL_STEPS`` steps inline and with 4 workers
+   into two model directories: the loss falling, step ms (CUDA events,
+   median of steps 2-20, each step's batch making included), peak GB,
+   every kernel count 0; ``checkpoints.json`` and ``pipeline.config``;
+   a second ``train`` to ``DL_STEPS + 4`` steps resuming at
+   ``DL_STEPS``; the checkpoint save ms; ``evaluate_checkpoint`` (one
+   result file a val frame, the mAP string); the restored model's
+   detections over the val frames through #20 (rotated) and #19
+   (standup), one launch an eval batch, equal to ``impl="plain"``'s
+   within ``DET_TOL``, eval ms a frame and the mAP's seconds. Part 2:
+   the learning floor of ``tests/test_detection_learning.py`` (32 / 16
+   frames, the 25.6 m grid, the narrow RPN, ``LEARN_STEPS`` steps of
+   B=4) with 4 workers: BEV moderate AP@0.5 at least ``BEV_FLOOR``, 3D
+   at least ``D3_FLOOR``, with the run's seconds.
 14. The per-kernel JSON line (each kernel's launches on its path, error
    against plain, ms, plain ms, the bound from this run's inputs and,
    where one PyTorch call computes the same function, its ms), then the
@@ -249,10 +273,12 @@ convolutions in f32 itself, as a user gets it.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import functools
 import gc
+import inspect
 import json
 import statistics
 import subprocess
@@ -326,6 +352,9 @@ DT_METRIC_RTOL = 1e-3  # the other metrics (sums over a few positives)
 DT_GRAD_RL2 = 1e-2  # each parameter's gradient, relative L2
 DT_STATS_RTOL = 1e-4  # running statistics, of each tensor's largest
 DT_STEPS = 20
+DL_STEPS = 20  # phase 18: train() steps a mode at the car config's width
+LEARN_STEPS = 800  # phase 18's learning run, as tests/test_detection_learning
+BEV_FLOOR, D3_FLOOR = 65.0, 55.0  # its floors (moderate AP@0.5)
 WORK: dict = {}  # kernel row name -> [bytes, seconds of operations]
 
 
@@ -2835,21 +2864,23 @@ def _device_busy(fn, steps: int = 5, top: int = 0, split: bool = False,
 
 
 def phase_detect_slice(det, rows, smi):
-    """``detect.train.evaluate`` over the synthetic frames: kernels, then
+    """``detect.train.predict_frames`` over the synthetic frames: kernels, then
     plain, for the default config (rotated NMS) and the standup one."""
     from papc_tpu_torch.data.synthetic_kitti import collate_batch
     from papc_tpu_torch.detect import builders
     from papc_tpu_torch.detect.config import cfg_from_list
     from papc_tpu_torch.detect.detector import (nms_keep, predict,
                                                 top_candidates)
-    from papc_tpu_torch.detect.train import (batch_to_device, evaluate,
-                                             make_predict_step)
+    from papc_tpu_torch.detect.train import (batch_to_device,
+                                             make_predict_step,
+                                             predict_frames)
     from papc_tpu_torch.ops.kernels import nms
 
     cfg, coder, model = det["cfg"], det["coder"], det["model"]
     pillarize, frames = det["pillarize"], det["frames"]
-    print(f"[8 detection slice] evaluate: PointPillars car, {len(frames)} "
-          f"synthetic frames in batches of {DET_B}, as a user serves them")
+    print(f"[8 detection slice] predict_frames: PointPillars car, "
+          f"{len(frames)} synthetic frames in batches of {DET_B}, as a user "
+          f"serves them")
 
     def step(rotate, impl=None):
         cfg_from_list(cfg, ["MODEL.POST_PROCESSING.use_rotate_nms",
@@ -2863,14 +2894,15 @@ def phase_detect_slice(det, rows, smi):
         for k in nms.KERNELS:
             k.launches = 0
         t0 = time.perf_counter()
-        got = evaluate(step(rotate)[0], frames, cfg, log=lambda line: None)
+        got = predict_frames(step(rotate)[0], frames, cfg,
+                             log=lambda line: None)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         rows[name]["launches"] = kernel.launches
         check(kernel.launches > 0,
               f"the detection slice never launched the {name} kernel")
-        want = evaluate(step(rotate, "plain")[0], frames, cfg,
-                        log=lambda line: None)
+        want = predict_frames(step(rotate, "plain")[0], frames, cfg,
+                              log=lambda line: None)
         check(len(got) == len(want) == len(frames), f"{len(got)} frames")
         err = 0.0
         for g, w in zip(got, want):
@@ -3736,6 +3768,362 @@ def phase_detect_train(smi):
     print(f"    phase 17 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def _loop_tree(root: Path, **kw) -> str:
+    """A ``write_kitti`` tree through the three ``create_data`` steps, as
+    a user runs them."""
+    from papc_tpu_torch.data.synthetic_kitti import write_kitti
+    from papc_tpu_torch.detect.kitti import create_data
+
+    write_kitti(str(root), **kw)
+    create_data.main(["create_kitti_info_file", "--data_path", str(root),
+                      "--imageset_dir", str(root / "ImageSets")])
+    create_data.main(["create_reduced_point_cloud", "--data_path", str(root)])
+    create_data.main(["create_groundtruth_database", "--data_path",
+                      str(root)])
+    return str(root)
+
+
+class _Spans:
+    """Host seconds by span: ``wrap(name, fn)`` times each call of ``fn``
+    under ``name``."""
+
+    def __init__(self):
+        self.seconds = collections.defaultdict(float)
+
+    def wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[name] += time.perf_counter() - t0
+        return timed
+
+
+def _prep_split(cfg, frames: int) -> dict:
+    """Host ms a training frame of the car config: the whole prep, and
+    its database sampler with the augmentation, its anchors mask and its
+    targets (the rest is reading, padding and shuffling)."""
+    from papc_tpu_torch.detect import box_np, builders
+    from papc_tpu_torch.detect.kitti import augment
+
+    vg = builders.build_voxel_generator(cfg.VOXEL_GENERATOR)
+    ta = builders.build_target_assigner(
+        cfg.TARGET_ASSIGNER, builders.build_box_coder(cfg.BOX_CODER))
+    ds = builders.build_dataset(cfg, cfg.TRAIN_INPUT_READER, vg, ta, True,
+                                rng=np.random.RandomState(0),
+                                log=lambda *a: None)
+    ds[0]  # the anchor cache's summed-area indices, once
+    spans = _Spans()
+    patches = [(augment, n, "augment + sampler") for n in (
+        "noise_per_object_", "random_flip", "global_rotation",
+        "global_scaling", "global_translate", "filter_gt_box_outside_range")]
+    patches += [(box_np, n, "anchors mask") for n in (
+        "sparse_sum_for_anchors_mask", "fused_get_anchors_area")]
+    patches += [(ds._db_sampler, "sample_all", "augment + sampler"),
+                (ta, "assign", "targets")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    try:
+        for obj, name, span in patches:
+            setattr(obj, name, spans.wrap(span, getattr(obj, name)))
+        t0 = time.perf_counter()
+        for i in range(frames):
+            ds[i % len(ds)]
+        total = time.perf_counter() - t0
+    finally:
+        for obj, name, fn in saved:
+            if inspect.ismodule(obj):
+                setattr(obj, name, fn)
+            else:  # the instance's own attribute hid its method
+                delattr(obj, name)
+    out = {k: 1e3 * v / frames for k, v in spans.seconds.items()}
+    out["total"] = 1e3 * total / frames
+    return out
+
+
+def _train_run(dtrain, cfg_file, model_dir, steps, counters, workers=0):
+    """``train()`` for ``steps`` steps, a display line each step →
+    ``(state, losses, step ms, peak GB, log lines)``."""
+    lines = []
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = dtrain.train(
+        cfg_file=cfg_file, model_dir=str(model_dir), max_steps=steps,
+        display_step=1, eval_on_finish=False, log=lines.append,
+        cfg_overrides=["TRAIN_INPUT_READER.NUM_WORKERS", str(workers)])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launched = {n: c.launches for n, c in counters.items() if c.launches}
+    check(not launched, f"train() launched kernels {launched}")
+    metrics = [dict(kv.split("=") for kv in line.split(", "))
+               for line in lines if "steptime=" in line]
+    losses = [float(m["loss"]) for m in metrics]
+    times = [1e3 * float(m["steptime"]) for m in metrics]
+    return state, losses, times, peak_gb, lines
+
+
+def phase_detect_loop(smi):
+    """Phase 18 (see the module docstring). Any failure raises."""
+    import shutil
+
+    from papc_tpu_torch.data.workers import SamplePool
+    from papc_tpu_torch.detect import builders
+    from papc_tpu_torch.detect import train as dtrain
+    from papc_tpu_torch.detect.config import (car_config, cfg_from_list,
+                                              save_config)
+    from papc_tpu_torch.eval.kitti_eval import get_official_eval_result
+    from papc_tpu_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke" / "detect_loop"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    root = _loop_tree(work / "kitti", n_train=8, n_val=4, num_cars=3)
+    tree_s = time.perf_counter() - t0
+    cfg = car_config()
+    cfg_from_list(cfg, ["TRAIN_INPUT_READER.KITTI_ROOT_PATH", root,
+                        "EVAL_INPUT_READER.KITTI_ROOT_PATH", root])
+    cfg_file = str(work / "car.json")
+    save_config(cfg, cfg_file)
+    print(f"[18 detection loop] KITTI tree (8 train, 4 val frames, 3 cars "
+          f"each) and its three create_data steps in {tree_s:.2f} s; the "
+          f"car config at full width: B={cfg.TRAIN_INPUT_READER.BATCH_SIZE}"
+          f", {cfg.VOXEL_GENERATOR.MAX_VOXELS} pillars, the database "
+          f"sampler and every augmentation")
+
+    split = _prep_split(cfg, 16)
+    print("    host prep ms a training frame (16 frames, the port's numpy): "
+          f"{split['total']:.1f} in all, of which augmentation + sampler "
+          f"{split['augment + sampler']:.1f}, anchors mask "
+          f"{split['anchors mask']:.1f}, targets {split['targets']:.1f}")
+
+    # the pool's batches against the per-item-seeded inline ones
+    vg = builders.build_voxel_generator(cfg.VOXEL_GENERATOR)
+    ta = builders.build_target_assigner(
+        cfg.TARGET_ASSIGNER, builders.build_box_coder(cfg.BOX_CODER))
+    ds = builders.build_dataset(cfg, cfg.TRAIN_INPUT_READER, vg, ta, True,
+                                rng=np.random.RandomState(0),
+                                log=lambda *a: None)
+    ds.enable_per_item_sampler_seeding(True)
+
+    def batches(pool):
+        return list(dtrain._iter_batches(ds, 2, True,
+                                         np.random.RandomState(1), pool=pool,
+                                         epoch=1, max_batches=4))
+
+    want = batches(None)
+    t0 = time.perf_counter()
+    with SamplePool(ds, 4) as pool:
+        first = next(dtrain._iter_batches(ds, 2, False, None, pool=pool,
+                                          epoch=1, max_batches=1))
+        start_s = time.perf_counter() - t0
+        got = batches(pool)
+    check(all(np.array_equal(first[k], v)
+              for k, v in dtrain.collate_batch([ds[0], ds[1]]).items()),
+          "the pool's first batch differs from the inline frames")
+    check(len(got) == len(want) == 4, f"{len(got)} pool batches")
+    for g, w in zip(got, want):
+        check(sorted(g) == sorted(w), "pool batch keys differ")
+        for k in w:
+            check(np.array_equal(g[k], w[k]) and g[k].dtype == w[k].dtype,
+                  f"the pool's {k} differs from the inline batch")
+    print("    4 workers: the first 4 batches equal the per-item-seeded "
+          "inline batches bit for bit (every key); the pool's start to its "
+          f"first batch {start_s:.1f} s")
+
+    counters = _counters(("fps", "ball_query", "group_gather", "samlp_eval",
+                          "group_scatter_add", "scatter_rows_add",
+                          "nms_greedy", "nms_rotate") + STREAM + RECOMPUTE
+                         + SINGLE)
+    runs = {}
+    for workers in (0, 4):
+        model_dir = work / f"model_w{workers}"
+        t0 = time.perf_counter()
+        state, losses, times, peak_gb, lines = _train_run(
+            dtrain, cfg_file, model_dir, DL_STEPS, counters, workers)
+        seconds = time.perf_counter() - t0
+        check(state.step == DL_STEPS and len(losses) == DL_STEPS,
+              f"{state.step} steps, {len(losses)} display lines")
+        first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+        check(all(np.isfinite(losses)) and last < first,
+              f"losses not finite and falling: {losses}")
+        check((model_dir / "checkpoints.json").exists()
+              and (model_dir / "pipeline.config").exists()
+              and (model_dir / "log.txt").exists(),
+              "checkpoints.json, pipeline.config or log.txt missing")
+        runs[workers] = statistics.median(times[1:])
+        print(f"    train() {DL_STEPS} steps, {workers or 'no'} workers: "
+              f"loss {losses[0]:.3f} -> {losses[-1]:.3f} (mean of the first "
+              f"5 {first:.3f}, of the last 5 {last:.3f}); step "
+              f"{runs[workers]:.1f} ms (CUDA events, median of steps "
+              f"2-{DL_STEPS}, the batch's making included; min "
+              f"{min(times[1:]):.1f}, max {max(times[1:]):.1f}); "
+              f"{seconds:.1f} s with set-up; peak {peak_gb:.2f} GB; kernel "
+              f"launches: none ({smi})")
+
+    model_dir = work / "model_w0"
+    lines = []
+    state, _ = dtrain.train(cfg_file=cfg_file, model_dir=str(model_dir),
+                            max_steps=DL_STEPS + 4, display_step=1,
+                            eval_on_finish=False, log=lines.append)
+    check(f"resumed from step {DL_STEPS}" in lines
+          and state.step == DL_STEPS + 4,
+          f"resume: step {state.step}, log {lines[:3]}")
+    arrays = ckpt.try_restore_latest(str(model_dir), dtrain.MODEL_NAME)
+    check(int(arrays["step"]) == DL_STEPS + 4
+          and int(arrays["opt_state/count"]) == DL_STEPS + 4,
+          "the resumed run's checkpoint")
+    save_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        path = dtrain._save(state, str(work / "saves"))
+        save_ms.append(1e3 * (time.perf_counter() - t0))
+    size_mb = (Path(path) / ckpt.CHECKPOINT_FILE).stat().st_size / 1e6
+    print(f"    resumed from step {DL_STEPS} to {state.step}; checkpoint "
+          f"save {statistics.median(save_ms):.1f} ms (median of 3, "
+          f"{len(arrays)} arrays, {size_mb:.1f} MB)")
+
+    res = work / "results"
+    lines = []
+    annos, result = dtrain.evaluate_checkpoint(
+        cfg_file=cfg_file, model_dir=str(model_dir), result_path=str(res),
+        log=lines.append)
+    check(len(annos) == 4 and sorted(p.name for p in res.iterdir())
+          == [f"{i:06d}.txt" for i in range(8, 12)],
+          "evaluate_checkpoint: one result file a val frame")
+    check(result is not None and "Car AP@0.70" in result,
+          "evaluate_checkpoint gave no mAP")
+
+    # the restored model's detections: kernels against plain
+    _, coder, ta, model, pillarize = dtrain._build(cfg, 0,
+                                                   torch.device("cuda"))
+    ckpt.restore_training(arrays, model)
+    eval_ds = builders.build_dataset(cfg, cfg.EVAL_INPUT_READER, vg, ta,
+                                     False, log=lambda *a: None)
+    batches_n = -(-len(eval_ds) // int(cfg.EVAL_INPUT_READER.BATCH_SIZE))
+    for rotate, kernel in (("True", "nms_rotate"), ("False", "nms_greedy")):
+        cfg_from_list(cfg, ["MODEL.POST_PROCESSING.use_rotate_nms", rotate])
+        pcfg = builders.build_predict_config(cfg, coder)
+        step_k = dtrain.make_predict_step(model, pcfg, coder, pillarize)
+        step_p = dtrain.make_predict_step(model, pcfg, coder, pillarize,
+                                          impl="plain")
+        for c in counters.values():
+            c.launches = 0
+        got = dtrain.predict_frames(step_k, eval_ds, cfg,
+                                    log=lambda *a: None)
+        launches = {n: c.launches for n, c in counters.items() if c.launches}
+        check(launches == {kernel: batches_n},
+              f"eval launched {launches}, not {kernel} {batches_n} times")
+        want = dtrain.predict_frames(step_p, eval_ds, cfg,
+                                     log=lambda *a: None)
+        for g, w in zip(got, want):
+            for key in ("valid", "label_preds"):
+                check(np.array_equal(g[key], w[key]),
+                      f"eval, {kernel}: {key} differs from plain")
+            for key in ("box3d_lidar", "scores"):
+                check(np.allclose(g[key], w[key], rtol=DET_TOL,
+                                  atol=DET_TOL),
+                      f"eval, {kernel}: {key} outside {DET_TOL} of plain")
+        t0 = time.perf_counter()
+        annos = dtrain.evaluate(step_k, eval_ds, cfg, log=lambda *a: None)
+        eval_ms = 1e3 * (time.perf_counter() - t0) / len(eval_ds)
+        t0 = time.perf_counter()
+        result = dtrain.official_map(eval_ds, annos, cfg)
+        map_s = time.perf_counter() - t0
+        check(result is not None and "Car AP@0.70" in result,
+              "no mAP string")
+        print(f"    eval of the restored model, {kernel} ({batches_n} "
+              f"launches, one an eval batch): detections a frame "
+              f"{[int(g['valid'].sum()) for g in got]}, equal to plain's "
+              f"within {DET_TOL}; eval {eval_ms:.1f} ms a frame (host clock, "
+              f"prep included), mAP over {len(eval_ds)} frames {map_s:.3f} "
+              f"s")
+    cfg_from_list(cfg, ["MODEL.POST_PROCESSING.use_rotate_nms", "True"])
+    print(f"    part 1 took {time.perf_counter() - t_phase:.1f} s")
+
+    # part 2: the learning floor
+    t0 = time.perf_counter()
+    root = _loop_tree(work / "learn", n_train=32, n_val=16, num_cars=3,
+                      x_range=(6.0, 22.0), y_range=(-10.0, 10.0),
+                      car_points=(150, 300))
+    learn = car_config()
+    cfg_from_list(learn, [
+        "VOXEL_GENERATOR.POINT_CLOUD_RANGE", "[0, -12.8, -3, 25.6, 12.8, 1]",
+        "VOXEL_GENERATOR.VOXEL_SIZE", "[0.32, 0.32, 4]",
+        "VOXEL_GENERATOR.MAX_VOXELS", "3000",
+        "VOXEL_GENERATOR.MAX_NUMBER_OF_POINTS_PER_VOXEL", "50",
+        "MODEL.PILLAR_FEATURE_EXTRACTOR.num_filters", "[32]",
+        "MODEL.BACKBONE.num_filters", "[32, 64, 64]",
+        "MODEL.BACKBONE.num_upsample_filters", "[32, 32, 32]",
+        "MODEL.LOSS.localization_loss.weighted_smooth_l1.code_weight",
+        "[1, 1, 1, 1, 1, 1, 2]",
+        "MODEL.POST_PROCESSING.nms_pre_max_size", "256",
+        "MODEL.POST_PROCESSING.nms_post_max_size", "16",
+        "MODEL.POST_PROCESSING.nms_score_threshold", "0.05",
+        "TRAIN_CONFIG.OPTIMIZER.learning_rate.initial_learning_rate", "0.003",
+        "TRAIN_CONFIG.OPTIMIZER.learning_rate.decay_steps", str(10**7),
+        "TRAIN_INPUT_READER.NUM_WORKERS", "4"])
+    for reader in ("TRAIN_INPUT_READER", "EVAL_INPUT_READER"):
+        cfg_from_list(learn, [f"{reader}.MAX_NUMBER_OF_VOXELS", "3000",
+                              f"{reader}.KITTI_ROOT_PATH", root,
+                              f"{reader}.BATCH_SIZE", "4"])
+    gen = learn.TARGET_ASSIGNER.ANCHOR_GENERATORS[0].anchor_generator_stride
+    gen.strides = [0.64, 0.64, 0.0]
+    gen.offsets = [0.32, -12.48, -1.78]
+    gen.matched_threshold = 0.5
+    gen.unmatched_threshold = 0.35
+    learn_file = str(work / "learn.json")
+    save_config(learn, learn_file)
+    tree_s = time.perf_counter() - t0
+    prep = _prep_split(learn, 16)
+    lines = []
+    t0 = time.perf_counter()
+    state, annos = dtrain.train(cfg_file=learn_file,
+                                model_dir=str(work / "learn_model"),
+                                max_steps=LEARN_STEPS, display_step=100,
+                                eval_on_finish=True, log=lines.append)
+    learn_s = time.perf_counter() - t0
+    # the eval on finish served the model in eval mode: its BatchNorm
+    # statistics are still those of the last checkpoint, saved before it
+    saved = ckpt.try_restore_latest(str(work / "learn_model"),
+                                    dtrain.MODEL_NAME)
+    now = ckpt.training_arrays(state.model, state.optimizer, state.scheduler,
+                               state.step)
+    stats = [k for k in saved if k.startswith("batch_stats/")]
+    check(stats and all(np.array_equal(saved[k], now[k]) for k in stats),
+          "the eval on finish changed the BatchNorm statistics")
+    windows = [1e3 * float(line.split("steptime=")[1].split(",")[0])
+               for line in lines if "steptime=" in line]
+    vg = builders.build_voxel_generator(learn.VOXEL_GENERATOR)
+    ta = builders.build_target_assigner(
+        learn.TARGET_ASSIGNER, builders.build_box_coder(learn.BOX_CODER))
+    eval_ds = builders.build_dataset(learn, learn.EVAL_INPUT_READER, vg, ta,
+                                     False, log=lambda *a: None)
+    gt = [info["annos"] for info in eval_ds.kitti_infos]
+    result, data = get_official_eval_result(gt, annos, ["Car"],
+                                            return_data=True)
+    bev, d3 = data[(0, "0.5")]["bev"][1], data[(0, "0.5")]["3d"][1]
+    check(state.step == LEARN_STEPS and bev >= BEV_FLOOR and d3 >= D3_FLOOR,
+          f"learning floor: BEV moderate {bev:.2f} (floor {BEV_FLOOR}), 3D "
+          f"{d3:.2f} (floor {D3_FLOOR}) after {state.step} steps\n{result}")
+    print(f"    learning floor (tests/test_detection_learning.py's recipe, 4 "
+          f"workers): {LEARN_STEPS} steps of B=4 in {learn_s:.1f} s "
+          f"({1e3 * learn_s / LEARN_STEPS:.1f} ms a step with set-up and the "
+          f"final eval; tree {tree_s:.1f} s); step ms by window of 100 "
+          f"(CUDA events, data included) "
+          f"{', '.join(f'{w:.1f}' for w in windows)}; host prep "
+          f"{prep['total']:.1f} ms a frame inline (augmentation + sampler "
+          f"{prep['augment + sampler']:.1f}, targets {prep['targets']:.1f})"
+          f"; Car AP@0.5 moderate: BEV "
+          f"{bev:.2f} (floor {BEV_FLOOR}), 3D {d3:.2f} (floor {D3_FLOOR}); "
+          f"easy/moderate/hard BEV {data[(0, '0.5')]['bev']}, 3D "
+          f"{data[(0, '0.5')]['3d']}; served in eval mode (the "
+          f"{len(stats)} BatchNorm statistics equal the final checkpoint's)")
+    print(f"    phase 18 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     name, smi = phase_device()
     from papc_tpu_torch.models import init_model
@@ -3778,6 +4166,7 @@ def main() -> int:
     phase_bf16(smi)
     phase_zoo(smi)
     phase_detect_train(smi)
+    phase_detect_loop(smi)
     all_rows = (list(rows.values()) + list(t_rows.values()) + [scatter_row]
                 + list(det_rows.values()) + list(rc_rows.values()))
     _finish_bounds(all_rows)

@@ -10,8 +10,10 @@ JAX registry (14 model / mode combos: PointNet-Basic, PointNet and its
 Conv2D variant, VFE, VoxNet, KD-Net, KD-UNet and PointNet++ SSG / MSG),
 its training step (``train.train``) and its eval-mode inference
 (``train.evaluate``), with the ShapeNet, kd-tree and voxel loaders, and
-PointPillars detection serving from raw lidar frames
-(``detect.train.make_predict_step``, ``detect.train.evaluate``).
+PointPillars detection: serving from raw lidar frames
+(``detect.train.make_predict_step``), training on KITTI
+(``detect.train.train``, the pipeline under ``detect/kitti/``) and the
+official mAP (``detect.train.evaluate_checkpoint``).
 Every TPU kernel on those paths is a hand-written CUDA kernel under
 ``csrc/``, compiled by ``nvcc`` for ``sm_90a`` at first use
 (:mod:`papc_tpu_torch._build`). Each kernel's wrapper in

@@ -1,24 +1,87 @@
-"""Synthetic lidar frames for the detection serving path (counterpart of
-``papc_tpu/data/synthetic_kitti.py::make_scene``; the KITTI tree writer
-waits for the KITTI pipeline).
+"""Synthetic lidar frames and miniature KITTI trees (counterpart of
+``papc_tpu/data/synthetic_kitti.py``).
 
 A scene is a ground plane of uniform points and car-sized boxes filled
-with points. :class:`SyntheticFrames` pads each cloud to the config's
+with points (:func:`make_scene`). :func:`write_kitti` writes such scenes
+as a KITTI tree (``training/velodyne/*.bin``, ``label_2/*.txt``,
+``calib/*.txt``, ``image_2/*.png``, the ImageSets splits), the same files
+byte for byte as the JAX package's writer but the PNGs, which it writes
+with ``zlib`` and ``struct`` (the card's machine has no PIL): black
+images of the KITTI shape, whose shape is all the pipeline reads.
+
+:class:`SyntheticFrames` pads each cloud to the config's
 ``MAX_POINTS_PER_FRAME`` with a points mask and carries the anchors, as
-the JAX prep's device-pillarize examples do, so a batch feeds
+the KITTI prep's device-pillarize examples do, so a batch feeds
 ``detect.train.make_predict_step`` directly. Given a target assigner it
 also carries each frame's training targets, as the target block of the
-JAX prep (``papc_tpu/detect/kitti/preprocess.py``) makes them with no
-anchors mask, so a batch feeds ``make_detection_train_step``.
+prep (``detect/kitti/preprocess.py``) makes them with no anchors mask, so
+a batch feeds ``make_detection_train_step``.
 """
 
 from __future__ import annotations
 
+import pathlib
+import struct
 import time
+import zlib
 
 import numpy as np
 
 from papc_tpu_torch.detect import box_np
+from papc_tpu_torch.detect.kitti.common import kitti_result_line
+
+IMG_H, IMG_W = 375, 1242
+
+
+def default_calib():
+    """``(P, rect, Tr)``: a pinhole camera at the KITTI image's centre, no
+    rectification, and the velodyne → camera axes with the sensor 1.7 m
+    above the camera."""
+    P = np.zeros((4, 4))
+    P[0] = [700.0, 0.0, IMG_W / 2, 0.0]
+    P[1] = [0.0, 700.0, IMG_H / 2, 0.0]
+    P[2] = [0.0, 0.0, 1.0, 0.0]
+    P[3, 3] = 1.0
+    rect = np.eye(4)
+    Tr = np.zeros((4, 4))
+    # velodyne (x fwd, y left, z up) -> camera (x right, y down, z fwd)
+    Tr[0, 1] = -1.0
+    Tr[1, 2] = -1.0
+    Tr[2, 0] = 1.0
+    Tr[1, 3] = 1.7  # sensor height above camera
+    Tr[3, 3] = 1.0
+    return P, rect, Tr
+
+
+def _calib_text(P, rect, Tr):
+    def row(name, mat, n):
+        vals = " ".join(f"{v:.12e}" for v in mat[:n].reshape(-1))
+        return f"{name}: {vals}"
+
+    lines = [
+        row("P0", P, 3),
+        row("P1", P, 3),
+        row("P2", P, 3),
+        row("P3", P, 3),
+        row("R0_rect", rect[:3, :3], 3),
+        row("Tr_velo_to_cam", Tr, 3),
+        row("Tr_imu_to_velo", np.eye(4), 3),
+    ]
+    return "\n".join(lines) + "\n"
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def black_png(width: int, height: int) -> bytes:
+    """A black 8-bit RGB PNG (each row filter 0, one zlib stream)."""
+    header = struct.pack(">IIBBBBB", width, height, 8, 2, 0, 0, 0)
+    rows = bytes(height * (1 + 3 * width))
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", header)
+            + _png_chunk(b"IDAT", zlib.compress(rows, 9))
+            + _png_chunk(b"IEND", b""))
 
 
 def make_scene(rng, num_cars=3, n_background=2000, x_range=(8.0, 50.0),
@@ -120,3 +183,61 @@ class SyntheticFrames:
 def collate_batch(examples: list) -> dict:
     """Stack ``examples`` along a new batch axis."""
     return {k: np.stack([e[k] for e in examples]) for k in examples[0]}
+
+
+def write_kitti(path: str, n_train: int = 8, n_val: int = 4, seed: int = 0,
+                num_cars: int = 3, x_range=(8.0, 50.0), y_range=(-15.0, 15.0),
+                car_points=(80, 200)) -> str:
+    """Write a miniature KITTI tree of ``n_train + n_val`` scenes from
+    ``RandomState(seed)`` under ``path``; returns the root."""
+    rng = np.random.RandomState(seed)
+    root = pathlib.Path(path)
+    for sub in ("velodyne", "label_2", "calib", "image_2"):
+        (root / "training" / sub).mkdir(parents=True, exist_ok=True)
+        (root / "testing" / sub).mkdir(parents=True, exist_ok=True)
+    P, rect, Tr = default_calib()
+    calib_text = _calib_text(P, rect, Tr)
+    png = black_png(IMG_W, IMG_H)
+
+    ids = list(range(n_train + n_val))
+    for idx in ids:
+        stem = f"{idx:06d}"
+        points, gt_lidar = make_scene(rng, num_cars=num_cars, x_range=x_range,
+                                      y_range=y_range, car_points=car_points)
+        points.tofile(str(root / "training" / "velodyne" / f"{stem}.bin"))
+        (root / "training" / "calib" / f"{stem}.txt").write_text(calib_text)
+        (root / "training" / "image_2" / f"{stem}.png").write_bytes(png)
+        # labels: the exact inverse of the pipeline's camera -> lidar path
+        cam = box_np.box_lidar_to_camera(gt_lidar, rect, Tr)
+        corners = box_np.center_to_corner_box3d(
+            cam[:, :3], cam[:, 3:6], cam[:, 6], origin=(0.5, 1.0, 0.5),
+            axis=1)
+        img_pts = box_np.project_to_image(corners, P)
+        bbox = np.concatenate([img_pts.min(1), img_pts.max(1)], axis=1)
+        bbox[:, [0, 2]] = np.clip(bbox[:, [0, 2]], 0, IMG_W - 1)
+        bbox[:, [1, 3]] = np.clip(bbox[:, [1, 3]], 50, IMG_H - 1)
+        lines = []
+        for i in range(len(cam)):
+            l_, h_, w_ = cam[i, 3], cam[i, 4], cam[i, 5]
+            lines.append(kitti_result_line({
+                "name": "Car",
+                "truncated": 0.0,
+                "occluded": 0,
+                "alpha": 0.0,
+                "bbox": bbox[i],
+                # label files hold h, w, l (the parser permutes to l, h, w)
+                "dimensions": [h_, w_, l_],
+                "location": cam[i, :3],
+                "rotation_y": cam[i, 6],
+            }))
+        (root / "training" / "label_2" / f"{stem}.txt").write_text(
+            "\n".join(lines) + "\n")
+
+    sets = root / "ImageSets"
+    sets.mkdir(exist_ok=True)
+    (sets / "train.txt").write_text(
+        "\n".join(f"{i:06d}" for i in ids[:n_train]) + "\n")
+    (sets / "val.txt").write_text(
+        "\n".join(f"{i:06d}" for i in ids[n_train:]) + "\n")
+    (sets / "test.txt").write_text("")
+    return str(root)

@@ -1,9 +1,12 @@
-"""Host-side (numpy) box math (a subset of ``papc_tpu/detect/box_np.py``,
-copied so that the port imports nothing of the JAX package): the anchor
-grid, the point rotation of the synthetic scenes, and what target
-assignment needs (corners, standup boxes, the box encodings, the
-axis-aligned and rotated BEV IoU), all in numpy: the JAX package's C++
-fast paths (``papc_tpu.cc``) are not carried.
+"""Host-side (numpy) box math (counterpart of
+``papc_tpu/detect/box_np.py``, copied so that the port imports nothing of
+the JAX package): the anchor grid and its anchors mask, point rotation,
+what target assignment needs (corners, standup boxes, the box encodings,
+the axis-aligned and rotated BEV IoU), point-in-box tests, and the
+camera / lidar / image frames of the KITTI pipeline, all in numpy. The
+JAX package takes C++ fast paths (``papc_tpu.cc``) for some of these
+when its library loads; the port carries the numpy paths they fall back
+to, which give the same results (pinned in ``tests/test_torch_kitti.py``).
 
 Box convention (lidar): ``[x, y, z, w, l, h, yaw]`` with z at the box
 bottom, yaw about +z.
@@ -14,15 +17,29 @@ from __future__ import annotations
 import numpy as np
 
 
-def rotation_points_single_angle(points: np.ndarray, angle) -> np.ndarray:
-    """Rotate [N, 3] points by one scalar angle about z (the row-vector
-    convention of the reference's ``rotation_3d_in_axis``)."""
-    angles = np.asarray([angle], points.dtype)
+def rotation_3d_in_axis(points: np.ndarray, angles: np.ndarray,
+                        axis: int = 2) -> np.ndarray:
+    """Rotate ``[N, P, 3]`` point sets about ``axis`` by per-set
+    ``angles`` (the row-vector convention of the reference)."""
     c, s = np.cos(angles), np.sin(angles)
     one, zero = np.ones_like(c), np.zeros_like(c)
-    rows = [[c, -s, zero], [s, c, zero], [zero, zero, one]]
-    rot = np.stack([np.stack(r, -1) for r in rows], -2)  # [1, 3, 3]
-    return np.einsum("npi,nij->npj", points[None], rot)[0]
+    if axis == 2 or axis == -1:
+        rows = [[c, -s, zero], [s, c, zero], [zero, zero, one]]
+    elif axis == 1:
+        rows = [[c, zero, -s], [zero, one, zero], [s, zero, c]]
+    elif axis == 0:
+        rows = [[one, zero, zero], [zero, c, -s], [zero, s, c]]
+    else:
+        raise ValueError("axis out of range")
+    rot = np.stack([np.stack(r, -1) for r in rows], -2)  # [N, 3, 3]
+    return np.einsum("npi,nij->npj", points, rot)
+
+
+def rotation_points_single_angle(points: np.ndarray, angle,
+                                 axis: int = 2) -> np.ndarray:
+    """Rotate [N, 3] points by one scalar angle about ``axis``."""
+    return rotation_3d_in_axis(points[None, :, :],
+                               np.asarray([angle], points.dtype), axis)[0]
 
 
 def _anchor_grid(x_centers, y_centers, z_centers, sizes, rotations, dtype):
@@ -84,6 +101,16 @@ def center_to_corner_box2d(centers, dims, angles=None, origin=0.5):
     corners = corners_nd(dims, origin)
     if angles is not None:
         corners = rotation_2d(corners, angles)
+    return corners + centers[:, None, :]
+
+
+def center_to_corner_box3d(centers, dims, angles=None,
+                           origin=(0.5, 0.5, 0.0), axis=2):
+    """Boxes → ``[N, 8, 3]`` corners (lidar frame by default; the camera
+    frame takes ``origin=(0.5, 1.0, 0.5), axis=1``)."""
+    corners = corners_nd(dims, origin)
+    if angles is not None:
+        corners = rotation_3d_in_axis(corners, angles, axis)
     return corners + centers[:, None, :]
 
 
@@ -273,3 +300,196 @@ def rotate_iou_cpu(rbboxes: np.ndarray, qrbboxes: np.ndarray,
         denom = np.ones_like(inter)
     out[sel_i, sel_j] = np.where(denom > 0, inter / denom, 0.0)
     return out
+
+
+# ------------------------------------------------- point-in-polygon tests
+
+def surface_normals(surfaces: np.ndarray):
+    """Plane normals and offsets of ``[N, S, 4, 3]`` polygon surfaces
+    (inward by the corner winding)."""
+    sv0 = surfaces[:, :, 0] - surfaces[:, :, 1]
+    sv1 = surfaces[:, :, 1] - surfaces[:, :, 2]
+    normals = np.cross(sv0, sv1)  # [N, S, 3]
+    d = -np.einsum("nsd,nsd->ns", normals, surfaces[:, :, 0])
+    return normals, d
+
+
+def points_in_convex_polygon_3d(points: np.ndarray,
+                                surfaces: np.ndarray) -> np.ndarray:
+    """``[P, 3]`` points against ``[N, 6, 4, 3]`` box surfaces → ``[P, N]``
+    bool; a point on a face counts as outside."""
+    normals, d = surface_normals(surfaces)
+    sign = np.einsum("pd,nsd->pns", points, normals) + d[None]  # [P, N, S]
+    return (sign < 0).all(axis=-1)
+
+
+def corner_to_surfaces_3d(corners: np.ndarray) -> np.ndarray:
+    """``[N, 8, 3]`` corners → ``[N, 6, 4, 3]`` surfaces, inward normals."""
+    idx = np.array([[0, 1, 2, 3], [7, 6, 5, 4], [0, 3, 7, 4],
+                    [1, 5, 6, 2], [0, 4, 5, 1], [3, 2, 6, 7]])
+    return corners[:, idx, :]
+
+
+def points_in_rbbox(points, rbbox, lidar=True):
+    """``[P, >=3]`` points against ``[N, 7]`` rotated 3-D boxes → ``[P, N]``
+    bool."""
+    if lidar:
+        origin, axis = (0.5, 0.5, 0.0), 2
+    else:
+        origin, axis = (0.5, 1.0, 0.5), 1
+    corners = center_to_corner_box3d(rbbox[:, :3], rbbox[:, 3:6],
+                                     rbbox[:, 6], origin=origin, axis=axis)
+    surfaces = corner_to_surfaces_3d(corners)
+    return points_in_convex_polygon_3d(points[:, :3], surfaces)
+
+
+# ------------------------------------------------- the anchors mask (SAT)
+
+def sparse_sum_for_anchors_mask(coors: np.ndarray, shape) -> np.ndarray:
+    """Pillars a BEV cell from ``[V, 3]`` (z, y, x) coordinates."""
+    ret = np.zeros(shape, dtype=np.float32)
+    np.add.at(ret, (coors[:, 1], coors[:, 2]), 1.0)
+    return ret
+
+
+def precompute_anchor_area_indices(anchors_bv: np.ndarray, stride, offset,
+                                   grid_size) -> np.ndarray:
+    """The flat summed-area-table corner indices ``[4, N]`` of
+    :func:`fused_get_anchors_area` (the anchor grid is static: once)."""
+    x0 = np.floor((anchors_bv[:, 0] - offset[0]) / stride[0]).astype(np.int64)
+    y0 = np.floor((anchors_bv[:, 1] - offset[1]) / stride[1]).astype(np.int64)
+    x1 = np.floor((anchors_bv[:, 2] - offset[0]) / stride[0]).astype(np.int64)
+    y1 = np.floor((anchors_bv[:, 3] - offset[1]) / stride[1]).astype(np.int64)
+    x0 = np.clip(x0, 0, grid_size[0] - 1)
+    y0 = np.clip(y0, 0, grid_size[1] - 1)
+    x1 = np.clip(x1, 0, grid_size[0] - 1)
+    y1 = np.clip(y1, 0, grid_size[1] - 1)
+    nx = int(grid_size[0])
+    return np.stack([y1 * nx + x1, y1 * nx + x0, y0 * nx + x1, y0 * nx + x0])
+
+
+def fused_get_anchors_area(dense_map: np.ndarray, anchors_bv: np.ndarray,
+                           stride, offset, grid_size,
+                           indices: np.ndarray | None = None) -> np.ndarray:
+    """Pillars under each BEV anchor by summed-area-table lookup;
+    ``dense_map`` is already cumulated along both axes."""
+    if indices is None:
+        indices = precompute_anchor_area_indices(anchors_bv, stride, offset,
+                                                 grid_size)
+    vals = dense_map.ravel()[indices]  # [4, N]
+    return vals[0] - vals[1] - vals[2] + vals[3]
+
+
+# --------------------------------------------- camera, lidar and image
+
+def projection_matrix_to_CRT_kitti(proj: np.ndarray):
+    CR = proj[0:3, 0:3]
+    CT = proj[0:3, 3]
+    RinvCinv = np.linalg.inv(CR)
+    Rinv, Cinv = np.linalg.qr(RinvCinv)
+    return np.linalg.inv(Cinv), np.linalg.inv(Rinv), Cinv @ CT
+
+
+def camera_to_lidar(points, r_rect, velo2cam):
+    if points.shape[-1] == 3:
+        points = np.concatenate(
+            [points, np.ones((*points.shape[:-1], 1))], axis=-1)
+    lidar = points @ np.linalg.inv((r_rect @ velo2cam).T)
+    return lidar[..., :3]
+
+
+def lidar_to_camera(points, r_rect, velo2cam):
+    if points.shape[-1] == 3:
+        points = np.concatenate(
+            [points, np.ones((*points.shape[:-1], 1))], axis=-1)
+    cam = points @ (r_rect @ velo2cam).T
+    return cam[..., :3]
+
+
+def box_camera_to_lidar(data, r_rect, velo2cam):
+    """Camera boxes ``[x, y, z, l, h, w, ry]`` → lidar ``[x, y, z, w, l, h,
+    yaw]``."""
+    xyz = camera_to_lidar(data[:, 0:3], r_rect, velo2cam)
+    l, h, w, r = data[:, 3:4], data[:, 4:5], data[:, 5:6], data[:, 6:7]
+    return np.concatenate([xyz, w, l, h, r], axis=1)
+
+
+def box_lidar_to_camera(data, r_rect, velo2cam):
+    xyz = lidar_to_camera(data[:, 0:3], r_rect, velo2cam)
+    w, l, h, r = data[:, 3:4], data[:, 4:5], data[:, 5:6], data[:, 6:7]
+    return np.concatenate([xyz, l, h, w, r], axis=1)
+
+
+def project_to_image(points_3d, proj_mat):
+    pts4 = np.concatenate(
+        [points_3d, np.zeros((*points_3d.shape[:-1], 1))], axis=-1)
+    p2d = pts4 @ proj_mat.T
+    return p2d[..., :2] / p2d[..., 2:3]
+
+
+def get_frustum(bbox_image, C, near_clip=0.001, far_clip=100.0):
+    """The 8 camera-frame corners of an image box's view frustum."""
+    fku = C[0, 0]
+    fkv = -C[1, 1]
+    u0v0 = C[0:2, 2]
+    z_points = np.array([near_clip] * 4 + [far_clip] * 4,
+                        dtype=C.dtype)[:, None]
+    b = bbox_image
+    box_corners = np.array(
+        [[b[0], b[1]], [b[0], b[3]], [b[2], b[3]], [b[2], b[1]]],
+        dtype=C.dtype)
+    near = (box_corners - u0v0) / np.array(
+        [fku / near_clip, -fkv / near_clip], dtype=C.dtype)
+    far = (box_corners - u0v0) / np.array(
+        [fku / far_clip, -fkv / far_clip], dtype=C.dtype)
+    return np.concatenate(
+        [np.concatenate([near, far], axis=0), z_points], axis=1)
+
+
+def minmax_to_corner_2d(minmax_boxes: np.ndarray) -> np.ndarray:
+    """``[N, 4]`` (x0, y0, x1, y1) → ``[N, 4, 2]`` corners in
+    :func:`get_frustum`'s order."""
+    b = minmax_boxes
+    return np.stack([np.stack([b[:, 0], b[:, 1]], -1),
+                     np.stack([b[:, 0], b[:, 3]], -1),
+                     np.stack([b[:, 2], b[:, 3]], -1),
+                     np.stack([b[:, 2], b[:, 1]], -1)], axis=1)
+
+
+def get_frustum_batch(bboxes, C, near_clip=0.001, far_clip=100.0):
+    """:func:`get_frustum` of ``[N, 4]`` image boxes → ``[N, 8, 3]``."""
+    fku = C[0, 0]
+    fkv = -C[1, 1]
+    u0v0 = C[0:2, 2]
+    num_box = bboxes.shape[0]
+    z_points = np.tile(
+        np.array([near_clip] * 4 + [far_clip] * 4,
+                 dtype=C.dtype)[None, :, None], (num_box, 1, 1))
+    box_corners = minmax_to_corner_2d(bboxes)
+    near = (box_corners - u0v0) / np.array(
+        [fku / near_clip, -fkv / near_clip], dtype=C.dtype)
+    far = (box_corners - u0v0) / np.array(
+        [fku / far_clip, -fkv / far_clip], dtype=C.dtype)
+    return np.concatenate(
+        [np.concatenate([near, far], axis=1), z_points], axis=-1)
+
+
+def remove_outside_points(points, rect, Trv2c, P2, image_shape):
+    """The points inside the camera image's frustum."""
+    C, R, T = projection_matrix_to_CRT_kitti(P2)
+    frustum = get_frustum([0, 0, image_shape[1], image_shape[0]], C)
+    frustum -= T
+    frustum = np.linalg.inv(R) @ frustum.T
+    frustum = camera_to_lidar(frustum.T, rect, Trv2c)
+    surfaces = corner_to_surfaces_3d(frustum[None, ...])
+    keep = points_in_convex_polygon_3d(points[:, :3], surfaces)
+    return points[keep.reshape(-1)]
+
+
+def box3d_to_bbox(box3d, rect, Trv2c, P2):
+    """Camera boxes → the image boxes ``[N, 4]`` their corners project to."""
+    corners = center_to_corner_box3d(box3d[:, :3], box3d[:, 3:6],
+                                     box3d[:, 6], origin=(0.5, 1.0, 0.5),
+                                     axis=1)
+    img = project_to_image(corners, P2)
+    return np.concatenate([img.min(1), img.max(1)], axis=1)

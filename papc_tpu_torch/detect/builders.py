@@ -1,11 +1,16 @@
-"""Config → components (a subset of ``papc_tpu/detect/builders.py``): the
-voxel grid, the box coder, the anchor generator and its anchors, the
+"""Config → components (counterpart of ``papc_tpu/detect/builders.py``):
+the voxel grid, the box coder, the anchor generator and its anchors, the
 similarity calculator and the target assigner, the network, the loss and
-predict configs, the learning-rate schedules and the optimizer."""
+predict configs, the learning-rate schedules and the optimizer, the
+ground-truth database sampler, the prep function and the KITTI
+dataset."""
 
 from __future__ import annotations
 
+import functools
 import math
+import pathlib
+import pickle
 from collections.abc import Callable
 
 import numpy as np
@@ -14,6 +19,12 @@ import torch
 from papc_tpu_torch.detect.anchors import AnchorGeneratorStride
 from papc_tpu_torch.detect.box_coder import BevBoxCoder, GroundBox3dCoder
 from papc_tpu_torch.detect.detector import LossConfig, PredictConfig
+from papc_tpu_torch.detect.kitti.augment import (DataBasePreprocessor,
+                                                 DBFilterByDifficulty,
+                                                 DBFilterByMinNumPoint)
+from papc_tpu_torch.detect.kitti.preprocess import (KittiDataset,
+                                                    prep_pointcloud)
+from papc_tpu_torch.detect.kitti.sampling import DataBaseSamplerV2
 from papc_tpu_torch.detect.model import PointPillars
 from papc_tpu_torch.detect.similarity import (DistanceSimilarity,
                                               NearestIouSimilarity,
@@ -284,3 +295,88 @@ def build_optimizer(opt_cfg, params) -> tuple[torch.optim.Optimizer,
     else:
         raise ValueError(f"unknown optimizer {name}")
     return opt, ScheduledLR(opt, schedule)
+
+
+def build_dbsampler(cfg, root_path, rng=None, log=print) -> DataBaseSamplerV2:
+    """The database sampler of a reader's ``DATABASE_SAMPLER`` block over
+    ``root_path``'s ``database_info_path``."""
+    info_path = pathlib.Path(root_path) / cfg.database_info_path
+    with open(info_path, "rb") as f:
+        db_infos = pickle.load(f)
+    preps = []
+    steps = cfg.get("database_prep_steps", {})
+    if "filter_by_min_num_points" in steps:
+        preps.append(DBFilterByMinNumPoint(
+            dict(steps.filter_by_min_num_points.min_num_point_pairs)))
+    if "filter_by_difficulty" in steps:
+        preps.append(DBFilterByDifficulty(
+            list(steps.filter_by_difficulty.removed_difficulties)))
+    groups = [dict(g.name_to_max_num) for g in cfg.sample_groups]
+    grot_range = cfg.get("global_random_rotation_range_per_object")
+    if grot_range is not None:
+        grot_range = list(grot_range)
+    return DataBaseSamplerV2(
+        db_infos, groups,
+        db_prepor=DataBasePreprocessor(preps) if preps else None,
+        rate=float(cfg.get("rate", 1.0)), global_rot_range=grot_range,
+        rng=rng, log=log)
+
+
+def build_prep_func(cfg, input_reader_cfg, voxel_generator, target_assigner,
+                    training: bool, root_path: str, db_sampler=None,
+                    rng=None) -> Callable:
+    """``prep_pointcloud`` bound to a reader's config values."""
+    r = input_reader_cfg
+    return functools.partial(
+        prep_pointcloud,
+        root_path=root_path,
+        voxel_generator=voxel_generator,
+        target_assigner=target_assigner,
+        db_sampler=db_sampler if training else None,
+        class_names=list(r.CLASS_NAMES),
+        training=training,
+        shuffle_points=bool(r.get("SHUFFLE_POINTS", training)),
+        gt_rotation_noise=tuple(
+            r.get("GROUNDTRUTH_ROTATION_UNIFORM_NOISE", (-0.157, 0.157))),
+        gt_loc_noise_std=tuple(
+            r.get("GROUNDTRUTH_LOCALIZATION_NOISE_STD", (0.25,) * 3)),
+        global_random_rot_range=tuple(
+            r.get("GLOBAL_RANDOM_ROTATION_RANGE_PER_OBJECT", (0.0, 0.0))),
+        random_crop=bool(r.get("RANDOM_CROP", False)),
+        use_group_id=bool(r.get("USE_GROUP_ID", False)),
+        global_rotation_noise=tuple(
+            r.get("GLOBAL_ROTATION_UNIFORM_NOISE", (-0.785, 0.785))),
+        global_scaling_noise=tuple(
+            r.get("GLOBAL_SCALING_UNIFORM_NOISE", (0.95, 1.05))),
+        global_loc_noise_std=tuple(
+            r.get("GLOBAL_LOC_NOISE_STD", (0.2, 0.2, 0.2))),
+        anchor_area_threshold=float(r.get("ANCHOR_AREA_THRESHOLD", 1)),
+        remove_points_after_sample=bool(
+            r.get("REMOVE_POINTS_AFTER_SAMPLE", True)),
+        device_voxelize=bool(cfg.MODEL.get("DEVICE_PILLARIZE", False)),
+        max_points_per_frame=int(r.get("MAX_POINTS_PER_FRAME", 25000)),
+        rng=rng,
+    )
+
+
+def build_dataset(cfg, input_reader_cfg, voxel_generator, target_assigner,
+                  training: bool, rng=None, log=print) -> KittiDataset:
+    """The KITTI dataset of a reader (``TRAIN_INPUT_READER`` or
+    ``EVAL_INPUT_READER``), with the database sampler where a training
+    reader names one."""
+    root_path = str(input_reader_cfg.KITTI_ROOT_PATH)
+    db_sampler = None
+    if training and "DATABASE_SAMPLER" in input_reader_cfg:
+        db_sampler = build_dbsampler(input_reader_cfg.DATABASE_SAMPLER,
+                                     root_path, rng=rng, log=log)
+    prep_func = build_prep_func(cfg, input_reader_cfg, voxel_generator,
+                                target_assigner, training, root_path,
+                                db_sampler, rng)
+    grid = voxel_generator.grid_size
+    fmap = [1, int(grid[1]) // 2, int(grid[0]) // 2]
+    info_path = str(pathlib.Path(root_path) / input_reader_cfg.KITTI_INFO_PATH)
+    return KittiDataset(info_path, root_path,
+                        int(cfg.MODEL.NUM_POINT_FEATURES), target_assigner,
+                        fmap, prep_func,
+                        base_seed=int(input_reader_cfg.get("SEED", 0)),
+                        db_sampler=db_sampler)

@@ -1,19 +1,21 @@
-"""The detection config as Python data (counterpart of
+"""The detection config as Python data and JSON (counterpart of
 ``papc_tpu/detect/config.py`` and ``configs/pointpillars_kitti_car.yaml``).
 
-The machine with the card has no PyYAML, so the port carries its own copy
-of the keys its serving and training steps read, with the YAML file's
-values. The
-``Config`` class and :func:`cfg_from_list` behave as the JAX package's:
-attribute access, and dotted overrides checked against the existing
-value's type.
+The machine with the card has no PyYAML, so the port carries the car
+config's every key with the YAML file's values (:func:`car_config`),
+writes a run's config (``pipeline.config``) as JSON (:func:`save_config`)
+and reads a config file as JSON (:func:`cfg_from_file`), refusing a
+``.yaml`` path. The ``Config`` class and :func:`cfg_from_list` behave as
+the JAX package's: attribute access, and dotted overrides checked
+against the existing value's type.
 """
 
 from __future__ import annotations
 
 import ast
 import copy
-
+import json
+from pathlib import Path
 
 class Config(dict):
     """dict with attribute access (EasyDict-alike, recursion-free)."""
@@ -36,12 +38,14 @@ class Config(dict):
         return obj
 
 
-# pointpillars_kitti_car.yaml, the keys the serving and training steps read
+# pointpillars_kitti_car.yaml, every key
 _CAR = {
+    "CLASS_NAMES": ["Car"],
     "VOXEL_GENERATOR": {
         "POINT_CLOUD_RANGE": [0, -39.68, -3, 69.12, 39.68, 1],
         "VOXEL_SIZE": [0.16, 0.16, 4],
         "MAX_NUMBER_OF_POINTS_PER_VOXEL": 100,
+        "MAX_VOXELS": 12000,
     },
     "BOX_CODER": {
         "BOX_CODER_TYPE": "ground_box3d_coder",
@@ -65,9 +69,11 @@ _CAR = {
         "REGION_SIMILARITY_CALCULATOR": "nearest_iou_similarity",
     },
     "MODEL": {
+        "NAME": "PointPillars",
         "NUM_CLASS": 1,
         "NUM_POINT_FEATURES": 4,
         "ENCODE_RAD_ERROR_BY_SIN": True,
+        "DEVICE_PILLARIZE": True,
         "PILLAR_FEATURE_EXTRACTOR": {
             "num_filters": [64],
             "with_distance": False,
@@ -90,6 +96,7 @@ _CAR = {
             "nms_post_max_size": 300,
             "nms_score_threshold": 0.15,
             "nms_iou_threshold": 0.5,
+            "post_center_limit_range": [0, -39.68, -5, 69.12, 39.68, 5],
         },
         "LOSS": {
             "pos_class_weight": 1.0,
@@ -121,16 +128,56 @@ _CAR = {
             },
             "weight_decay": 0.0001,
         },
+        "STEPS": 296960,  # 1856 steps an epoch x 160 epochs
+        "STEPS_PER_EVAL": 9280,
+        "SAVE_CHECKPOINTS_SECS": 1800,
+        "SCAN_STEPS": 0,  # > 1 raises (ROADMAP.md, Queue 1 item 4)
+        "PRECISION": "fp32",
+        "SAVE_SUMMARY_STEPS": 10,
     },
     "TRAIN_INPUT_READER": {
+        "CLASS_NAMES": ["Car"],
         "BATCH_SIZE": 2,
         "MAX_NUMBER_OF_VOXELS": 12000,
         "MAX_POINTS_PER_FRAME": 25000,
+        "NUM_WORKERS": 0,
+        "SHUFFLE_POINTS": True,
+        "GROUNDTRUTH_LOCALIZATION_NOISE_STD": [0.25, 0.25, 0.25],
+        "GROUNDTRUTH_ROTATION_UNIFORM_NOISE": [-0.15707963267,
+                                               0.15707963267],
+        "GLOBAL_ROTATION_UNIFORM_NOISE": [-0.78539816, 0.78539816],
+        "GLOBAL_SCALING_UNIFORM_NOISE": [0.95, 1.05],
+        "GLOBAL_LOC_NOISE_STD": [0.2, 0.2, 0.2],
+        "GLOBAL_RANDOM_ROTATION_RANGE_PER_OBJECT": [0, 0],
+        "RANDOM_CROP": False,
+        "USE_GROUP_ID": False,
+        "ANCHOR_AREA_THRESHOLD": 1,
+        "REMOVE_POINTS_AFTER_SAMPLE": False,
+        "DATABASE_SAMPLER": {
+            "database_info_path": "kitti_dbinfos_train.pkl",
+            "sample_groups": [{"name_to_max_num": {"Car": 15}}],
+            "database_prep_steps": {
+                "filter_by_min_num_points": {
+                    "min_num_point_pairs": {"Car": 5},
+                },
+                "filter_by_difficulty": {"removed_difficulties": [-1]},
+            },
+            "rate": 1.0,
+            "global_random_rotation_range_per_object": [0, 0],
+        },
+        "KITTI_INFO_PATH": "kitti_infos_train.pkl",
+        "KITTI_ROOT_PATH": ".",
     },
     "EVAL_INPUT_READER": {
+        "CLASS_NAMES": ["Car"],
         "BATCH_SIZE": 2,
         "MAX_NUMBER_OF_VOXELS": 12000,
         "MAX_POINTS_PER_FRAME": 25000,
+        "NUM_WORKERS": 0,
+        "SHUFFLE_POINTS": False,
+        "ANCHOR_AREA_THRESHOLD": 1,
+        "KITTI_INFO_PATH": "kitti_infos_val.pkl",
+        "KITTI_ROOT_PATH": ".",
     },
 }
 
@@ -168,3 +215,24 @@ def cfg_from_list(cfg: dict, cfg_list: list) -> None:
             raise TypeError(f"type mismatch for {full_key}: "
                             f"{type(value)} vs {type(old)}")
         d[last] = Config.wrap(value)
+
+
+def save_config(cfg: dict, path: str) -> None:
+    """Write ``cfg`` as JSON (the run's ``pipeline.config``)."""
+    Path(path).write_text(json.dumps(cfg, indent=2) + "\n")
+
+
+def cfg_from_file(cfg_file: str | None) -> Config:
+    """The config of a JSON file (``save_config``'s format), or the car
+    config when ``cfg_file`` is None. A YAML file raises: the port reads
+    no YAML (the card's machine has no PyYAML); write the config as JSON
+    (``save_config``) instead."""
+    if cfg_file is None:
+        return car_config()
+    if str(cfg_file).lower().endswith((".yaml", ".yml")):
+        raise ValueError(
+            f"{cfg_file}: the port reads configs as JSON, not YAML (the "
+            "card's machine has no PyYAML); convert it, e.g. with "
+            "save_config(cfg, path) from a loaded config")
+    with open(cfg_file) as f:
+        return Config.wrap(json.load(f))

@@ -1,32 +1,92 @@
-"""Detection training and serving (counterpart of ``make_pillarizer``,
-``make_detection_train_step``, ``make_predict_step`` and ``evaluate`` in
+"""Detection training and serving, the loop and the CLI (counterpart of
 ``papc_tpu/detect/train.py``).
 
 Training: a batch of raw lidar frames with their targets → voxelize on
 the device → PillarFeatureNet → BEV scatter → RPN in training mode →
 ``compute_loss`` → backward → one optimizer step at the scheduled rate →
-running accuracy and precision / recall. Serving: raw frames → voxelize
-→ the network in eval mode → decode → top K → NMS kernel → fixed-size
-detections. Neither step runs a kernel of the port but the NMS.
+running accuracy and precision / recall (``make_detection_train_step``).
+Serving: raw frames → voxelize → the network in eval mode → decode →
+top K → NMS kernel → fixed-size detections (``make_predict_step``). No
+kernel of the port runs in either step but the NMS.
 
-The KITTI pipeline (its prep, augmentation and sampler, the annos and
-mAP), JAX's ``train()`` loop over it with its checkpoint manager and
-sample pool, ``make_scan_detection_train_step`` and the CLI are not
-ported yet (ROADMAP.md, Queue 1 item 6.5).
+:func:`train` is the KITTI loop over ``builders.build_dataset``: it
+writes ``pipeline.config`` (JSON), resumes from the model directory's
+latest checkpoint (``train/checkpoint.py``), prepares batches inline or
+in a worker pool (``TRAIN_INPUT_READER.NUM_WORKERS``,
+``data/workers.py``), logs a line of metrics every ``display_step`` steps
+into ``log.txt``, saves by time, evaluates with the official mAP every
+``STEPS_PER_EVAL`` steps, saves on a crash and evaluates on finishing.
+:func:`evaluate` turns the detections into KITTI annos,
+:func:`evaluate_checkpoint` serves the latest checkpoint with the mAP,
+:func:`predict_frames` returns the raw detections. The CLI::
+
+    python -m papc_tpu_torch.detect.train train --model_dir D \
+        --set TRAIN_INPUT_READER.KITTI_ROOT_PATH ROOT \
+        EVAL_INPUT_READER.KITTI_ROOT_PATH ROOT
+    python -m papc_tpu_torch.detect.train evaluate --model_dir D --set ...
+
+(``--cfg_file`` takes a JSON config such as a run's ``pipeline.config``;
+``--device cpu`` runs on the host.) Not ported: ``SCAN_STEPS > 1``
+(ROADMAP.md, Queue 1 item 4), the host-pillarize and flat-PFN inputs
+(item 6.2), multi-class NMS (item 6.3) and bf16 (item 6.4).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import pathlib
+import time
 from collections.abc import Callable, Mapping
 
 import numpy as np
 import torch
 
-from papc_tpu_torch.data.synthetic_kitti import collate_batch
+from papc_tpu_torch.detect import box_np, builders
+from papc_tpu_torch.detect.config import (cfg_from_file, cfg_from_list,
+                                          save_config)
 from papc_tpu_torch.detect.detector import compute_loss, predict
+from papc_tpu_torch.detect.kitti import common as kitti
+from papc_tpu_torch.detect.kitti.preprocess import collate_batch
+from papc_tpu_torch.nn.layers import init_params
 from papc_tpu_torch.ops.voxelize import voxelize
+from papc_tpu_torch.train import checkpoint as ckpt_lib
 from papc_tpu_torch.train.running_metrics import (AccuracyState,
                                                   PrecisionRecallState)
+from papc_tpu_torch.utils.profiling import StepTimer
+
+MODEL_NAME = "pointpillars"  # the checkpoints' name in checkpoints.json
+
+
+def flat_nested_json_dict(json_dict, sep=".") -> dict:
+    """Nested dicts flattened to dotted keys, for the metrics line."""
+    out = {}
+
+    def _flat(d, prefix=""):
+        for k, v in d.items():
+            key = f"{prefix}{sep}{k}" if prefix else str(k)
+            if isinstance(v, dict):
+                _flat(v, key)
+            else:
+                out[key] = v
+
+    _flat(json_dict)
+    return out
+
+
+def example_to_batch(example: Mapping) -> dict:
+    """The arrays of a collated example that the steps read: the raw
+    points and their mask, the anchors, the targets where present and the
+    anchors mask where present."""
+    batch = {"points": np.asarray(example["points"], np.float32),
+             "points_mask": np.asarray(example["points_mask"], bool),
+             "anchors": np.asarray(example["anchors"], np.float32)}
+    if "labels" in example:
+        batch["labels"] = np.asarray(example["labels"], np.int32)
+        batch["reg_targets"] = np.asarray(example["reg_targets"], np.float32)
+    if "anchors_mask" in example:
+        batch["anchors_mask"] = np.asarray(example["anchors_mask"], bool)
+    return batch
 
 
 def make_pillarizer(voxel_generator, max_voxels: int) -> Callable:
@@ -120,8 +180,10 @@ def make_predict_step(model: torch.nn.Module, predict_cfg, box_coder,
     ``batch`` holds numpy arrays or tensors: ``points``, ``points_mask``
     (for ``pillarize``), ``anchors [B, A, 7]`` and optionally
     ``anchors_mask``. The host-pillarize and flat-PFN inputs are not
-    ported yet (ROADMAP.md, Queue 1 item 6.2). The model runs in
-    eval mode under :func:`torch.inference_mode`, its convolutions in
+    ported yet (ROADMAP.md, Queue 1 item 6.2). Each call puts the model
+    in eval mode (a train step between calls puts it back in train
+    mode), so BatchNorm reads its running statistics and leaves them
+    as they are. It runs under :func:`torch.inference_mode`, its convolutions in
     full float32: inside ``torch.backends.cudnn.flags(enabled=True,
     allow_tf32=False)``, a context local to the call (PyTorch's own
     default lets cuDNN use TF32). ``impl`` goes to the NMS op: ``None``
@@ -139,6 +201,7 @@ def make_predict_step(model: torch.nn.Module, predict_cfg, box_coder,
 
     def predict_step(batch: Mapping) -> dict:
         batch = batch_to_device(batch, device)
+        model.eval()
         with torch.inference_mode(), torch.backends.cudnn.flags(
                 enabled=True, allow_tf32=False):
             preds = model(*pillarize(batch))
@@ -149,22 +212,425 @@ def make_predict_step(model: torch.nn.Module, predict_cfg, box_coder,
     return predict_step
 
 
-def evaluate(predict_step: Callable, eval_ds, cfg,
-             log: Callable[[str], None] = print) -> list[dict]:
-    """Prediction over ``eval_ds`` (``len`` and ``eval_ds[i]`` → example
-    dict) in batches of ``EVAL_INPUT_READER.BATCH_SIZE``, the last padded
-    by repeating its last frame → one detection dict of numpy arrays per
-    frame. Stops where the JAX loop converts to KITTI annos."""
-    batch_size = int(cfg.EVAL_INPUT_READER.BATCH_SIZE)
-    dets_out = []
+def _predicted_batches(predict_step: Callable, eval_ds, batch_size: int):
+    """``(example, detections, n)`` for each batch of ``eval_ds``: the
+    collated examples, the detections as numpy and the real frames in
+    it (the last batch is padded by repeating its last frame)."""
     n = len(eval_ds)
     for start in range(0, n, batch_size):
         idx = list(range(start, min(start + batch_size, n)))
-        pad = batch_size - len(idx)
-        idx = idx + [idx[-1]] * pad
-        dets = predict_step(collate_batch([eval_ds[i] for i in idx]))
-        dets = {k: v.cpu().numpy() for k, v in dets.items()}
-        for row in range(batch_size - pad):
+        real = len(idx)
+        idx = idx + [idx[-1]] * (batch_size - real)
+        example = collate_batch([eval_ds[i] for i in idx])
+        dets = predict_step(example_to_batch(example))
+        yield example, {k: v.cpu().numpy() for k, v in dets.items()}, real
+
+
+def predict_frames(predict_step: Callable, eval_ds, cfg,
+                   log: Callable[[str], None] = print) -> list[dict]:
+    """Prediction over ``eval_ds`` (``len`` and ``eval_ds[i]`` → example
+    dict) in batches of ``EVAL_INPUT_READER.BATCH_SIZE`` → one detection
+    dict of numpy arrays per frame."""
+    dets_out = []
+    for _, dets, real in _predicted_batches(
+            predict_step, eval_ds, int(cfg.EVAL_INPUT_READER.BATCH_SIZE)):
+        for row in range(real):
             dets_out.append({k: v[row] for k, v in dets.items()})
-    log(f"evaluated {len(dets_out)} frames")
+    log(f"predicted {len(dets_out)} frames")
     return dets_out
+
+
+def predictions_to_kitti_annos(dets: dict, examples: dict, class_names,
+                               center_limit_range=None) -> list[dict]:
+    """Fixed-size detections of a batch (numpy) → one KITTI anno dict a
+    frame, in the camera frame with the image boxes clipped to the
+    image (the reference's ``predict_kitti_to_anno``)."""
+    annos = []
+    B = dets["box3d_lidar"].shape[0]
+    for i in range(B):
+        valid = np.asarray(dets["valid"][i])
+        boxes_lidar = np.asarray(dets["box3d_lidar"][i])[valid]
+        scores = np.asarray(dets["scores"][i])[valid]
+        labels = np.asarray(dets["label_preds"][i])[valid]
+        rect = np.asarray(examples["rect"][i])
+        Trv2c = np.asarray(examples["Trv2c"][i])
+        P2 = np.asarray(examples["P2"][i])
+        img_shape = np.asarray(examples["image_shape"][i])
+        image_idx = int(np.asarray(examples["image_idx"][i]))
+
+        if center_limit_range is not None and len(boxes_lidar):
+            lim = np.asarray(center_limit_range)
+            keep = ~(np.any(boxes_lidar[:, :3] < lim[:3], axis=1)
+                     | np.any(boxes_lidar[:, :3] > lim[3:], axis=1))
+            boxes_lidar = boxes_lidar[keep]
+            scores = scores[keep]
+            labels = labels[keep]
+
+        if len(boxes_lidar) == 0:
+            anno = kitti.empty_result_anno()
+            anno["image_idx"] = np.array([], dtype=np.int64)
+            annos.append(anno)
+            continue
+
+        box_cam = box_np.box_lidar_to_camera(boxes_lidar, rect, Trv2c)
+        bbox = box_np.box3d_to_bbox(box_cam, rect, Trv2c, P2)
+        bbox[:, [0, 2]] = np.clip(bbox[:, [0, 2]], 0, img_shape[1])
+        bbox[:, [1, 3]] = np.clip(bbox[:, [1, 3]], 0, img_shape[0])
+
+        anno = kitti.get_start_result_anno()
+        for j in range(len(boxes_lidar)):
+            anno["name"].append(class_names[int(labels[j])])
+            anno["truncated"].append(0.0)
+            anno["occluded"].append(0)
+            anno["alpha"].append(-np.arctan2(-boxes_lidar[j, 1],
+                                             boxes_lidar[j, 0])
+                                 + box_cam[j, 6])
+            anno["bbox"].append(bbox[j])
+            anno["dimensions"].append(box_cam[j, 3:6])
+            anno["location"].append(box_cam[j, :3])
+            anno["rotation_y"].append(box_cam[j, 6])
+            anno["score"].append(scores[j])
+        anno = {k: np.stack(v) for k, v in anno.items()}
+        anno["image_idx"] = np.full(len(boxes_lidar), image_idx,
+                                    dtype=np.int64)
+        annos.append(anno)
+    return annos
+
+
+def evaluate(predict_step: Callable, eval_ds, cfg,
+             log: Callable[[str], None] = print) -> list[dict]:
+    """Prediction over the KITTI ``eval_ds`` in batches of
+    ``EVAL_INPUT_READER.BATCH_SIZE`` → one KITTI anno a frame (the
+    centres limited to ``post_center_limit_range`` where the config
+    sets it)."""
+    class_names = list(cfg.EVAL_INPUT_READER.CLASS_NAMES)
+    limit = cfg.MODEL.POST_PROCESSING.get("post_center_limit_range")
+    annos = []
+    for example, dets, real in _predicted_batches(
+            predict_step, eval_ds, int(cfg.EVAL_INPUT_READER.BATCH_SIZE)):
+        annos.extend(predictions_to_kitti_annos(dets, example, class_names,
+                                                limit)[:real])
+    log(f"evaluated {len(annos)} frames")
+    return annos
+
+
+def official_map(eval_ds, annos: list[dict], cfg):
+    """The official KITTI result string of ``annos`` against the ground
+    truth of ``eval_ds``'s infos, or None where not every frame has
+    it."""
+    from papc_tpu_torch.eval.kitti_eval import get_official_eval_result
+
+    gt_annos = [info["annos"] for info in eval_ds.kitti_infos
+                if "annos" in info]
+    if len(gt_annos) != len(annos):
+        return None
+    return get_official_eval_result(gt_annos, annos,
+                                    list(cfg.EVAL_INPUT_READER.CLASS_NAMES))
+
+
+def _iter_batches(dataset, batch_size, shuffle, rng, pool=None, epoch=0,
+                  max_batches=None):
+    """Collated batches of one epoch, in an order shuffled by ``rng``;
+    with a :class:`~papc_tpu_torch.data.workers.SamplePool` the samples
+    are prepared in its workers. ``max_batches`` bounds the epoch, so the
+    pool's work ends where the loop stops taking batches."""
+    n = len(dataset)
+    dataset.set_epoch(epoch)  # one epoch channel for both modes
+    order = np.arange(n)
+    if shuffle:
+        rng.shuffle(order)
+    n_batches = (n - n % batch_size) // batch_size
+    if max_batches is not None:
+        n_batches = min(n_batches, max_batches)
+    order = order[:n_batches * batch_size]
+    if pool is not None and len(order):
+        buf = []
+        for ex in pool.imap(epoch, order):
+            buf.append(ex)
+            if len(buf) == batch_size:
+                yield collate_batch(buf)
+                buf = []
+        return
+    for start in range(0, len(order), batch_size):
+        idx = order[start:start + batch_size]
+        yield collate_batch([dataset[int(i)] for i in idx])
+
+
+@dataclasses.dataclass
+class DetectionState:
+    """What :func:`train` trains: the model (on its device), the
+    optimizer, its rate schedule and the steps taken."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    scheduler: object
+    step: int
+
+
+def _build(cfg, seed: int, device: torch.device):
+    """The components of a config, the network seeded from ``seed`` on
+    ``device``."""
+    vg = builders.build_voxel_generator(cfg.VOXEL_GENERATOR)
+    box_coder = builders.build_box_coder(cfg.BOX_CODER)
+    target_assigner = builders.build_target_assigner(cfg.TARGET_ASSIGNER,
+                                                     box_coder)
+    generators = cfg.TARGET_ASSIGNER.ANCHOR_GENERATORS
+    if len(generators) != 1:
+        raise NotImplementedError(
+            "one anchor generator (ROADMAP.md, Queue 1 item 6.3)")
+    model = builders.build_network(
+        cfg, vg, builders.build_anchor_generator(generators[0]), box_coder)
+    init_params(model, torch.Generator().manual_seed(seed))
+    model = model.to(device)
+    pillarize = make_pillarizer(vg, int(cfg.VOXEL_GENERATOR.MAX_VOXELS))
+    return vg, box_coder, target_assigner, model, pillarize
+
+
+def _load_cfg(cfg_file, cfg_overrides):
+    cfg = cfg_from_file(cfg_file)
+    if cfg_overrides:
+        cfg_from_list(cfg, cfg_overrides)
+    if not bool(cfg.MODEL.get("DEVICE_PILLARIZE", False)):
+        raise NotImplementedError(
+            "MODEL.DEVICE_PILLARIZE false (host pillarize) is not ported "
+            "yet (ROADMAP.md, Queue 1 item 6.2)")
+    return cfg
+
+
+def _save(state: DetectionState, model_dir: str) -> str:
+    return ckpt_lib.save(model_dir, MODEL_NAME, ckpt_lib.training_arrays(
+        state.model, state.optimizer, state.scheduler, state.step),
+        state.step)
+
+
+def train(cfg_file: str | None = None, model_dir: str = "./ppmodel",
+          result_path: str | None = None, cfg_overrides: list | None = None,
+          max_steps: int | None = None, display_step: int = 50,
+          eval_on_finish: bool = True, seed: int = 0,
+          log: Callable[[str], None] = print,
+          device: str | torch.device = "cuda"):
+    """Train PointPillars on KITTI from a config (``cfg_file``, JSON, or
+    the car config) with dotted ``cfg_overrides``; returns ``(state,
+    annos)``: the :class:`DetectionState` and, with ``eval_on_finish``,
+    the eval set's KITTI annos (else None).
+
+    The network starts from ``seed`` and augmentation draws from
+    ``RandomState(seed)`` (the batch order and, with no workers, the
+    database sampler; each frame's own draws from its ``(base_seed,
+    epoch, idx)``). A display step syncs and logs the metrics, the
+    running precision and recall at 0.5 and the step time (CUDA events
+    over the steps since the last display, their data included) to
+    ``log`` and ``model_dir/log.txt``."""
+    device = torch.device(device)
+    cfg = _load_cfg(cfg_file, cfg_overrides)
+    scan_steps = int(cfg.TRAIN_CONFIG.get("SCAN_STEPS", 0) or 0)
+    if scan_steps > 1:
+        raise NotImplementedError(
+            "TRAIN_CONFIG.SCAN_STEPS > 1 is not ported (ROADMAP.md, Queue 1 "
+            "item 4: a CUDA-graph counterpart is an open question)")
+    os.makedirs(model_dir, exist_ok=True)
+    save_config(cfg, os.path.join(model_dir, "pipeline.config"))
+    rng_np = np.random.RandomState(seed)
+
+    vg, box_coder, target_assigner, model, pillarize = _build(cfg, seed,
+                                                              device)
+    loss_cfg = builders.build_loss_config(cfg, box_coder)
+    predict_cfg = builders.build_predict_config(cfg, box_coder)
+    train_ds = builders.build_dataset(cfg, cfg.TRAIN_INPUT_READER, vg,
+                                      target_assigner, training=True,
+                                      rng=rng_np, log=log)
+    eval_ds = builders.build_dataset(cfg, cfg.EVAL_INPUT_READER, vg,
+                                     target_assigner, training=False,
+                                     log=log)
+
+    batch_size = int(cfg.TRAIN_INPUT_READER.BATCH_SIZE)
+    total_steps = int(max_steps or cfg.TRAIN_CONFIG.STEPS)
+    save_secs = int(cfg.TRAIN_CONFIG.get("SAVE_CHECKPOINTS_SECS", 1800))
+    steps_per_eval = int(cfg.TRAIN_CONFIG.get("STEPS_PER_EVAL", 0))
+
+    opt, sched = builders.build_optimizer(cfg.TRAIN_CONFIG.OPTIMIZER,
+                                          model.parameters())
+    state = DetectionState(model, opt, sched, 0)
+    restored = ckpt_lib.try_restore_latest(model_dir, MODEL_NAME)
+    if restored is not None:
+        state.step = ckpt_lib.restore_training(restored, model, opt, sched)
+        log(f"resumed from step {state.step}")
+
+    precision = str(cfg.TRAIN_CONFIG.get("PRECISION", "fp32"))
+    train_step, init_rm = make_detection_train_step(
+        model, loss_cfg, opt, sched, pillarize, device=device,
+        precision=precision)
+    running = init_rm()
+    predict_step = make_predict_step(model, predict_cfg, box_coder,
+                                     pillarize, device=device)
+
+    last_save = time.time()
+    timer = StepTimer(device=device)
+    num_workers = int(cfg.TRAIN_INPUT_READER.get("NUM_WORKERS", 0))
+    pool = None
+    if num_workers > 0:
+        from papc_tpu_torch.data.workers import SamplePool
+
+        # per-item sampler seeding: the paste augmentation does not
+        # depend on the worker count
+        train_ds.enable_per_item_sampler_seeding(True)
+        pool = SamplePool(train_ds, num_workers)
+    epoch = 0
+    try:
+        while state.step < total_steps:
+            epoch += 1
+            batches = _iter_batches(train_ds, batch_size, True, rng_np,
+                                    pool=pool, epoch=epoch,
+                                    max_batches=total_steps - state.step)
+            took = 0
+            while True:
+                timer.start()  # the window takes the batch's making too
+                example = next(batches, None)
+                if example is None:
+                    break
+                took += 1
+                metrics, running = train_step(example_to_batch(example),
+                                              running)
+                state.step += 1
+                display = state.step % display_step == 0
+                steptime = timer.stop(sync=display)
+                if display:
+                    m = {k: round(float(v), 5) for k, v in metrics.items()}
+                    m["rpn_prec@0.5"] = round(
+                        float(running["pr"].precision[2]), 4)
+                    m["rpn_rec@0.5"] = round(
+                        float(running["pr"].recall[2]), 4)
+                    m["step"] = state.step
+                    m["steptime"] = round(steptime, 4)
+                    line = ", ".join(f"{k}={v}" for k, v in
+                                     flat_nested_json_dict(m).items())
+                    log(line)
+                    with open(os.path.join(model_dir, "log.txt"), "a") as f:
+                        f.write(line + "\n")
+                if time.time() - last_save > save_secs:
+                    _save(state, model_dir)
+                    last_save = time.time()
+                    timer.discard()
+                if steps_per_eval and state.step % steps_per_eval == 0:
+                    _save(state, model_dir)
+                    annos = evaluate(predict_step, eval_ds, cfg, log=log)
+                    result = official_map(eval_ds, annos, cfg)
+                    if result is not None:
+                        log(result)
+                    timer.discard()
+                if state.step >= total_steps:
+                    break
+            if took == 0:
+                raise ValueError(
+                    f"the training set ({len(train_ds)} frames) holds no "
+                    f"batch of {batch_size}")
+    except Exception:
+        try:  # save on a crash
+            _save(state, model_dir)
+        except Exception as save_err:  # noqa: BLE001
+            log(f"crash-save failed: {save_err!r}; the latest periodic "
+                "checkpoint stands")
+        raise
+    finally:
+        if pool is not None:
+            pool.close()
+    _save(state, model_dir)
+
+    if eval_on_finish:
+        annos = evaluate(predict_step, eval_ds, cfg, log=log)
+        if result_path:
+            os.makedirs(result_path, exist_ok=True)
+            _write_result_files(annos, result_path)
+        return state, annos
+    return state, None
+
+
+def _write_result_files(annos, result_path):
+    """One KITTI result file ``<image_idx>.txt`` a frame."""
+    for anno in annos:
+        idx = int(anno["image_idx"][0]) if len(anno["image_idx"]) else 0
+        lines = []
+        for j in range(len(anno["name"])):
+            lines.append(kitti.kitti_result_line({
+                "name": anno["name"][j],
+                "alpha": anno["alpha"][j],
+                "bbox": anno["bbox"][j],
+                # result files hold h, w, l
+                "dimensions": anno["dimensions"][j][[1, 2, 0]],
+                "location": anno["location"][j],
+                "rotation_y": anno["rotation_y"][j],
+                "score": anno["score"][j],
+            }))
+        path = pathlib.Path(result_path) / (
+            kitti.get_image_index_str(idx) + ".txt")
+        path.write_text("\n".join(lines) + ("\n" if lines else ""))
+
+
+def evaluate_checkpoint(cfg_file: str | None = None,
+                        model_dir: str = "./ppmodel",
+                        result_path: str | None = None,
+                        cfg_overrides: list | None = None,
+                        with_map: bool = True,
+                        log: Callable[[str], None] = print,
+                        device: str | torch.device = "cuda"):
+    """Serve the latest checkpoint of ``model_dir`` over the eval set →
+    ``(annos, result)``: the KITTI annos and the official mAP string
+    (None without ``with_map`` or without ground truth for every
+    frame). ``result_path`` takes one result file a frame."""
+    device = torch.device(device)
+    cfg = _load_cfg(cfg_file, cfg_overrides)
+    vg, box_coder, target_assigner, model, pillarize = _build(cfg, 0, device)
+    predict_cfg = builders.build_predict_config(cfg, box_coder)
+    eval_ds = builders.build_dataset(cfg, cfg.EVAL_INPUT_READER, vg,
+                                     target_assigner, training=False,
+                                     log=log)
+    restored = ckpt_lib.try_restore_latest(model_dir, MODEL_NAME)
+    if restored is None:
+        raise SystemExit(f"no checkpoint found in {model_dir}")
+    step = ckpt_lib.restore_training(restored, model)
+    log(f"evaluating checkpoint at step {step}")
+    predict_step = make_predict_step(model, predict_cfg, box_coder,
+                                     pillarize, device=device)
+    annos = evaluate(predict_step, eval_ds, cfg, log=log)
+    if result_path:
+        os.makedirs(result_path, exist_ok=True)
+        _write_result_files(annos, result_path)
+    result = official_map(eval_ds, annos, cfg) if with_map else None
+    if result is not None:
+        log(result)
+    return annos, result
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description="PointPillars training")
+    parser.add_argument("command", choices=["train", "evaluate"], nargs="?",
+                        default="train")
+    parser.add_argument("--cfg_file", default=None,
+                        help="a JSON config (e.g. a run's pipeline.config); "
+                        "default: the KITTI car config")
+    parser.add_argument("--model_dir", default="./ppmodel")
+    parser.add_argument("--result_path", default=None)
+    parser.add_argument("--max_steps", type=int, default=None)
+    parser.add_argument("--display_step", type=int, default=50)
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu")
+    parser.add_argument(
+        "--set", dest="set_cfgs", nargs="*", default=None,
+        help="dotted config overrides: KEY VALUE [KEY VALUE ...]")
+    args = parser.parse_args(argv)
+    if args.command == "evaluate":
+        evaluate_checkpoint(cfg_file=args.cfg_file, model_dir=args.model_dir,
+                            result_path=args.result_path,
+                            cfg_overrides=args.set_cfgs, device=args.device)
+    else:
+        train(cfg_file=args.cfg_file, model_dir=args.model_dir,
+              result_path=args.result_path, cfg_overrides=args.set_cfgs,
+              max_steps=args.max_steps, display_step=args.display_step,
+              device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

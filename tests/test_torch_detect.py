@@ -39,9 +39,9 @@ from papc_tpu_torch.detect import builders, detector
 from papc_tpu_torch.detect.box_coder import GroundBox3dCoder
 from papc_tpu_torch.detect.config import car_config, cfg_from_list
 from papc_tpu_torch.detect.model import PillarFeatureNet, PointPillars
-from papc_tpu_torch.detect.train import (evaluate,
-                                         make_detection_train_step,
-                                         make_pillarizer, make_predict_step)
+from papc_tpu_torch.detect.train import (make_detection_train_step,
+                                         make_pillarizer, make_predict_step,
+                                         predict_frames)
 from papc_tpu_torch.ops import iou, nms, voxelize
 from papc_tpu_torch.ops.kernels import nms as knms
 
@@ -107,7 +107,7 @@ def _lookup(cfg, key):
 def test_config_equals_the_yaml_on_every_key_it_carries():
     mine, yaml_cfg = car_config(), cfg_from_yaml_file(DEFAULT_CONFIG_PATH)
     keys = list(_leaves(mine))
-    assert len(keys) == 59
+    assert len(keys) == 97
     for key, value in keys:
         assert _lookup(yaml_cfg, key) == value, key
     overrides = ["EVAL_INPUT_READER.MAX_NUMBER_OF_VOXELS", "64",
@@ -593,8 +593,8 @@ def test_serving_slice_matches_jax_predict_step(rotate):
     n = got["valid"].sum(-1)
     assert (n > 1).all() and (n < 64).all()  # NMS suppressed some of 64
 
-    # evaluate: 3 frames in batches of 2, the last padded and dropped
-    dets = evaluate(step, frames, cfg, log=lambda line: None)
+    # predict_frames: 3 frames in batches of 2, the last padded and dropped
+    dets = predict_frames(step, frames, cfg, log=lambda line: None)
     assert len(dets) == 3
     for key in got:
         np.testing.assert_array_equal(dets[1][key], got[key][1].numpy())

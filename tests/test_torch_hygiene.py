@@ -61,7 +61,13 @@ def test_package_import_loads_no_jax_and_builds_nothing():
             "papc_tpu_torch.detect.losses, papc_tpu_torch.detect.target, "
             "papc_tpu_torch.detect.similarity, papc_tpu_torch.train.optim, "
             "papc_tpu_torch.train.running_metrics, "
-            "papc_tpu_torch.utils.profiling; "
+            "papc_tpu_torch.utils.profiling, papc_tpu_torch.data.workers, "
+            "papc_tpu_torch.detect.kitti.common, "
+            "papc_tpu_torch.detect.kitti.augment, "
+            "papc_tpu_torch.detect.kitti.sampling, "
+            "papc_tpu_torch.detect.kitti.preprocess, "
+            "papc_tpu_torch.detect.kitti.create_data, "
+            "papc_tpu_torch.eval.kitti_eval, papc_tpu_torch.train.checkpoint; "
             "from papc_tpu_torch import _build; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'papc_tpu', 'h5py', 'triton')); "

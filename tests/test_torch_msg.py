@@ -30,6 +30,9 @@ from papc_tpu_torch.ops import geometry
 from papc_tpu_torch.ops.kernels import scatter_rows
 
 from tests import torch_parity as P
+from tests.torch_parity import few_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 T = torch.from_numpy
 

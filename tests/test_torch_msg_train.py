@@ -16,6 +16,9 @@ from papc_tpu.models.classify import PointNet2MSGClas as JaxMSG
 from papc_tpu_torch.models.classify import PointNet2MSGClas
 
 from tests import torch_parity as P
+from tests.torch_parity import few_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 LR = WD = 1e-3
 

@@ -40,6 +40,9 @@ from papc_tpu_torch.train import make_optimizer, train_step
 from papc_tpu_torch.train.precision import (bf16_compute, cast_floating,
                                             dynamic_loss_scale)
 from tests import torch_parity as P
+from tests.torch_parity import few_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 T = torch.from_numpy
 BF16 = torch.bfloat16

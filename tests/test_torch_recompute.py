@@ -37,6 +37,9 @@ from papc_tpu_torch.ops.kernels import samlp_recompute as rc
 from papc_tpu_torch.ops.kernels import samlp_single, samlp_train
 
 from tests import torch_parity as P
+from tests.torch_parity import few_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 # The registry's models with fused SA stacks: the PointNet++ family (the
 # rest of the zoo runs no SA kernel).

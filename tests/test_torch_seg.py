@@ -30,6 +30,9 @@ from papc_tpu_torch.train import metrics
 
 from tests import torch_parity as P
 from tests.test_torch_train import _compare_fused, _fused_pair
+from tests.torch_parity import few_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 T = torch.from_numpy
 

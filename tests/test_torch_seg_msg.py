@@ -17,6 +17,9 @@ from papc_tpu_torch.models import init_model
 from papc_tpu_torch.models.segment import PointNet2MSGSeg
 
 from tests import torch_parity as P
+from tests.torch_parity import few_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 LR = WD = 1e-3
 

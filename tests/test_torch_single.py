@@ -42,6 +42,9 @@ from papc_tpu_torch.train import trainer
 from tests import torch_parity as P
 from tests.test_torch_recompute import (J_DTYPE, SA_COMBOS, _compare_fused,
                                         _layers, _np, _port_fused)
+from tests.torch_parity import few_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 F32, BF16 = torch.float32, torch.bfloat16
 

@@ -43,6 +43,9 @@ from papc_tpu_torch.ops.kernels import gather, samlp_train
 from papc_tpu_torch.train import evaluate, make_optimizer, train
 
 from tests import torch_parity as P
+from tests.torch_parity import few_threads  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 T = torch.from_numpy
 F32, BF16 = torch.float32, torch.bfloat16
