@@ -12,7 +12,9 @@ config at full width: B=2 frames of up to 25000 points, 12000 pillars, a
 496 x 432 BEV grid, 107136 anchors, K=1000 before NMS), its training
 step at that width on the card, and its KITTI training loop
 (``detect.train.train`` over a ``write_kitti`` tree) with evaluation and
-the learning floor, in eighteen phases;
+the learning floor, and the KITTI 3-class config (Car, Pedestrian,
+Cyclist: 321408 anchors, per-class NMS batched over frames and classes)
+trained and served the same way, in nineteen phases;
 any failure raises and exits non-zero. TF32 is off for matmuls throughout
 (float32 references); the detection serving step runs its cuDNN
 convolutions in f32 itself, as a user gets it.
@@ -265,6 +267,28 @@ convolutions in f32 itself, as a user gets it.
    frames, the 25.6 m grid, the narrow RPN, ``LEARN_STEPS`` steps of
    B=4) with 4 workers: BEV moderate AP@0.5 at least ``BEV_FLOOR``, 3D
    at least ``D3_FLOOR``, with the run's seconds.
+19. The 3-class config, after phase 18 (``phase_detect_3class``): a
+   ``write_kitti`` tree of three classes (8 train and 4 val frames, 3
+   objects of each class a frame) through the three ``create_data``
+   steps; the host prep ms a frame by part, as phase 18 prints it;
+   ``detect.train.train`` at full width (B=2, 12000 pillars, 321408
+   anchors) for ``DL_STEPS`` steps with 4 workers: the loss finite and
+   falling, step ms (CUDA events, median of steps 2-20), peak GB, every
+   kernel count 0. The seed-0 model and then the trained one served over
+   the val frames by ``make_predict_step`` (``predict_multiclass``) with
+   kernels and with ``impl="plain"``, rotated and then standup: the
+   candidates a frame and class printed, every class non-empty and one at
+   K = 1000 (the score threshold lowered from the config's by a printed
+   override where a model's scores need it, ``MC_THRESHOLDS``), #20 / #19
+   exactly one launch an eval batch (every frame and class in it),
+   detections equal within ``DET_TOL``; for the trained model, whose
+   size codes already reach boxes with sides under a centimetre or over
+   a kilometre, a rotated run may differ only where every bit of #20's
+   mask that differs from the plain mask involves such a box
+   (``DEGENERATE_SIDES``; the bits are printed). The trained model's
+   serving ms a batch (CUDA events) and NMS device ms a batch by stage
+   (profiler). Then ``evaluate_checkpoint``: one result file a val frame
+   and the official result over the three classes.
 14. The per-kernel JSON line (each kernel's launches on its path, error
    against plain, ms, plain ms, the bound from this run's inputs and,
    where one PyTorch call computes the same function, its ms), then the
@@ -2520,14 +2544,13 @@ def _detect_setup():
     cfg = car_config()
     vg = builders.build_voxel_generator(cfg.VOXEL_GENERATOR)
     coder = builders.build_box_coder(cfg.BOX_CODER)
-    gen = builders.build_anchor_generator(
-        cfg.TARGET_ASSIGNER.ANCHOR_GENERATORS[0])
-    seeded = builders.build_network(cfg, vg, gen, coder)
+    ta = builders.build_target_assigner(cfg.TARGET_ASSIGNER, coder)
+    seeded = builders.build_network(cfg, vg, ta)
     init_params(seeded, torch.Generator().manual_seed(0))
     weights = ROOT / "build" / "chip_smoke" / "pointpillars_seed0.npz"
     weights.parent.mkdir(parents=True, exist_ok=True)
     np.savez(weights, **state_dict_to_flax(seeded.state_dict()))
-    model = load_flax_weights(builders.build_network(cfg, vg, gen, coder),
+    model = load_flax_weights(builders.build_network(cfg, vg, ta),
                               weights).cuda().eval()
     anchors = builders.build_anchors(cfg, vg)
     reader = cfg.EVAL_INPUT_READER
@@ -3651,9 +3674,8 @@ def phase_detect_train(smi):
           + f" ms a frame, positives {positives}")
     check(all(p > 0 for p in positives), "a frame without positive anchors")
 
-    gen0 = builders.build_anchor_generator(
-        cfg.TARGET_ASSIGNER.ANCHOR_GENERATORS[0])
-    seeded = builders.build_network(cfg, vg, gen0, coder)
+    seeded = builders.build_network(cfg, vg, builders.build_target_assigner(
+        cfg.TARGET_ASSIGNER, coder))
     init_params(seeded, torch.Generator().manual_seed(0))
     loss_cfg = builders.build_loss_config(cfg, coder)
     pillarize = make_pillarizer(vg, int(reader.MAX_NUMBER_OF_VOXELS))
@@ -4124,6 +4146,277 @@ def phase_detect_loop(smi):
     print(f"    phase 18 took {time.perf_counter() - t_phase:.1f} s")
 
 
+THREE_CLASSES = ("Car", "Pedestrian", "Cyclist")
+# phase 19's score thresholds, the config's first: the first at which the
+# served model gives every class a candidate in every eval batch, and
+# some class K of them, is the one served (printed as an override)
+MC_THRESHOLDS = (0.15, 0.05, 0.01, 0.0)
+# A box with a side under 1 cm or over 1 km is degenerate for the rotated
+# IoU in f32: at KITTI's coordinates a clip's shoelace carries rounding
+# larger than such a box's area, so its IoU depends on the order of the
+# sums, which #20 and its plain version take differently (sequentially
+# over the ring, as a tree over the slots). A model a few steps into
+# training predicts such sides (exp of its size codes) for some anchors;
+# phase 19 prints the candidates' range.
+DEGENERATE_SIDES = (1e-2, 1e3)
+
+
+def _mc_inputs(model, pillarize, coder, pcfg, batch):
+    """The per-class NMS input of one eval batch, from the model's heads:
+    ``(bev [B·C, K, 5], ok [B·C, K], candidates a frame and class [B, C])``
+    at ``pcfg``'s threshold."""
+    from papc_tpu_torch.detect.detector import (decode_raw,
+                                                multiclass_candidates)
+    from papc_tpu_torch.detect.train import batch_to_device
+
+    model.eval()
+    b = batch_to_device(batch, torch.device("cuda"))
+    with torch.inference_mode(), torch.backends.cudnn.flags(
+            enabled=True, allow_tf32=False):
+        raw = decode_raw(model(*pillarize(b)), b["anchors"], coder.decode,
+                         pcfg)
+        boxes, _, _, ok = multiclass_candidates(
+            *raw, pcfg, anchors_mask=b.get("anchors_mask"))
+    B, C, K, _ = boxes.shape
+    bev = boxes.reshape(B * C, K, -1)[..., [0, 1, 3, 4, 6]].contiguous()
+    return bev, ok.reshape(B * C, K).contiguous(), ok.sum(-1).cpu().numpy()
+
+
+def _pick_threshold(cfg, model, pillarize, coder, batches, K):
+    """The first of ``MC_THRESHOLDS`` at which every eval batch has a
+    candidate in every frame and class and K in some → ``(threshold,
+    candidates a batch)``; the config is left at it."""
+    from papc_tpu_torch.detect import builders
+    from papc_tpu_torch.detect.config import cfg_from_list
+
+    for thr in MC_THRESHOLDS:
+        cfg_from_list(cfg, ["MODEL.POST_PROCESSING.nms_score_threshold",
+                            str(thr)])
+        pcfg = builders.build_predict_config(cfg, coder)
+        cands = [_mc_inputs(model, pillarize, coder, pcfg, b)[2]
+                 for b in batches]
+        if all((c > 0).all() and (c == K).any() for c in cands):
+            break
+    check(all((c > 0).all() and (c == K).any() for c in cands),
+          f"candidates a frame and class {[c.tolist() for c in cands]}")
+    return thr, cands
+
+
+def _rotated_mask_split(model, pillarize, coder, pcfg, batches):
+    """#20's mask against its plain version's on every eval batch's
+    candidates → ``[differing bits, of them with a degenerate box,
+    degenerate candidates, candidates, least side, largest side]``."""
+    from papc_tpu_torch.ops.kernels import nms
+
+    lo, hi = DEGENERATE_SIDES
+    out = [0, 0, 0, 0, np.inf, 0.0]
+    for batch in batches:
+        bev, ok, _ = _mc_inputs(model, pillarize, coder, pcfg, batch)
+        K = bev.shape[1]
+        _, mask, _ = nms.rotate_nms_stages(bev, ok,
+                                           pcfg.nms_iou_threshold)
+        want = nms.rotate_mask_plain(bev, ok, pcfg.nms_iou_threshold)
+        differ = nms.unpack_bits(mask, K) != nms.unpack_bits(want, K)
+        sides = bev[..., 2:4]
+        bad = (((sides < lo) | (sides > hi)).any(-1)) & ok
+        involved = differ & (bad[:, :, None] | bad[:, None, :])
+        counts = (int(differ.sum()), int(involved.sum()), int(bad.sum()),
+                  int(ok.sum()))
+        out[:4] = [a + b for a, b in zip(out[:4], counts)]
+        out[4] = min(out[4], float(sides[ok].min()))
+        out[5] = max(out[5], float(sides[ok].max()))
+    return out
+
+
+def _serve_check(tag, cfg, model, pillarize, coder, eval_ds, batches,
+                 counters, rotate, kernel, exact):
+    """Serve ``eval_ds`` with kernels and with ``impl="plain"``: #20 / #19
+    once an eval batch, detections equal within ``DET_TOL``. With
+    ``exact`` false (the trained model) a rotated run whose detections
+    differ passes only where every differing bit of #20's mask against
+    the plain mask involves a degenerate box (``DEGENERATE_SIDES``) →
+    ``(step_k, per-class detections a frame, equal, mask split)``."""
+    from papc_tpu_torch.detect import builders
+    from papc_tpu_torch.detect import train as dtrain
+    from papc_tpu_torch.detect.config import cfg_from_list
+
+    cfg_from_list(cfg, ["MODEL.POST_PROCESSING.use_rotate_nms", rotate])
+    pcfg = builders.build_predict_config(cfg, coder)
+    check(pcfg.multiclass_nms, "the 3-class config serves per class")
+    step_k = dtrain.make_predict_step(model, pcfg, coder, pillarize)
+    step_p = dtrain.make_predict_step(model, pcfg, coder, pillarize,
+                                      impl="plain")
+    for c in counters.values():
+        c.launches = 0
+    got = dtrain.predict_frames(step_k, eval_ds, cfg, log=lambda *a: None)
+    launches = {n: c.launches for n, c in counters.items() if c.launches}
+    check(launches == {kernel: len(batches)},
+          f"{tag}: launched {launches}, not {kernel} {len(batches)} times")
+    want = dtrain.predict_frames(step_p, eval_ds, cfg, log=lambda *a: None)
+    equal = all(
+        all(np.array_equal(g[k], w[k]) for k in ("valid", "label_preds"))
+        and all(np.allclose(g[k], w[k], rtol=DET_TOL, atol=DET_TOL)
+                for k in ("box3d_lidar", "scores"))
+        for g, w in zip(got, want))
+    split = None
+    if rotate == "True":
+        split = _rotated_mask_split(model, pillarize, coder, pcfg, batches)
+    if not equal:
+        check(not exact and split is not None and split[0] == split[1],
+              f"{tag}, {kernel}: detections outside {DET_TOL} of plain's"
+              + ("" if split is None else
+                 f"; #20's mask differs from plain at {split[0]} bits, "
+                 f"{split[1]} of them with a degenerate box"))
+    per_class = [[int((g["label_preds"][g["valid"]] == j).sum())
+                  for j in range(3)] for g in got]
+    return step_k, per_class, equal, split
+
+
+def phase_detect_3class(smi):
+    """Phase 19 (see the module docstring). Any failure raises."""
+    import shutil
+
+    from papc_tpu_torch.detect import builders
+    from papc_tpu_torch.detect import train as dtrain
+    from papc_tpu_torch.detect.config import (cfg_from_list,
+                                              kitti_3class_config,
+                                              save_config)
+    from papc_tpu_torch.train import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    work = ROOT / "build" / "chip_smoke" / "detect_3class"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    root = _loop_tree(work / "kitti", n_train=8, n_val=4, num_cars=3,
+                      classes=THREE_CLASSES)
+    tree_s = time.perf_counter() - t0
+    cfg = kitti_3class_config()
+    cfg_from_list(cfg, ["TRAIN_INPUT_READER.KITTI_ROOT_PATH", root,
+                        "EVAL_INPUT_READER.KITTI_ROOT_PATH", root])
+    cfg_file = str(work / "three_class.json")
+    save_config(cfg, cfg_file)
+    vg = builders.build_voxel_generator(cfg.VOXEL_GENERATOR)
+    coder = builders.build_box_coder(cfg.BOX_CODER)
+    ta = builders.build_target_assigner(cfg.TARGET_ASSIGNER, coder)
+    n_anchors = len(builders.build_anchors(cfg, vg))
+    check(n_anchors == 321408 and ta.num_anchors_per_location == 6,
+          f"{n_anchors} anchors, {ta.num_anchors_per_location} a location")
+    print(f"[19 3-class detection] KITTI tree (8 train, 4 val frames, 3 "
+          f"objects of each class a frame) and its three create_data steps "
+          f"in {tree_s:.2f} s; the 3-class config at full width: B="
+          f"{cfg.TRAIN_INPUT_READER.BATCH_SIZE}, "
+          f"{cfg.VOXEL_GENERATOR.MAX_VOXELS} pillars, grid "
+          f"{vg.grid_size.tolist()}, {n_anchors} anchors (6 a location), "
+          f"three sample groups")
+
+    split = _prep_split(cfg, 16)
+    print("    host prep ms a training frame (16 frames, the port's numpy): "
+          f"{split['total']:.1f} in all, of which augmentation + sampler "
+          f"{split['augment + sampler']:.1f}, anchors mask "
+          f"{split['anchors mask']:.1f}, targets {split['targets']:.1f}")
+
+    counters = _counters(("fps", "ball_query", "group_gather", "samlp_eval",
+                          "group_scatter_add", "scatter_rows_add",
+                          "nms_greedy", "nms_rotate") + STREAM + RECOMPUTE
+                         + SINGLE)
+    model_dir = work / "model"
+    t0 = time.perf_counter()
+    state, losses, times, peak_gb, _ = _train_run(
+        dtrain, cfg_file, model_dir, DL_STEPS, counters, workers=4)
+    seconds = time.perf_counter() - t0
+    check(state.step == DL_STEPS and len(losses) == DL_STEPS,
+          f"{state.step} steps, {len(losses)} display lines")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    check(all(np.isfinite(losses)) and last < first,
+          f"losses not finite and falling: {losses}")
+    print(f"    train() {DL_STEPS} steps, 4 workers: loss {losses[0]:.3f} -> "
+          f"{losses[-1]:.3f} (mean of the first 5 {first:.3f}, of the last 5 "
+          f"{last:.3f}); step {statistics.median(times[1:]):.1f} ms (CUDA "
+          f"events, median of steps 2-{DL_STEPS}, the batch's making "
+          f"included; min {min(times[1:]):.1f}, max {max(times[1:]):.1f}); "
+          f"{seconds:.1f} s with set-up; peak {peak_gb:.2f} GB; kernel "
+          f"launches: none ({smi})")
+
+    # serving: the seed-0 model (exact), then the trained model
+    _, coder, ta, model, pillarize = dtrain._build(cfg, 0,
+                                                   torch.device("cuda"))
+    eval_ds = builders.build_dataset(cfg, cfg.EVAL_INPUT_READER, vg, ta,
+                                     False, log=lambda *a: None)
+    bs = int(cfg.EVAL_INPUT_READER.BATCH_SIZE)
+    batches = [dtrain.example_to_batch(dtrain.collate_batch(
+        [eval_ds[i] for i in range(s, s + bs)]))
+        for s in range(0, len(eval_ds), bs)]
+    K = int(cfg.MODEL.POST_PROCESSING.nms_pre_max_size)
+    arrays = ckpt.try_restore_latest(str(model_dir), dtrain.MODEL_NAME)
+    for tag in ("seed-0 model", "trained model"):
+        if tag == "trained model":
+            ckpt.restore_training(arrays, model)
+        thr, cands = _pick_threshold(cfg, model, pillarize, coder, batches,
+                                     K)
+        override = ("the config's" if thr == MC_THRESHOLDS[0] else
+                    f"cfg_from_list override MODEL.POST_PROCESSING."
+                    f"nms_score_threshold {thr}")
+        print(f"    {tag}, nms_score_threshold {thr} ({override}): "
+              f"candidates a frame and class (K = {K}) "
+              + "; ".join(f"batch {i}: " + ", ".join(
+                  f"{n} {c[:, j].tolist()}"
+                  for j, n in enumerate(THREE_CLASSES))
+                  for i, c in enumerate(cands)))
+        for rotate, kernel in (("True", "nms_rotate"),
+                               ("False", "nms_greedy")):
+            step_k, per_class, equal, split = _serve_check(
+                tag, cfg, model, pillarize, coder, eval_ds, batches,
+                counters, rotate, kernel, exact=tag == "seed-0 model")
+            line = (f"      {kernel} ({len(batches)} launches, one an eval "
+                    f"batch of {bs} frames x 3 classes): detections a frame "
+                    f"(Car, Pedestrian, Cyclist) {per_class}, "
+                    + (f"equal to plain's within {DET_TOL}" if equal else
+                       "not equal to plain's") )
+            if split is not None:
+                line += (f"; #20's mask against plain's: {split[0]} of the "
+                         f"bits differ, {split[1]} of them with a degenerate "
+                         f"box (a side under {DEGENERATE_SIDES[0]} m or over "
+                         f"{DEGENERATE_SIDES[1]} m: {split[2]} of the "
+                         f"{split[3]} candidates, whose sides run from "
+                         f"{split[4]:.3g} to {split[5]:.3g} m)")
+            if tag == "trained model":
+                serve_ms = cuda_ms(lambda: step_k(batches[0]))
+                device = _device_events(lambda: step_k(batches[0]), 5)[0]
+                nms_split = _named_ms(device, 5, NMS_PARTS)
+                nms_ms = sum(ms for ms, _ in nms_split.values())
+                line += (f"; serving {serve_ms:.2f} ms a batch (CUDA "
+                         f"events, median of {REPS}); NMS device ms a batch "
+                         + " + ".join(f"{part} {ms:.4f} ({n:g})"
+                                      for part, (ms, n) in nms_split.items()
+                                      if n)
+                         + f" = {nms_ms:.4f}; the batch's device ms "
+                         f"{_call_ms(device, 5):.3f}")
+            print(line)
+    cfg_from_list(cfg, ["MODEL.POST_PROCESSING.use_rotate_nms", "True",
+                        "MODEL.POST_PROCESSING.nms_score_threshold", "0.15"])
+
+    res = work / "results"
+    lines = []
+    t0 = time.perf_counter()
+    annos, result = dtrain.evaluate_checkpoint(
+        cfg_file=cfg_file, model_dir=str(model_dir), result_path=str(res),
+        log=lines.append)
+    eval_s = time.perf_counter() - t0
+    check(len(annos) == 4 and sorted(p.name for p in res.iterdir())
+          == [f"{i:06d}.txt" for i in range(8, 12)],
+          "evaluate_checkpoint: one result file a val frame")
+    check(result is not None
+          and all(f"{n} AP@" in result for n in THREE_CLASSES),
+          f"evaluate_checkpoint's mAP lacks a class:\n{result}")
+    names = sorted({n for a in annos for n in a["name"].tolist()})
+    print(f"    evaluate_checkpoint in {eval_s:.1f} s: 4 result files, "
+          f"detected classes {names}, the official result over "
+          f"{', '.join(THREE_CLASSES)}:")
+    print("      " + result.strip().replace("\n", "\n      "))
+    print(f"    phase 19 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     name, smi = phase_device()
     from papc_tpu_torch.models import init_model
@@ -4167,6 +4460,7 @@ def main() -> int:
     phase_zoo(smi)
     phase_detect_train(smi)
     phase_detect_loop(smi)
+    phase_detect_3class(smi)
     all_rows = (list(rows.values()) + list(t_rows.values()) + [scatter_row]
                 + list(det_rows.values()) + list(rc_rows.values()))
     _finish_bounds(all_rows)

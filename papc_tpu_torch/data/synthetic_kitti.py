@@ -2,7 +2,8 @@
 ``papc_tpu/data/synthetic_kitti.py``).
 
 A scene is a ground plane of uniform points and car-sized boxes filled
-with points (:func:`make_scene`). :func:`write_kitti` writes such scenes
+with points (:func:`make_scene`); a tree may add pedestrian- and
+cyclist-sized ones (``write_kitti``'s ``classes``). :func:`write_kitti` writes such scenes
 as a KITTI tree (``training/velodyne/*.bin``, ``label_2/*.txt``,
 ``calib/*.txt``, ``image_2/*.png``, the ImageSets splits), the same files
 byte for byte as the JAX package's writer but the PNGs, which it writes
@@ -84,37 +85,61 @@ def black_png(width: int, height: int) -> bytes:
             + _png_chunk(b"IEND", b""))
 
 
-def make_scene(rng, num_cars=3, n_background=2000, x_range=(8.0, 50.0),
-               y_range=(-15.0, 15.0), car_points=(80, 200)):
-    """Random lidar-frame scene → ``(points [N, 4], gt_boxes [M, 7])``."""
+# (w, l, h) of each class's objects: the 3-class config's anchor sizes
+SIZES = {"Car": (1.6, 3.9, 1.56), "Pedestrian": (0.6, 0.8, 1.73),
+         "Cyclist": (0.6, 1.76, 1.73)}
+
+
+def _place(rng, n, size, x_range, y_range):
+    """``n`` boxes ``[n, 7]`` of ``size`` (w, l, h) at uniform positions
+    and yaws, their bottoms near the ground."""
     boxes = []
-    for _ in range(num_cars):
+    for _ in range(n):
         x = rng.uniform(*x_range)
         y = rng.uniform(*y_range)
         z = rng.uniform(-1.8, -1.4)  # bottom near ground
-        w, l, h = 1.6, 3.9, 1.56
         yaw = rng.uniform(-np.pi, np.pi)
-        boxes.append([x, y, z, w, l, h, yaw])
-    gt_boxes = np.asarray(boxes, np.float32).reshape(-1, 7)
+        boxes.append([x, y, z, *size, yaw])
+    return np.asarray(boxes, np.float32).reshape(-1, 7)
 
+
+def _box_points(rng, b, n_points):
+    """Points ``[n, 4]`` uniform inside box ``b``, rotated with the
+    pipeline's yaw convention (rotation_points_single_angle's row-vector
+    form), with a reflectance."""
+    n = int(rng.randint(*n_points))
+    local = np.stack([
+        rng.uniform(-b[3] / 2 + 0.03, b[3] / 2 - 0.03, n),
+        rng.uniform(-b[4] / 2 + 0.03, b[4] / 2 - 0.03, n),
+        rng.uniform(0.05, b[5] - 0.05, n),
+    ], axis=1)
+    xyz = box_np.rotation_points_single_angle(local, b[6]) + b[:3]
+    refl = rng.uniform(0, 1, n)
+    return np.concatenate([xyz, refl[:, None]], axis=1)
+
+
+def make_objects(rng, name: str, n: int, x_range=(8.0, 50.0),
+                 y_range=(-15.0, 15.0), n_points=(80, 200)):
+    """``n`` objects of class ``name`` (a key of ``SIZES``) with points
+    inside them → ``(points [N, 4], boxes [n, 7])``."""
+    boxes = _place(rng, n, SIZES[name], x_range, y_range)
+    pts = [_box_points(rng, b, n_points) for b in boxes]
+    points = (np.concatenate(pts) if pts
+              else np.zeros((0, 4))).astype(np.float32)
+    return points, boxes
+
+
+def make_scene(rng, num_cars=3, n_background=2000, x_range=(8.0, 50.0),
+               y_range=(-15.0, 15.0), car_points=(80, 200)):
+    """Random lidar-frame scene → ``(points [N, 4], gt_boxes [M, 7])``."""
+    gt_boxes = _place(rng, num_cars, SIZES["Car"], x_range, y_range)
     pts = [np.stack([
         rng.uniform(0, 69.0, n_background),
         rng.uniform(-39.0, 39.0, n_background),
         rng.normal(-1.75, 0.03, n_background),
         rng.uniform(0, 1, n_background),
     ], axis=1)]
-    # points uniform inside each box, rotated with the pipeline's yaw
-    # convention (rotation_points_single_angle's row-vector form)
-    for b in gt_boxes:
-        n = int(rng.randint(*car_points))
-        local = np.stack([
-            rng.uniform(-b[3] / 2 + 0.03, b[3] / 2 - 0.03, n),
-            rng.uniform(-b[4] / 2 + 0.03, b[4] / 2 - 0.03, n),
-            rng.uniform(0.05, b[5] - 0.05, n),
-        ], axis=1)
-        xyz = box_np.rotation_points_single_angle(local, b[6]) + b[:3]
-        refl = rng.uniform(0, 1, n)
-        pts.append(np.concatenate([xyz, refl[:, None]], axis=1))
+    pts += [_box_points(rng, b, car_points) for b in gt_boxes]
     return np.concatenate(pts).astype(np.float32), gt_boxes
 
 
@@ -187,9 +212,16 @@ def collate_batch(examples: list) -> dict:
 
 def write_kitti(path: str, n_train: int = 8, n_val: int = 4, seed: int = 0,
                 num_cars: int = 3, x_range=(8.0, 50.0), y_range=(-15.0, 15.0),
-                car_points=(80, 200)) -> str:
+                car_points=(80, 200), classes=("Car",)) -> str:
     """Write a miniature KITTI tree of ``n_train + n_val`` scenes from
-    ``RandomState(seed)`` under ``path``; returns the root."""
+    ``RandomState(seed)`` under ``path``; returns the root. Each scene
+    holds ``num_cars`` objects of each of ``classes`` (names of
+    ``SIZES``), with ``car_points`` points inside each; the objects of a
+    class other than Car are drawn after the car scene, so the default
+    ``("Car",)`` writes the car trees of the JAX package's writer."""
+    unknown = sorted(set(classes) - set(SIZES))
+    if unknown:
+        raise ValueError(f"no object size for the classes {unknown}")
     rng = np.random.RandomState(seed)
     root = pathlib.Path(path)
     for sub in ("velodyne", "label_2", "calib", "image_2"):
@@ -202,8 +234,18 @@ def write_kitti(path: str, n_train: int = 8, n_val: int = 4, seed: int = 0,
     ids = list(range(n_train + n_val))
     for idx in ids:
         stem = f"{idx:06d}"
-        points, gt_lidar = make_scene(rng, num_cars=num_cars, x_range=x_range,
-                                      y_range=y_range, car_points=car_points)
+        points, gt_lidar = make_scene(
+            rng, num_cars=num_cars if "Car" in classes else 0,
+            x_range=x_range, y_range=y_range, car_points=car_points)
+        names = ["Car"] * len(gt_lidar)
+        for name in classes:
+            if name == "Car":
+                continue
+            pts, boxes = make_objects(rng, name, num_cars, x_range, y_range,
+                                      car_points)
+            points = np.concatenate([points, pts])
+            gt_lidar = np.concatenate([gt_lidar, boxes])
+            names += [name] * len(boxes)
         points.tofile(str(root / "training" / "velodyne" / f"{stem}.bin"))
         (root / "training" / "calib" / f"{stem}.txt").write_text(calib_text)
         (root / "training" / "image_2" / f"{stem}.png").write_bytes(png)
@@ -220,7 +262,7 @@ def write_kitti(path: str, n_train: int = 8, n_val: int = 4, seed: int = 0,
         for i in range(len(cam)):
             l_, h_, w_ = cam[i, 3], cam[i, 4], cam[i, 5]
             lines.append(kitti_result_line({
-                "name": "Car",
+                "name": names[i],
                 "truncated": 0.0,
                 "occluded": 0,
                 "alpha": 0.0,

@@ -10,7 +10,11 @@ pipeline (``kitti/``: data preparation, augmentation, the ground-truth
 database sampler, the dataset), the training loop ``train.train`` with
 its checkpoints and worker pool, ``train.evaluate`` (KITTI annos),
 ``train.evaluate_checkpoint`` with the official mAP and the CLI
-(``python -m papc_tpu_torch.detect.train``). The car config is carried
-as Python data and read and written as JSON (``config``). Not ported:
-``ROADMAP.md``, Queue 1 items 4 (``SCAN_STEPS``) and 6.2-6.4.
+(``python -m papc_tpu_torch.detect.train``). Both shipped configs, the
+car config and the 3-class one (Car, Pedestrian, Cyclist, with its
+per-class NMS ``detector.predict_multiclass`` and the host
+``nms_extra``), are carried as Python data, named on the CLI or read and
+written as JSON (``config``); the builders take range anchors, the BEV
+box coder and the GroupNorm RPN too. Not ported: ``ROADMAP.md``, Queue 1
+items 4 (``SCAN_STEPS``), 6.2 (host pillarize) and 6.4 (bf16).
 """

@@ -1,7 +1,8 @@
 """Host-side (numpy) box math (counterpart of
 ``papc_tpu/detect/box_np.py``, copied so that the port imports nothing of
-the JAX package): the anchor grid and its anchors mask, point rotation,
-what target assignment needs (corners, standup boxes, the box encodings,
+the JAX package): the anchor grids (by stride and by range) and their anchors mask, point rotation,
+what target assignment needs (corners, standup boxes, the box encodings
+and the BEV decoding,
 the axis-aligned and rotated BEV IoU), point-in-box tests, and the
 camera / lidar / image frames of the KITTI pipeline, all in numpy. The
 JAX package takes C++ fast paths (``papc_tpu.cc``) for some of these
@@ -70,6 +71,23 @@ def create_anchors_3d_stride(
     zs = np.arange(feature_size[0], dtype=dtype) * anchor_strides[2] + anchor_offsets[2]
     ys = np.arange(feature_size[1], dtype=dtype) * anchor_strides[1] + anchor_offsets[1]
     xs = np.arange(feature_size[2], dtype=dtype) * anchor_strides[0] + anchor_offsets[0]
+    return _anchor_grid(xs, ys, zs, sizes, rotations, dtype)
+
+
+def create_anchors_3d_range(
+    feature_size,
+    anchor_range,
+    sizes=(1.6, 3.9, 1.56),
+    rotations=(0, np.pi / 2),
+    dtype=np.float32,
+):
+    """Anchor grid by ``linspace`` over ``anchor_range`` [x0, y0, z0, x1,
+    y1, z1], both ends included; ``feature_size`` is [D, H, W] (zyx).
+    Returns ``[D, H, W, num_sizes, num_rots, 7]``."""
+    anchor_range = np.asarray(anchor_range, dtype)
+    zs = np.linspace(anchor_range[2], anchor_range[5], feature_size[0], dtype=dtype)
+    ys = np.linspace(anchor_range[1], anchor_range[4], feature_size[1], dtype=dtype)
+    xs = np.linspace(anchor_range[0], anchor_range[3], feature_size[2], dtype=dtype)
     return _anchor_grid(xs, ys, zs, sizes, rotations, dtype)
 
 
@@ -183,6 +201,29 @@ def bev_box_encode(boxes, anchors, encode_angle_to_vector=False,
         rty = np.sin(rg) - np.sin(ra)
         return np.concatenate([xt, yt, wt, lt, rtx, rty], axis=-1)
     return np.concatenate([xt, yt, wt, lt, rg - ra], axis=-1)
+
+
+def bev_box_decode(encodings, anchors, encode_angle_to_vector=False,
+                   smooth_dim=False):
+    """Inverse of :func:`bev_box_encode`: codes relative to ``anchors [...,
+    5]`` → (x, y, w, l, yaw)."""
+    xa, ya, wa, la, ra = np.split(anchors, 5, axis=-1)
+    if encode_angle_to_vector:
+        xt, yt, wt, lt, rtx, rty = np.split(encodings, 6, axis=-1)
+    else:
+        xt, yt, wt, lt, rt = np.split(encodings, 5, axis=-1)
+    diagonal = np.sqrt(la**2 + wa**2)
+    xg = xt * diagonal + xa
+    yg = yt * diagonal + ya
+    if smooth_dim:
+        lg, wg = (lt + 1) * la, (wt + 1) * wa
+    else:
+        lg, wg = np.exp(lt) * la, np.exp(wt) * wa
+    if encode_angle_to_vector:
+        rg = np.arctan2(rty + np.sin(ra), rtx + np.cos(ra))
+    else:
+        rg = rt + ra
+    return np.concatenate([xg, yg, wg, lg, rg], axis=-1)
 
 
 # ------------------------------------------------------------------ IoU

@@ -16,7 +16,8 @@ from collections.abc import Callable
 import numpy as np
 import torch
 
-from papc_tpu_torch.detect.anchors import AnchorGeneratorStride
+from papc_tpu_torch.detect.anchors import (AnchorGeneratorRange,
+                                           AnchorGeneratorStride)
 from papc_tpu_torch.detect.box_coder import BevBoxCoder, GroundBox3dCoder
 from papc_tpu_torch.detect.detector import LossConfig, PredictConfig
 from papc_tpu_torch.detect.kitti.augment import (DataBasePreprocessor,
@@ -61,14 +62,21 @@ def build_voxel_generator(cfg) -> VoxelGenerator:
     )
 
 
-def build_box_coder(cfg) -> GroundBox3dCoder:
+def build_box_coder(cfg) -> GroundBox3dCoder | BevBoxCoder:
     kind = cfg.BOX_CODER_TYPE
-    if kind != "ground_box3d_coder":
-        raise NotImplementedError(f"box coder {kind!r} is not ported yet")
-    return GroundBox3dCoder(
-        linear_dim=bool(cfg.get("LINEAR_DIM", False)),
-        vec_encode=bool(cfg.get("ENCODE_ANGLE_VECTOR", False)),
-    )
+    if kind == "ground_box3d_coder":
+        return GroundBox3dCoder(
+            linear_dim=bool(cfg.get("LINEAR_DIM", False)),
+            vec_encode=bool(cfg.get("ENCODE_ANGLE_VECTOR", False)),
+        )
+    if kind == "bev_box_coder":
+        return BevBoxCoder(
+            linear_dim=bool(cfg.get("LINEAR_DIM", False)),
+            vec_encode=bool(cfg.get("ENCODE_ANGLE_VECTOR", False)),
+            z_fixed=float(cfg.get("Z_FIXED", -1.0)),
+            h_fixed=float(cfg.get("H_FIXED", 2.0)),
+        )
+    raise ValueError(f"unknown box coder {kind}")
 
 
 def build_similarity_calculator(kind: str):
@@ -81,19 +89,29 @@ def build_similarity_calculator(kind: str):
     raise ValueError(f"unknown similarity {kind}")
 
 
-def build_anchor_generator(cfg) -> AnchorGeneratorStride:
-    if "anchor_generator_stride" not in cfg:
-        raise NotImplementedError("only anchor_generator_stride is ported")
-    c = cfg.anchor_generator_stride
-    return AnchorGeneratorStride(
-        sizes=list(c.sizes),
-        anchor_strides=list(c.strides),
-        anchor_offsets=list(c.offsets),
-        rotations=list(c.rotations),
-        match_threshold=float(c.matched_threshold),
-        unmatch_threshold=float(c.unmatched_threshold),
-        class_id=c.get("class_name"),
-    )
+def build_anchor_generator(cfg) -> AnchorGeneratorStride | AnchorGeneratorRange:
+    if "anchor_generator_stride" in cfg:
+        c = cfg.anchor_generator_stride
+        return AnchorGeneratorStride(
+            sizes=list(c.sizes),
+            anchor_strides=list(c.strides),
+            anchor_offsets=list(c.offsets),
+            rotations=list(c.rotations),
+            match_threshold=float(c.matched_threshold),
+            unmatch_threshold=float(c.unmatched_threshold),
+            class_id=c.get("class_name"),
+        )
+    if "anchor_generator_range" in cfg:
+        c = cfg.anchor_generator_range
+        return AnchorGeneratorRange(
+            anchor_ranges=list(c.anchor_ranges),
+            sizes=list(c.sizes),
+            rotations=list(c.rotations),
+            match_threshold=float(c.matched_threshold),
+            unmatch_threshold=float(c.unmatched_threshold),
+            class_id=c.get("class_name"),
+        )
+    raise ValueError("unknown anchor generator config")
 
 
 def build_target_assigner(cfg, box_coder) -> TargetAssigner:
@@ -112,27 +130,26 @@ def build_target_assigner(cfg, box_coder) -> TargetAssigner:
 
 
 def build_anchors(cfg, voxel_generator: VoxelGenerator) -> np.ndarray:
-    """The anchors of the RPN's output map ``[A, 7]`` f32: the one stride
-    generator over the grid halved (``out_size_factor`` 2), as the JAX
-    prep builds them (``kitti/preprocess.py``)."""
-    generators = cfg.TARGET_ASSIGNER.ANCHOR_GENERATORS
-    if len(generators) != 1:
-        raise NotImplementedError("one anchor generator (the car config)")
+    """The anchors of the RPN's output map ``[A, 7]`` f32: every generator
+    over the grid halved (``out_size_factor`` 2), location-major with the
+    generators' anchors side by side at each location, as the prep builds
+    them (``TargetAssigner.generate_anchors``)."""
+    target_assigner = build_target_assigner(
+        cfg.TARGET_ASSIGNER, build_box_coder(cfg.BOX_CODER))
     grid = voxel_generator.grid_size
     feature_map_size = [1, int(grid[1]) // 2, int(grid[0]) // 2]
-    anchors = build_anchor_generator(generators[0]).generate(feature_map_size)
+    anchors = target_assigner.generate_anchors(feature_map_size)["anchors"]
     return anchors.reshape(-1, 7)
 
 
 def build_network(cfg, voxel_generator: VoxelGenerator,
-                  anchor_generator: AnchorGeneratorStride,
-                  box_coder) -> PointPillars:
+                  target_assigner: TargetAssigner) -> PointPillars:
+    """The network of ``cfg``: its heads predict the assigner's anchors a
+    location (the sum over its generators) in its box coder's code."""
     grid = voxel_generator.grid_size  # [nx, ny, nz]
     model_cfg = cfg.MODEL
     pfe = model_cfg.PILLAR_FEATURE_EXTRACTOR
     bb = model_cfg.BACKBONE
-    if bb.get("use_groupnorm", False):
-        raise NotImplementedError("the GroupNorm RPN is not ported")
     return PointPillars(
         ny=int(grid[1]),
         nx=int(grid[0]),
@@ -147,13 +164,15 @@ def build_network(cfg, voxel_generator: VoxelGenerator,
         rpn_num_filters=tuple(bb.num_filters),
         rpn_upsample_strides=tuple(bb.upsample_strides),
         rpn_num_upsample_filters=tuple(bb.num_upsample_filters),
-        num_anchor_per_loc=anchor_generator.num_anchors_per_localization,
+        num_anchor_per_loc=target_assigner.num_anchors_per_location,
         encode_background_as_zeros=bool(
             bb.get("encode_background_as_zeros", True)),
         use_direction_classifier=bool(
             bb.get("use_direction_classifier", True)),
         use_norm=bool(bb.get("use_norm", True)),
-        box_code_size=box_coder.code_size,
+        use_groupnorm=bool(bb.get("use_groupnorm", False)),
+        num_groups=int(bb.get("num_groups", 32)),
+        box_code_size=target_assigner.box_coder.code_size,
     )
 
 

@@ -1,11 +1,14 @@
-"""The detection config as Python data and JSON (counterpart of
-``papc_tpu/detect/config.py`` and ``configs/pointpillars_kitti_car.yaml``).
+"""The detection configs as Python data and JSON (counterpart of
+``papc_tpu/detect/config.py`` and ``configs/pointpillars_kitti_car.yaml``,
+``configs/pointpillars_kitti_3class.yaml``).
 
-The machine with the card has no PyYAML, so the port carries the car
-config's every key with the YAML file's values (:func:`car_config`),
-writes a run's config (``pipeline.config``) as JSON (:func:`save_config`)
-and reads a config file as JSON (:func:`cfg_from_file`), refusing a
-``.yaml`` path. The ``Config`` class and :func:`cfg_from_list` behave as
+The machine with the card has no PyYAML, so the port carries both
+shipped configs' every key with the YAML files' values
+(:func:`car_config`, :func:`kitti_3class_config`), writes a run's config
+(``pipeline.config``) as JSON (:func:`save_config`) and reads a config
+by its name (``CONFIGS``: ``pointpillars_kitti_car``,
+``pointpillars_kitti_3class``) or from a JSON file
+(:func:`cfg_from_file`), refusing a ``.yaml`` path. The ``Config`` class and :func:`cfg_from_list` behave as
 the JAX package's: attribute access, and dotted overrides checked
 against the existing value's type.
 """
@@ -182,9 +185,56 @@ _CAR = {
 }
 
 
+
+def _three_class() -> dict:
+    """pointpillars_kitti_3class.yaml, every key: the car config with a
+    Pedestrian and a Cyclist anchor generator after the car's, three
+    classes in every reader, per-class NMS, and a sample group and a
+    point-count filter for each new class."""
+    cfg = copy.deepcopy(_CAR)
+    names = ["Car", "Pedestrian", "Cyclist"]
+    cfg["CLASS_NAMES"] = list(names)
+    for name, length in (("Pedestrian", 0.8), ("Cyclist", 1.76)):
+        cfg["TARGET_ASSIGNER"]["ANCHOR_GENERATORS"].append({
+            "anchor_generator_stride": {
+                "sizes": [0.6, length, 1.73],
+                "strides": [0.32, 0.32, 0.0],
+                "offsets": [0.16, -39.52, -1.465],
+                "rotations": [0, 1.57],
+                "matched_threshold": 0.5,
+                "unmatched_threshold": 0.35,
+                "class_name": name,
+            },
+        })
+    cfg["MODEL"]["NUM_CLASS"] = 3
+    cfg["MODEL"]["POST_PROCESSING"]["multiclass_nms"] = True
+    for reader in ("TRAIN_INPUT_READER", "EVAL_INPUT_READER"):
+        cfg[reader]["CLASS_NAMES"] = list(names)
+    sampler = cfg["TRAIN_INPUT_READER"]["DATABASE_SAMPLER"]
+    sampler["sample_groups"] += [{"name_to_max_num": {"Pedestrian": 8}},
+                                 {"name_to_max_num": {"Cyclist": 8}}]
+    sampler["database_prep_steps"]["filter_by_min_num_points"][
+        "min_num_point_pairs"] = {"Car": 5, "Pedestrian": 5, "Cyclist": 5}
+    return cfg
+
+
+_THREE_CLASS = _three_class()
+
+
 def car_config() -> Config:
     """A fresh copy of the PointPillars KITTI car config."""
     return Config.wrap(copy.deepcopy(_CAR))
+
+
+def kitti_3class_config() -> Config:
+    """A fresh copy of the PointPillars KITTI 3-class config (Car,
+    Pedestrian, Cyclist)."""
+    return Config.wrap(copy.deepcopy(_THREE_CLASS))
+
+
+# the shipped configs by name, as ``cfg_from_file`` and the CLI take them
+CONFIGS = {"pointpillars_kitti_car": car_config,
+           "pointpillars_kitti_3class": kitti_3class_config}
 
 
 def cfg_from_list(cfg: dict, cfg_list: list) -> None:
@@ -223,16 +273,20 @@ def save_config(cfg: dict, path: str) -> None:
 
 
 def cfg_from_file(cfg_file: str | None) -> Config:
-    """The config of a JSON file (``save_config``'s format), or the car
-    config when ``cfg_file`` is None. A YAML file raises: the port reads
-    no YAML (the card's machine has no PyYAML); write the config as JSON
-    (``save_config``) instead."""
+    """A shipped config by its name (a key of ``CONFIGS``), the config of
+    a JSON file (``save_config``'s format), or the car config when
+    ``cfg_file`` is None. A YAML file raises: the port reads no YAML (the
+    card's machine has no PyYAML); name a shipped config or write the
+    config as JSON (``save_config``) instead."""
     if cfg_file is None:
         return car_config()
+    if str(cfg_file) in CONFIGS:
+        return CONFIGS[str(cfg_file)]()
     if str(cfg_file).lower().endswith((".yaml", ".yml")):
         raise ValueError(
             f"{cfg_file}: the port reads configs as JSON, not YAML (the "
-            "card's machine has no PyYAML); convert it, e.g. with "
+            "card's machine has no PyYAML); name a shipped config "
+            f"({', '.join(CONFIGS)}) or convert it, e.g. with "
             "save_config(cfg, path) from a loaded config")
     with open(cfg_file) as f:
         return Config.wrap(json.load(f))

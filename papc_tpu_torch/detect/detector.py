@@ -8,7 +8,10 @@ The loss half (``prepare_loss_weights``, ``add_sin_difference``,
 same arithmetic in a ``[B, C, A]`` layout for TPU tiling, which the port
 does not carry. The post-processing (``PredictConfig``, ``decode_raw``,
 ``apply_direction_flip``, ``predict``) is batched over the frames where
-JAX ``vmap``s.
+JAX ``vmap``s. ``predict_multiclass`` is the per-class NMS of the
+3-class config: JAX runs it on the host in C++ frame by frame and class
+by class; the port runs it on the device, one NMS launch over every
+frame and class of a batch.
 
 Ties: with untrained weights, empty BEV cells give exactly equal scores
 over large regions. ``jax.lax.top_k`` returns tied entries lower index
@@ -301,4 +304,77 @@ def predict(preds: dict, anchors: torch.Tensor, decode_fn: Callable,
     if cfg.use_direction_classifier:
         out["box3d_lidar"] = apply_direction_flip(out_boxes,
                                                   _compact(d, slot, P))
+    return out
+
+
+def multiclass_candidates(boxes: torch.Tensor, total_scores: torch.Tensor,
+                          dir_labels: torch.Tensor, cfg: PredictConfig,
+                          anchors_mask: torch.Tensor | None = None):
+    """The per-class NMS input of ``predict_multiclass``: for each frame
+    and class, the anchors whose class score (0 outside ``anchors_mask``)
+    is at least ``nms_score_threshold`` (all of them at a threshold of 0
+    or below), score-sorted, the first ``K = min(nms_pre_max_size, A)``
+    → ``(boxes [B, C, K, 7], scores [B, C, K], dir_labels [B, C, K], ok
+    [B, C, K])``; ``ok`` marks the candidates, the rest pad."""
+    B, A, C = total_scores.shape
+    scores = total_scores
+    if anchors_mask is not None:
+        scores = torch.where(anchors_mask[..., None], scores, 0.0)
+    scores = scores.transpose(1, 2)  # [B, C, A]
+    thr = cfg.nms_score_threshold
+    passed = (scores >= thr if thr > 0.0
+              else torch.ones_like(scores, dtype=torch.bool))
+    K = min(cfg.nms_pre_max_size, A)
+    keyed = torch.where(passed, scores, -math.inf)
+    top_s, top_idx = torch.sort(keyed, dim=-1, descending=True, stable=True)
+    top_s, top_idx = top_s[..., :K], top_idx[..., :K]
+    ok = top_s > -math.inf
+    flat = top_idx.reshape(B, C * K)
+    b = torch.gather(boxes, 1, flat[..., None].expand(B, C * K,
+                                                      boxes.shape[-1]))
+    d = torch.gather(dir_labels, 1, flat)
+    return (b.reshape(B, C, K, -1), torch.where(ok, top_s, 0.0),
+            d.reshape(B, C, K), ok)
+
+
+def predict_multiclass(boxes: torch.Tensor, total_scores: torch.Tensor,
+                       dir_labels: torch.Tensor, cfg: PredictConfig,
+                       anchors_mask: torch.Tensor | None = None, *,
+                       impl: str | None = None) -> dict:
+    """Per-class NMS over the shared decoded boxes (``decode_raw``'s
+    ``boxes [B, A, 7]``, ``total_scores [B, A, C]``, ``dir_labels [B,
+    A]``) → the fixed-size detections of :func:`predict`.
+
+    The candidates of each frame and class (``multiclass_candidates``)
+    go through one ``nms_keep`` over ``[B·C, K]`` rows: one launch of the
+    rotated NMS (or, with ``use_rotate_nms`` false, of the standup sweep
+    over the boxes' axis-aligned hulls) for the whole batch. A class keeps
+    its first ``nms_post_max_size`` survivors; each frame's classes are
+    concatenated in class order and cut to ``nms_post_max_size`` (a class
+    may fill every slot), the direction flip applied, as JAX's
+    ``predict_multiclass``. ``label_preds`` is the class index."""
+    B, A, C = total_scores.shape
+    b, s, d, ok = multiclass_candidates(boxes, total_scores, dir_labels, cfg,
+                                        anchors_mask)
+    K = b.shape[2]
+    keep = nms_keep(b.reshape(B * C, K, -1), ok.reshape(B * C, K), cfg,
+                    impl=impl).reshape(B, C, K)
+    P = cfg.nms_post_max_size
+    rank = torch.cumsum(keep, dim=-1) - 1
+    chosen = keep & (rank < P)
+    n = chosen.sum(-1)  # [B, C]
+    slot = (torch.cumsum(n, dim=-1) - n)[..., None] + rank
+    slot = torch.where(chosen & (slot < P), slot, P).reshape(B, C * K)
+    labels = torch.arange(C, device=boxes.device)[None, :, None].expand(
+        B, C, K)
+    out_boxes = _compact(b.reshape(B, C * K, -1), slot, P)
+    out = {
+        "box3d_lidar": out_boxes,
+        "scores": _compact(s.reshape(B, C * K), slot, P),
+        "label_preds": _compact(labels.reshape(B, C * K), slot, P),
+        "valid": _compact(chosen.reshape(B, C * K), slot, P),
+    }
+    if cfg.use_direction_classifier:
+        out["box3d_lidar"] = apply_direction_flip(
+            out_boxes, _compact(d.reshape(B, C * K), slot, P))
     return out

@@ -9,8 +9,8 @@ then per stage a ConvTranspose, BatchNorm and ReLU, the concat, and one
 and keep the same parameter tree, so the same weights serve both.
 
 Module names follow the flax tree (``pfn.PFNLayer_0.Dense_0``,
-``rpn._ConvBlock_0.Conv_0``, ``rpn.ConvTranspose_0``, ``rpn.BatchNorm_0``,
-``rpn.Conv_0`` ...), so :mod:`papc_tpu_torch.convert` maps each flax leaf
+``rpn._ConvBlock_0.Conv_0``, ``rpn.ConvTranspose_0``, ``rpn.BatchNorm_0``
+or, with ``use_groupnorm``, ``rpn.GroupNorm_0``, ``rpn.Conv_0`` ...), so :mod:`papc_tpu_torch.convert` maps each flax leaf
 onto one tensor. The public layout is channel-last, as in JAX; the
 convolutions run in PyTorch's NCHW. ``train()`` / ``eval()`` select the
 mode, as flax's ``train`` argument does. Every BatchNorm has the
@@ -43,6 +43,35 @@ PFN_BN_MOMENTUM = 0.01
 
 def _norm(features: int) -> BatchNorm:
     return BatchNorm(features, eps=PFN_BN_EPS, momentum=PFN_BN_MOMENTUM)
+
+
+class _RPNNorm:
+    """The RPN's normalization after each convolution, as the JAX RPN's
+    ``bn``: flax's GroupNorm with ``use_groupnorm`` (``min(num_groups,
+    C)`` groups and flax's epsilon 1e-3, where ``nn.GroupNorm`` defaults
+    to 1e-5), else BatchNorm with ``use_norm``, else none. Modules carry
+    the flax names ``GroupNorm_i`` / ``BatchNorm_i``."""
+
+    def __init__(self, use_norm: bool, use_groupnorm: bool, num_groups: int):
+        self.kind = ("GroupNorm" if use_groupnorm
+                     else "BatchNorm" if use_norm else None)
+        self.num_groups = num_groups
+
+    def add(self, owner: nn.Module, i: int, features: int) -> None:
+        if self.kind == "GroupNorm":
+            owner.add_module(f"GroupNorm_{i}", nn.GroupNorm(
+                min(self.num_groups, features), features, eps=PFN_BN_EPS))
+        elif self.kind == "BatchNorm":
+            owner.add_module(f"BatchNorm_{i}", _norm(features))
+
+    def __call__(self, owner: nn.Module, i: int,
+                 x: torch.Tensor) -> torch.Tensor:
+        """``owner``'s i-th norm of NCHW ``x``."""
+        if self.kind == "GroupNorm":
+            return getattr(owner, f"GroupNorm_{i}")(x)
+        if self.kind == "BatchNorm":
+            return getattr(owner, f"BatchNorm_{i}")(x, dim=1)
+        return x
 
 
 def _conv(module: nn.Module, x: torch.Tensor, op) -> torch.Tensor:
@@ -149,29 +178,28 @@ class PointPillarsScatter(nn.Module):
 
 class _ConvBlock(nn.Module):
     """A stride-s 3×3 conv and ``n_layers`` SAME 3×3 convs, each
-    Conv (no bias with a norm) → BN → ReLU, on NCHW maps."""
+    Conv (no bias with ``use_norm``) → norm (``_RPNNorm``) → ReLU, on NCHW
+    maps."""
 
     def __init__(self, in_channels: int, filters: int, n_layers: int,
-                 stride: int, use_norm: bool = True):
+                 stride: int, use_norm: bool = True,
+                 use_groupnorm: bool = False, num_groups: int = 32):
         super().__init__()
         self.n_layers = n_layers
-        self.use_norm = use_norm
+        self.norm = _RPNNorm(use_norm, use_groupnorm, num_groups)
         for i in range(n_layers + 1):
             cin = in_channels if i == 0 else filters
             self.add_module(f"Conv_{i}", nn.Conv2d(
                 cin, filters, 3, stride=stride if i == 0 else 1, padding=1,
                 bias=not use_norm))
-            if use_norm:
-                self.add_module(f"BatchNorm_{i}", _norm(filters))
+            self.norm.add(self, i, filters)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.n_layers + 1):
             layer = getattr(self, f"Conv_{i}")
             x = _conv(layer, x, lambda h, w, c=layer: F.conv2d(
                 h, w, None, c.stride, c.padding))
-            if self.use_norm:
-                x = getattr(self, f"BatchNorm_{i}")(x, dim=1)
-            x = torch.relu(x)
+            x = torch.relu(self.norm(self, i, x))
         return x
 
 
@@ -190,20 +218,20 @@ class RPN(nn.Module):
                  num_anchor_per_loc: int = 2,
                  encode_background_as_zeros: bool = True,
                  use_direction_classifier: bool = True,
-                 use_norm: bool = True, box_code_size: int = 7):
+                 use_norm: bool = True, use_groupnorm: bool = False,
+                 num_groups: int = 32, box_code_size: int = 7):
         super().__init__()
-        self.use_norm = use_norm
+        self.norm = _RPNNorm(use_norm, use_groupnorm, num_groups)
         self.use_direction_classifier = use_direction_classifier
         cin = in_channels
         for i in range(3):
             self.add_module(f"_ConvBlock_{i}", _ConvBlock(
                 cin, num_filters[i], layer_nums[i], layer_strides[i],
-                use_norm))
+                use_norm, use_groupnorm, num_groups))
             s, f_up = upsample_strides[i], num_upsample_filters[i]
             self.add_module(f"ConvTranspose_{i}", nn.ConvTranspose2d(
                 num_filters[i], f_up, s, stride=s, bias=not use_norm))
-            if use_norm:
-                self.add_module(f"BatchNorm_{i}", _norm(f_up))
+            self.norm.add(self, i, f_up)
             cin = num_filters[i]
         num_cls = num_anchor_per_loc * (
             num_class if encode_background_as_zeros else num_class + 1)
@@ -223,9 +251,7 @@ class RPN(nn.Module):
             deconv = getattr(self, f"ConvTranspose_{i}")
             up = _conv(deconv, x, lambda h, w, c=deconv: F.conv_transpose2d(
                 h, w, None, c.stride))
-            if self.use_norm:
-                up = getattr(self, f"BatchNorm_{i}")(up, dim=1)
-            ups.append(torch.relu(up))
+            ups.append(torch.relu(self.norm(self, i, up)))
         x = torch.cat(ups, dim=1).permute(0, 2, 3, 1)  # [B, H, W, 384]
         heads = [self.Conv_0, self.Conv_1]
         if self.use_direction_classifier:
@@ -260,7 +286,8 @@ class PointPillars(nn.Module):
                  num_anchor_per_loc: int = 2,
                  encode_background_as_zeros: bool = True,
                  use_direction_classifier: bool = True,
-                 use_norm: bool = True, box_code_size: int = 7):
+                 use_norm: bool = True, use_groupnorm: bool = False,
+                 num_groups: int = 32, box_code_size: int = 7):
         super().__init__()
         self.pfn = PillarFeatureNet(num_input_features, pfn_num_filters,
                                     voxel_size, pc_range, with_distance,
@@ -270,7 +297,8 @@ class PointPillars(nn.Module):
                        rpn_layer_strides, rpn_num_filters,
                        rpn_upsample_strides, rpn_num_upsample_filters,
                        num_anchor_per_loc, encode_background_as_zeros,
-                       use_direction_classifier, use_norm, box_code_size)
+                       use_direction_classifier, use_norm, use_groupnorm,
+                       num_groups, box_code_size)
 
     def forward(self, voxels: torch.Tensor, num_points: torch.Tensor,
                 coords: torch.Tensor) -> dict:

@@ -6,8 +6,10 @@ the device → PillarFeatureNet → BEV scatter → RPN in training mode →
 ``compute_loss`` → backward → one optimizer step at the scheduled rate →
 running accuracy and precision / recall (``make_detection_train_step``).
 Serving: raw frames → voxelize → the network in eval mode → decode →
-top K → NMS kernel → fixed-size detections (``make_predict_step``). No
-kernel of the port runs in either step but the NMS.
+top K → NMS kernel → fixed-size detections (``make_predict_step``); with
+``multiclass_nms`` (the 3-class config) the top K of each class and one
+NMS launch over every frame and class of the batch. No kernel of the
+port runs in either step but the NMS.
 
 :func:`train` is the KITTI loop over ``builders.build_dataset``: it
 writes ``pipeline.config`` (JSON), resumes from the model directory's
@@ -25,10 +27,11 @@ into ``log.txt``, saves by time, evaluates with the official mAP every
         EVAL_INPUT_READER.KITTI_ROOT_PATH ROOT
     python -m papc_tpu_torch.detect.train evaluate --model_dir D --set ...
 
-(``--cfg_file`` takes a JSON config such as a run's ``pipeline.config``;
-``--device cpu`` runs on the host.) Not ported: ``SCAN_STEPS > 1``
-(ROADMAP.md, Queue 1 item 4), the host-pillarize and flat-PFN inputs
-(item 6.2), multi-class NMS (item 6.3) and bf16 (item 6.4).
+(``--cfg_file`` takes a shipped config's name, ``pointpillars_kitti_car``
+or ``pointpillars_kitti_3class``, or a JSON config such as a run's
+``pipeline.config``; ``--device cpu`` runs on the host.) Not ported:
+``SCAN_STEPS > 1`` (ROADMAP.md, Queue 1 item 4), the host-pillarize and
+flat-PFN inputs (item 6.2) and bf16 (item 6.4).
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ import torch
 from papc_tpu_torch.detect import box_np, builders
 from papc_tpu_torch.detect.config import (cfg_from_file, cfg_from_list,
                                           save_config)
-from papc_tpu_torch.detect.detector import compute_loss, predict
+from papc_tpu_torch.detect.detector import (compute_loss, decode_raw,
+                                            predict, predict_multiclass)
 from papc_tpu_torch.detect.kitti import common as kitti
 from papc_tpu_torch.detect.kitti.preprocess import collate_batch
 from papc_tpu_torch.nn.layers import init_params
@@ -179,8 +183,11 @@ def make_predict_step(model: torch.nn.Module, predict_cfg, box_coder,
 
     ``batch`` holds numpy arrays or tensors: ``points``, ``points_mask``
     (for ``pillarize``), ``anchors [B, A, 7]`` and optionally
-    ``anchors_mask``. The host-pillarize and flat-PFN inputs are not
-    ported yet (ROADMAP.md, Queue 1 item 6.2). Each call puts the model
+    ``anchors_mask``. With ``predict_cfg.multiclass_nms`` the detections
+    come from ``detector.predict_multiclass`` (per class, one NMS launch a
+    batch), else from ``detector.predict``. The host-pillarize and
+    flat-PFN inputs are not ported yet (ROADMAP.md, Queue 1 item 6.2).
+    Each call puts the model
     in eval mode (a train step between calls puts it back in train
     mode), so BatchNorm reads its running statistics and leaves them
     as they are. It runs under :func:`torch.inference_mode`, its convolutions in
@@ -192,10 +199,6 @@ def make_predict_step(model: torch.nn.Module, predict_cfg, box_coder,
         raise NotImplementedError(
             f"precision {precision!r}: bf16 serving is not ported yet "
             "(ROADMAP.md, Queue 1 item 6.4)")
-    if predict_cfg.multiclass_nms:
-        raise NotImplementedError(
-            "multiclass_nms (predict_multiclass and its host C++ NMS) is "
-            "not ported yet (ROADMAP.md, Queue 1 item 6.3)")
     device = torch.device(device)
     model = model.to(device).eval()
 
@@ -205,6 +208,11 @@ def make_predict_step(model: torch.nn.Module, predict_cfg, box_coder,
         with torch.inference_mode(), torch.backends.cudnn.flags(
                 enabled=True, allow_tf32=False):
             preds = model(*pillarize(batch))
+            if predict_cfg.multiclass_nms:
+                return predict_multiclass(
+                    *decode_raw(preds, batch["anchors"], box_coder.decode,
+                                predict_cfg), predict_cfg,
+                    anchors_mask=batch.get("anchors_mask"), impl=impl)
             return predict(preds, batch["anchors"], box_coder.decode,
                            predict_cfg, anchors_mask=batch.get("anchors_mask"),
                            impl=impl)
@@ -374,12 +382,7 @@ def _build(cfg, seed: int, device: torch.device):
     box_coder = builders.build_box_coder(cfg.BOX_CODER)
     target_assigner = builders.build_target_assigner(cfg.TARGET_ASSIGNER,
                                                      box_coder)
-    generators = cfg.TARGET_ASSIGNER.ANCHOR_GENERATORS
-    if len(generators) != 1:
-        raise NotImplementedError(
-            "one anchor generator (ROADMAP.md, Queue 1 item 6.3)")
-    model = builders.build_network(
-        cfg, vg, builders.build_anchor_generator(generators[0]), box_coder)
+    model = builders.build_network(cfg, vg, target_assigner)
     init_params(model, torch.Generator().manual_seed(seed))
     model = model.to(device)
     pillarize = make_pillarizer(vg, int(cfg.VOXEL_GENERATOR.MAX_VOXELS))
@@ -409,8 +412,8 @@ def train(cfg_file: str | None = None, model_dir: str = "./ppmodel",
           eval_on_finish: bool = True, seed: int = 0,
           log: Callable[[str], None] = print,
           device: str | torch.device = "cuda"):
-    """Train PointPillars on KITTI from a config (``cfg_file``, JSON, or
-    the car config) with dotted ``cfg_overrides``; returns ``(state,
+    """Train PointPillars on KITTI from a config (``cfg_file``: a shipped
+    config's name, a JSON file, or None for the car config) with dotted ``cfg_overrides``; returns ``(state,
     annos)``: the :class:`DetectionState` and, with ``eval_on_finish``,
     the eval set's KITTI annos (else None).
 
@@ -608,8 +611,10 @@ def main(argv=None) -> int:
     parser.add_argument("command", choices=["train", "evaluate"], nargs="?",
                         default="train")
     parser.add_argument("--cfg_file", default=None,
-                        help="a JSON config (e.g. a run's pipeline.config); "
-                        "default: the KITTI car config")
+                        help="a shipped config's name (pointpillars_kitti_car"
+                        ", pointpillars_kitti_3class) or a JSON config (e.g. "
+                        "a run's pipeline.config); default: the KITTI car "
+                        "config")
     parser.add_argument("--model_dir", default="./ppmodel")
     parser.add_argument("--result_path", default=None)
     parser.add_argument("--max_steps", type=int, default=None)

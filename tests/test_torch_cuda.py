@@ -1807,8 +1807,8 @@ def test_reduced_detection_slice_on_the_card(device):
     gen.strides, gen.offsets = [2.16, 2.48, 0.0], [1.08, -38.44, -1.78]
     vg = builders.build_voxel_generator(cfg.VOXEL_GENERATOR)
     coder = builders.build_box_coder(cfg.BOX_CODER)
-    model = builders.build_network(cfg, vg, builders.build_anchor_generator(
-        cfg.TARGET_ASSIGNER.ANCHOR_GENERATORS[0]), coder)
+    model = builders.build_network(cfg, vg, builders.build_target_assigner(
+        cfg.TARGET_ASSIGNER, coder))
     init_params(model, torch.Generator().manual_seed(0))
     anchors = builders.build_anchors(cfg, vg)
     frames = SyntheticFrames(2, anchors, max_points=8000, seed=1,
@@ -1827,3 +1827,52 @@ def test_reduced_detection_slice_on_the_card(device):
         for k in got:
             torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
         assert bool(got["valid"].any())
+
+
+@pytest.mark.parametrize("rotate", [True, False])
+def test_predict_multiclass_kernels_match_plain(device, rotate):
+    """The 3-class config's per-class NMS, batched: B=2 frames x 3
+    classes, each class's candidates (score at least 0.15, the first
+    K = 1000) in one launch of #20 (rotated) or #19 (standup) for the
+    whole batch; the detections equal the plain run's on the same card
+    exactly (the kernels' masks part from plain only at a pair within
+    ulps of the threshold). Every class has candidates, and one fills
+    K."""
+    from papc_tpu_torch.detect import detector
+
+    rs = np.random.RandomState(4)
+    B, A, C = 2, 20000, 3
+    boxes = np.concatenate([
+        rs.uniform(0, 20, (B, A, 1)), rs.uniform(-10, 10, (B, A, 1)),
+        np.full((B, A, 1), -1.6), rs.uniform(0.5, 2.0, (B, A, 1)),
+        rs.uniform(0.8, 4.5, (B, A, 1)), rs.uniform(1.4, 1.8, (B, A, 1)),
+        rs.uniform(-np.pi, np.pi, (B, A, 1))], -1).astype(np.float32)
+    scores = np.empty((B, A, C), np.float32)
+    for b in range(B):
+        for c, top in enumerate((1.0, 0.2, 0.152)):
+            scores[b, :, c] = (rs.permutation(A) + 0.5) / A * top
+    dirs = rs.randint(0, 2, (B, A))
+    mask = rs.rand(B, A) > 0.1
+    cfg = detector.PredictConfig(num_class=C, multiclass_nms=True,
+                                 use_rotate_nms=rotate,
+                                 nms_pre_max_size=1000,
+                                 nms_post_max_size=3000,
+                                 nms_score_threshold=0.15,
+                                 nms_iou_threshold=0.5)
+    args = [torch.from_numpy(a).to(device) for a in (boxes, scores, dirs,
+                                                     mask)]
+    *_, ok = detector.multiclass_candidates(*args[:3], cfg,
+                                            anchors_mask=args[3])
+    per_class = ok.sum(-1)
+    assert bool((per_class > 0).all()) and int(per_class.max()) == 1000
+    assert int(per_class.min()) < 1000
+    kernel = nms.ROTATE if rotate else nms.GREEDY
+    before = kernel.launches
+    got = detector.predict_multiclass(*args[:3], cfg, anchors_mask=args[3])
+    assert kernel.launches == before + 1
+    want = detector.predict_multiclass(*args[:3], cfg, anchors_mask=args[3],
+                                       impl="plain")
+    for k in got:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+    labels = got["label_preds"][got["valid"]]
+    assert set(labels.tolist()) == {0, 1, 2}

@@ -558,8 +558,7 @@ def test_serving_slice_matches_jax_predict_step(rotate):
     vg = builders.build_voxel_generator(cfg.VOXEL_GENERATOR)
     coder = builders.build_box_coder(cfg.BOX_CODER)
     model = builders.build_network(
-        cfg, vg, builders.build_anchor_generator(
-            cfg.TARGET_ASSIGNER.ANCHOR_GENERATORS[0]), coder)
+        cfg, vg, builders.build_target_assigner(cfg.TARGET_ASSIGNER, coder))
     anchors = builders.build_anchors(cfg, vg)
     assert vg.grid_size.tolist() == [32, 32, 1] and anchors.shape == (512, 7)
 
@@ -626,7 +625,7 @@ def test_serving_options_not_ported_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.*6.4"):
         make_detection_train_step(model, builders.build_loss_config(
             cfg, coder), None, None, None, "cpu", precision="bf16")
+    # per-class NMS is ported: a multiclass_nms config builds its step
     cfg_from_list(cfg, ["MODEL.POST_PROCESSING.multiclass_nms", "True"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_predict_step(model, builders.build_predict_config(cfg, coder),
-                          coder, None, "cpu")
+    assert callable(make_predict_step(
+        model, builders.build_predict_config(cfg, coder), coder, None, "cpu"))

@@ -543,8 +543,8 @@ def _port_run(det, dtype):
     cfg = det["cfg"]
     vg = builders.build_voxel_generator(cfg.VOXEL_GENERATOR)
     coder = builders.build_box_coder(cfg.BOX_CODER)
-    model = builders.build_network(cfg, vg, builders.build_anchor_generator(
-        cfg.TARGET_ASSIGNER.ANCHOR_GENERATORS[0]), coder)
+    model = builders.build_network(cfg, vg, builders.build_target_assigner(
+        cfg.TARGET_ASSIGNER, coder))
     convert.load_flax_weights(model, jax.tree_util.tree_map(
         np.asarray, det["variables"]))
     model = model.to(dtype)
