@@ -16,7 +16,8 @@ the KITTI prep's device-pillarize examples do, so a batch feeds
 ``detect.train.make_predict_step`` directly. Given a target assigner it
 also carries each frame's training targets, as the target block of the
 prep (``detect/kitti/preprocess.py``) makes them with no anchors mask, so
-a batch feeds ``make_detection_train_step``.
+a batch feeds ``make_detection_train_step``. :func:`host_pillarize`
+turns such an example into the host prep's pillars (flat or padded).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ import numpy as np
 
 from papc_tpu_torch.detect import box_np
 from papc_tpu_torch.detect.kitti.common import kitti_result_line
+from papc_tpu_torch.detect.kitti.preprocess import host_pillars
 
 IMG_H, IMG_W = 375, 1242
 
@@ -203,6 +205,20 @@ class SyntheticFrames:
 
     def __getitem__(self, i: int) -> dict:
         return {**self.frames[i], "anchors": self.anchors}
+
+
+def host_pillarize(example: dict, voxel_generator, max_voxels: int,
+                   flat: bool = True) -> dict:
+    """A raw-cloud example (``points``, ``points_mask``) with the host's
+    pillars in place of its cloud, as the KITTI prep's host branch emits
+    them (``detect.kitti.preprocess.host_pillars``): the flat view of at
+    most ``len(points)`` points with ``flat``, else the padded grid."""
+    out = {k: v for k, v in example.items()
+           if k not in ("points", "points_mask")}
+    points = example["points"]
+    out.update(host_pillars(points[example["points_mask"]], voxel_generator,
+                            max_voxels, len(points) if flat else None)[0])
+    return out
 
 
 def collate_batch(examples: list) -> dict:

@@ -1,6 +1,6 @@
 """PointPillars detection (counterpart of ``papc_tpu/detect/``).
 
-Ported: the serving path from raw lidar points to rotated-NMS detections
+Ported: the serving path from lidar points to rotated-NMS detections
 (``train.make_predict_step``, ``train.predict_frames``), the training
 step (``train.make_detection_train_step``: the network in training mode,
 the focal and smooth-L1 loss of ``detector.compute_loss``, the
@@ -15,6 +15,10 @@ car config and the 3-class one (Car, Pedestrian, Cyclist, with its
 per-class NMS ``detector.predict_multiclass`` and the host
 ``nms_extra``), are carried as Python data, named on the CLI or read and
 written as JSON (``config``); the builders take range anchors, the BEV
-box coder and the GroupNorm RPN too. Not ported: ``ROADMAP.md``, Queue 1
-items 4 (``SCAN_STEPS``), 6.2 (host pillarize) and 6.4 (bf16).
+box coder and the GroupNorm RPN too. The pillars come from the device
+voxelizer or from the host's (``voxelize_np``: ``MODEL.DEVICE_PILLARIZE``
+false), into the padded grid or the flat points of the flat PFN
+(``pfn_fast``, ``MODEL.PFN_FLAT``); both steps run in f32 or bf16
+(``TRAIN_CONFIG.PRECISION``). Not ported: ``ROADMAP.md``, Queue 1 item 4
+(``SCAN_STEPS``).
 """

@@ -31,27 +31,8 @@ from papc_tpu_torch.detect.similarity import (DistanceSimilarity,
                                               NearestIouSimilarity,
                                               RotateIouSimilarity)
 from papc_tpu_torch.detect.target import TargetAssigner
+from papc_tpu_torch.detect.voxelize_np import VoxelGenerator
 from papc_tpu_torch.train.optim import RMSProp, ScheduledLR
-
-
-def compute_grid_size(voxel_size, point_cloud_range) -> np.ndarray:
-    """[nx, ny, nz] = round((range_max - range_min) / voxel_size)."""
-    voxel_size = np.asarray(voxel_size, np.float64)
-    pc_range = np.asarray(point_cloud_range, np.float64)
-    return np.round((pc_range[3:] - pc_range[:3]) / voxel_size).astype(np.int64)
-
-
-class VoxelGenerator:
-    """The voxel grid of the config (counterpart of
-    ``papc_tpu/detect/voxelize_np.py::VoxelGenerator`` without its host
-    voxelizer: the port pillarizes on the device, up to the eval reader's
-    ``MAX_NUMBER_OF_VOXELS``)."""
-
-    def __init__(self, voxel_size, point_cloud_range, max_num_points: int):
-        self.voxel_size = np.asarray(voxel_size, np.float32)
-        self.point_cloud_range = np.asarray(point_cloud_range, np.float32)
-        self.max_num_points = max_num_points
-        self.grid_size = compute_grid_size(voxel_size, point_cloud_range)
 
 
 def build_voxel_generator(cfg) -> VoxelGenerator:
@@ -173,6 +154,7 @@ def build_network(cfg, voxel_generator: VoxelGenerator,
         use_groupnorm=bool(bb.get("use_groupnorm", False)),
         num_groups=int(bb.get("num_groups", 32)),
         box_code_size=target_assigner.box_coder.code_size,
+        max_points_per_pillar=int(voxel_generator.max_num_points),
     )
 
 
@@ -344,14 +326,19 @@ def build_dbsampler(cfg, root_path, rng=None, log=print) -> DataBaseSamplerV2:
 def build_prep_func(cfg, input_reader_cfg, voxel_generator, target_assigner,
                     training: bool, root_path: str, db_sampler=None,
                     rng=None) -> Callable:
-    """``prep_pointcloud`` bound to a reader's config values."""
+    """``prep_pointcloud`` bound to a reader's config values: with
+    ``MODEL.DEVICE_PILLARIZE`` false the host pillarizes, into the flat
+    view where ``MODEL.PFN_FLAT`` (default true) asks for the flat PFN,
+    else into the padded grid."""
     r = input_reader_cfg
+    device = bool(cfg.MODEL.get("DEVICE_PILLARIZE", False))
     return functools.partial(
         prep_pointcloud,
         root_path=root_path,
         voxel_generator=voxel_generator,
         target_assigner=target_assigner,
         db_sampler=db_sampler if training else None,
+        max_voxels=int(r.MAX_NUMBER_OF_VOXELS),
         class_names=list(r.CLASS_NAMES),
         training=training,
         shuffle_points=bool(r.get("SHUFFLE_POINTS", training)),
@@ -372,8 +359,9 @@ def build_prep_func(cfg, input_reader_cfg, voxel_generator, target_assigner,
         anchor_area_threshold=float(r.get("ANCHOR_AREA_THRESHOLD", 1)),
         remove_points_after_sample=bool(
             r.get("REMOVE_POINTS_AFTER_SAMPLE", True)),
-        device_voxelize=bool(cfg.MODEL.get("DEVICE_PILLARIZE", False)),
+        device_voxelize=device,
         max_points_per_frame=int(r.get("MAX_POINTS_PER_FRAME", 25000)),
+        emit_flat_points=bool(cfg.MODEL.get("PFN_FLAT", True)) and not device,
         rng=rng,
     )
 

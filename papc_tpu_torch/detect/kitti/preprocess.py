@@ -3,13 +3,17 @@
 
 ``prep_pointcloud``: the ground truth into the lidar frame, the database
 sampler's paste, per-object noise, the global flip, rotation, scaling and
-translation, the range filter, then the padded raw cloud with its mask
-for the device voxelizer (``ops/voxelize.py``), the anchors, the anchors
-mask from the points' BEV cells (the numpy summed-area table; JAX's C++
-``cc.anchors_area`` gives the same) and the targets. Every example has a
-static shape, so ``collate_batch`` stacks them. The host-pillarize
-branch (``MODEL.DEVICE_PILLARIZE: false``) raises: it is ROADMAP.md's
-Queue 1 item 6.2.
+translation, the range filter, then the pillars, the anchors, the
+anchors mask (the numpy summed-area table; JAX's C++
+``cc.anchors_area`` gives the same) and the targets. The pillars come
+one of three ways: pillarized on the host into the flat view of the
+flat PFN (``points_flat``, ``point_pillar``, ``num_points``,
+``coordinates``: JAX's C++ streamer, ``detect/voxelize_np.py``), into
+the padded grid of the classic PFN (``voxels`` and the same counts and
+cells), or left to the step (``device_voxelize``: the raw cloud padded
+to ``max_points_per_frame`` with its mask, pillarized on the device by
+``ops/voxelize.py``). Every example has a static shape, so
+``collate_batch`` stacks them.
 
 ``KittiDataset[idx]`` draws from ``RandomState`` seeded by ``(base_seed,
 epoch, idx)``, so a frame's augmentation does not depend on the order or
@@ -26,6 +30,9 @@ import numpy as np
 
 from papc_tpu_torch.detect import box_np
 from papc_tpu_torch.detect.kitti import augment as prep
+from papc_tpu_torch.detect.voxelize_np import (points_to_bev,
+                                               points_to_voxel,
+                                               points_to_voxel_flat)
 
 
 def drop_arrays_by_name(gt_names, used_classes):
@@ -47,12 +54,36 @@ def remove_points_in_boxes(points, boxes):
     return points[~masks.any(-1)]
 
 
+def host_pillars(points, voxel_generator, max_voxels: int, n_cap=None):
+    """The host's pillars of a cloud, first come first served →
+    ``(arrays, K)``: with ``n_cap`` the flat view of the flat PFN
+    (``points_flat [n_cap, D]``, ``point_pillar [n_cap]``; JAX's C++
+    streamer on the float32 cloud), else the padded grid (``voxels
+    [max_voxels, P, D]`` in the cloud's dtype); ``num_points``, and
+    ``coordinates`` (z, y, x) that are -1 past the ``K`` kept pillars."""
+    args = (voxel_generator.voxel_size, voxel_generator.point_cloud_range,
+            voxel_generator.max_num_points, max_voxels)
+    if n_cap is not None:
+        flat, owner, coords, num_points, k = points_to_voxel_flat(
+            points.astype(np.float32), *args, n_cap)
+        arrays = {"points_flat": flat, "point_pillar": owner}
+    else:
+        voxels, coords, num_points = points_to_voxel(points, *args,
+                                                     pad_output=True)
+        k = int((num_points > 0).sum())
+        arrays = {"voxels": voxels}
+    coords[k:] = -1  # padding rows are invalid for the BEV scatter
+    arrays.update(num_points=num_points, coordinates=coords)
+    return arrays, k
+
+
 def prep_pointcloud(
     input_dict,
     root_path,
     voxel_generator,
     target_assigner,
     db_sampler=None,
+    max_voxels=12000,
     class_names=("Car",),
     remove_outside_points=False,
     training=True,
@@ -67,6 +98,7 @@ def prep_pointcloud(
     global_rotation_noise=(-np.pi / 4, np.pi / 4),
     global_scaling_noise=(0.95, 1.05),
     global_loc_noise_std=(0.2, 0.2, 0.2),
+    generate_bev=False,
     without_reflectivity=False,
     num_point_features=4,
     anchor_area_threshold=1,
@@ -74,24 +106,26 @@ def prep_pointcloud(
     anchor_cache=None,
     out_size_factor=2,
     rng: np.random.RandomState | None = None,
-    device_voxelize: bool = True,
+    device_voxelize: bool = False,
     max_points_per_frame: int = 25000,
+    emit_flat_points: bool = False,
 ):
-    """One sample: augment → the padded raw cloud → anchors, their mask →
-    targets.
+    """One sample: augment → pillars → anchors, their mask → targets.
 
-    The example carries the raw cloud padded to ``max_points_per_frame``
-    with its mask, and the step pillarizes it on the device
-    (:func:`papc_tpu_torch.ops.voxelize.voxelize`). The anchors mask
-    comes from the points' BEV cell occupancy (the reference's
-    voxel-count table, for pillar grids, where a BEV cell holds at most
-    one voxel). ``device_voxelize=False`` (host pillarize) raises."""
-    if not device_voxelize:
-        raise NotImplementedError(
-            "host pillarize (MODEL.DEVICE_PILLARIZE false: the host "
-            "voxelizer and the flat-PFN input) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6.2); the port pillarizes on the "
-            "device")
+    By default the host pillarizes first come first served
+    (``detect/voxelize_np.py``) into at most ``max_voxels`` pillars: into
+    the flat view with ``emit_flat_points`` (the flat PFN's input: the
+    accepted points, at most ``max_points_per_frame``, grouped by pillar,
+    with each one's pillar row), else into the padded ``[max_voxels, P,
+    D]`` grid; cells past the kept pillars are -1. The anchors mask then
+    comes from the kept pillars' cells. With ``device_voxelize`` the
+    example carries the raw cloud padded to ``max_points_per_frame`` with
+    its mask instead, and the step pillarizes it on the device
+    (:func:`papc_tpu_torch.ops.voxelize.voxelize`); the anchors mask then
+    comes from every occupied cell (the reference's voxel-count table,
+    for pillar grids, where a BEV cell holds at most one voxel). With
+    ``generate_bev`` the example also carries ``points_to_bev``'s maps
+    on a grid of half the cell side and twice its height."""
     rng = rng or np.random.RandomState()
     class_names = list(class_names)
     points = input_dict["points"]
@@ -203,41 +237,50 @@ def prep_pointcloud(
     pc_range = voxel_generator.point_cloud_range
     grid_size = voxel_generator.grid_size
 
-    # the padded raw cloud; the step pillarizes it on the device
-    # (papc_tpu_torch.ops.voxelize)
-    n = min(len(points), max_points_per_frame)
-    pts = np.zeros(
-        (max_points_per_frame, points.shape[1]), np.float32
-    )
-    pts[:n] = points[:n]
-    pmask = np.zeros(max_points_per_frame, bool)
-    pmask[:n] = True
-    # cell occupancy for the anchors mask (voxel-count equivalent)
-    cell = np.floor(
-        (points[:n, :3] - pc_range[:3]) / voxel_size
-    ).astype(np.int64)
-    ok = ((cell >= 0) & (cell < grid_size[None, :])).all(axis=1)
-    cell = cell[ok]
-    lin = (
-        cell[:, 2] * grid_size[1] * grid_size[0]
-        + cell[:, 1] * grid_size[0]
-        + cell[:, 0]
-    )
-    uniq = np.unique(lin)
-    cz = uniq // (grid_size[1] * grid_size[0])
-    rem = uniq % (grid_size[1] * grid_size[0])
-    occupied_coords = np.stack(
-        [cz, rem // grid_size[0], rem % grid_size[0]], axis=1
-    ).astype(np.int32)
-    example = {
-        "points": pts,
-        "points_mask": pmask,
-        "rect": rect,
-        "Trv2c": Trv2c,
-        "P2": P2,
-    }
-    coordinates = occupied_coords
-    num_voxels = len(occupied_coords)
+    if device_voxelize:
+        # the padded raw cloud; the step pillarizes it on the device
+        # (papc_tpu_torch.ops.voxelize)
+        n = min(len(points), max_points_per_frame)
+        pts = np.zeros(
+            (max_points_per_frame, points.shape[1]), np.float32
+        )
+        pts[:n] = points[:n]
+        pmask = np.zeros(max_points_per_frame, bool)
+        pmask[:n] = True
+        # cell occupancy for the anchors mask (voxel-count equivalent)
+        cell = np.floor(
+            (points[:n, :3] - pc_range[:3]) / voxel_size
+        ).astype(np.int64)
+        ok = ((cell >= 0) & (cell < grid_size[None, :])).all(axis=1)
+        cell = cell[ok]
+        lin = (
+            cell[:, 2] * grid_size[1] * grid_size[0]
+            + cell[:, 1] * grid_size[0]
+            + cell[:, 0]
+        )
+        uniq = np.unique(lin)
+        cz = uniq // (grid_size[1] * grid_size[0])
+        rem = uniq % (grid_size[1] * grid_size[0])
+        occupied_coords = np.stack(
+            [cz, rem // grid_size[0], rem % grid_size[0]], axis=1
+        ).astype(np.int32)
+        example = {
+            "points": pts,
+            "points_mask": pmask,
+            "rect": rect,
+            "Trv2c": Trv2c,
+            "P2": P2,
+        }
+        coordinates = occupied_coords
+        num_voxels = len(occupied_coords)
+    else:
+        pillars, num_voxels = host_pillars(
+            points, voxel_generator, max_voxels,
+            max_points_per_frame if emit_flat_points else None)
+        coordinates = pillars["coordinates"]
+        example = {**pillars,
+                   "num_voxels": np.array([num_voxels], dtype=np.int64),
+                   "rect": rect, "Trv2c": Trv2c, "P2": P2}
     example["image_idx"] = np.array(
         input_dict.get("image_idx", 0), dtype=np.int64
     )
@@ -284,6 +327,13 @@ def prep_pointcloud(
         )
         anchors_mask = anchors_area > anchor_area_threshold
         example["anchors_mask"] = anchors_mask
+    if generate_bev:
+        bev_vxsize = voxel_size.copy()
+        bev_vxsize[:2] /= 2
+        bev_vxsize[2] *= 2
+        example["bev_map"] = points_to_bev(
+            points, bev_vxsize, pc_range, not without_reflectivity
+        )
     if not training:
         return example
     if create_targets:

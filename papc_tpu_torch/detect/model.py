@@ -1,12 +1,14 @@
 """PointPillars network (counterpart of ``papc_tpu/detect/model.py``).
 
 The port runs the reference form of the network: the classic
-``PillarFeatureNet`` over the padded pillar grid, the flat-row BEV
-scatter, and the ``RPN``'s classic branch (stride-2 and SAME 3×3 convs,
-then per stage a ConvTranspose, BatchNorm and ReLU, the concat, and one
-1×1 head). The JAX package's TPU rewrites (``scatter_s2d``,
-``pfn_flat``, ``rpn_deferred_upsample``, ``rpn_batch_fold``) are exact
-and keep the same parameter tree, so the same weights serve both.
+``PillarFeatureNet`` over the padded pillar grid or, on a batch of flat
+points (the host pillarizer's), the same module's flat path
+(``detect/pfn_fast.py``; the same parameters, so one state dict serves
+both), the flat-row BEV scatter, and the ``RPN``'s classic branch (stride-2 and
+SAME 3×3 convs, then per stage a ConvTranspose, BatchNorm and ReLU, the
+concat, and one 1×1 head). The JAX package's other TPU rewrites
+(``scatter_s2d``, ``rpn_deferred_upsample``, ``rpn_batch_fold``) are
+exact and keep the same parameter tree, so the same weights serve both.
 
 Module names follow the flax tree (``pfn.PFNLayer_0.Dense_0``,
 ``rpn._ConvBlock_0.Conv_0``, ``rpn.ConvTranspose_0``, ``rpn.BatchNorm_0``
@@ -20,7 +22,10 @@ padded points and pillars included, as JAX's does, and updates the
 running ones; in eval it uses the running ones. In training each
 convolution runs in float32 forward and backward
 (:func:`papc_tpu_torch.nn.layers.f32_cudnn`); in eval it runs under the
-caller's cuDNN flags (``make_predict_step`` sets float32).
+caller's cuDNN flags (``make_predict_step`` sets float32). Under bf16
+parameters and inputs (the bf16 steps) every layer computes in bf16,
+BatchNorm's statistics and running ones in f32 (flax's
+``BatchNorm(dtype=x.dtype)``: JAX's ``BN_DTYPE_FOLLOWS_INPUT``).
 ``nn.layers.init_params`` gives the network seeded weights.
 """
 
@@ -32,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from papc_tpu_torch.detect.pfn_fast import pfn_forward_flat
 from papc_tpu_torch.nn.layers import BatchNorm, conv
 from papc_tpu_torch.ops.voxelize import scatter_to_bev_batched
 
@@ -114,15 +120,22 @@ class PFNLayer(nn.Module):
 class PillarFeatureNet(nn.Module):
     """Decorate each point (offset from its pillar's mean and from the
     pillar centre), zero the padded slots, run the PFN stack → per-pillar
-    features ``[B, V, C]``."""
+    features ``[B, V, C]``. Given the flat ``points [B, N, D]`` and their
+    pillar rows ``point_pillar [B, N]`` (the host pillarizer's flat view;
+    ``voxels`` may then be None), the one PFN layer runs on the real
+    points instead (:func:`~papc_tpu_torch.detect.pfn_fast.pfn_forward_flat`)
+    on the same parameters and running statistics, which it updates in
+    training; ``max_points_per_pillar`` is the grid's ``P`` there."""
 
     def __init__(self, num_input_features: int = 4,
                  num_filters: Sequence[int] = (64,),
                  voxel_size: Sequence[float] = (0.2, 0.2, 4.0),
                  pc_range: Sequence[float] = (0.0, -40.0, -3.0, 70.4, 40.0,
                                               1.0),
-                 with_distance: bool = False, use_norm: bool = True):
+                 with_distance: bool = False, use_norm: bool = True,
+                 max_points_per_pillar: int = 100):
         super().__init__()
+        self.max_points_per_pillar = int(max_points_per_pillar)
         self.voxel_size = tuple(float(v) for v in voxel_size)
         self.pc_range = tuple(float(v) for v in pc_range)
         self.with_distance = with_distance
@@ -135,8 +148,12 @@ class PillarFeatureNet(nn.Module):
             cin = f
         self.n_layers = n
 
-    def forward(self, voxels: torch.Tensor, num_points: torch.Tensor,
-                coords: torch.Tensor) -> torch.Tensor:
+    def forward(self, voxels: torch.Tensor | None, num_points: torch.Tensor,
+                coords: torch.Tensor, points: torch.Tensor | None = None,
+                point_pillar: torch.Tensor | None = None) -> torch.Tensor:
+        if points is not None:
+            return self._forward_flat(num_points, coords, points,
+                                      point_pillar)
         B, V, P, D = voxels.shape
         denom = torch.clamp_min(num_points, 1).to(voxels.dtype)
         # the sum runs over all P slots: padded slots are zero
@@ -161,6 +178,26 @@ class PillarFeatureNet(nn.Module):
         for i in range(self.n_layers):
             features = getattr(self, f"PFNLayer_{i}")(features)
         return features[:, :, 0, :]
+
+    def _forward_flat(self, num_points, coords, points, point_pillar):
+        layer = self.PFNLayer_0
+        if self.n_layers != 1 or not layer.use_norm:
+            raise NotImplementedError(
+                "the flat PFN covers one PFN layer with BatchNorm (the "
+                "shipped configs); set MODEL.PFN_FLAT false otherwise")
+        bn = layer.BatchNorm_0
+        out, running = pfn_forward_flat(
+            layer.Dense_0.weight.t(), bn.weight, bn.bias,
+            (bn.running_mean, bn.running_var), points, point_pillar,
+            num_points, coords, self.max_points_per_pillar,
+            voxel_size=self.voxel_size, pc_range=self.pc_range,
+            with_distance=self.with_distance, train=self.training,
+            momentum=bn.momentum, eps=bn.eps)
+        if self.training:
+            with torch.no_grad():
+                bn.running_mean.copy_(running[0])
+                bn.running_var.copy_(running[1])
+        return out
 
 
 class PointPillarsScatter(nn.Module):
@@ -269,7 +306,9 @@ class RPN(nn.Module):
 class PointPillars(nn.Module):
     """PFN → scatter → RPN. ``forward`` returns the raw head maps; the
     loss is :func:`papc_tpu_torch.detect.detector.compute_loss`, the
-    post-processing :func:`papc_tpu_torch.detect.detector.predict`."""
+    post-processing :func:`papc_tpu_torch.detect.detector.predict`. The
+    PFN runs on the flat ``points`` / ``point_pillar`` where the batch
+    carries them (``voxels`` may then be None), else on the grid."""
 
     def __init__(self, ny: int, nx: int, num_class: int = 1,
                  num_input_features: int = 4,
@@ -287,11 +326,12 @@ class PointPillars(nn.Module):
                  encode_background_as_zeros: bool = True,
                  use_direction_classifier: bool = True,
                  use_norm: bool = True, use_groupnorm: bool = False,
-                 num_groups: int = 32, box_code_size: int = 7):
+                 num_groups: int = 32, box_code_size: int = 7,
+                 max_points_per_pillar: int = 100):
         super().__init__()
         self.pfn = PillarFeatureNet(num_input_features, pfn_num_filters,
                                     voxel_size, pc_range, with_distance,
-                                    use_norm)
+                                    use_norm, max_points_per_pillar)
         self.scatter = PointPillarsScatter(ny, nx)
         self.rpn = RPN(pfn_num_filters[-1], num_class, rpn_layer_nums,
                        rpn_layer_strides, rpn_num_filters,
@@ -300,8 +340,9 @@ class PointPillars(nn.Module):
                        use_direction_classifier, use_norm, use_groupnorm,
                        num_groups, box_code_size)
 
-    def forward(self, voxels: torch.Tensor, num_points: torch.Tensor,
-                coords: torch.Tensor) -> dict:
-        features = self.pfn(voxels, num_points, coords)
+    def forward(self, voxels: torch.Tensor | None, num_points: torch.Tensor,
+                coords: torch.Tensor, points: torch.Tensor | None = None,
+                point_pillar: torch.Tensor | None = None) -> dict:
+        features = self.pfn(voxels, num_points, coords, points, point_pillar)
         return self.rpn(self.scatter(features, coords))
 

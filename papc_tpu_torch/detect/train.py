@@ -1,15 +1,19 @@
 """Detection training and serving, the loop and the CLI (counterpart of
 ``papc_tpu/detect/train.py``).
 
-Training: a batch of raw lidar frames with their targets → voxelize on
-the device → PillarFeatureNet → BEV scatter → RPN in training mode →
-``compute_loss`` → backward → one optimizer step at the scheduled rate →
-running accuracy and precision / recall (``make_detection_train_step``).
-Serving: raw frames → voxelize → the network in eval mode → decode →
-top K → NMS kernel → fixed-size detections (``make_predict_step``); with
-``multiclass_nms`` (the 3-class config) the top K of each class and one
-NMS launch over every frame and class of the batch. No kernel of the
-port runs in either step but the NMS.
+Training: a batch of frames with their targets → pillars (voxelized on
+the device from the raw clouds, or the host's: the padded grid, or the
+flat points of the flat PFN) → PillarFeatureNet → BEV scatter → RPN in
+training mode → ``compute_loss`` → backward → one optimizer step at the
+scheduled rate → running accuracy and precision / recall
+(``make_detection_train_step``). Serving: frames → pillars → the network
+in eval mode → decode → top K → NMS kernel → fixed-size detections
+(``make_predict_step``); with ``multiclass_nms`` (the 3-class config)
+the top K of each class and one NMS launch over every frame and class of
+the batch. Both steps take ``precision="bf16"`` (``TRAIN_CONFIG.
+PRECISION``): the network on bf16 copies of the f32 parameters and
+inputs, the loss, decode and NMS in f32. No kernel of the port runs in
+either step but the NMS.
 
 :func:`train` is the KITTI loop over ``builders.build_dataset``: it
 writes ``pipeline.config`` (JSON), resumes from the model directory's
@@ -29,9 +33,10 @@ into ``log.txt``, saves by time, evaluates with the official mAP every
 
 (``--cfg_file`` takes a shipped config's name, ``pointpillars_kitti_car``
 or ``pointpillars_kitti_3class``, or a JSON config such as a run's
-``pipeline.config``; ``--device cpu`` runs on the host.) Not ported:
-``SCAN_STEPS > 1`` (ROADMAP.md, Queue 1 item 4), the host-pillarize and
-flat-PFN inputs (item 6.2) and bf16 (item 6.4).
+``pipeline.config``; ``--device cpu`` runs on the host; ``--set
+MODEL.DEVICE_PILLARIZE False`` pillarizes on the host, ``--set
+TRAIN_CONFIG.PRECISION bf16`` trains in bf16.) Not ported:
+``SCAN_STEPS > 1`` (ROADMAP.md, Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -55,6 +60,8 @@ from papc_tpu_torch.detect.kitti.preprocess import collate_batch
 from papc_tpu_torch.nn.layers import init_params
 from papc_tpu_torch.ops.voxelize import voxelize
 from papc_tpu_torch.train import checkpoint as ckpt_lib
+from papc_tpu_torch.train.precision import (bf16_call, cast_floating,
+                                             is_bf16)
 from papc_tpu_torch.train.running_metrics import (AccuracyState,
                                                   PrecisionRecallState)
 from papc_tpu_torch.utils.profiling import StepTimer
@@ -80,11 +87,24 @@ def flat_nested_json_dict(json_dict, sep=".") -> dict:
 
 def example_to_batch(example: Mapping) -> dict:
     """The arrays of a collated example that the steps read: the raw
-    points and their mask, the anchors, the targets where present and the
-    anchors mask where present."""
-    batch = {"points": np.asarray(example["points"], np.float32),
-             "points_mask": np.asarray(example["points_mask"], bool),
-             "anchors": np.asarray(example["anchors"], np.float32)}
+    points and their mask (device pillarize), or the host's pillars
+    (``num_points``, ``coordinates`` and either ``points_flat`` with
+    ``point_pillar`` or ``voxels``); the anchors, the targets where
+    present and the anchors mask where present."""
+    if "points" in example:
+        batch = {"points": np.asarray(example["points"], np.float32),
+                 "points_mask": np.asarray(example["points_mask"], bool)}
+    else:
+        batch = {"num_points": np.asarray(example["num_points"], np.int32),
+                 "coordinates": np.asarray(example["coordinates"], np.int32)}
+        if "points_flat" in example:
+            batch["points_flat"] = np.asarray(example["points_flat"],
+                                              np.float32)
+            batch["point_pillar"] = np.asarray(example["point_pillar"],
+                                               np.int32)
+        else:
+            batch["voxels"] = np.asarray(example["voxels"], np.float32)
+    batch["anchors"] = np.asarray(example["anchors"], np.float32)
     if "labels" in example:
         batch["labels"] = np.asarray(example["labels"], np.int32)
         batch["reg_targets"] = np.asarray(example["reg_targets"], np.float32)
@@ -94,15 +114,20 @@ def example_to_batch(example: Mapping) -> dict:
 
 
 def make_pillarizer(voxel_generator, max_voxels: int) -> Callable:
-    """Pillarization on the device: ``pillarize(batch)`` → ``(voxels
-    [B, V, P, D], num_points [B, V], coords [B, V, 3])`` from a batch
-    holding ``points [B, N, D]`` and ``points_mask [B, N]`` tensors."""
+    """``pillarize(batch)`` → ``(voxels [B, V, P, D] or None, num_points
+    [B, V], coords [B, V, 3])``: pillarized on the device from a batch's
+    ``points [B, N, D]`` and ``points_mask [B, N]``, or the host's
+    pillars of a batch without raw points (``voxels``, None with flat
+    points, ``num_points``, ``coordinates``)."""
     vsize = tuple(float(v) for v in voxel_generator.voxel_size)
     prange = tuple(float(v) for v in voxel_generator.point_cloud_range)
     grid = tuple(int(g) for g in voxel_generator.grid_size)
     max_points = int(voxel_generator.max_num_points)
 
     def pillarize(batch):
+        if "points" not in batch:
+            return (batch.get("voxels"), batch["num_points"],
+                    batch["coordinates"])
         out = voxelize(batch["points"], batch["points_mask"], vsize, prange,
                        grid, max_points, max_voxels)
         return out.voxels, out.num_points, out.coords
@@ -117,6 +142,21 @@ def batch_to_device(batch: Mapping, device: torch.device) -> dict:
             for k, v in batch.items()}
 
 
+def head_maps(model: torch.nn.Module, batch: Mapping, pillarize: Callable,
+              bf16: bool) -> dict:
+    """The head maps of ``batch``: the network on the pillars from
+    ``pillarize``, and on the flat points where the batch carries them;
+    with ``bf16`` by :func:`~papc_tpu_torch.train.precision.bf16_call`
+    (bf16 copies of the parameters and of the float inputs), the maps
+    returned in f32, as JAX's ``loss_fn`` and ``_apply`` do."""
+    inputs = tuple(pillarize(batch))
+    if "points_flat" in batch:
+        inputs += (batch["points_flat"], batch["point_pillar"])
+    if not bf16:
+        return model(*inputs)
+    return cast_floating(bf16_call(model, *inputs), torch.float32)
+
+
 def make_detection_train_step(model: torch.nn.Module, loss_cfg,
                               optimizer: torch.optim.Optimizer, scheduler,
                               pillarize: Callable,
@@ -128,20 +168,19 @@ def make_detection_train_step(model: torch.nn.Module, loss_cfg,
     and the running metrics ``rm`` (``{"acc", "pr"}``, from
     ``init_running_metrics()``) updated by this step's class logits.
 
-    ``batch`` holds numpy arrays or tensors: ``points`` and
-    ``points_mask`` for ``pillarize`` (``make_pillarizer``; the
-    host-pillarize input is ROADMAP.md's Queue 1 item 6.2), ``anchors [B,
-    A, 7]``, ``labels [B, A]`` and ``reg_targets [B, A, code]``.
+    ``batch`` holds numpy arrays or tensors (``example_to_batch``'s): the
+    input of ``pillarize`` (``make_pillarizer``: raw ``points`` and
+    ``points_mask``, or the host's pillars, flat or padded), ``anchors
+    [B, A, 7]``, ``labels [B, A]`` and ``reg_targets [B, A, code]``.
     ``optimizer`` and ``scheduler`` are ``builders.build_optimizer``'s:
     the step's rate is the schedule at the steps taken before it, as in
     optax. The network trains in f32, its convolutions with TF32 off
-    forward and backward (``nn.layers.conv``). ``precision="bf16"`` raises."""
-    if precision == "bf16":
-        raise NotImplementedError(
-            "bf16 detection training is not ported yet (ROADMAP.md, Queue 1 "
-            "item 6.4: bf16 serving and training)")
-    if precision != "fp32":
-        raise ValueError(f"unknown precision {precision!r}")
+    forward and backward (``nn.layers.conv``). ``precision="bf16"`` is
+    JAX's bf16 step: the forward and backward on bf16 copies of the f32
+    parameters and inputs, the loss on the f32-cast head maps; the
+    parameters take their gradients in f32, and they, the optimizer's
+    state and the BatchNorm running statistics stay f32."""
+    bf16 = is_bf16(precision)
     device = torch.device(device)
     model = model.to(device).train()
     ncls = (loss_cfg.num_class if loss_cfg.encode_background_as_zeros
@@ -150,7 +189,7 @@ def make_detection_train_step(model: torch.nn.Module, loss_cfg,
     def train_step(batch: Mapping, rm: dict):
         batch = batch_to_device(batch, device)
         model.train()
-        preds = model(*pillarize(batch))
+        preds = head_maps(model, batch, pillarize, bf16)
         labels = batch["labels"]
         loss, metrics = compute_loss(preds, labels, batch["reg_targets"],
                                      batch["anchors"], loss_cfg)
@@ -181,13 +220,13 @@ def make_predict_step(model: torch.nn.Module, predict_cfg, box_coder,
     """``predict_step(batch)`` → ``{"box3d_lidar" [B, post, 7], "scores",
     "label_preds", "valid" [B, post]}`` on ``device``.
 
-    ``batch`` holds numpy arrays or tensors: ``points``, ``points_mask``
-    (for ``pillarize``), ``anchors [B, A, 7]`` and optionally
-    ``anchors_mask``. With ``predict_cfg.multiclass_nms`` the detections
+    ``batch`` holds numpy arrays or tensors: the input of ``pillarize``
+    (raw points or the host's pillars, flat or padded), ``anchors [B, A,
+    7]`` and optionally ``anchors_mask``. With ``predict_cfg.multiclass_nms`` the detections
     come from ``detector.predict_multiclass`` (per class, one NMS launch a
-    batch), else from ``detector.predict``. The host-pillarize and
-    flat-PFN inputs are not ported yet (ROADMAP.md, Queue 1 item 6.2).
-    Each call puts the model
+    batch), else from ``detector.predict``. ``precision="bf16"`` runs the
+    network on bf16 copies of the parameters and inputs; the decode and
+    the NMS take its head maps cast to f32. Each call puts the model
     in eval mode (a train step between calls puts it back in train
     mode), so BatchNorm reads its running statistics and leaves them
     as they are. It runs under :func:`torch.inference_mode`, its convolutions in
@@ -195,10 +234,7 @@ def make_predict_step(model: torch.nn.Module, predict_cfg, box_coder,
     allow_tf32=False)``, a context local to the call (PyTorch's own
     default lets cuDNN use TF32). ``impl`` goes to the NMS op: ``None``
     launches the kernel on a CUDA device."""
-    if precision != "fp32":
-        raise NotImplementedError(
-            f"precision {precision!r}: bf16 serving is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6.4)")
+    bf16 = is_bf16(precision)
     device = torch.device(device)
     model = model.to(device).eval()
 
@@ -207,7 +243,7 @@ def make_predict_step(model: torch.nn.Module, predict_cfg, box_coder,
         model.eval()
         with torch.inference_mode(), torch.backends.cudnn.flags(
                 enabled=True, allow_tf32=False):
-            preds = model(*pillarize(batch))
+            preds = head_maps(model, batch, pillarize, bf16)
             if predict_cfg.multiclass_nms:
                 return predict_multiclass(
                     *decode_raw(preds, batch["anchors"], box_coder.decode,
@@ -393,10 +429,6 @@ def _load_cfg(cfg_file, cfg_overrides):
     cfg = cfg_from_file(cfg_file)
     if cfg_overrides:
         cfg_from_list(cfg, cfg_overrides)
-    if not bool(cfg.MODEL.get("DEVICE_PILLARIZE", False)):
-        raise NotImplementedError(
-            "MODEL.DEVICE_PILLARIZE false (host pillarize) is not ported "
-            "yet (ROADMAP.md, Queue 1 item 6.2)")
     return cfg
 
 

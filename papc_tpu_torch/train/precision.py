@@ -19,6 +19,8 @@ import torch
 
 from papc_tpu_torch.data.prefetch import map_arrays
 
+PRECISIONS = ("fp32", "bf16")  # the training and serving steps' precisions
+
 
 def cast_floating(tree, dtype: torch.dtype):
     """``tree`` with every floating tensor cast to ``dtype``: a tensor, or
@@ -26,6 +28,25 @@ def cast_floating(tree, dtype: torch.dtype):
     and non-tensor leaves are returned as they are."""
     return map_arrays(lambda t: t.to(dtype) if isinstance(t, torch.Tensor)
                       and t.is_floating_point() else t, tree)
+
+
+def is_bf16(precision: str) -> bool:
+    """Whether a step's ``precision`` is ``"bf16"``; one other than
+    :data:`PRECISIONS` raises ``ValueError``."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}")
+    return precision == "bf16"
+
+
+def bf16_call(model: torch.nn.Module, *args, **kwargs):
+    """``model(*args, **kwargs)`` on bf16 copies of its parameters and of
+    the floating tensors in ``args``: the bf16 steps' forward. The copies
+    are differentiable, so the f32 parameters take their gradients in
+    f32; the buffers (BatchNorm's running statistics) stay the module's
+    own f32 tensors. ``kwargs`` pass as they are."""
+    params = cast_floating(dict(model.named_parameters()), torch.bfloat16)
+    return torch.func.functional_call(
+        model, params, cast_floating(args, torch.bfloat16), kwargs)
 
 
 def bf16_compute(loss_fn: Callable) -> Callable:

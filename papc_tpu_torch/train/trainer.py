@@ -49,9 +49,9 @@ from papc_tpu_torch.train import metrics as M
 from papc_tpu_torch.train.evaluate import (batch_dict, batch_tensor,
                                            eval_step, metric_name, metric_of,
                                            model_inputs, targets_of)
-from papc_tpu_torch.train.precision import cast_floating
+from papc_tpu_torch.train.precision import (bf16_call, cast_floating,
+                                             is_bf16)
 
-PRECISIONS = ("fp32", "bf16")
 CHECKPOINT_FILE = "checkpoint.npz"  # the one file of a checkpoint directory
 
 
@@ -85,19 +85,16 @@ def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
     logits. Any other precision than ``"fp32"`` or ``"bf16"`` raises
     ``ValueError``.
     """
-    if precision not in PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}")
+    bf16 = is_bf16(precision)
     inputs = model_inputs(model, batch, device)
     targets = targets_of(model.mode, batch, device)
     mask = batch_tensor(batch, "mask", device)
     model.train()
     kwargs = {"impl": impl, "generator": generator,
               "dropout_masks": dropout_masks}
-    if precision == "bf16":
-        inputs, mask = cast_floating((inputs, mask), torch.bfloat16)
-        params = {name: p.to(torch.bfloat16)
-                  for name, p in model.named_parameters()}
-        logits = torch.func.functional_call(model, params, inputs, kwargs)
+    if bf16:
+        mask = cast_floating(mask, torch.bfloat16)
+        logits = bf16_call(model, *inputs, **kwargs)
     else:
         logits = model(*inputs, **kwargs)
     loss = M.softmax_cross_entropy(logits.float(), targets, mask)
@@ -222,8 +219,7 @@ def train(
     runs in f32 either way, as JAX's ``eval_step`` does. Every
     ``save_iter`` epochs a checkpoint is written (:func:`save_checkpoint`).
     """
-    if precision not in PRECISIONS:
-        raise ValueError(f"unknown precision {precision!r}")
+    is_bf16(precision)  # an unknown precision raises before any work
     device = torch.device(device)
     if make_loader is None:
         from papc_tpu_torch.data import make_dataloader

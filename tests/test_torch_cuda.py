@@ -58,6 +58,8 @@ under ``override(mode="recompute1")`` with #15-18 launched on the admitted
 stacks, the stream passes on the demoted one and #11-14 never.
 """
 
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -1876,3 +1878,140 @@ def test_predict_multiclass_kernels_match_plain(device, rotate):
         torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
     labels = got["label_preds"][got["valid"]]
     assert set(labels.tolist()) == {0, 1, 2}
+
+
+def _pillar_grid(seed, B=2, V=2000, P=32, D=4):
+    """Seeded pillars at the car config's range ``(voxels, num_points,
+    coords)``: ten full pillars and an empty one a frame, with their flat
+    view ``(points, owner)`` in (pillar, slot) order, padded with zeros /
+    -1."""
+    rs = np.random.RandomState(seed)
+    vs, pr = (0.16, 0.16, 4.0), (0.0, -39.68, -3.0, 69.12, 39.68, 1.0)
+    coords = np.stack([np.zeros((B, V)), rs.randint(0, 496, (B, V)),
+                       rs.randint(0, 432, (B, V))], -1).astype(np.int32)
+    num_points = rs.randint(1, P + 1, (B, V)).astype(np.int32)
+    num_points[:, :10] = P
+    num_points[:, 10] = 0
+    voxels = np.zeros((B, V, P, D), np.float32)
+    voxels[..., 0] = (coords[..., 2] * vs[0] + vs[0] / 2)[..., None] \
+        + 0.05 * rs.randn(B, V, P)
+    voxels[..., 1] = (coords[..., 1] * vs[1] + vs[1] / 2 + pr[1])[..., None] \
+        + 0.05 * rs.randn(B, V, P)
+    voxels[..., 2] = rs.uniform(-3, 1, (B, V, P))
+    voxels[..., 3] = rs.rand(B, V, P)
+    voxels *= (np.arange(P)[None, None, :] < num_points[..., None])[..., None]
+    points = np.zeros((B, int(num_points.sum(1).max()), D), np.float32)
+    owner = np.full(points.shape[:2], -1, np.int32)
+    for b in range(B):
+        v_idx, p_idx = np.nonzero(np.arange(P)[None, :]
+                                  < num_points[b][:, None])
+        points[b, :len(v_idx)] = voxels[b, v_idx, p_idx]
+        owner[b, :len(v_idx)] = v_idx
+    return voxels, num_points, coords, points, owner, vs, pr
+
+
+def test_flat_pfn_on_the_card_matches_the_classic_pfn(device):
+    """The PFN on flat points (``pfn_forward_flat``, plain torch ops)
+    against the same PFN on the grid they were flattened from, both on the card in
+    training mode from one state dict: the outputs (rtol 1e-4, atol 1e-5),
+    the running mean (1e-4, 1e-6) and variance (1e-3, 1e-6), the
+    gradients of the kernel, scale and bias within 2e-3 relative L2 (a
+    near-tie of two points may take the max the other way); and the flat
+    PFN's output on the card against its own on the CPU (1e-4, 1e-5)."""
+    from papc_tpu_torch.detect.model import PillarFeatureNet
+
+    P = 32
+    voxels, num_points, coords, points, owner, vs, pr = _pillar_grid(0, P=P)
+    classic = PillarFeatureNet(4, (64,), vs, pr, max_points_per_pillar=P)
+    init_params(classic, torch.Generator().manual_seed(0))
+    flat, cpu_flat = copy.deepcopy(classic), copy.deepcopy(classic)
+    cot = torch.from_numpy(np.random.RandomState(1).randn(
+        2, voxels.shape[1], 64).astype(np.float32))
+    t = torch.from_numpy
+    runs = []
+    for m, args, dev in (
+            (classic, (voxels, num_points, coords), device),
+            (flat, (None, num_points, coords, points, owner), device),
+            (cpu_flat, (None, num_points, coords, points, owner), "cpu")):
+        m.to(dev).train()
+        out = m(*(None if a is None else t(a).to(dev) for a in args))
+        (out * cot.to(dev)).sum().backward()
+        layer = m.PFNLayer_0
+        runs.append((out.detach().cpu(),
+                     layer.BatchNorm_0.running_mean.cpu(),
+                     layer.BatchNorm_0.running_var.cpu(),
+                     [p.grad.cpu() for p in (layer.Dense_0.weight,
+                                             layer.BatchNorm_0.weight,
+                                             layer.BatchNorm_0.bias)]))
+    (w_out, w_mean, w_var, w_grads), (out, mean, var, grads), cpu = runs
+    torch.testing.assert_close(out, w_out, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(mean, w_mean, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(var, w_var, rtol=1e-3, atol=1e-6)
+    for g, w in zip(grads, w_grads):
+        assert float((g - w).norm() / w.norm()) <= 2e-3
+    torch.testing.assert_close(out, cpu[0], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "grid"])
+def test_bf16_detection_step_on_the_card(device, flat):
+    """``precision="bf16"`` on a host-pillarized batch (the flat PFN, or
+    the classic one on the host's grid) at a reduced car config: a train
+    step with a finite loss, f32 gradients, parameters, Adam moments and
+    running statistics after it; then bf16 serving with the rotated NMS
+    kernel launched once, finite f32 detections equal to the plain
+    run's."""
+    from papc_tpu_torch.data.synthetic_kitti import host_pillarize
+    from papc_tpu_torch.detect.train import (example_to_batch,
+                                             make_detection_train_step)
+
+    cfg = car_config()
+    cfg_from_list(cfg, ["VOXEL_GENERATOR.VOXEL_SIZE", "[1.08, 1.24, 4]",
+                        "VOXEL_GENERATOR.MAX_NUMBER_OF_POINTS_PER_VOXEL", "32",
+                        "MODEL.POST_PROCESSING.nms_pre_max_size", "512"])
+    cfg.MODEL["PFN_FLAT"] = flat
+    gen = cfg.TARGET_ASSIGNER.ANCHOR_GENERATORS[0].anchor_generator_stride
+    gen.strides, gen.offsets = [2.16, 2.48, 0.0], [1.08, -38.44, -1.78]
+    vg = builders.build_voxel_generator(cfg.VOXEL_GENERATOR)
+    coder = builders.build_box_coder(cfg.BOX_CODER)
+    ta = builders.build_target_assigner(cfg.TARGET_ASSIGNER, coder)
+    model = builders.build_network(cfg, vg, ta)
+    init_params(model, torch.Generator().manual_seed(0))
+    out = ta.generate_anchors([1, int(vg.grid_size[1]) // 2,
+                               int(vg.grid_size[0]) // 2])
+    frames = SyntheticFrames(
+        2, out["anchors"].reshape(-1, 7), max_points=8000, seed=1,
+        n_background=6000, target_assigner=ta,
+        matched_thresholds=out["matched_thresholds"],
+        unmatched_thresholds=out["unmatched_thresholds"])
+    batch = example_to_batch(collate_batch(
+        [host_pillarize(frames[i], vg, 2000, flat) for i in range(2)]))
+    assert ("points_flat" in batch) == flat
+    opt, sched = builders.build_optimizer(cfg.TRAIN_CONFIG.OPTIMIZER,
+                                          model.parameters())
+    pillarize = make_pillarizer(vg, 2000)
+    step, init_rm = make_detection_train_step(
+        model, builders.build_loss_config(cfg, coder), opt, sched, pillarize,
+        device, precision="bf16")
+    var0 = model.pfn.PFNLayer_0.BatchNorm_0.running_var.clone()
+    metrics, _ = step(batch, init_rm())
+    assert bool(torch.isfinite(metrics["loss"])) and int(metrics["num_pos"]) > 0
+    assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+               and bool(torch.isfinite(p.grad).all())
+               for p in model.parameters())
+    assert all(s[k].dtype == torch.float32 for s in opt.state.values()
+               for k in ("exp_avg", "exp_avg_sq"))
+    var = model.pfn.PFNLayer_0.BatchNorm_0.running_var
+    assert var.dtype == torch.float32 and not torch.equal(var, var0)
+    pcfg = builders.build_predict_config(cfg, coder)
+    before = nms.ROTATE.launches
+    dets = make_predict_step(model, pcfg, coder, pillarize, device,
+                             precision="bf16")(batch)
+    assert nms.ROTATE.launches == before + 1
+    assert dets["box3d_lidar"].dtype == torch.float32
+    assert bool(torch.isfinite(dets["box3d_lidar"]).all())
+    # the forward repeats its bits (the flat PFN's pillar sums are a
+    # sorted segment sum, not atomics), so plain serving equals it
+    want = make_predict_step(model, pcfg, coder, pillarize, device,
+                             precision="bf16", impl="plain")(batch)
+    for k in dets:
+        torch.testing.assert_close(dets[k], want[k], rtol=0, atol=0)

@@ -616,15 +616,20 @@ def test_synthetic_frames_follow_make_scene():
 
 
 def test_serving_options_not_ported_raise():
+    """Every serving option of the config is ported: bf16 serving and
+    training build their steps (``tests/test_torch_detect_bf16.py`` holds
+    them against JAX), an unknown precision raises."""
     cfg = car_config()
     coder = builders.build_box_coder(cfg.BOX_CODER)
     pcfg = builders.build_predict_config(cfg, coder)
     model = torch.nn.Linear(1, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_predict_step(model, pcfg, coder, None, "cpu", precision="bf16")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*6.4"):
-        make_detection_train_step(model, builders.build_loss_config(
-            cfg, coder), None, None, None, "cpu", precision="bf16")
+    assert callable(make_predict_step(model, pcfg, coder, None, "cpu",
+                                      precision="bf16"))
+    assert all(callable(f) for f in make_detection_train_step(
+        model, builders.build_loss_config(cfg, coder), None, None, None,
+        "cpu", precision="bf16"))
+    with pytest.raises(ValueError, match="precision"):
+        make_predict_step(model, pcfg, coder, None, "cpu", precision="fp16")
     # per-class NMS is ported: a multiclass_nms config builds its step
     cfg_from_list(cfg, ["MODEL.POST_PROCESSING.multiclass_nms", "True"])
     assert callable(make_predict_step(

@@ -1,7 +1,8 @@
 """The port's detection loop on the CPU: the worker pool, the indexed
 checkpoint manager (against JAX's on the same saves), ``train()`` with
 its resume, periodic eval and crash save, ``evaluate_checkpoint``, the
-CLI, and the refusals (a YAML config, ``SCAN_STEPS``, host pillarize).
+CLI, and the refusals (a YAML config, ``SCAN_STEPS``, an unknown
+precision).
 
 The loop runs on a miniature KITTI tree (``write_kitti``, 6 train and 2
 val frames) at ``tests/test_detect_e2e.py``'s grid: 64 × 64 cells, 800
@@ -347,12 +348,8 @@ def test_refusals(kitti_root, cfg_file, tmp_path):
         dtrain.train(cfg_file=cfg_file, model_dir=str(tmp_path / "b"),
                      cfg_overrides=["TRAIN_CONFIG.SCAN_STEPS", "2"],
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6.2"):
-        dtrain.train(cfg_file=cfg_file, model_dir=str(tmp_path / "c"),
-                     cfg_overrides=["MODEL.DEVICE_PILLARIZE", "False"],
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6.4"):
+    with pytest.raises(ValueError, match="unknown precision"):
         dtrain.train(cfg_file=cfg_file, model_dir=str(tmp_path / "d"),
-                     cfg_overrides=["TRAIN_CONFIG.PRECISION", "'bf16'"],
+                     cfg_overrides=["TRAIN_CONFIG.PRECISION", "'fp16'"],
                      max_steps=1, device="cpu")
     assert not os.path.exists(tmp_path / "a")

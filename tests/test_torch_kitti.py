@@ -563,8 +563,14 @@ def test_eval_examples_and_collate_equal_jax(trees, jax_path):
 
 
 def test_host_pillarize_refuses(trees):
+    """Host pillarize no longer refuses: with ``MODEL.DEVICE_PILLARIZE``
+    false both packages pillarize on the host, into the flat points of
+    the flat PFN, and the eval examples are equal bit for bit
+    (``tests/test_torch_detect_host.py`` holds the rest of that path)."""
     jcfg, cfg = _configs(trees["port"])
-    cfg_from_list(cfg, ["MODEL.DEVICE_PILLARIZE", "False"])
-    ds, _ = _datasets(jcfg, cfg, False)
-    with pytest.raises(NotImplementedError, match="item 6.2"):
-        ds[0]
+    for c, set_list in ((cfg, cfg_from_list), (jcfg, jcfg_from_list)):
+        set_list(c, ["MODEL.DEVICE_PILLARIZE", "False"])
+    ds, jax_ds = _datasets(jcfg, cfg, False)
+    got = ds[0]
+    _assert_examples_equal(got, jax_ds[0])
+    assert "points_flat" in got and "points" not in got
